@@ -1,0 +1,46 @@
+"""Public wrappers around the port's kernels.
+
+Shapes need no padding to block multiples: the CUDA kernels mask ragged
+edges themselves. Where a tensor lies decides the path — plain PyTorch on
+the CPU, the hand-written kernel on the GPU.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import packet_parser as _pp
+from repro_torch.kernels import quantize_stream as _qs
+from repro_torch.kernels import systolic_mm as _mm
+
+
+def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """General (M,K)x(K,N) matmul via the systolic kernel."""
+    return _mm.systolic_mm(x, y)
+
+
+def compress(x: torch.Tensor, *, chunk: int = 1024
+             ) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """Flatten + zero-pad to a chunk multiple + chunked int8 quantize.
+    Returns (q, scales, n)."""
+    flat = x.reshape(-1)
+    n = flat.shape[0]
+    pad = (-n) % chunk
+    if pad:
+        flat = torch.cat([flat, flat.new_zeros(pad)])
+    q, s = _qs.quantize_stream(flat.reshape(-1, chunk), chunk=chunk)
+    return q, s, n
+
+
+def decompress(q: torch.Tensor, scales: torch.Tensor, shape,
+               dtype=torch.float32) -> torch.Tensor:
+    x = _qs.dequantize_stream(q, scales, out_dtype=dtype)
+    size = math.prod(shape)
+    return x.reshape(-1)[:size].reshape(shape)
+
+
+def classify_packets(pkts: torch.Tensor) -> torch.Tensor:
+    """(n, 64) uint8 headers -> (n, 4) [is_rdma, opcode, dest_qp, class]."""
+    return _pp.parse_packets(pkts)

@@ -9,6 +9,10 @@ def pytest_configure(config):
         "markers",
         "slow: ICI-subprocess tests (forced multi-device meshes / driver "
         "e2e runs in child processes)")
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (the port's CUDA kernels have "
+        "no CPU mode); skips on a host without one")
 
 # Tests must see exactly ONE device (the dry-run forces 512 in its own
 # subprocess only). Keep XLA flags clean here.

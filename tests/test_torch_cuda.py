@@ -1,0 +1,122 @@
+"""The port's CUDA kernels on the card, each against its plain version.
+
+These need an NVIDIA GPU (the kernels have no CPU mode) and skip without
+one. The file imports only torch, numpy and ``repro_torch``, so it also
+runs where JAX is not installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
+
+Tolerances: quantize, dequantize and parse are bit/byte-exact; the f32
+matmul is within ``1e-5 * k / 128`` of the f32 library product (no TF32
+on either side), bf16 within ``3e-2``.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.lookaside import ControlMsg, LookasideBlock
+from repro_torch.core.rdma import RDMAEngine
+from repro_torch.kernels.lc_offload import (MM_WORKLOAD,
+                                            register_default_kernels)
+from repro_torch.kernels.packet_parser import (parse_packets,
+                                               parse_packets_plain)
+from repro_torch.kernels.quantize_stream import (dequantize_stream,
+                                                 dequantize_stream_plain,
+                                                 quantize_stream,
+                                                 quantize_stream_plain)
+from repro_torch.kernels.systolic_mm import systolic_mm, systolic_mm_plain
+
+RNG = np.random.default_rng(77)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU "
+                    "mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _rows(n, chunk):
+    x = (RNG.standard_normal((n, chunk))
+         * RNG.uniform(0.01, 100.0, (n, 1))).astype(np.float32)
+    x[n // 2] = 0.0
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [64, 1024])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_quantize_round_trip_matches_plain(cuda, chunk, dtype):
+    x = torch.from_numpy(_rows(64, chunk)).to(cuda).to(dtype)
+    x[3, 7] = float("nan")
+    before = quantize_stream.launches
+    q, s = quantize_stream(x, chunk=chunk)
+    assert quantize_stream.launches == before + 1
+    pq, ps = quantize_stream_plain(x)
+    torch.testing.assert_close(s, ps, rtol=0, atol=0, equal_nan=True)
+    keep = torch.arange(64, device=cuda) != 3      # NaN row: codes free
+    assert torch.equal(q[keep], pq[keep])
+    for out_dtype in (torch.float32, torch.bfloat16):   # row 3 is NaN
+        torch.testing.assert_close(
+            dequantize_stream(q, s, out_dtype=out_dtype),
+            dequantize_stream_plain(q, s, out_dtype), rtol=0, atol=0,
+            equal_nan=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 13, 4096])
+def test_cuda_parse_packets_matches_plain(cuda, n):
+    pkts = RNG.integers(0, 256, size=(n, 64)).astype(np.uint8)
+    pkts[::2, 12:14] = [0x08, 0x00]
+    pkts[::2, 23] = 17
+    pkts[::2, 36:38] = [18, 183]
+    pkts[::2, 42] = RNG.integers(0, 20, size=pkts[::2].shape[0])
+    t = torch.from_numpy(pkts).to(cuda)
+    assert torch.equal(parse_packets(t), parse_packets_plain(t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(512, 16, 512), (200, 33, 17),
+                                   (256, 1024, 384), (1, 5, 130)])
+def test_cuda_systolic_mm_matches_plain(cuda, m, k, n):
+    x = torch.from_numpy(RNG.standard_normal((m, k)).astype(np.float32))
+    y = torch.from_numpy(RNG.standard_normal((k, n)).astype(np.float32))
+    x, y = x.to(cuda), y.to(cuda)
+    tol = 1e-5 * k / 128
+    torch.testing.assert_close(systolic_mm(x, y), systolic_mm_plain(x, y),
+                               rtol=tol, atol=tol)
+    xb, yb = x.to(torch.bfloat16), y.to(torch.bfloat16)
+    torch.testing.assert_close(systolic_mm(xb, yb).float(),
+                               systolic_mm_plain(xb, yb).float(),
+                               rtol=3e-2, atol=3e-2)
+    torch.testing.assert_close(
+        systolic_mm(xb, yb, out_dtype=torch.float32),
+        systolic_mm_plain(xb, yb, torch.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_offloaded_matmul_launches_the_kernel(cuda):
+    """Through the engine on the card: the Lookaside kernel gets device
+    tensors, so the CUDA kernel (not the plain version) runs."""
+    m, k, n = 64, 32, 48
+    eng = RDMAEngine(n_peers=2, pool_size=1 << 14)
+    assert eng.pool.device.type == "cuda"
+    blk = LookasideBlock(eng, peer=0, scratch_base=1 << 13)
+    register_default_kernels(blk)
+    A = RNG.standard_normal((m, k)).astype(np.float32)
+    B = RNG.standard_normal((k, n)).astype(np.float32)
+    out = m * k + k * n
+    mr = eng.register_mr(1, 0, out + m * n)
+    eng.write_buffer(1, 0, A.ravel())
+    eng.write_buffer(1, m * k, B.ravel())
+    before = systolic_mm.launches
+    blk.dispatch(ControlMsg(MM_WORKLOAD, (1, mr.rkey, 0, m * k, out,
+                                          m, k, n)))
+    assert blk.poll(MM_WORKLOAD).ok
+    assert systolic_mm.launches == before + 1
+    got = eng.read_buffer(1, out, m * n).reshape(m, n)
+    tol = 1e-5 * k / 128
+    np.testing.assert_allclose(got, A.astype(np.float64) @ B,
+                               rtol=tol, atol=tol)
