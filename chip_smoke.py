@@ -7,7 +7,8 @@ runs, on the card:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. each kernel against its plain PyTorch version at the shapes the main
-     path gives it — bit-exact for quantize, dequantize and parse, within
+     path gives it — bit-exact for quantize, dequantize, parse and the
+     field classifier (K4 at 1024, 4096 and 65536 packets), within
      ``1e-5 * k / 128`` for the f32 matmul (no TF32) — with its time, the
      plain version's time, its bound and, for the matmul, the time of
      ``torch.matmul`` (the yardstick; the port never calls it);
@@ -18,7 +19,21 @@ runs, on the card:
      ``PARSER_WORKLOAD`` over 4096 packets, 1024 slots quantized by
      32-slot ``STREAM_QUANT_WORKLOAD`` messages and decompressed, and the
      ``read_batch_16k`` / ``dma_64mib`` READs;
-  7. each kernel's launch count on that path, which must be > 0.
+  7-10. the streaming dispatch plane on the same engine: ``streaming_rx``
+     (16384 packets through ``TrafficRouter.ingest_packets`` into a
+     1024-slot ring drained by ``LCKernel.stream()``),
+     ``dispatch_mixed_3class`` (16384 packets, shares 0.5/0.3/0.2, over a
+     3-row ``MatchTable``), ``chain_parse_dequant_2stage`` (4096 framed
+     slots through a parse→dequantize ``Chain``) and ``grad_egress`` (a
+     4 MiB gradient bucket through ``GradEgressChain``), each checked
+     byte for byte against the plain versions (K4's field matrices as
+     the routers received them too), run once for its wall time and once
+     under the profiler for its device time, with the host cost of
+     ``RXRing.push`` timed on its own and that of the egress chain's
+     per-row read-backs timed inside ``GradEgressChain.compress``;
+  11. each kernel's launch count on the two paths (3-6 and 7-10), each
+     path run with the counters at 0 and read right after: every kernel
+     a path runs must have launched on it, and each of the five > 0.
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -33,6 +48,7 @@ import time
 
 import numpy as np
 import torch
+from torch.autograd import DeviceType
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, f32 FLOP/s outside
 # the tensor cores. A card below its 700 W limit runs slower than this.
@@ -67,26 +83,40 @@ def device_ms(fn, iters=20):
     * The summed device time of the kernels and copies it launches,
       traced by torch.profiler (CUPTI), each call run alone: leaves out
       the host's launch overhead, but overstates calls whose kernels
-      overlap (cuBLAS's f32 GEMM traced about twice its event time on an
-      H100).
+      overlap.
     * ``cuda_ms``: events around back-to-back calls, exact for device-
       bound calls, the host's launch rate for small ones.
     """
     return min(_traced_ms(fn, iters), cuda_ms(fn, iters))
 
 
+def traced_device_us(fn):
+    """Run ``fn`` once under torch.profiler (CUPTI) and return (its
+    result, the summed device time of every kernel and copy it ran, in
+    µs). Only the device rows count: the profiler also files each kernel
+    under the aten op that launched it, so summing every row would count
+    an aten op's kernels twice (the CUDA kernels here launch through
+    ctypes, outside any aten op, and appear once either way)."""
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA)
+    check(total_us > 0, "the profiler traced no device time")
+    return out, total_us
+
+
 def _traced_ms(fn, iters):
     fn()
-    torch.cuda.synchronize()
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+
+    def run():
         for _ in range(iters):
             fn()
             torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    check(total_us > 0, "the profiler traced no device time")
-    return total_us / iters / 1e3
+
+    return traced_device_us(run)[1] / iters / 1e3
 
 
 def bound(nbytes, flops=0.0):
@@ -95,6 +125,21 @@ def bound(nbytes, flops=0.0):
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     t_ops = flops / PEAK_F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def roce_mix(rng, n, rdma_share=0.5):
+    """``n`` 64-byte headers of random bytes; a ``rdma_share`` of them
+    (every other one at 0.5) crafted as IPv4/UDP/4791 RoCEv2 with BTH
+    opcodes 0..19, the rest IPv4/UDP on random ports."""
+    pkts = rng.integers(0, 256, size=(n, 64)).astype(np.uint8)
+    pkts[:, 12:14] = [0x08, 0x00]
+    pkts[:, 23] = 17
+    roce = np.zeros(n, bool)
+    if rdma_share:
+        roce[::int(round(1 / rdma_share))] = True
+    pkts[roce, 36:38] = [18, 183]
+    pkts[roce, 42] = rng.integers(0, 20, size=int(roce.sum()))
+    return pkts
 
 
 def check(ok, what):
@@ -115,12 +160,17 @@ def main():
         __file__)), "src"))
     from repro_torch.core.lookaside import ControlMsg, LookasideBlock
     from repro_torch.core.rdma import Opcode, Placement, RDMAEngine, WQE
+    from repro_torch.core.streaming import (Chain, Drop, GradEgressChain,
+                                            Handler, MatchTable, RXRing,
+                                            Stream, StreamDispatcher,
+                                            TrafficRouter)
     from repro_torch.core.rdma.transport import (_exec_descriptors_local,
                                                  pack_descriptors)
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import lc_offload as lco
-    from repro_torch.kernels.packet_parser import (parse_packets,
-                                                   parse_packets_plain)
+    from repro_torch.kernels.packet_parser import (
+        parse_packet_fields, parse_packet_fields_plain, parse_packets,
+        parse_packets_plain)
     from repro_torch.kernels.quantize_stream import (
         dequantize_stream, dequantize_stream_plain, quantize_stream,
         quantize_stream_plain)
@@ -199,6 +249,22 @@ def main():
             lambda: parse_packets(pk), lambda: parse_packets_plain(pk),
             4096 * (64 + 16))
 
+    # K4 at 4096, at a large batch and, recorded last, at the 1024-packet
+    # bursts the streaming phases ingest; K4 and the streaming path draw
+    # from a generator of their own, so the datapath phases get the same
+    # inputs as when they ran alone
+    srng = np.random.default_rng(SEED + 1)
+    for n in (4096, 65536, 1024):
+        pf_np = roce_mix(srng, n)
+        pf = torch.from_numpy(pf_np).to(dev)
+        got, want = parse_packet_fields(pf), parse_packet_fields_plain(pf)
+        check(got.shape == (n, 8) and torch.equal(got, want),
+              f"parse_packet_fields {n}x64 differs from its plain version")
+        measure("parse_packet_fields", "packet_parser.cu",
+                "src/repro/kernels/packet_parser.py:110", f"{n}x64", 0.0,
+                lambda: parse_packet_fields(pf),
+                lambda: parse_packet_fields_plain(pf), n * (64 + 32))
+
     for n, chunk in ((32, 64), (1024, 64), (4096, 1024)):
         x = torch.from_numpy((rng.standard_normal((n, chunk)) * rng.uniform(
             0.01, 100, (n, 1))).astype(np.float32)).to(dev)
@@ -226,10 +292,26 @@ def main():
     del x, y, q, s, pq, ps
 
     # ---- 3-6. the main path ----------------------------------------------
-    counted = (systolic_mm, parse_packets, quantize_stream,
-               dequantize_stream)
-    for fn in counted:
-        fn.launches = 0
+    # each path runs with every launch counter at 0 and is read right
+    # after; the kernel phase above does not count
+    counted = (systolic_mm, parse_packets, parse_packet_fields,
+               quantize_stream, dequantize_stream)
+    launches = {}
+
+    def zero_counts():
+        torch.cuda.synchronize()
+        for fn in counted:
+            fn.launches = 0
+
+    def read_counts(path, needed):
+        torch.cuda.synchronize()
+        launches[path] = {fn.__name__: fn.launches for fn in counted}
+        phase("launches " + path, **launches[path])
+        for fn in needed:
+            check(fn.launches > 0,
+                  f"{fn.__name__} never launched on the {path} path")
+
+    zero_counts()
 
     eng = RDMAEngine(n_peers=2, pool_size=POOL)
     check(eng.pool.device.type == "cuda", "pool is not on the card")
@@ -393,13 +475,293 @@ def main():
           "dma_64mib bytes")
     report("dma_64mib", wqes, walls)
 
-    # ---- 7. launches on the main path --------------------------------------
-    torch.cuda.synchronize()
-    counts = {fn.__name__: fn.launches for fn in counted}
+    read_counts("datapath", (systolic_mm, parse_packets, quantize_stream,
+                             dequantize_stream))
+
+    # ---- 7-10. the streaming dispatch plane --------------------------------
+    # LC peer: rings below 2^20, block scratch in [2^20, 2^23); data peer:
+    # the output rings from 2^25 (phases 3-6 used lower addresses)
+    out0 = 1 << 25
+    sc_blk = LookasideBlock(eng, peer=LC_PEER, scratch_base=1 << 22,
+                            scratch_size=1 << 22, pipeline_depth=4,
+                            eager_writeback=False)
+    lco.register_default_kernels(sc_blk)
+
+    split = {}          # a phase's wall split into its parts, in ms
+
+    def run_phase(name, fn, units, unit):
+        """Drive ``fn(check)`` once for its wall time (``fn`` returns the
+        seconds of its driven sections; checks run between them, off the
+        clock) and once more under the profiler for its device time."""
+        split.clear()
+        wall = fn(True) * 1e3
+        parts = dict(split)
+        _, dev_us = traced_device_us(lambda: fn(False))
+        phase(name, **{unit + "s": units}, wall_ms=wall,
+              **{"host_ms_per_" + unit: wall / units}, **parts,
+              device_ms=dev_us / 1e3, device_share=dev_us / 1e3 / wall,
+              dispatch=json.dumps(eng.stats["dispatch"], sort_keys=True))
+
+    def add_split(key, sec):
+        split[key] = split.get(key, 0.0) + sec * 1e3
+
+    def sentinel(peer, addr, words):
+        """Fill an output region with -1 (no parsed or quantized row is
+        all -1), so a slot the path never wrote fails the byte check."""
+        eng.write_buffer(peer, addr, np.full(words, -1, np.float32))
+
+    def field_taps(table):
+        """Keep the field matrix each ingest burst hands ``table``: K4's
+        output as the router used it, checked byte for byte below."""
+        seen = []
+        inner = table.classify_ex
+
+        def classify_ex(fields):
+            seen[:] = [np.array(fields)]
+            return inner(fields)
+
+        table.classify_ex = classify_ex
+        return seen
+
+    def check_fields(seen, hdrs, what):
+        want = parse_packet_fields_plain(torch.from_numpy(hdrs)).numpy()
+        check(len(seen) == 1 and np.array_equal(seen[0], want),
+              f"{what}: the router's field matrix is not byte-exact")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    zero_counts()
+
+    # 7. streaming_rx: every packet streamed, parsed by K3 on the ring
+    depth, burst, n_rx = 1024, 32, 16384
+    rx_ring = RXRing(eng, peer=LC_PEER, base=0, depth=depth)
+    rx_mr = eng.register_mr(DATA_PEER, out0, depth * 4)
+    rx_k = sc_blk.attach_ring(lco.STREAM_PARSER_WORKLOAD, rx_ring,
+                              DATA_PEER, rx_mr.rkey, out0, burst=burst)
+    rx_router = TrafficRouter(rx_ring, table=MatchTable(default=Stream()))
+    check(rx_router.device.type == "cuda", "router parses off the card")
+    rx_fields = field_taps(rx_router.table)
+    rx_hdrs = roce_mix(srng, n_rx)
+
+    def streaming_rx(checking):
+        total = 0.0
+        for b in range(0, n_rx, depth):
+            hdrs = rx_hdrs[b:b + depth]
+            if checking:
+                sentinel(DATA_PEER, out0, depth * 4)
+            # ingest (K4 + match + one slot write per packet), then drain
+            counts, sec_in = timed(lambda: rx_router.ingest_packets(hdrs))
+            n, sec_out = timed(rx_k.stream)
+            total += sec_in + sec_out
+            add_split("ingest_ms", sec_in)
+            add_split("drain_ms", sec_out)
+            check(counts["streamed"] == depth == n,
+                  f"streaming_rx burst {b}: {counts}, consumed {n}")
+            if checking:
+                check_fields(rx_fields, hdrs, f"streaming_rx burst {b}")
+                meta = eng.read_buffer(DATA_PEER, out0, depth * 4)
+                want = parse_packets_plain(torch.from_numpy(hdrs))
+                check(np.array_equal(meta.reshape(depth, 4),
+                                     want.numpy().astype(np.float32)),
+                      f"streaming_rx meta rows of burst {b} not byte-exact")
+        return total
+
+    run_phase("streaming_rx", streaming_rx, n_rx, "packet")
+
+    # the host cost of RXRing.push alone (one slot write per packet, a
+    # host-to-device copy), over one ring's worth of headers
+    hdrs = rx_hdrs[:depth]
+    _, sec = timed(lambda: [check(rx_ring.push(h), "ring refused a push")
+                            for h in hdrs])
+    check(rx_k.stream() == depth, "ring_push drain")
+    phase("ring_push", packets=depth, host_ms=sec * 1e3,
+          host_ms_per_packet=sec * 1e3 / depth)
+
+    # 8. dispatch_mixed_3class: parser / quantizer / Drop() by udp_dport;
+    # the parser's class is RoCEv2 (port 4791, BTH opcodes 0..19), so its
+    # meta rows carry is_rdma, opcode, dest_qp and class
+    ports = np.array([4791, 9100, 9200])
+    d_ring = RXRing(eng, peer=LC_PEER, base=1 << 16, depth=depth)
+    meta_base, quant_base = out0 + (1 << 16), out0 + (1 << 17)
+    meta_mr = eng.register_mr(DATA_PEER, meta_base, depth * 4)
+    quant_mr = eng.register_mr(DATA_PEER, quant_base, depth * lco.QUANT_ROW)
+    table = (MatchTable(default=Drop())
+             .add(Handler(lco.STREAM_PARSER_WORKLOAD), udp_dport=4791)
+             .add(Handler(lco.STREAM_QUANT_WORKLOAD), udp_dport=9100)
+             .add(Drop(), udp_dport=9200))
+    disp = StreamDispatcher(sc_blk, d_ring, table, burst=burst)
+    disp.register_handler(lco.STREAM_PARSER_WORKLOAD, DATA_PEER,
+                          meta_mr.rkey, meta_base)
+    disp.register_handler(lco.STREAM_QUANT_WORKLOAD, DATA_PEER,
+                          quant_mr.rkey, quant_base)
+    d_router = TrafficRouter(d_ring, table=table)
+    d_fields = field_taps(table)
+    n_d = 16384
+    d_cls = srng.choice(3, size=n_d, p=[0.5, 0.3, 0.2])
+    d_hdrs = roce_mix(srng, n_d, rdma_share=0.0)
+    d_hdrs[:, 36] = ports[d_cls] >> 8
+    d_hdrs[:, 37] = ports[d_cls] & 0xFF
+    d_hdrs[d_cls == 0, 42] = srng.integers(0, 20,
+                                           size=int((d_cls == 0).sum()))
+
+    def dispatch_mixed(checking):
+        total = 0.0
+        for b in range(0, n_d, depth):
+            hdrs, cls = d_hdrs[b:b + depth], d_cls[b:b + depth]
+            seq0 = d_ring._tail
+            if checking:
+                sentinel(DATA_PEER, meta_base, depth * 4)
+                sentinel(DATA_PEER, quant_base, depth * lco.QUANT_ROW)
+            (counts, n), sec = timed(lambda: (
+                d_router.ingest_packets(hdrs), disp.service()))
+            total += sec
+            streamed = int((cls < 2).sum())
+            check(counts["streamed"] == n == streamed
+                  and counts["dropped"] == int((cls == 2).sum()),
+                  f"dispatch burst {b}: {counts}, consumed {n}")
+            if not checking:
+                continue
+            check_fields(d_fields, hdrs, f"dispatch burst {b}")
+            check(np.array_equal(d_fields[0][:, 0], (cls == 0).astype(
+                np.int32)), f"dispatch burst {b}: the parser class is not "
+                  "exactly the RoCEv2 packets")
+            slots = (seq0 + np.arange(streamed)) % depth
+            kept = cls[cls < 2]
+            meta = eng.read_buffer(DATA_PEER, meta_base, depth * 4
+                                   ).reshape(depth, 4)
+            quant = eng.read_buffer(DATA_PEER, quant_base,
+                                    depth * lco.QUANT_ROW
+                                    ).reshape(depth, lco.QUANT_ROW)
+            ph, qh = hdrs[cls == 0], hdrs[cls == 1]
+            want_m = parse_packets_plain(torch.from_numpy(ph)).numpy()
+            wq, ws = quantize_stream_plain(torch.from_numpy(
+                qh.astype(np.float32)))
+            want_q = torch.cat([wq.float(), ws], 1).numpy()
+            check(np.array_equal(meta[slots[kept == 0]],
+                                 want_m.astype(np.float32))
+                  and np.array_equal(quant[slots[kept == 1]], want_q),
+                  f"dispatch rows of burst {b} not byte-exact")
+        return total
+
+    cl = eng.stats["dispatch"]["classes"]
+    pre = sum(c["pkts"] for c in cl.values())
+    run_phase("dispatch_mixed_3class", dispatch_mixed, n_d, "packet")
+    routed = sum(c["pkts"] for c in cl.values()) - pre
+    n_drop = d_router.class_counters[Drop()]
+    check(routed + n_drop == 2 * n_d == d_router.pkt_counters["streamed"]
+          + d_router.pkt_counters["dropped"]
+          and d_ring.stats["consumed"] == routed,
+          f"dispatch per-class counts do not add up: {cl}, drops {n_drop}")
+
+    # 9. chain_parse_dequant_2stage: framed slots (129) -> 69 -> 64 words
+    ch_blk = LookasideBlock(eng, peer=LC_PEER, scratch_base=1 << 21,
+                            scratch_size=1 << 21, pipeline_depth=4,
+                            eager_writeback=False)
+    lco.register_chain_kernels(ch_blk)
+    c_ring = RXRing(eng, peer=LC_PEER, base=1 << 17, depth=depth,
+                    slot_bytes=lco.FRAME_ROW)
+    chain = Chain((lco.CHAIN_PARSE_WORKLOAD, lco.CHAIN_DEQUANT_WORKLOAD),
+                  name="ingress")
+    c_disp = StreamDispatcher(ch_blk, c_ring, MatchTable(default=chain),
+                              burst=burst)
+    s1 = out0 + (1 << 18)
+    s2 = s1 + depth * lco.PARSED_ROW
+    c_mr = eng.register_mr(DATA_PEER, s1,
+                           depth * (lco.PARSED_ROW + lco.HDR_BYTES))
+    c_disp.register_chain(chain, DATA_PEER, c_mr.rkey, [s1, s2])
+    n_c = 4096
+    c_x = torch.from_numpy((srng.standard_normal((n_c, 64)) * srng.uniform(
+        0.01, 100, (n_c, 1))).astype(np.float32))
+    c_q, c_s = quantize_stream_plain(c_x)
+    c_hdrs = roce_mix(srng, n_c)
+    frames = np.concatenate([c_hdrs.astype(np.float32),
+                             c_q.float().numpy(), c_s.numpy()], axis=1)
+    want_parsed = np.concatenate(
+        [parse_packets_plain(torch.from_numpy(c_hdrs)).numpy().astype(
+            np.float32), frames[:, 64:]], axis=1)
+    want_deq = dequantize_stream_plain(c_q, c_s).numpy()
+
+    def chain_phase(checking):
+        total = 0.0
+        for b in range(0, n_c, depth):
+            def window():
+                for f in frames[b:b + depth]:
+                    check(c_ring.push(f), "frame ring refused a slot")
+                c_disp.service()
+            _, sec = timed(window)
+            total += sec
+            if checking:
+                p1 = eng.read_buffer(DATA_PEER, s1, depth * lco.PARSED_ROW)
+                p2 = eng.read_buffer(DATA_PEER, s2, depth * lco.HDR_BYTES)
+                check(np.array_equal(p1.reshape(depth, -1),
+                                     want_parsed[b:b + depth])
+                      and np.array_equal(p2.reshape(depth, -1),
+                                         want_deq[b:b + depth]),
+                      f"chain rows of window {b} not byte-exact")
+        return total
+
+    run_phase("chain_parse_dequant_2stage", chain_phase, n_c, "slot")
+    led = eng.stats["dispatch"]["chains"]["ingress"]
+    check(led["completed_pkts"] == 2 * n_c
+          and led["dataflow_msgs"] == led["bursts"],
+          f"chain ledger {led}")
+
+    # 10. grad_egress: a 4 MiB bucket (2^20 f32 words, 16384 rows of 64)
+    egress = GradEgressChain(eng, data_peer=DATA_PEER, ring_base=1 << 19,
+                             out_base=out0 + (1 << 19), lc_peer=LC_PEER,
+                             depth=256, burst=burst, scratch_base=1 << 20,
+                             scratch_size=1 << 20, pipeline_depth=4)
+    g_flat = srng.standard_normal(1 << 20).astype(np.float32)
+    g_res = (srng.standard_normal(1 << 20) * 1e-3).astype(np.float32)
+    g_target = torch.from_numpy(g_flat + g_res).reshape(-1, 64)
+    g_q, g_s = quantize_stream_plain(g_target)
+    g_back = dequantize_stream_plain(g_q, g_s).reshape(-1).numpy()
+
+    def grad_egress(checking):
+        # time compress()'s own per-row read-backs (its only read_buffer
+        # calls) as a split of the phase's wall
+        inner = eng.read_buffer
+
+        def read_buffer(*args, **kw):
+            t = time.perf_counter()
+            out = inner(*args, **kw)
+            add_split("readback_ms", time.perf_counter() - t)
+            return out
+
+        eng.read_buffer = read_buffer
+        (q, s_, csum, resid), sec = timed(
+            lambda: egress.compress(g_flat, g_res))
+        del eng.read_buffer
+        if checking:
+            check(GradEgressChain.verify_checksums(q, s_, csum),
+                  "grad_egress checksums do not verify")
+            check(np.array_equal(q, g_q.numpy())
+                  and np.array_equal(s_, g_s.numpy()),
+                  "grad_egress q/s not byte-exact against ops.compress")
+            check(np.array_equal(resid, g_target.reshape(-1).numpy()
+                                 - g_back),
+                  "grad_egress residual is not the wire error")
+        return sec
+
+    run_phase("grad_egress", grad_egress, 1 << 14, "row")
+
+    read_counts("streaming", (parse_packet_fields, parse_packets,
+                              quantize_stream, dequantize_stream))
+
+    # ---- 11. launches on the main path -------------------------------------
+    counts = {fn.__name__: sum(c[fn.__name__] for c in launches.values())
+              for fn in counted}
     phase("kernels", **counts)
     for name, c in counts.items():
         check(c > 0, f"{name} never launched on the main path")
         rec[name]["launches"] = c
+        rec[name]["launches_by_path"] = {
+            path: per[name] for path, per in launches.items()}
     phase("engine", flushes=eng.stats["flushes"], wqes=eng.stats["wqes"],
           qdma_writes=eng.stats["transport"]["qdma_writes"],
           lc_wqes=eng.stats["lc_wqes"])

@@ -1,2 +1,2 @@
-# The RecoNIC system on PyTorch: the RDMA engine, its transport and
-# the Lookaside Compute block.
+# The RecoNIC system on PyTorch: the RDMA engine, its transport, the
+# Lookaside Compute block and the streaming dispatch plane.

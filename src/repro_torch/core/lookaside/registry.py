@@ -47,10 +47,20 @@ pool in place, so an offloaded kernel receives GPU tensors and launches
 its CUDA kernel — the operands never cross PCIe. ``store`` keeps the
 QDMA ledger (``stats["transport"]["qdma_*"]``) of the reference.
 
-Streaming compute (§IV-D) — ``attach_ring``/``stream`` over an RX ring —
-needs the dispatch plane and is not in this package yet; the stream
-handlers of ``kernels/lc_offload.py`` can be dispatched directly by a
-``ControlMsg`` whose spans address a pool region.
+Streaming compute (§IV-D): ring consumption lives in the dispatch plane
+(``streaming.dispatch.StreamDispatcher``) — ``attach_ring`` binds a
+kernel to an ``RXRing`` by building a ONE-ENTRY dispatcher (a MatchTable
+whose default action is that kernel), and ``LCKernel.stream()`` drains
+through it: up to ``ring_burst`` pending packets are claimed per
+invocation and gathered into kernel scratch by ONE descriptor-table
+execution per flush (loopback READ WQEs on the kernel's own ``lc=True``
+QP), with no ControlMsg round-trip per packet. A multi-entry table
+routes the same ring's slots to DIFFERENT handler kernels by parsed
+class; ``service_group`` then admits one invocation per handler before
+each shared flush. Service CHAINS generalize this to inter-kernel
+dataflow (``service_group(..., keep_idle=True)``): stage *i*'s
+write-back region is stage *i+1*'s operand-fetch source, the downstream
+ControlMsg enqueued by the upstream finalize hook mid-pass.
 """
 from __future__ import annotations
 
@@ -71,8 +81,9 @@ class LCKernel:
     ``LCContext`` and returns an optional result address. ``weight`` is
     the fair-scheduler quantum of the kernel's QPs (how hard this kernel
     may lean on the shared engine per service round). ``ring_burst`` is
-    the streaming claim size, threaded from the block's
-    ``TransportTuning`` by ``LookasideBlock.register``.
+    the streaming claim size (packets per invocation when an RX ring is
+    attached), threaded from the block's ``TransportTuning`` by
+    ``LookasideBlock.register``.
     """
 
     def __init__(self, workload_id: int, fn: Callable, name: str = "",
@@ -86,7 +97,19 @@ class LCKernel:
         self.status_fifo = FIFO()
         self.interrupt_handler: Optional[Callable[[StatusMsg], None]] = None
         self.block = None                    # set by LookasideBlock.register
+        self.ring = None                     # set by attach_ring
         self.ring_burst = max(1, int(ring_burst))
+        self.stream_out = None               # (out_peer, out_rkey, out_base)
+        self.dispatcher = None               # one-entry plane (attach_ring)
+        # chain-capable kernels declare their row geometry here (a
+        # ``ChainStageSpec``); ``StreamDispatcher.register_chain``
+        # validates stage composition against it
+        self.stage_spec = None
+
+    def stream(self, max_bursts: Optional[int] = None) -> int:
+        """Drain this kernel's attached RX ring (see
+        ``LookasideBlock.stream``). Returns packets consumed."""
+        return self.block.stream(self.workload_id, max_bursts=max_bursts)
 
 
 class _Invocation:
@@ -250,9 +273,9 @@ class LookasideBlock:
         self._inflight = 0
         self._wr: Dict[int, _Invocation] = {}     # wr_id -> invocation
         self._wr_ids = itertools.count(0x40000)
-        # per-ControlMsg lifecycle hooks (on_fetched / on_finalized)
-        # keyed by message identity, for the streaming dispatch plane;
-        # _admit_invocation pops them onto the invocation.
+        # stream() attaches per-ControlMsg lifecycle hooks (ring-slot
+        # release on fetch, latency stamp on status) keyed by message
+        # identity; _admit_invocation pops them onto the invocation.
         self._hooks: Dict[int, Dict] = {}
         self.stats = {"dispatched": 0, "completed": 0, "errors": 0,
                       "backpressure": 0, "status_drops": 0}
@@ -278,6 +301,34 @@ class LookasideBlock:
                                  if ring_burst is None else ring_burst))
         k.block = self
         self.kernels[workload_id] = k
+        return k
+
+    def attach_ring(self, workload_id: int, ring, out_peer: int,
+                    out_rkey: int, out_base: int,
+                    burst: Optional[int] = None) -> LCKernel:
+        """Bind an ``RXRing`` to a streaming kernel: ``stream()`` drains
+        the ring in bursts of up to ``burst`` packets (``None`` keeps the
+        kernel's tuned ``ring_burst``), and the kernel writes each
+        packet's status/metadata row to ``out_base + slot_index * row``
+        on ``out_peer`` (rkey-checked) — the meta ring mirrors the packet
+        ring slot-for-slot.
+
+        Internally this is the one-entry degenerate case of the dispatch
+        plane: a ``StreamDispatcher`` over a ``MatchTable`` whose default
+        action is this kernel, so the whole ring belongs to it."""
+        from repro_torch.core.streaming.dispatch import (Handler,
+                                                         MatchTable,
+                                                         StreamDispatcher)
+        k = self.kernels[workload_id]
+        k.ring = ring
+        if burst is not None:
+            k.ring_burst = max(1, int(burst))
+        k.stream_out = (out_peer, out_rkey, out_base)
+        k.dispatcher = StreamDispatcher(
+            self, ring, MatchTable(default=Handler(workload_id)),
+            burst=k.ring_burst)
+        k.dispatcher.register_handler(workload_id, out_peer, out_rkey,
+                                      out_base)
         return k
 
     def register_interrupt(self, workload_id: int,
@@ -309,6 +360,33 @@ class LookasideBlock:
         """Drain the control FIFO of one kernel (explicit fabric step for
         messages enqueued with ``dispatch(..., service=False)``)."""
         self._service(self.kernels[workload_id])
+
+    def stream(self, workload_id: int,
+               max_bursts: Optional[int] = None) -> int:
+        """Streaming-compute drain (§IV-D): consume the kernel's RX ring
+        without a per-packet host round trip.
+
+        Delegates to the kernel's one-entry ``StreamDispatcher`` (built
+        by ``attach_ring``): pending slots are claimed in bursts of up to
+        ``ring_burst``; each burst becomes ONE kernel invocation whose
+        operand fetch is the loopback gather of the burst's (≤ 2, wrap)
+        contiguous slot spans — one descriptor-table execution per
+        flush. Slots are freed the moment the gather lands
+        (``on_fetched``), so the producer can refill while the kernel
+        still computes; ring-to-status latency is stamped when the
+        burst's StatusMsg fires. All claimed bursts are enqueued BEFORE
+        one service pass, so a ``pipeline_depth > 1`` block overlaps
+        burst *i*'s compute with burst *i+1*'s gather. Returns the
+        number of packets consumed."""
+        k = self.kernels[workload_id]
+        # re-bind from the kernel attrs every call: tests/operators
+        # retarget k.ring / k.stream_out / k.ring_burst between drains
+        out_peer, out_rkey, out_base = k.stream_out
+        k.dispatcher.register_handler(workload_id, out_peer, out_rkey,
+                                      out_base)
+        k.dispatcher.ring = k.ring
+        k.dispatcher.burst = k.ring_burst
+        return k.dispatcher.service(max_bursts=max_bursts)
 
     def service_group(self, workload_ids: Sequence[int],
                       keep_idle: bool = False) -> None:

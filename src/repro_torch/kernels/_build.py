@@ -35,6 +35,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "reconic_systolic_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "reconic_parse_packets": [_P, _P, _I, _P],
+    "reconic_parse_packet_fields": [_P, _P, _I, _P],
     "reconic_quantize": [_P, _I, _P, _P, _I, _I, ctypes.c_float, _P],
     "reconic_dequantize": [_P, _P, _P, _I, _I, _I, _P],
 }

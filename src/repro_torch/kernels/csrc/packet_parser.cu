@@ -1,20 +1,25 @@
-// K3 parse_packets: the Streaming Compute block's RoCEv2 header parser.
+// K3 parse_packets and K4 parse_packet_fields: the Streaming Compute
+// block's RoCEv2 header parser and the dispatch plane's classifier.
 //
 // Replaces src/repro/kernels/packet_parser.py:parse_packets
-// (_parser_kernel, _parse_block, _raw_fields): the TPU version parses one
+// (_parser_kernel, _parse_block) and :parse_packet_fields
+// (_fields_kernel), both over _raw_fields: the TPU versions parse one
 // VMEM block of (block_p, 64) uint8 headers per grid step with vector
 // integer ops.
 //
-// What bounds it on the H100: bytes, and below them the launch. Each
-// packet reads 64 header bytes and writes 16 meta bytes; 4096 packets
-// move 320 KiB, about 0.1 us at 3.35 TB/s, so the few microseconds of a
+// What bounds them on the H100: bytes, and below them the launch. Each
+// packet reads 64 header bytes and writes 16 meta bytes (K3) or 32 field
+// bytes (K4); 65536 packets move 6 MiB for K4, about 1.9 us at
+// 3.35 TB/s, so at the path's burst sizes the few microseconds of a
 // launch dominate.
 //
 // Design: one thread per packet reads the ten header bytes it needs and
-// does integer math only, so the meta rows are byte-exact against the
+// does integer math only, so the rows are byte-exact against the
 // reference. raw_fields() is the whole parse; parse_packets writes the
-// 4-word meta view, and the 8-field view of parse_packet_fields (K4) is
-// a second epilogue over the same body.
+// 4-word meta view (opcode and dest_qp masked to 0 off RDMA), and
+// parse_packet_fields writes all eight raw fields in FIELD_NAMES order as
+// two 16-byte stores per packet. Neither kernel needs padding to a block
+// multiple: the tail threads past n return.
 #include "common.cuh"
 
 namespace {
@@ -68,6 +73,19 @@ __global__ void __launch_bounds__(kThreads)
   row[3] = f.cls;
 }
 
+__global__ void __launch_bounds__(kThreads)
+    parse_packet_fields_kernel(const uint8_t* __restrict__ pkts,
+                               int32_t* __restrict__ fields, int n) {
+  const int i = blockIdx.x * kThreads + threadIdx.x;
+  if (i >= n) return;
+  const Fields f = raw_fields(pkts + static_cast<size_t>(i) * kHdrBytes);
+  // FIELD_NAMES order: is_rdma, opcode, dest_qp, cls, eth_type, ip_proto,
+  // udp_dport, udp_sport; a row is 32 bytes, so both halves are aligned.
+  int4* row = reinterpret_cast<int4*>(fields + static_cast<size_t>(i) * 8);
+  row[0] = make_int4(f.is_rdma, f.opcode, f.dest_qp, f.cls);
+  row[1] = make_int4(f.eth_type, f.ip_proto, f.udp_dport, f.udp_sport);
+}
+
 }  // namespace
 
 // pkts: (n, 64) uint8, meta: (n, 4) int32, both contiguous.
@@ -77,5 +95,16 @@ RECONIC_API int reconic_parse_packets(const void* pkts, void* meta, int n,
   parse_packets_kernel<<<blocks, kThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint8_t*>(pkts), static_cast<int32_t*>(meta), n);
+  return reconic::launch_status();
+}
+
+// pkts: (n, 64) uint8, fields: (n, 8) int32, both contiguous, fields
+// 16-byte aligned (PyTorch's allocations are).
+RECONIC_API int reconic_parse_packet_fields(const void* pkts, void* fields,
+                                            int n, void* stream) {
+  const int blocks = (n + kThreads - 1) / kThreads;
+  parse_packet_fields_kernel<<<blocks, kThreads, 0,
+                               static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(pkts), static_cast<int32_t*>(fields), n);
   return reconic::launch_status();
 }

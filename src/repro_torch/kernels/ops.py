@@ -44,3 +44,10 @@ def decompress(q: torch.Tensor, scales: torch.Tensor, shape,
 def classify_packets(pkts: torch.Tensor) -> torch.Tensor:
     """(n, 64) uint8 headers -> (n, 4) [is_rdma, opcode, dest_qp, class]."""
     return _pp.parse_packets(pkts)
+
+
+def classify_packet_fields(pkts: torch.Tensor) -> torch.Tensor:
+    """(n, 64) uint8 headers -> (n, N_FIELDS) raw parsed field vectors
+    (``packet_parser.FIELD_NAMES`` order) — what the match→action
+    dispatch plane matches its table entries against."""
+    return _pp.parse_packet_fields(pkts)

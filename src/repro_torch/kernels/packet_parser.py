@@ -1,10 +1,15 @@
 """RoCEv2 packet parser/classifier — the Streaming Compute example of the
 paper (§IV-D), where a P4 program parses Ethernet/IP/UDP/BTH headers and
-splits RDMA from non-RDMA traffic (K3 ``parse_packets``).
+splits RDMA from non-RDMA traffic (K3 ``parse_packets``), and the
+dispatch plane's full field view of the same parse (K4
+``parse_packet_fields``).
 
-Packets arrive as a (n_packets, 64) uint8 tensor; outputs per packet are
-``[is_rdma, bth_opcode, dest_qp, class]`` as int32, with opcode and
-dest_qp masked to 0 on non-RDMA packets.
+Packets arrive as a (n_packets, 64) uint8 tensor. ``parse_packets``
+outputs ``[is_rdma, bth_opcode, dest_qp, class]`` per packet as int32,
+with opcode and dest_qp masked to 0 on non-RDMA packets;
+``parse_packet_fields`` outputs all eight raw fields in ``FIELD_NAMES``
+order, opcode and dest_qp unmasked, so a match table can split non-RDMA
+classes by port.
 
 Header layout parsed (no VLAN, IPv4):
   eth.type   @12:14   (0x0800 = IPv4)
@@ -15,9 +20,9 @@ Header layout parsed (no VLAN, IPv4):
 Traffic classes (RC opcodes): 0 non-RDMA, 1 SEND(0-5), 2 WRITE(6-11),
 3 READ-REQ(12), 4 READ-RESP(13-16), 5 ACK(17), 6 other RDMA.
 
-``parse_packets`` runs the plain PyTorch version for a tensor on the CPU
-and launches its CUDA kernel (``csrc/packet_parser.cu``) for a tensor on
-the GPU; ``parse_packets.launches`` counts the launches.
+Each wrapper runs its plain PyTorch version for a tensor on the CPU and
+launches its CUDA kernel (``csrc/packet_parser.cu``) for a tensor on the
+GPU; ``.launches`` on each wrapper counts its launches.
 """
 from __future__ import annotations
 
@@ -70,23 +75,47 @@ def parse_packets_plain(pkts: torch.Tensor) -> torch.Tensor:
                         f[:, 3]], dim=-1)
 
 
-def parse_packets(pkts: torch.Tensor) -> torch.Tensor:
-    """pkts: (n, HDR_BYTES) uint8 -> (n, 4) int32, any n."""
+def parse_packet_fields_plain(pkts: torch.Tensor) -> torch.Tensor:
+    """(n, HDR_BYTES) uint8 -> (n, N_FIELDS) int32 raw field rows."""
+    return _raw_fields(pkts.to(torch.int32))
+
+
+def _parse(wrapper, plain, entry: str, width: int,
+           pkts: torch.Tensor) -> torch.Tensor:
+    """Check ``pkts``; run ``plain`` for a CPU tensor, else launch C
+    entry point ``entry`` writing an ``(n, width)`` int32 result on the
+    GPU (counted on ``wrapper``)."""
     if pkts.ndim != 2 or pkts.shape[1] != HDR_BYTES:
         raise ValueError(f"expected (n, {HDR_BYTES}) headers, got "
                          f"{tuple(pkts.shape)}")
     if pkts.dtype != torch.uint8:
-        raise TypeError(f"parse_packets: expected uint8, got {pkts.dtype}")
+        raise TypeError(f"{wrapper.__name__}: expected uint8, got "
+                        f"{pkts.dtype}")
     if pkts.device.type == "cpu":
-        return parse_packets_plain(pkts)
-    _build.check_cuda("parse_packets", pkts)
+        return plain(pkts)
+    _build.check_cuda(wrapper.__name__, pkts)
     n = pkts.shape[0]
-    meta = torch.empty((n, 4), dtype=torch.int32, device=pkts.device)
+    out = torch.empty((n, width), dtype=torch.int32, device=pkts.device)
     if n:
-        _build.launch("reconic_parse_packets", pkts.data_ptr(),
-                      meta.data_ptr(), n, _build.stream_ptr(pkts.device))
-        parse_packets.launches += 1
-    return meta
+        _build.launch(entry, pkts.data_ptr(), out.data_ptr(), n,
+                      _build.stream_ptr(pkts.device))
+        wrapper.launches += 1
+    return out
+
+
+def parse_packets(pkts: torch.Tensor) -> torch.Tensor:
+    """pkts: (n, HDR_BYTES) uint8 -> (n, 4) int32, any n."""
+    return _parse(parse_packets, parse_packets_plain,
+                  "reconic_parse_packets", 4, pkts)
+
+
+def parse_packet_fields(pkts: torch.Tensor) -> torch.Tensor:
+    """pkts: (n, HDR_BYTES) uint8 -> (n, N_FIELDS) int32 raw field rows
+    in ``FIELD_NAMES`` order (opcode and dest_qp unmasked), any n — the
+    match→action dispatch plane's view of the parsed headers."""
+    return _parse(parse_packet_fields, parse_packet_fields_plain,
+                  "reconic_parse_packet_fields", N_FIELDS, pkts)
 
 
 parse_packets.launches = 0
+parse_packet_fields.launches = 0

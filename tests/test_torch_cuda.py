@@ -6,9 +6,9 @@ runs where JAX is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
-Tolerances: quantize, dequantize and parse are bit/byte-exact; the f32
-matmul is within ``1e-5 * k / 128`` of the f32 library product (no TF32
-on either side), bf16 within ``3e-2``.
+Tolerances: quantize, dequantize, parse and the field classifier are
+bit/byte-exact; the f32 matmul is within ``1e-5 * k / 128`` of the f32
+library product (no TF32 on either side), bf16 within ``3e-2``.
 """
 import numpy as np
 import pytest
@@ -16,9 +16,16 @@ import torch
 
 from repro_torch.core.lookaside import ControlMsg, LookasideBlock
 from repro_torch.core.rdma import RDMAEngine
-from repro_torch.kernels.lc_offload import (MM_WORKLOAD,
+from repro_torch.core.streaming import (Drop, Forward, Handler, MatchTable,
+                                        RXRing, StreamDispatcher,
+                                        TrafficRouter, make_roce_header)
+from repro_torch.kernels.lc_offload import (MM_WORKLOAD, QUANT_ROW,
+                                            STREAM_PARSER_WORKLOAD,
+                                            STREAM_QUANT_WORKLOAD,
                                             register_default_kernels)
-from repro_torch.kernels.packet_parser import (parse_packets,
+from repro_torch.kernels.packet_parser import (parse_packet_fields,
+                                               parse_packet_fields_plain,
+                                               parse_packets,
                                                parse_packets_plain)
 from repro_torch.kernels.quantize_stream import (dequantize_stream,
                                                  dequantize_stream_plain,
@@ -75,6 +82,70 @@ def test_cuda_parse_packets_matches_plain(cuda, n):
     pkts[::2, 42] = RNG.integers(0, 20, size=pkts[::2].shape[0])
     t = torch.from_numpy(pkts).to(cuda)
     assert torch.equal(parse_packets(t), parse_packets_plain(t))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 255, 4096, 65536])
+def test_cuda_parse_packet_fields_matches_plain(cuda, n):
+    pkts = RNG.integers(0, 256, size=(n, 64)).astype(np.uint8)
+    pkts[::2, 12:14] = [0x08, 0x00]
+    pkts[::2, 23] = 17
+    pkts[::2, 36:38] = [18, 183]
+    pkts[1::4, 36:38] = [0x23, 0x28]              # non-RoCE port 9000
+    t = torch.from_numpy(pkts).to(cuda)
+    before = parse_packet_fields.launches
+    got = parse_packet_fields(t)
+    assert parse_packet_fields.launches == before + 1
+    assert got.dtype == torch.int32 and got.shape == (n, 8)
+    assert torch.equal(got, parse_packet_fields_plain(t))
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_pass_launches_k4_k3_and_k1(cuda):
+    """One ingest and one dispatcher pass on the card: the classifier
+    (K4), the parser handler (K3) and the quantize handler (K1) each
+    launch, and the rows match their plain versions."""
+    pool, depth = 1 << 15, 16
+    eng = RDMAEngine(n_peers=2, pool_size=pool)
+    blk = LookasideBlock(eng, peer=0, scratch_base=pool // 2,
+                         scratch_size=pool // 4, pipeline_depth=4,
+                         eager_writeback=False)
+    register_default_kernels(blk)
+    ring = RXRing(eng, peer=0, base=pool - depth * 64, depth=depth)
+    meta_mr = eng.register_mr(1, 0, depth * 4)
+    quant_mr = eng.register_mr(1, 2048, depth * QUANT_ROW)
+    table = (MatchTable(default=Drop())
+             .add(Forward(), priority=10, is_rdma=1)
+             .add(Handler(STREAM_PARSER_WORKLOAD), udp_dport=9000)
+             .add(Handler(STREAM_QUANT_WORKLOAD), udp_dport=9100))
+    disp = StreamDispatcher(blk, ring, table, burst=4)
+    disp.register_handler(STREAM_PARSER_WORKLOAD, 1, meta_mr.rkey, 0)
+    disp.register_handler(STREAM_QUANT_WORKLOAD, 1, quant_mr.rkey, 2048)
+    router = TrafficRouter(rx_ring=ring, table=table)
+    assert router.device.type == "cuda"
+    hdrs = np.stack([make_roce_header(4, i) if i % 3 == 0 else
+                     make_roce_header(0, i, is_rdma=False,
+                                      dport=9000 if i % 3 == 1 else 9100)
+                     for i in range(24)])
+    hdrs[2::3, 50:] = RNG.integers(0, 256, (8, 14))
+    before = (parse_packet_fields.launches, parse_packets.launches,
+              quantize_stream.launches)
+    assert router.ingest_packets(hdrs)["streamed"] == 16
+    assert disp.service() == 16
+    torch.cuda.synchronize()
+    after = (parse_packet_fields.launches, parse_packets.launches,
+             quantize_stream.launches)
+    assert all(a > b for a, b in zip(after, before)), (before, after)
+    meta = eng.read_buffer(1, 0, depth * 4).reshape(depth, 4)
+    np.testing.assert_array_equal(
+        meta[0::2], parse_packets_plain(torch.from_numpy(hdrs[1::3]))
+        .numpy().astype(np.float32))
+    quant = eng.read_buffer(1, 2048, depth * QUANT_ROW).reshape(
+        depth, QUANT_ROW)
+    q, s = quantize_stream_plain(torch.from_numpy(
+        hdrs[2::3].astype(np.float32)))
+    np.testing.assert_array_equal(quant[1::2, :64], q.float().numpy())
+    np.testing.assert_array_equal(quant[1::2, 64:], s.numpy())
 
 
 @pytest.mark.cuda

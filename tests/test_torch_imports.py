@@ -46,7 +46,7 @@ def test_port_imports_no_jax_and_no_reference_package():
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stdout + r.stderr
     assert "IMPORTED" in r.stdout
-    assert int(r.stdout.split("IMPORTED")[1]) >= 15
+    assert int(r.stdout.split("IMPORTED")[1]) >= 25
 
 
 def _imported_names(path):
