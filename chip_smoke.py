@@ -9,9 +9,12 @@ runs, on the card:
   2. each kernel against its plain PyTorch version at the shapes the main
      path gives it — bit-exact for quantize, dequantize, parse and the
      field classifier (K4 at 1024, 4096 and 65536 packets), within
-     ``1e-5 * k / 128`` for the f32 matmul (no TF32) — with its time, the
-     plain version's time, its bound and, for the matmul, the time of
-     ``torch.matmul`` (the yardstick; the port never calls it);
+     ``1e-5 * k / 128`` for the f32 matmul (no TF32), within 2e-4 for
+     K6 attention at the tinyllama prefill shape (256 x 512 x 64, causal,
+     GQA 8, f32; also with window 32, and in bf16) — with its time, the
+     plain version's time, its bound and, for the matmul and attention,
+     the time of ``torch.matmul`` and of
+     ``scaled_dot_product_attention`` (yardsticks the port never calls);
   3-6. the RecoNIC main path with every launch counter at 0 first: the
      Fig 6 networked matmul (2048^3 and the ``lc_offload_mm`` shape
      512x16x512) through ``RDMAEngine`` + ``LookasideBlock`` +
@@ -31,9 +34,21 @@ runs, on the card:
      under the profiler for its device time, with the host cost of
      ``RXRing.push`` timed on its own and that of the egress chain's
      per-row read-backs timed inside ``GradEgressChain.compress``;
-  11. each kernel's launch count on the two paths (3-6 and 7-10), each
-     path run with the counters at 0 and read right after: every kernel
-     a path runs must have launched on it, and each of the five > 0.
+  11-13. the serving path: tinyllama-1.1b at full width in f32 with
+     random weights, 8 requests x 512-token prompts and 32 greedy tokens:
+     prefill + 32 teacher-forced decode steps against one forward over
+     all 544 tokens (K6 launched 22 times per prefill and per forward,
+     none in decode), prefill and decode times with their traced device
+     share, the KV handoff of the caches over one-sided READs on an
+     engine of its own in 65,536-word pages (byte-exact, and greedy
+     tokens through the remote pool equal to local ones), a compressed
+     pool whose fetched pages equal the plain dequant(quant(page)) byte
+     for byte, and the ``kv_serve`` ledger (every page fetched, none
+     failed);
+  14. each kernel's launch count on the three paths (3-6, 7-10 and
+     11-13), each path run with the counters at 0 and read right after:
+     every kernel a path runs must have launched on it, and each of the
+     six > 0.
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -54,6 +69,7 @@ from torch.autograd import DeviceType
 # the tensor cores. A card below its 700 W limit runs slower than this.
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12       # dense, tensor cores
 
 POOL = 1 << 26
 DATA_PEER, LC_PEER = 1, 0
@@ -119,11 +135,11 @@ def _traced_ms(fn, iters):
     return traced_device_us(run)[1] / iters / 1e3
 
 
-def bound(nbytes, flops=0.0):
-    """(bound_ms, bound_by): the larger of bytes over HBM rate and f32
-    operations over the f32 peak."""
+def bound(nbytes, flops=0.0, peak_flops=PEAK_F32_FLOPS):
+    """(bound_ms, bound_by): the larger of bytes over HBM rate and
+    operations over the peak rate for the inputs' type (f32 by default)."""
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
-    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_ops = flops / peak_flops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -153,6 +169,7 @@ def phase(name, **nums):
 
 
 def main():
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
@@ -175,6 +192,8 @@ def main():
         dequantize_stream, dequantize_stream_plain, quantize_stream,
         quantize_stream_plain)
     from repro_torch.kernels.systolic_mm import systolic_mm, systolic_mm_plain
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -205,10 +224,10 @@ def main():
     csrc = "src/repro_torch/kernels/csrc/"
 
     def measure(name, src, replaces, shape, err, fn, plain, nbytes,
-                flops=0.0, library=None):
+                flops=0.0, library=None, peak_flops=PEAK_F32_FLOPS):
         """Time kernel, plain version and library call; print and record
         (the last shape measured per kernel is the one recorded)."""
-        b = bound(nbytes, flops)
+        b = bound(nbytes, flops, peak_flops)
         r = {"name": name, "route": "cuda", "source": csrc + src,
              "replaces": replaces, "shape": shape, "max_abs_err": err,
              "ms": device_ms(fn), "plain_ms": device_ms(plain),
@@ -291,11 +310,61 @@ def main():
                 n * chunk * (1 + 4) + 4 * n, 1.0 * n * chunk)
     del x, y, q, s, pq, ps
 
+    # K6 at the tinyllama prefill shape (8 sequences x 32 q heads over 4 kv
+    # heads, S = 512, d = 64, causal, f32; recorded last), with window 32
+    # and in bf16; SDPA on the same inputs is the yardstick (the port never
+    # calls it)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    ab, asq, ahq, ahkv, ad = 8, 512, 32, 4, 64
+    for window, dtype in ((32, torch.float32), (0, torch.bfloat16),
+                          (0, torch.float32)):
+        qa = torch.from_numpy(rng.standard_normal(
+            (ab, asq, ahq, ad), np.float32)).to(dev, dtype)
+        ka, va = (torch.from_numpy(rng.standard_normal(
+            (ab, asq, ahkv, ad), np.float32)).to(dev, dtype) for _ in "kv")
+        got = flash_attention(qa, ka, va, causal=True, window=window)
+        want = flash_attention_plain(qa, ka, va, causal=True, window=window)
+        err = (got.float() - want.float()).abs()
+        # f32: the reference's 2e-4 (sums in another order); bf16 outputs
+        # may also sit one bf16 step (2^-7 relative) apart
+        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+        check(bool((err <= 2e-4 + rel * want.float().abs()).all()),
+              f"flash_attention window={window} {dtype}: max err "
+              f"{err.max().item()}")
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qa, ka, va))
+        if window:
+            pos_ = torch.arange(asq, device=dev)
+            wmask = (pos_[:, None] >= pos_[None, :]) & (
+                pos_[:, None] - pos_[None, :] < window)
+
+            def library():
+                return sdpa(qt, kt, vt, attn_mask=wmask, enable_gqa=True)
+        else:
+            def library():
+                return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+        pairs = sum(min(i + 1, window or asq) for i in range(asq))
+        esz = qa.element_size()
+        measure("flash_attention", "flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:102",
+                f"{ab * ahq}x{asq}x{ad} gqa{ahq // ahkv} causal"
+                f"{f' window{window}' if window else ''} "
+                f"{str(dtype).split('.')[-1]}",
+                err.max().item(),
+                lambda: flash_attention(qa, ka, va, causal=True,
+                                        window=window),
+                lambda: flash_attention_plain(qa, ka, va, causal=True,
+                                              window=window),
+                esz * ab * asq * ad * 2 * (ahq + ahkv),
+                4.0 * ad * pairs * ab * ahq, library=library,
+                peak_flops=(PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                            else PEAK_F32_FLOPS))
+    del qa, ka, va, qt, kt, vt, got, want, err
+
     # ---- 3-6. the main path ----------------------------------------------
     # each path runs with every launch counter at 0 and is read right
     # after; the kernel phase above does not count
     counted = (systolic_mm, parse_packets, parse_packet_fields,
-               quantize_stream, dequantize_stream)
+               quantize_stream, dequantize_stream, flash_attention)
     launches = {}
 
     def zero_counts():
@@ -753,7 +822,164 @@ def main():
     read_counts("streaming", (parse_packet_fields, parse_packets,
                               quantize_stream, dequantize_stream))
 
-    # ---- 11. launches on the main path -------------------------------------
+    # ---- 11-13. the serving path ------------------------------------------
+    # tinyllama-1.1b at full width (22 layers, random weights from SEED), in
+    # f32: 8 requests x 512-token prompts, 32 greedy tokens, max_seq 552,
+    # on an engine of its own; the KV handoff in 65,536-word pages
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.serve import (PagedKVPool, RemoteKVClient,
+                                   decode_step, greedy_generate,
+                                   prefill_step)
+    from repro_torch.serve.kv_cache import flatten_cache_leaves
+
+    zero_counts()
+    cfg = get_config("tinyllama-1.1b")
+    n_req, p_len, g_len = 8, 512, 32
+    max_seq, page = p_len + g_len + 8, 1 << 16
+    params = init_params(cfg, SEED)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
+        0, cfg.vocab_size, (n_req, p_len + g_len))).to(dev)
+    prompt = toks[:, :p_len]
+
+    def k6_delta(fn):
+        """Run ``fn`` synchronised; return (its result, the seconds it
+        took, K6 launches during it)."""
+        torch.cuda.synchronize()
+        n0, t = flash_attention.launches, time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, flash_attention.launches - n0
+
+    # 11. (a) prefill 512 + 32 teacher-forced decode steps against one
+    # forward over all 544 tokens, without caches
+    full, full_s, n_full = k6_delta(
+        lambda: forward(params, cfg, {"tokens": toks})[0])
+    caches = init_caches(cfg, n_req, max_seq, torch.float32)
+    (lg, caches), pre_s, n_pre = k6_delta(
+        lambda: prefill_step(params, cfg, {"tokens": prompt}, caches))
+    check(n_full == n_pre == cfg.num_layers,
+          f"K6 launches per forward {n_full}, per prefill {n_pre}, want "
+          f"{cfg.num_layers}")
+    errs = [(lg[:, 0] - full[:, p_len - 1]).abs().max().item()]
+
+    def decode_all():
+        c = caches
+        for i in range(p_len, p_len + g_len):
+            out, c = decode_step(params, cfg, toks[:, i:i + 1], c, i)
+            errs.append((out[:, 0] - full[:, i]).abs().max().item())
+        return c
+
+    caches, dec_s, n_dec = k6_delta(decode_all)
+    check(n_dec == 0, f"decode launched K6 {n_dec} times")
+    # both routes compute the same function in f32 and differ only in
+    # summation order (cuBLAS picks other kernels for 8 rows than for
+    # 4352, K6 against plain decode attention), so the logits may differ
+    # by f32 rounding grown through 22 layers: held within 1e-4 of the
+    # logits' scale
+    scale = full.abs().max().item()
+    tol_a = 1e-4 * scale
+    check(all(np.isfinite(errs)) and max(errs) <= tol_a,
+          f"prefill/decode vs full forward: max err {max(errs)} over "
+          f"{tol_a} (logit scale {scale})")
+    del full
+    phase("serve invariant", arch=cfg.name, requests=n_req, prompt=p_len,
+          decode_steps=g_len, max_abs_err=max(errs), tolerance=tol_a,
+          logit_scale=scale, k6_per_prefill=n_pre, k6_per_forward=n_full)
+    phase("serve prefill", ms=pre_s * 1e3,
+          tokens_per_s=n_req * p_len / pre_s, forward_544_ms=full_s * 1e3)
+    phase("serve decode", ms_per_step=dec_s * 1e3 / g_len,
+          tokens_per_s=n_req * g_len / dec_s)
+
+    # traced device share: one more prefill and 8 decode steps
+    def prefill_again():
+        return prefill_step(params, cfg, {"tokens": prompt}, spare)
+
+    spare = init_caches(cfg, n_req, max_seq, torch.float32)
+    _, dev_us = traced_device_us(prefill_again)
+    _, wall = timed(prefill_again)
+    del spare
+    phase("serve prefill trace", wall_ms=wall * 1e3,
+          device_ms=dev_us / 1e3, device_share=dev_us / 1e3 / (wall * 1e3))
+
+    def decode8():
+        c = caches
+        for i in range(8):
+            _, c = decode_step(params, cfg, toks[:, :1], c, p_len + i)
+        return c
+
+    _, dev_us = traced_device_us(decode8)
+    _, wall = timed(decode8)
+    phase("serve decode trace", steps=8, wall_ms=wall * 1e3,
+          device_ms=dev_us / 1e3, device_share=dev_us / 1e3 / (wall * 1e3))
+
+    # 12. (b) the KV handoff over the RDMA engine, uncompressed: publish
+    # and fetch the caches byte for byte, then greedy tokens through the
+    # remote pool equal those with local caches
+    s_eng = RDMAEngine(n_peers=2, pool_size=POOL)
+    n_words = flatten_cache_leaves(caches).numel()
+    n_pages = -(-n_words // page)
+    kv_pool = PagedKVPool(s_eng, 0, page_elems=page, max_pages=n_pages)
+    client = RemoteKVClient(s_eng, 1, kv_pool)
+    tenant = client.register_tenant("decode", weight=2)
+    n_pub, pub_s = timed(lambda: client.publish_caches(1, caches))
+    fetched, fetch_s = timed(lambda: client.fetch_caches(1, caches, tenant))
+    check(n_pub == n_pages and all(torch.equal(fetched["scan"][k],
+                                               caches["scan"][k])
+                                   for k in ("k", "v", "pos")),
+          "uncompressed KV handoff is not byte-exact")
+    kv_pool.evict(1)
+    del fetched
+    local, gen_s = timed(lambda: greedy_generate(
+        params, cfg, prompt, g_len, max_seq))
+    remote, rgen_s = timed(lambda: greedy_generate(
+        params, cfg, prompt, g_len, max_seq, kv_client=client,
+        kv_seq_id=0, kv_tenant=tenant))
+    check(torch.equal(local, remote),
+          "greedy tokens through the remote pool differ from local")
+    check(kv_pool.allocated == 0, "the handoff left pages in the pool")
+    phase("serve handoff", pages=n_pages, page_words=page,
+          mib=n_pages * page * 4 / 2 ** 20, publish_ms=pub_s * 1e3,
+          fetch_ms=fetch_s * 1e3,
+          wire_words=s_eng.stats["kv_serve"]["posted_words"],
+          greedy_local_ms=gen_s * 1e3, greedy_remote_ms=rgen_s * 1e3,
+          tokens_equal=True)
+
+    # 13. (c) a compressed pool: K1 packs each page on publish, K2 unpacks
+    # the fetch; the fetched words equal the plain dequant(quant(page))
+    c_pool = PagedKVPool(s_eng, 0, page_elems=page, max_pages=n_pages,
+                         compressed=True)
+    c_client = RemoteKVClient(s_eng, 1, c_pool)
+    c_tenant = c_client.register_tenant("bulk")
+    words0 = s_eng.stats["kv_serve"]["posted_words"]
+    _, cpub_s = timed(lambda: c_client.publish_caches(2, caches))
+    data, cfetch_s = timed(lambda: c_client.complete(
+        c_client.fetch_sequence(c_tenant, 2)))
+    flat = flatten_cache_leaves(caches)
+    padded = torch.zeros(n_pages * page, device=dev)
+    padded[:n_words] = flat
+    pq, ps = quantize_stream_plain(padded.reshape(-1, 64))
+    want = dequantize_stream_plain(pq, ps).reshape(n_pages, page)
+    check(torch.equal(data, want),
+          "compressed KV pages are not byte-exact against the plain "
+          "dequant(quant(page))")
+    c_words = s_eng.stats["kv_serve"]["posted_words"] - words0
+    c_pool.evict(2)
+    del data, want, pq, ps, padded, flat
+    phase("serve handoff compressed", pages=n_pages,
+          publish_ms=cpub_s * 1e3, fetch_ms=cfetch_s * 1e3,
+          wire_words=c_words, wire_ratio=n_pages * page / c_words)
+
+    # (d) every page fetched, none failed
+    led = s_eng.stats["kv_serve"]
+    check(led["pages_fetched"] == 3 * n_pages and led["pages_failed"] == 0
+          and led["failed"] == 0 and led["completed"] == 3,
+          f"kv_serve ledger {led}")
+    phase("serve ledger", **led)
+    read_counts("serve", (flash_attention, quantize_stream,
+                          dequantize_stream))
+
+    # ---- 14. launches on the main path -------------------------------------
     counts = {fn.__name__: sum(c[fn.__name__] for c in launches.values())
               for fn in counted}
     phase("kernels", **counts)
@@ -766,6 +992,7 @@ def main():
           qdma_writes=eng.stats["transport"]["qdma_writes"],
           lc_wqes=eng.stats["lc_wqes"])
 
+    phase("total", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": list(rec.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

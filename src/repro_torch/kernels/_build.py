@@ -23,8 +23,8 @@ LIB_NAME = "libreconic_kernels.so"
 
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 # -Xptxas -v reports registers, shared memory and spills per kernel into
-# the build log. Never --use_fast_math: the quantizer's division and the
-# matmul's f32 sums must stay IEEE.
+# the build log. Never --use_fast_math: the quantizer's division, the
+# matmul's f32 sums and the attention's expf must stay IEEE.
 NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v"]
 
@@ -38,6 +38,8 @@ SIGNATURES = {
     "reconic_parse_packet_fields": [_P, _P, _I, _P],
     "reconic_quantize": [_P, _I, _P, _P, _I, _I, ctypes.c_float, _P],
     "reconic_dequantize": [_P, _P, _P, _I, _I, _I, _P],
+    "reconic_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _I, ctypes.c_float, _I, _P],
 }
 
 

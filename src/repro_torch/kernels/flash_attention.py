@@ -1,0 +1,118 @@
+"""Blockwise (flash) attention — the serving path's prefill kernel (K6
+``flash_attention``).
+
+Online-softmax attention with causal and sliding-window masks, GQA (q
+head ``h`` reads kv head ``h // group``) and a zero output for a row that
+sees no key. On the H100 the CUDA kernel (``csrc/flash_attention.cu``)
+gives each thread block one (sequence, q head, 64-row q tile), walks the
+KV tiles it can see with the running max, denominator and accumulator in
+f32 registers, and masks ragged edges itself: any ``Sq``, ``Skv`` runs
+without padding, and K/V are never repeated per q head.
+
+``flash_attention`` runs the plain PyTorch version for tensors on the
+CPU and launches the CUDA kernel for tensors on the GPU;
+``flash_attention.launches`` counts the launches.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+
+#: head dims the CUDA kernel is instantiated for
+HEAD_DIMS = (16, 32, 64, 128)
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _as_bshd(x: torch.Tensor) -> torch.Tensor:
+    """(BH, S, d) -> a (BH, S, 1, d) view; (B, S, H, d) passes through."""
+    if x.ndim == 3:
+        return x.unsqueeze(2)
+    if x.ndim != 4:
+        raise ValueError(f"expected (BH, S, d) or (B, S, H, d), got "
+                         f"{tuple(x.shape)}")
+    return x
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          window: int = 0,
+                          scale: Optional[float] = None) -> torch.Tensor:
+    """q: (B, Sq, Hq, d), k/v: (B, Skv, Hkv, d) -> (B, Sq, Hq, d), the
+    reference oracle's arithmetic (``kernels/ref.py:ref_attention``):
+    f32 scores of ``q * scale`` against k, ``-1e30`` where masked, softmax,
+    zeros for a row with no visible key, cast to q's dtype. GQA groups q
+    heads onto kv heads by a reshape, not a repeat."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    group = hq // hkv
+    scale = scale if scale is not None else d ** -0.5
+    qg = q.reshape(b, sq, hkv, group, d).to(torch.float32) * scale
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
+    q_pos = torch.arange(sq, device=q.device)[:, None]
+    k_pos = torch.arange(skv, device=q.device)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
+    out = torch.where(mask.any(dim=-1)[None, :, None, None, None], out,
+                      torch.zeros_like(out))
+    return out.reshape(b, sq, hq, d).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    scale: Optional[float] = None) -> torch.Tensor:
+    """q: (BH, Sq, d), k/v: (BH, Skv, d) -> (BH, Sq, d); or, with GQA,
+    q: (B, Sq, Hq, d), k/v: (B, Skv, Hkv, d) -> (B, Sq, Hq, d) with
+    ``Hq % Hkv == 0``. f32 or bf16 inputs of one dtype, computed in f32,
+    output in the input dtype. ``window`` 0 means no window; ``scale``
+    defaults to ``d ** -0.5``."""
+    squeeze = q.ndim == 3
+    q4, k4, v4 = _as_bshd(q), _as_bshd(k), _as_bshd(v)
+    b, sq, hq, d = q4.shape
+    bk, skv, hkv, dk = k4.shape
+    if (bk, d) != (b, dk) or tuple(v4.shape) != tuple(k4.shape) \
+            or hkv == 0 or hq % hkv:
+        raise ValueError(f"bad attention shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention: unsupported dtypes {q.dtype}, "
+                        f"{k.dtype}, {v.dtype}")
+    if window < 0:
+        raise ValueError(f"window must be >= 0, got {window}")
+    scale = scale if scale is not None else d ** -0.5
+    if q.device.type == "cpu" and k.device.type == "cpu" \
+            and v.device.type == "cpu":
+        out = flash_attention_plain(q4, k4, v4, causal=causal,
+                                    window=window, scale=scale)
+        return out[:, :, 0] if squeeze else out
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} not in "
+                         f"{HEAD_DIMS}")
+    if b * hq > 65535:
+        raise ValueError(f"flash_attention: B * Hq = {b * hq} > 65535")
+    _build.check_cuda("flash_attention", q4, k4, v4)
+    out = torch.empty_like(q4)
+    if out.numel():
+        _build.launch("reconic_flash_attention", q4.data_ptr(),
+                      k4.data_ptr(), v4.data_ptr(), out.data_ptr(), b, hq,
+                      hkv, sq, skv, d, int(causal), int(window),
+                      float(np.float32(scale)),
+                      int(q.dtype == torch.bfloat16),
+                      _build.stream_ptr(q.device))
+        flash_attention.launches += 1
+    return out[:, :, 0] if squeeze else out
+
+
+flash_attention.launches = 0

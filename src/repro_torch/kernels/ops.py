@@ -11,6 +11,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.kernels import flash_attention as _fa
 from repro_torch.kernels import packet_parser as _pp
 from repro_torch.kernels import quantize_stream as _qs
 from repro_torch.kernels import systolic_mm as _mm
@@ -19,6 +20,16 @@ from repro_torch.kernels import systolic_mm as _mm
 def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """General (M,K)x(K,N) matmul via the systolic kernel."""
     return _mm.systolic_mm(x, y)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Sq, Hq, d), k/v: (B, Skv, Hkv, d) -> (B, Sq, Hq, d).
+
+    GQA: q heads grouped onto kv heads (Hq % Hkv == 0). The kernel maps
+    q head h to kv head h // group itself, so K and V are never repeated
+    or transposed, and no length is padded."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window)
 
 
 def compress(x: torch.Tensor, *, chunk: int = 1024

@@ -1,0 +1,7 @@
+from repro_torch.serve.kv_cache import (  # noqa: F401
+    FetchTicket, KVFetchError, KVTenant, Page, PagedKVPool,
+    RemoteKVClient, migrate_sequence,
+)
+from repro_torch.serve.serve_step import (  # noqa: F401
+    decode_step, greedy_generate, prefill_step,
+)

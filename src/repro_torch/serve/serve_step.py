@@ -1,0 +1,57 @@
+"""Serving steps: prefill + decode over KV caches, and a greedy loop.
+
+Positions are host ints: prefill starts at 0 and decode knows its step,
+so no step reads a cache's ``pos`` back from the device.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import forward, init_caches
+
+
+def prefill_step(params, cfg: ModelConfig, batch: dict, caches):
+    """Process the prompt from position 0, filling caches. Returns
+    (last_logits (B, 1, V), caches)."""
+    logits, caches, _ = forward(params, cfg, batch, caches=caches, pos=0)
+    return logits[:, -1:], caches
+
+
+def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches,
+                pos: int):
+    """One decode step. tokens: (B, 1); pos: host int, the position the
+    tokens take. Returns (logits (B, 1, V), caches)."""
+    b = tokens.shape[0]
+    batch = {"tokens": tokens,
+             "positions": torch.full((b, 1), pos, dtype=torch.int32,
+                                     device=tokens.device)}
+    logits, caches, _ = forward(params, cfg, batch, caches=caches, pos=pos)
+    return logits, caches
+
+
+def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
+                    max_new: int, max_seq: int, dtype=torch.float32,
+                    kv_client=None, kv_seq_id: int = 0, kv_tenant=None):
+    """Greedy loop (prefill + decode) on the prompt's device.
+
+    With ``kv_client`` (a ``serve.kv_cache.RemoteKVClient``), the
+    prefill-filled caches take the disaggregated-serving handoff before
+    decode: published as pages into the remote KV pool, then fetched
+    back over one-sided READ WQEs on ``kv_tenant``'s QP. Decode runs on
+    the fetched caches — bit-identical tokens for uncompressed f32
+    pools. Returns (B, max_new) token ids."""
+    b, s = prompt.shape
+    caches = init_caches(cfg, b, max_seq, dtype, device=prompt.device)
+    logits, caches = prefill_step(params, cfg, {"tokens": prompt}, caches)
+    if kv_client is not None:
+        caches = kv_client.roundtrip_caches(kv_seq_id, caches, kv_tenant)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    outs = [tok]
+    pos = s
+    for _ in range(max_new - 1):
+        logits, caches = decode_step(params, cfg, tok, caches, pos)
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        outs.append(tok)
+        pos += 1
+    return torch.cat(outs, dim=1)

@@ -2,6 +2,9 @@
 tests (``test_torch_streaming.py``, ``test_torch_dispatch.py``,
 ``test_torch_chains.py``).
 
+``test_torch_kv_serve.py`` uses it too, through each side's ``kv``
+(``serve.kv_cache``) module and ``bf16`` dtype.
+
 A test writes its scenario once as ``scenario(side)`` and runs it on
 ``JAX`` (the reference, Pallas kernels in interpret mode) and on
 ``TORCH`` (the port on ``device="cpu"``, its kernels' plain versions).
@@ -25,11 +28,13 @@ import repro.core.rdma as J
 import repro.core.streaming as JS
 import repro.core.streaming.compress as JC
 import repro.kernels.lc_offload as JK
+import repro.serve.kv_cache as JKV
 import repro_torch.core.lookaside as TL
 import repro_torch.core.rdma as T
 import repro_torch.core.streaming as TS
 import repro_torch.core.streaming.compress as TC
 import repro_torch.kernels.lc_offload as TK
+import repro_torch.serve.kv_cache as TKV
 
 
 def _np(x):
@@ -37,7 +42,7 @@ def _np(x):
 
 
 JAX = types.SimpleNamespace(
-    name="jax", rdma=J, lk=JL, S=JS, K=JK, C=JC,
+    name="jax", rdma=J, lk=JL, S=JS, K=JK, C=JC, kv=JKV, bf16=jnp.bfloat16,
     RDMAEngine=J.RDMAEngine,
     TrafficRouter=JS.TrafficRouter,
     classify_headers=JS.classify_headers,
@@ -49,7 +54,8 @@ JAX = types.SimpleNamespace(
 )
 
 TORCH = types.SimpleNamespace(
-    name="torch", rdma=T, lk=TL, S=TS, K=TK, C=TC,
+    name="torch", rdma=T, lk=TL, S=TS, K=TK, C=TC, kv=TKV,
+    bf16=torch.bfloat16,
     RDMAEngine=functools.partial(T.RDMAEngine, device="cpu"),
     TrafficRouter=functools.partial(TS.TrafficRouter, device="cpu"),
     classify_headers=functools.partial(TS.classify_headers, device="cpu"),
@@ -76,7 +82,7 @@ def snapshot(eng):
         stats[key] = {idx[q]: v for q, v in stats[key].items()}
     stats["qp_latency_us"] = {idx[q]: sum(h.values())
                               for q, h in stats["qp_latency_us"].items()}
-    return {"pool": np.asarray(eng.pool), "cqes": cqes, "stats": stats}
+    return {"pool": np.array(eng.pool), "cqes": cqes, "stats": stats}
 
 
 def ring_stats(ring):

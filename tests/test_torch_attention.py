@@ -1,0 +1,166 @@
+"""K6 ``flash_attention`` and ``ops.attention`` of the port against the
+JAX package, on the CPU.
+
+The same inputs, made with numpy from seeds, go through the JAX Pallas
+kernel in interpret mode (``ops.attention`` on a CPU backend runs it so)
+and through the port's wrappers, which take their plain PyTorch version
+for CPU tensors. The cases are those of ``tests/test_kernels.py``'s
+flash-attention section. Tolerance 2e-4, the reference's own: the sums
+run in another order. bf16 inputs are held two ways: in f32 (the bf16
+values widened) within 2e-4, and in bf16 within 2e-4 plus one bf16 step
+of the result (2^-7 relative: bf16 keeps 8 significant bits), because
+two f32 results 2e-7 apart can round to neighbouring bf16 values.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ops as jops
+from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention as jax_fa
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
+                                                 flash_attention_plain)
+
+TOL = 2e-4
+
+
+def _randn(seed, shape):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _t(x):
+    return torch.from_numpy(np.asarray(x, np.float32))
+
+
+@pytest.mark.parametrize("sq,skv,blocks", [(128, 128, (64, 64)),
+                                           (256, 256, (128, 64)),
+                                           (64, 192, (32, 64))])
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_matches_jax_kernel(sq, skv, blocks, causal):
+    q, k, v = (_randn(s, (3, n, 16)) for s, n in ((1, sq), (2, skv),
+                                                   (3, skv)))
+    bq, bk = blocks
+    want = np.asarray(jax_fa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, block_q=bq, block_k=bk,
+                             interpret=True))
+    got = flash_attention(_t(q), _t(k), _t(v), causal=causal)
+    assert got.shape == (3, sq, 16) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+def test_flash_attention_sliding_window_matches_jax_kernel():
+    q, k, v = (_randn(s, (2, 128, 8)) for s in (4, 5, 6))
+    want = np.asarray(jax_fa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=True, window=32, block_q=32, block_k=32,
+                             interpret=True))
+    got = flash_attention(_t(q), _t(k), _t(v), causal=True, window=32)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("hq,hkv", [(4, 4), (4, 2), (8, 1)])
+def test_attention_gqa_matches_jax_ops(hq, hkv):
+    q = _randn(7, (2, 64, hq, 16))
+    k, v = _randn(8, (2, 64, hkv, 16)), _randn(9, (2, 64, hkv, 16))
+    want = np.asarray(jops.attention(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal=True,
+                                     block_q=32, block_k=32))
+    got = tops.attention(_t(q), _t(k), _t(v), causal=True)
+    assert got.shape == (2, 64, hq, 16)
+    np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
+    # the GQA mapping is the reference's repeat of each kv head
+    group = hq // hkv
+    kr, vr = np.repeat(k, group, axis=2), np.repeat(v, group, axis=2)
+    flat = [x.transpose(0, 2, 1, 3).reshape(2 * hq, 64, 16)
+            for x in (q, kr, vr)]
+    oracle = np.asarray(ref.ref_attention(*map(jnp.asarray, flat),
+                                          causal=True))
+    np.testing.assert_allclose(
+        got.numpy().transpose(0, 2, 1, 3).reshape(2 * hq, 64, 16), oracle,
+        rtol=TOL, atol=TOL)
+
+
+def test_attention_bf16_matches_jax_ops():
+    q, k, v = (_randn(s, (2, 64, 2, 16)) for s in (10, 11, 12))
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    tb = [_t(x).to(torch.bfloat16) for x in (q, k, v)]
+    want = jops.attention(*jb, causal=True, block_q=32, block_k=32)
+    got = tops.attention(*tb, causal=True)
+    assert got.dtype == torch.bfloat16
+    want32 = np.asarray(want.astype(jnp.float32))
+    got32 = got.to(torch.float32).numpy()
+    assert np.isfinite(got32).all()
+    np.testing.assert_allclose(got32, want32, rtol=2.0 ** -7, atol=TOL)
+    # the algorithm on the same (bf16-valued) inputs, in f32
+    want_f = np.asarray(jops.attention(*(x.astype(jnp.float32) for x in jb),
+                                       causal=True, block_q=32, block_k=32))
+    got_f = tops.attention(*(x.to(torch.float32) for x in tb), causal=True)
+    np.testing.assert_allclose(got_f.numpy(), want_f, rtol=TOL, atol=TOL)
+
+
+@pytest.mark.parametrize("sq,skv,window", [(1000, 1000, 0), (63, 63, 5),
+                                           (1, 40, 0)])
+def test_attention_ragged_lengths_match_oracle(sq, skv, window):
+    """No padding to block multiples: lengths that divide no block size
+    match the reference oracle (which pads nothing either)."""
+    q, k, v = (_randn(s, (1, n, 2, 16)) for s, n in ((13, sq), (14, skv),
+                                                     (15, skv)))
+    got = tops.attention(_t(q), _t(k), _t(v), causal=sq == skv,
+                         window=window)
+    flat = [x.transpose(0, 2, 1, 3).reshape(2, -1, 16) for x in (q, k, v)]
+    want = np.asarray(ref.ref_attention(*map(jnp.asarray, flat),
+                                        causal=sq == skv, window=window))
+    np.testing.assert_allclose(
+        got.numpy().transpose(0, 2, 1, 3).reshape(2, sq, 16), want,
+        rtol=TOL, atol=TOL)
+
+
+def test_row_without_visible_key_is_zero():
+    """An empty key axis leaves every row without a visible key: each
+    row is 0, as the oracle's safe divide gives."""
+    q = _t(_randn(16, (1, 4, 1, 16)))
+    kv = torch.zeros((1, 0, 1, 16))
+    out = tops.attention(q, kv, kv, causal=False)
+    assert out.shape == (1, 4, 1, 16) and not out.any()
+
+
+def test_plain_version_is_the_wrapper_on_cpu():
+    q, k, v = (_t(_randn(s, (2, 33, 4, 32))) for s in (17, 18, 19))
+    before = flash_attention.launches
+    got = flash_attention(q, k[:, :, :2].contiguous(),
+                          v[:, :, :2].contiguous(), window=7)
+    assert flash_attention.launches == before      # no kernel on the CPU
+    want = flash_attention_plain(q, k[:, :, :2], v[:, :, :2], window=7)
+    assert torch.equal(got, want)
+
+
+def test_bad_arguments_raise():
+    q = torch.zeros((1, 8, 4, 16))
+    with pytest.raises(ValueError, match="shapes"):
+        flash_attention(q, torch.zeros((1, 8, 3, 16)),
+                        torch.zeros((1, 8, 3, 16)))
+    with pytest.raises(TypeError):
+        flash_attention(q, q.double(), q.double())
+    with pytest.raises(ValueError, match="window"):
+        flash_attention(q, q, q, window=-1)
+    assert HEAD_DIMS == (16, 32, 64, 128)
+
+
+def test_ragged_non_causal_keys_are_masked_unlike_reference_padding():
+    """The reference's ``ops.attention`` zero-pads a key length that no
+    block divides (13 -> 128) and, without a causal mask, lets the
+    padded zero keys into the softmax; its oracle ``ref_attention`` does
+    not. The port pads nothing and matches the oracle. Pins the
+    reference's deviation (ROADMAP Queue 3) next to the port's result."""
+    q, k, v = (_randn(s, (1, 13, 2, 16)) for s in (20, 21, 22))
+    flat = [jnp.asarray(x.transpose(0, 2, 1, 3).reshape(2, 13, 16))
+            for x in (q, k, v)]
+    oracle = np.asarray(ref.ref_attention(*flat, causal=False)).reshape(
+        1, 2, 13, 16).transpose(0, 2, 1, 3)
+    got = tops.attention(_t(q), _t(k), _t(v), causal=False).numpy()
+    np.testing.assert_allclose(got, oracle, rtol=TOL, atol=TOL)
+    ref_ops = np.asarray(jops.attention(*map(jnp.asarray, (q, k, v)),
+                                        causal=False))
+    assert np.abs(ref_ops - oracle).max() > 0.1

@@ -8,7 +8,11 @@ runs where JAX is not installed:
 
 Tolerances: quantize, dequantize, parse and the field classifier are
 bit/byte-exact; the f32 matmul is within ``1e-5 * k / 128`` of the f32
-library product (no TF32 on either side), bf16 within ``3e-2``.
+library product (no TF32 on either side), bf16 within ``3e-2``. K6
+attention is within 2e-4 of its plain version in f32 (the reference's
+tolerance; sums in another order), and in bf16 within 2e-4 plus one
+bf16 step of the result (2^-7 relative: bf16 keeps 8 significant
+bits).
 """
 import numpy as np
 import pytest
@@ -19,6 +23,8 @@ from repro_torch.core.rdma import RDMAEngine
 from repro_torch.core.streaming import (Drop, Forward, Handler, MatchTable,
                                         RXRing, StreamDispatcher,
                                         TrafficRouter, make_roce_header)
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.lc_offload import (MM_WORKLOAD, QUANT_ROW,
                                             STREAM_PARSER_WORKLOAD,
                                             STREAM_QUANT_WORKLOAD,
@@ -191,3 +197,72 @@ def test_cuda_offloaded_matmul_launches_the_kernel(cuda):
     tol = 1e-5 * k / 128
     np.testing.assert_allclose(got, A.astype(np.float64) @ B,
                                rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,sq,skv,causal,window,hq,hkv,dtype", [
+    (16, 63, 63, True, 0, 4, 2, torch.float32),
+    (64, 512, 512, True, 0, 32, 4, torch.float32),
+    (64, 1000, 1000, True, 0, 8, 1, torch.float32),
+    (128, 1, 1, True, 0, 4, 4, torch.float32),
+    (128, 63, 200, False, 0, 4, 2, torch.float32),
+    (32, 1, 40, False, 0, 2, 1, torch.float32),
+    (64, 512, 512, True, 32, 8, 8, torch.float32),
+    (64, 512, 512, True, 0, 8, 2, torch.bfloat16),
+    (16, 1000, 1000, False, 100, 2, 1, torch.bfloat16),
+])
+def test_cuda_flash_attention_matches_plain(cuda, d, sq, skv, causal,
+                                            window, hq, hkv, dtype):
+    def rand(*shape):
+        return torch.from_numpy(RNG.standard_normal(shape).astype(
+            np.float32)).to(cuda).to(dtype)
+
+    q, k, v = rand(2, sq, hq, d), rand(2, skv, hkv, d), rand(2, skv, hkv, d)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_flat_heads_and_bad_head_dim(cuda):
+    q = torch.randn((6, 70, 64), device=cuda)
+    k, v = torch.randn((6, 90, 64), device=cuda), torch.randn(
+        (6, 90, 64), device=cuda)
+    torch.testing.assert_close(
+        flash_attention(q, k, v, causal=False),
+        flash_attention_plain(q[:, :, None], k[:, :, None], v[:, :, None],
+                              causal=False)[:, :, 0], rtol=2e-4, atol=2e-4)
+    bad = torch.randn((1, 8, 2, 48), device=cuda)
+    with pytest.raises(ValueError, match="head_dim 48"):
+        flash_attention(bad, bad, bad)
+
+
+@pytest.mark.cuda
+def test_cuda_prefill_launches_k6_once_per_layer(cuda):
+    """The tiny model served on the card: a prefill from position 0
+    launches K6 once per layer, decode launches none, and the logits
+    match the full forward."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.serve import decode_step, prefill_step
+
+    cfg = get_config("tiny")
+    params = init_params(cfg, 0)
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 13))).to(cuda)
+    full, _, _ = forward(params, cfg, {"tokens": toks})
+    caches = init_caches(cfg, 2, 16, torch.float32)
+    before = flash_attention.launches
+    lg, caches = prefill_step(params, cfg, {"tokens": toks[:, :12]}, caches)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.num_layers
+    lg2, _ = decode_step(params, cfg, toks[:, 12:13], caches, 12)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.num_layers
+    torch.testing.assert_close(lg[:, 0], full[:, 11], rtol=5e-5, atol=5e-5)
+    torch.testing.assert_close(lg2[:, 0], full[:, 12], rtol=5e-5, atol=5e-5)
