@@ -11,10 +11,15 @@ runs, on the card:
      field classifier (K4 at 1024, 4096 and 65536 packets), within
      ``1e-5 * k / 128`` for the f32 matmul (no TF32), within 2e-4 for
      K6 attention at the tinyllama prefill shape (256 x 512 x 64, causal,
-     GQA 8, f32; also with window 32, and in bf16) — with its time, the
+     GQA 8, f32; also with window 32, in bf16, and at hymba's 25 q over 5
+     kv heads with window 1024) — with its time, the
      plain version's time, its bound and, for the matmul and attention,
      the time of ``torch.matmul`` and of
      ``scaled_dot_product_attention`` (yardsticks the port never calls);
+     K7 ``ssd_scan`` within 2e-5 in f32 (6e-2 in bf16) of its plain
+     version, outputs and final state, at hymba's prefill shape (8 x 512,
+     50 heads, d_state 16), in bf16, and at mamba2's (8 x 512, 32 heads
+     of 64, d_state 128, chunk 256, f32) from a zero and a given state;
   3-6. the RecoNIC main path with every launch counter at 0 first: the
      Fig 6 networked matmul (2048^3 and the ``lc_offload_mm`` shape
      512x16x512) through ``RDMAEngine`` + ``LookasideBlock`` +
@@ -45,10 +50,27 @@ runs, on the card:
      pool whose fetched pages equal the plain dequant(quant(page)) byte
      for byte, and the ``kv_serve`` ledger (every page fetched, none
      failed);
-  14. each kernel's launch count on the three paths (3-6, 7-10 and
-     11-13), each path run with the counters at 0 and read right after:
-     every kernel a path runs must have launched on it, and each of the
-     six > 0.
+  14-15. SSM serving: mamba2-370m at full width and depth (48 layers),
+     f32, random weights, the same traffic: prefill + 32 teacher-forced
+     decode steps against one forward over 768 tokens (the scan takes
+     whole 256-token chunks; causality makes positions 512-543 the ones
+     to compare), K7 launched 48 times per prefill and per forward, none
+     in decode, within 1e-4 of the logits' scale, and the prefill against
+     a forward over the prompt alone (each serving invariant also reports
+     how far the two forwards differ, from their GEMMs' row counts);
+     prefill and decode times with their traced device share; the state
+     handoff of the 8 sequences' SSM caches (1577 pages) over one-sided
+     READs on an engine of 2 x 2^27 words, byte-exact in each of three
+     timed fetches and one traced for its device time, greedy tokens
+     through the remote pool equal to local ones, the ``kv_serve`` ledger
+     clean;
+  16. hybrid heads: hymba-1.5b at full width and depth (32 layers), the
+     same invariant at 768 tokens with K6 and K7 each launched 32 times
+     per prefill and per forward and none in decode;
+  17. each kernel's launch count on the five paths (3-6, 7-10, 11-13,
+     14-15 and 16), each path run with the counters at 0 and read right
+     after: every kernel a path runs must have launched on it, and each
+     of the seven > 0.
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -72,6 +94,11 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12       # dense, tensor cores
 
 POOL = 1 << 26
+# the 8 sequences' mamba2-370m caches: 48 x (8*32*64*128 + 8*3*2304) words,
+# 1577 pages of 65,536 words, more than POOL
+SSM_POOL = 1 << 27
+# timed fetches of each uncompressed cache handoff
+N_FETCH = 3
 DATA_PEER, LC_PEER = 1, 0
 SEED = 0
 
@@ -106,22 +133,33 @@ def device_ms(fn, iters=20):
     return min(_traced_ms(fn, iters), cuda_ms(fn, iters))
 
 
-def traced_device_us(fn):
-    """Run ``fn`` once under torch.profiler (CUPTI) and return (its
-    result, the summed device time of every kernel and copy it ran, in
-    µs). Only the device rows count: the profiler also files each kernel
-    under the aten op that launched it, so summing every row would count
-    an aten op's kernels twice (the CUDA kernels here launch through
-    ctypes, outside any aten op, and appear once either way)."""
+def _trace(fn):
+    """Run ``fn`` once under torch.profiler (CUPTI); return (its result,
+    the summed device time of every kernel and copy it ran, in µs). Only
+    the device rows count: the profiler also files each kernel under the
+    aten op that launched it, so summing every row would count an aten
+    op's kernels twice (the CUDA kernels here launch through ctypes,
+    outside any aten op, and appear once either way)."""
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
-                   if e.device_type == DeviceType.CUDA)
-    check(total_us > 0, "the profiler traced no device time")
-    return out, total_us
+    return out, sum(e.self_device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA)
+
+
+def traced_device_us(fn, tries=1):
+    """``_trace``, failing on a trace that holds no device time. CUPTI now
+    and then hands back an empty trace of work that is copies alone (seen
+    on 64 MiB executor copies and on a cache fetch), so a pure call, run
+    only for its device time, may be traced up to ``tries`` times."""
+    for _ in range(tries):
+        out, total_us = _trace(fn)
+        if total_us > 0:
+            return out, total_us
+    raise AssertionError(f"the profiler traced no device time in {tries} "
+                         f"traces")
 
 
 def _traced_ms(fn, iters):
@@ -132,7 +170,7 @@ def _traced_ms(fn, iters):
             fn()
             torch.cuda.synchronize()
 
-    return traced_device_us(run)[1] / iters / 1e3
+    return traced_device_us(run, tries=2)[1] / iters / 1e3
 
 
 def bound(nbytes, flops=0.0, peak_flops=PEAK_F32_FLOPS):
@@ -194,6 +232,7 @@ def main():
     from repro_torch.kernels.systolic_mm import systolic_mm, systolic_mm_plain
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -311,13 +350,16 @@ def main():
     del x, y, q, s, pq, ps
 
     # K6 at the tinyllama prefill shape (8 sequences x 32 q heads over 4 kv
-    # heads, S = 512, d = 64, causal, f32; recorded last), with window 32
-    # and in bf16; SDPA on the same inputs is the yardstick (the port never
-    # calls it)
+    # heads, S = 512, d = 64, causal, f32; recorded last), with window 32,
+    # in bf16, and at hymba's prefill shape (25 q heads over 5 kv heads, a
+    # GQA group of 5, window 1024); SDPA on the same inputs is the
+    # yardstick (the port never calls it)
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ab, asq, ahq, ahkv, ad = 8, 512, 32, 4, 64
-    for window, dtype in ((32, torch.float32), (0, torch.bfloat16),
-                          (0, torch.float32)):
+    ab, asq, ad = 8, 512, 64
+    for window, dtype, ahq, ahkv in ((32, torch.float32, 32, 4),
+                                     (0, torch.bfloat16, 32, 4),
+                                     (1024, torch.float32, 25, 5),
+                                     (0, torch.float32, 32, 4)):
         qa = torch.from_numpy(rng.standard_normal(
             (ab, asq, ahq, ad), np.float32)).to(dev, dtype)
         ka, va = (torch.from_numpy(rng.standard_normal(
@@ -360,11 +402,65 @@ def main():
                             else PEAK_F32_FLOPS))
     del qa, ka, va, qt, kt, vt, got, want, err
 
+    # K7 at hymba's prefill shape (8 x 512, 50 heads of 64, d_state 16), in
+    # bf16 at mamba2's, then at mamba2-370m's prefill shape (8 x 512, 32
+    # heads of 64, d_state 128, chunk 256, f32) from a zero and from a
+    # given state (recorded last). Model-like inputs: a = -linspace(1, 16,
+    # nh) as the model initialises it, dt in (0.1, 0.9). No one PyTorch
+    # call computes the scan, so there is no library time.
+    krng = np.random.default_rng(SEED + 3)
+    sb, ss, shd, schunk = 8, 512, 64, 256
+    for snh, sn, dtype, seeded in ((50, 16, torch.float32, True),
+                                   (32, 128, torch.bfloat16, True),
+                                   (32, 128, torch.float32, False),
+                                   (32, 128, torch.float32, True)):
+        def normal(*shape):
+            return torch.from_numpy(krng.standard_normal(
+                shape, np.float32)).to(dev)
+
+        sx = normal(sb, ss, snh, shd).to(dtype)
+        sdt = torch.from_numpy(krng.uniform(0.1, 0.9, (sb, ss, snh)).astype(
+            np.float32)).to(dev)
+        sa = torch.from_numpy(-np.linspace(1.0, 16.0, snh).astype(
+            np.float32)).to(dev)
+        sbm, scm = normal(sb, ss, 1, sn), normal(sb, ss, 1, sn)
+        sinit = normal(sb, snh, shd, sn) if seeded else None
+        args = (sx, sdt, sa, sbm, scm)
+        y7, f7 = ssd_scan(*args, chunk=schunk, init_state=sinit,
+                          return_final_state=True)
+        py7, pf7 = ssd_scan_plain(*args, schunk, sinit)
+        tol = 6e-2 if dtype == torch.bfloat16 else 2e-5
+        errs7 = [(g.float() - w.float()).abs() for g, w in ((y7, py7),
+                                                          (f7, pf7))]
+        check(all(bool((e <= tol + tol * w.float().abs()).all())
+                  for e, w in zip(errs7, (py7, pf7))),
+              f"ssd_scan nh {snh} n {sn} {dtype} seeded={seeded}: max err "
+              f"y {errs7[0].max().item()}, final {errs7[1].max().item()}")
+        tri = schunk * (schunk + 1) // 2
+        flops = 2.0 * sb * (ss // schunk) * (
+            tri * sn + snh * (tri * shd + 2 * schunk * sn * shd))
+        nbytes = (2 * sx.element_size() * sb * ss * snh * shd
+                  + 4 * (sb * ss * snh + snh + 2 * sb * ss * sn
+                         + (1 + seeded) * sb * snh * shd * sn))
+        measure("ssd_scan", "ssd_scan.cu",
+                "src/repro/kernels/ssd_scan.py:79",
+                f"{sb}x{ss} nh{snh} hd{shd} n{sn} chunk{schunk} "
+                f"{str(dtype).split('.')[-1]} "
+                f"{'seeded' if seeded else 'zero state'}",
+                max(e.max().item() for e in errs7),
+                lambda: ssd_scan(*args, chunk=schunk, init_state=sinit,
+                                 return_final_state=True),
+                lambda: ssd_scan_plain(*args, schunk, sinit), nbytes, flops,
+                peak_flops=(PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                            else PEAK_F32_FLOPS))
+    del sx, sdt, sa, sbm, scm, sinit, args, y7, f7, py7, pf7, errs7
+
     # ---- 3-6. the main path ----------------------------------------------
     # each path runs with every launch counter at 0 and is read right
     # after; the kernel phase above does not count
     counted = (systolic_mm, parse_packets, parse_packet_fields,
-               quantize_stream, dequantize_stream, flash_attention)
+               quantize_stream, dequantize_stream, flash_attention,
+               ssd_scan)
     launches = {}
 
     def zero_counts():
@@ -822,10 +918,10 @@ def main():
     read_counts("streaming", (parse_packet_fields, parse_packets,
                               quantize_stream, dequantize_stream))
 
-    # ---- 11-13. the serving path ------------------------------------------
-    # tinyllama-1.1b at full width (22 layers, random weights from SEED), in
-    # f32: 8 requests x 512-token prompts, 32 greedy tokens, max_seq 552,
-    # on an engine of its own; the KV handoff in 65,536-word pages
+    # ---- 11-16. serving ----------------------------------------------------
+    # three models at full width and depth, random weights from SEED, in
+    # f32: 8 requests x 512-token prompts, 32 greedy tokens, max_seq 552;
+    # each cache handoff on an engine of its own, in 65,536-word pages
     from repro_torch.configs.registry import get_config
     from repro_torch.models import forward, init_caches, init_params
     from repro_torch.serve import (PagedKVPool, RemoteKVClient,
@@ -833,120 +929,196 @@ def main():
                                    prefill_step)
     from repro_torch.serve.kv_cache import flatten_cache_leaves
 
-    zero_counts()
-    cfg = get_config("tinyllama-1.1b")
     n_req, p_len, g_len = 8, 512, 32
     max_seq, page = p_len + g_len + 8, 1 << 16
-    params = init_params(cfg, SEED)
-    toks = torch.from_numpy(np.random.default_rng(SEED + 2).integers(
-        0, cfg.vocab_size, (n_req, p_len + g_len))).to(dev)
-    prompt = toks[:, :p_len]
 
-    def k6_delta(fn):
+    def during(fn):
         """Run ``fn`` synchronised; return (its result, the seconds it
-        took, K6 launches during it)."""
+        took, each counted kernel's launches during it)."""
         torch.cuda.synchronize()
-        n0, t = flash_attention.launches, time.perf_counter()
+        n0 = {f.__name__: f.launches for f in counted}
+        t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        return out, time.perf_counter() - t, flash_attention.launches - n0
+        return out, time.perf_counter() - t, {
+            f.__name__: f.launches - n0[f.__name__] for f in counted}
 
-    # 11. (a) prefill 512 + 32 teacher-forced decode steps against one
-    # forward over all 544 tokens, without caches
-    full, full_s, n_full = k6_delta(
-        lambda: forward(params, cfg, {"tokens": toks})[0])
-    caches = init_caches(cfg, n_req, max_seq, torch.float32)
-    (lg, caches), pre_s, n_pre = k6_delta(
-        lambda: prefill_step(params, cfg, {"tokens": prompt}, caches))
-    check(n_full == n_pre == cfg.num_layers,
-          f"K6 launches per forward {n_full}, per prefill {n_pre}, want "
-          f"{cfg.num_layers}")
-    errs = [(lg[:, 0] - full[:, p_len - 1]).abs().max().item()]
+    def invariant(arch, per_layer, n_tokens, seed):
+        """Prefill 512 + 32 teacher-forced decode steps against one forward
+        over ``n_tokens`` tokens without caches, held within 1e-4 of the
+        logits' scale (the forward's largest |logit|): f32 on both routes,
+        which differ only in summation order (cuBLAS picks other kernels
+        for 8 rows than for thousands, K6 or the scan's chunks against
+        plain decode), and the difference grows through the layers.
+        ``per_layer``: the kernels a prefill and a forward launch once per
+        layer; decode launches none. Returns (cfg, params, prompt, caches
+        after decode)."""
+        cfg = get_config(arch)
+        params = init_params(cfg, SEED)
+        toks = torch.from_numpy(np.random.default_rng(seed).integers(
+            0, cfg.vocab_size, (n_req, n_tokens))).to(dev)
+        prompt = toks[:, :p_len]
+        full, full_s, n_full = during(
+            lambda: forward(params, cfg, {"tokens": toks})[0])
+        scale = full.abs().max().item()
+        # a forward over the prompt alone runs the prefill's shapes; against
+        # the longer forward it shows what the GEMMs' row count alone moves
+        same = forward(params, cfg, {"tokens": prompt})[0]
+        rows_err = (same - full[:, :p_len]).abs().max().item()
+        same = same[:, -1]
+        full = full[:, p_len - 1:p_len + g_len]
+        caches = init_caches(cfg, n_req, max_seq, torch.float32)
+        (lg, caches), pre_s, n_pre = during(
+            lambda: prefill_step(params, cfg, {"tokens": prompt}, caches))
+        want = {f.__name__: cfg.num_layers if f in per_layer else 0
+                for f in counted}
+        check(n_full == n_pre == want,
+              f"{arch}: launches per forward {n_full}, per prefill "
+              f"{n_pre}, want {want}")
+        same_err = (lg[:, 0] - same).abs().max().item()
+        errs = [(lg[:, 0] - full[:, 0]).abs().max().item()]
 
-    def decode_all():
-        c = caches
-        for i in range(p_len, p_len + g_len):
-            out, c = decode_step(params, cfg, toks[:, i:i + 1], c, i)
-            errs.append((out[:, 0] - full[:, i]).abs().max().item())
-        return c
+        def decode_all():
+            c = caches
+            for i in range(p_len, p_len + g_len):
+                out, c = decode_step(params, cfg, toks[:, i:i + 1], c, i)
+                errs.append((out[:, 0] - full[:, i - p_len + 1]).abs()
+                            .max().item())
+            return c
 
-    caches, dec_s, n_dec = k6_delta(decode_all)
-    check(n_dec == 0, f"decode launched K6 {n_dec} times")
-    # both routes compute the same function in f32 and differ only in
-    # summation order (cuBLAS picks other kernels for 8 rows than for
-    # 4352, K6 against plain decode attention), so the logits may differ
-    # by f32 rounding grown through 22 layers: held within 1e-4 of the
-    # logits' scale
-    scale = full.abs().max().item()
-    tol_a = 1e-4 * scale
-    check(all(np.isfinite(errs)) and max(errs) <= tol_a,
-          f"prefill/decode vs full forward: max err {max(errs)} over "
-          f"{tol_a} (logit scale {scale})")
-    del full
-    phase("serve invariant", arch=cfg.name, requests=n_req, prompt=p_len,
-          decode_steps=g_len, max_abs_err=max(errs), tolerance=tol_a,
-          logit_scale=scale, k6_per_prefill=n_pre, k6_per_forward=n_full)
-    phase("serve prefill", ms=pre_s * 1e3,
-          tokens_per_s=n_req * p_len / pre_s, forward_544_ms=full_s * 1e3)
-    phase("serve decode", ms_per_step=dec_s * 1e3 / g_len,
-          tokens_per_s=n_req * g_len / dec_s)
+        caches, dec_s, n_dec = during(decode_all)
+        check(not any(n_dec.values()), f"{arch}: decode launched {n_dec}")
+        tol_s = 1e-4 * scale
+        check(all(np.isfinite(errs)) and max(errs) <= tol_s,
+              f"{arch} prefill/decode vs full forward: max err {max(errs)} "
+              f"over {tol_s} (logit scale {scale})")
+        check(np.isfinite(same_err) and same_err <= tol_s,
+              f"{arch} prefill vs a forward over the prompt: max err "
+              f"{same_err} over {tol_s}")
+        phase("serve invariant", arch=cfg.name, requests=n_req,
+              prompt=p_len, decode_steps=g_len, forward_tokens=n_tokens,
+              max_abs_err=max(errs), tolerance=tol_s, logit_scale=scale,
+              err_last_prompt=errs[0], worst_step=int(np.argmax(errs)),
+              err_prefill_vs_prompt_forward=same_err,
+              err_prompt_forward_vs_forward=rows_err,
+              per_prefill=json.dumps({k: v for k, v in n_pre.items() if v}))
+        phase("serve prefill", arch=cfg.name, ms=pre_s * 1e3,
+              tokens_per_s=n_req * p_len / pre_s, forward_ms=full_s * 1e3)
+        phase("serve decode", arch=cfg.name, ms_per_step=dec_s * 1e3 / g_len,
+              tokens_per_s=n_req * g_len / dec_s)
+        return cfg, params, prompt, caches
 
-    # traced device share: one more prefill and 8 decode steps
-    def prefill_again():
-        return prefill_step(params, cfg, {"tokens": prompt}, spare)
+    def trace_share(cfg, params, prompt, caches):
+        """Traced device share of one more prefill and of 8 decode steps."""
+        spare = init_caches(cfg, n_req, max_seq, torch.float32)
 
-    spare = init_caches(cfg, n_req, max_seq, torch.float32)
-    _, dev_us = traced_device_us(prefill_again)
-    _, wall = timed(prefill_again)
-    del spare
-    phase("serve prefill trace", wall_ms=wall * 1e3,
-          device_ms=dev_us / 1e3, device_share=dev_us / 1e3 / (wall * 1e3))
+        def prefill_again():
+            return prefill_step(params, cfg, {"tokens": prompt}, spare)
 
-    def decode8():
-        c = caches
-        for i in range(8):
-            _, c = decode_step(params, cfg, toks[:, :1], c, p_len + i)
-        return c
+        _, dev_us = traced_device_us(prefill_again)
+        _, wall = timed(prefill_again)
+        phase("serve prefill trace", arch=cfg.name, wall_ms=wall * 1e3,
+              device_ms=dev_us / 1e3,
+              device_share=dev_us / 1e3 / (wall * 1e3))
 
-    _, dev_us = traced_device_us(decode8)
-    _, wall = timed(decode8)
-    phase("serve decode trace", steps=8, wall_ms=wall * 1e3,
-          device_ms=dev_us / 1e3, device_share=dev_us / 1e3 / (wall * 1e3))
+        def decode8():
+            c = caches
+            for i in range(8):
+                _, c = decode_step(params, cfg, prompt[:, :1], c, p_len + i)
+            return c
 
-    # 12. (b) the KV handoff over the RDMA engine, uncompressed: publish
-    # and fetch the caches byte for byte, then greedy tokens through the
-    # remote pool equal those with local caches
-    s_eng = RDMAEngine(n_peers=2, pool_size=POOL)
-    n_words = flatten_cache_leaves(caches).numel()
-    n_pages = -(-n_words // page)
-    kv_pool = PagedKVPool(s_eng, 0, page_elems=page, max_pages=n_pages)
-    client = RemoteKVClient(s_eng, 1, kv_pool)
-    tenant = client.register_tenant("decode", weight=2)
-    n_pub, pub_s = timed(lambda: client.publish_caches(1, caches))
-    fetched, fetch_s = timed(lambda: client.fetch_caches(1, caches, tenant))
-    check(n_pub == n_pages and all(torch.equal(fetched["scan"][k],
-                                               caches["scan"][k])
-                                   for k in ("k", "v", "pos")),
-          "uncompressed KV handoff is not byte-exact")
-    kv_pool.evict(1)
-    del fetched
-    local, gen_s = timed(lambda: greedy_generate(
-        params, cfg, prompt, g_len, max_seq))
-    remote, rgen_s = timed(lambda: greedy_generate(
-        params, cfg, prompt, g_len, max_seq, kv_client=client,
-        kv_seq_id=0, kv_tenant=tenant))
-    check(torch.equal(local, remote),
-          "greedy tokens through the remote pool differ from local")
-    check(kv_pool.allocated == 0, "the handoff left pages in the pool")
-    phase("serve handoff", pages=n_pages, page_words=page,
-          mib=n_pages * page * 4 / 2 ** 20, publish_ms=pub_s * 1e3,
-          fetch_ms=fetch_s * 1e3,
-          wire_words=s_eng.stats["kv_serve"]["posted_words"],
-          greedy_local_ms=gen_s * 1e3, greedy_remote_ms=rgen_s * 1e3,
-          tokens_equal=True)
+        _, dev_us = traced_device_us(decode8)
+        _, wall = timed(decode8)
+        phase("serve decode trace", arch=cfg.name, steps=8,
+              wall_ms=wall * 1e3, device_ms=dev_us / 1e3,
+              device_share=dev_us / 1e3 / (wall * 1e3))
 
-    # 13. (c) a compressed pool: K1 packs each page on publish, K2 unpacks
-    # the fetch; the fetched words equal the plain dequant(quant(page))
+    def leaves(tree):
+        """Cache leaves in JAX's tree order (dict keys sorted)."""
+        if isinstance(tree, dict):
+            return [x for k in sorted(tree) for x in leaves(tree[k])]
+        return [tree]
+
+    def handoff(cfg, params, prompt, caches, pool_size):
+        """The cache handoff over the RDMA engine, uncompressed, on an
+        engine of its own: publish and fetch the caches byte for byte
+        (every leaf, dtypes included), then greedy tokens through the
+        remote pool equal those with local caches. Returns (the engine,
+        its pool's pages, the fetches made)."""
+        eng_ = RDMAEngine(n_peers=2, pool_size=pool_size)
+        n_pages = -(-flatten_cache_leaves(caches).numel() // page)
+        check(n_pages * page <= pool_size,
+              f"{n_pages} pages exceed the {pool_size}-word pool")
+        kv_pool = PagedKVPool(eng_, 0, page_elems=page, max_pages=n_pages)
+        client = RemoteKVClient(eng_, 1, kv_pool)
+        tenant = client.register_tenant("decode", weight=2)
+        n_pub, pub_s = timed(lambda: client.publish_caches(1, caches))
+        check(n_pub == n_pages, f"{cfg.name}: published {n_pub} pages")
+        # three timed fetches, each checked, with the caching allocator's
+        # cudaMalloc calls and retries during them; then one more under the
+        # profiler for its device time
+        fetch_ms, mallocs, retries = [], [], []
+        for _ in range(N_FETCH):
+            mem0 = torch.cuda.memory_stats()
+            fetched, fetch_s = timed(
+                lambda: client.fetch_caches(1, caches, tenant))
+            mem1 = torch.cuda.memory_stats()
+            check(all(g.dtype == w.dtype and torch.equal(g, w)
+                      for g, w in zip(leaves(fetched), leaves(caches))),
+                  f"{cfg.name}: the uncompressed handoff is not byte-exact")
+            del fetched
+            fetch_ms.append(fetch_s * 1e3)
+            mallocs.append(mem1["num_device_alloc"]
+                           - mem0["num_device_alloc"])
+            retries.append(mem1["num_alloc_retries"]
+                           - mem0["num_alloc_retries"])
+        traces = []
+
+        def fetch_traced():
+            traces.append(1)
+            return client.fetch_caches(1, caches, tenant)
+
+        _, fetch_dev_us = traced_device_us(fetch_traced, tries=3)
+        kv_pool.evict(1)
+        local, gen_s = timed(lambda: greedy_generate(
+            params, cfg, prompt, g_len, max_seq))
+        remote, rgen_s = timed(lambda: greedy_generate(
+            params, cfg, prompt, g_len, max_seq, kv_client=client,
+            kv_seq_id=0, kv_tenant=tenant))
+        check(torch.equal(local, remote),
+              "greedy tokens through the remote pool differ from local")
+        check(kv_pool.allocated == 0, "the handoff left pages in the pool")
+        phase("serve handoff", arch=cfg.name, pages=n_pages,
+              page_words=page, mib=n_pages * page * 4 / 2 ** 20,
+              publish_ms=pub_s * 1e3, fetch_ms=json.dumps(fetch_ms),
+              fetch_device_ms=fetch_dev_us / 1e3, fetch_traces=len(traces),
+              fetch_cuda_mallocs=json.dumps(mallocs),
+              fetch_alloc_retries=json.dumps(retries),
+              wire_words=eng_.stats["kv_serve"]["posted_words"],
+              greedy_local_ms=gen_s * 1e3, greedy_remote_ms=rgen_s * 1e3,
+              tokens_equal=True)
+        return eng_, n_pages, N_FETCH + len(traces) + 1
+
+    def ledger(eng_, pages, fetches):
+        """Every page of ``fetches`` fetches fetched, none failed."""
+        led = eng_.stats["kv_serve"]
+        check(led["pages_fetched"] == fetches * pages
+              and led["pages_failed"] == 0 and led["failed"] == 0
+              and led["completed"] == fetches, f"kv_serve ledger {led}")
+        phase("serve ledger", **led)
+
+    # 11. tinyllama-1.1b (dense GQA, K6): the invariant over all 544
+    # tokens, then times and device share
+    zero_counts()
+    cfg, params, prompt, caches = invariant(
+        "tinyllama-1.1b", (flash_attention,), p_len + g_len, SEED + 2)
+    trace_share(cfg, params, prompt, caches)
+
+    # 12. the KV handoff
+    s_eng, n_pages, n_fetches = handoff(cfg, params, prompt, caches, POOL)
+
+    # 13. a compressed pool: K1 packs each page on publish, K2 unpacks the
+    # fetch; the fetched words equal the plain dequant(quant(page))
     c_pool = PagedKVPool(s_eng, 0, page_elems=page, max_pages=n_pages,
                          compressed=True)
     c_client = RemoteKVClient(s_eng, 1, c_pool)
@@ -957,7 +1129,7 @@ def main():
         c_client.fetch_sequence(c_tenant, 2)))
     flat = flatten_cache_leaves(caches)
     padded = torch.zeros(n_pages * page, device=dev)
-    padded[:n_words] = flat
+    padded[:flat.numel()] = flat
     pq, ps = quantize_stream_plain(padded.reshape(-1, 64))
     want = dequantize_stream_plain(pq, ps).reshape(n_pages, page)
     check(torch.equal(data, want),
@@ -969,17 +1141,35 @@ def main():
     phase("serve handoff compressed", pages=n_pages,
           publish_ms=cpub_s * 1e3, fetch_ms=cfetch_s * 1e3,
           wire_words=c_words, wire_ratio=n_pages * page / c_words)
-
-    # (d) every page fetched, none failed
-    led = s_eng.stats["kv_serve"]
-    check(led["pages_fetched"] == 3 * n_pages and led["pages_failed"] == 0
-          and led["failed"] == 0 and led["completed"] == 3,
-          f"kv_serve ledger {led}")
-    phase("serve ledger", **led)
+    ledger(s_eng, n_pages, n_fetches + 1)
     read_counts("serve", (flash_attention, quantize_stream,
                           dequantize_stream))
+    del params, caches, s_eng, c_pool, c_client
 
-    # ---- 14. launches on the main path -------------------------------------
+    # 14. mamba2-370m (SSM, K7): the scan takes whole 256-token chunks, so
+    # the forward runs 768 tokens (544 % 256 != 0); causality makes its
+    # positions 511-543 the ones to compare
+    zero_counts()
+    cfg, params, prompt, caches = invariant("mamba2-370m", (ssd_scan,), 768,
+                                            SEED + 4)
+    trace_share(cfg, params, prompt, caches)
+
+    # 15. the state handoff of the SSM caches, on a larger pool
+    s_eng, n_pages, n_fetches = handoff(cfg, params, prompt, caches,
+                                        SSM_POOL)
+    ledger(s_eng, n_pages, n_fetches)
+    read_counts("ssm", (ssd_scan,))
+    del params, caches, s_eng
+
+    # 16. hymba-1.5b: attention (K6, window 1024, global at layers 0, 16
+    # and 31) and SSM heads (K7) on the same input in every layer
+    zero_counts()
+    cfg, params, prompt, caches = invariant(
+        "hymba-1.5b", (ssd_scan, flash_attention), 768, SEED + 4)
+    read_counts("hybrid", (ssd_scan, flash_attention))
+    del params, caches
+
+    # ---- 17. launches on the main path -------------------------------------
     counts = {fn.__name__: sum(c[fn.__name__] for c in launches.values())
               for fn in counted}
     phase("kernels", **counts)

@@ -40,6 +40,8 @@ SIGNATURES = {
     "reconic_dequantize": [_P, _P, _P, _I, _I, _I, _P],
     "reconic_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, ctypes.c_float, _I, _P],
+    "reconic_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                         _I, _I, _P],
 }
 
 

@@ -1,0 +1,169 @@
+"""Mamba-2 (SSD) chunked scan — the SSM prefill's kernel (K7 ``ssd_scan``).
+
+Within fixed-size chunks the scan is a masked quadratic form; across
+chunks a ``(head_dim, d_state)`` state per (sequence, head) carries the
+recurrence. On the H100 the CUDA kernel (``csrc/ssd_scan.cu``) gives each
+thread block one (sequence, head), walks the chunks in order with the
+state in shared memory, and tiles each chunk's quadratic form in 64-row
+tiles, skipping those above the diagonal. Unlike the TPU kernel it
+replaces, it starts from an optional initial state and returns the final
+one, so the model's prefill (seeded from ``cache["ssm"]``) and its
+forward without caches both run through it.
+
+``ssd_scan`` runs the plain PyTorch version for tensors on the CPU and
+launches the CUDA kernel for tensors on the GPU, where it takes
+``n_groups == 1`` only and raises otherwise. The launcher itself refuses
+a head or state dim the kernel is not built for and a chunk too long for
+its shared memory, and the wrapper raises on that refusal.
+``ssd_scan.launches`` counts the launches.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+
+NEG_INF = -1e30
+
+_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _cumsum_in_order(da: torch.Tensor) -> torch.Tensor:
+    """Cumsum over dim 2, one step after another, as the CUDA kernel
+    sums. The decay ``exp(cum_i - cum_j)`` reads a difference of two
+    large sums (|cum| ~ 3000 over a 256-long chunk at a = -16, where one
+    f32 step is 2.4e-4), so a scan in another order (``torch.cumsum`` on
+    the GPU runs a parallel one) moves it by up to that much; summing in
+    one order keeps the two versions within the reference's 2e-5."""
+    out = torch.empty_like(da)
+    run = torch.zeros_like(da[:, :, 0])
+    for i in range(da.shape[2]):
+        run = run + da[:, :, i]
+        out[:, :, i] = run
+    return out
+
+
+def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                   bm: torch.Tensor, cm: torch.Tensor, chunk: int,
+                   init_state: Optional[torch.Tensor] = None):
+    """The reference's ``models/ssm._ssd_chunked`` in PyTorch. xh:
+    (B, S, nh, hd), dt: (B, S, nh), a: (nh,) negative, bm/cm: (B, S, G, N)
+    with ``nh % G == 0`` (head h reads group h // (nh // G)); init_state:
+    (B, nh, hd, N) or None for zeros. Computed in f32. Returns (y
+    (B, S, nh, hd) in xh's dtype, final state (B, nh, hd, N) f32)."""
+    b, s, nh, hd = xh.shape
+    g, n = bm.shape[2], bm.shape[3]
+    nc = s // chunk
+    hg = nh // g
+    f32 = torch.float32
+    xc = xh.to(f32).reshape(b, nc, chunk, nh, hd)
+    dtc = dt.to(f32).reshape(b, nc, chunk, nh)
+    bc = bm.to(f32).reshape(b, nc, chunk, g, n)
+    cc = cm.to(f32).reshape(b, nc, chunk, g, n)
+
+    da = dtc * a.to(f32)                                  # (b,nc,L,nh)
+    cum = _cumsum_in_order(da)                            # within chunk
+    seg_end = cum[:, :, -1]                               # (b,nc,nh)
+
+    # intra-chunk: exp(cum_i - cum_j) for i >= j, masked BEFORE exp
+    rel = cum[:, :, :, None, :] - cum[:, :, None, :, :]   # (b,nc,L,L,nh)
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
+                                device=xh.device))
+    rel = torch.where(tri[None, None, :, :, None], rel,
+                      torch.full((), NEG_INF, dtype=f32, device=xh.device))
+    decay = torch.exp(rel)
+    cb = torch.einsum("bclgn,bcmgn->bclmg", cc, bc)       # (b,nc,L,L,g)
+    cb = torch.repeat_interleave(cb, hg, dim=-1)          # (b,nc,L,L,nh)
+    w = cb * decay * dtc[:, :, None, :, :]                # dt_j on source
+    y_intra = torch.einsum("bclmh,bcmhd->bclhd", w, xc)
+
+    # chunk states: sum_j exp(seg_end - cum_j) dt_j x_j B_j^T
+    w_state = torch.exp(seg_end[:, :, None, :] - cum) * dtc
+    bh = torch.repeat_interleave(bc, hg, dim=3)           # (b,nc,L,nh,n)
+    states = torch.einsum("bclh,bclhn,bclhd->bchdn", w_state, bh, xc)
+
+    # inter-chunk recurrence, the state before each chunk kept
+    seg_decay = torch.exp(seg_end)                        # (b,nc,nh)
+    carry = (torch.zeros((b, nh, hd, n), dtype=f32, device=xh.device)
+             if init_state is None else init_state.to(f32))
+    prev = []
+    for c in range(nc):
+        prev.append(carry)
+        carry = carry * seg_decay[:, c, :, None, None] + states[:, c]
+    prev_states = torch.stack(prev, dim=1)                # (b,nc,nh,hd,n)
+
+    ch = torch.repeat_interleave(cc, hg, dim=3)           # (b,nc,L,nh,n)
+    y_inter = torch.einsum("bclhn,bchdn,bclh->bclhd", ch, prev_states,
+                           torch.exp(cum))
+    y = (y_intra + y_inter).reshape(b, s, nh, hd)
+    return y.to(xh.dtype), carry
+
+
+def _check_shapes(xh, dt, a, bm, cm, chunk, init_state):
+    if xh.ndim != 4:
+        raise ValueError(f"xh must be (B, S, nh, hd), got {tuple(xh.shape)}")
+    b, s, nh, hd = xh.shape
+    if bm.ndim != 4 or tuple(bm.shape) != tuple(cm.shape) \
+            or tuple(bm.shape[:2]) != (b, s) or bm.shape[2] == 0 \
+            or nh % bm.shape[2]:
+        raise ValueError(f"bm/cm must be (B, S, G, N) with nh % G == 0, "
+                         f"got {tuple(bm.shape)}, {tuple(cm.shape)}")
+    if tuple(dt.shape) != (b, s, nh) or tuple(a.shape) != (nh,):
+        raise ValueError(f"dt must be (B, S, nh) and a (nh,), got "
+                         f"{tuple(dt.shape)}, {tuple(a.shape)}")
+    if chunk <= 0 or s == 0 or s % chunk:
+        raise ValueError(f"S = {s} must be a positive multiple of the "
+                         f"chunk {chunk}")
+    n = bm.shape[3]
+    if init_state is not None and tuple(init_state.shape) != (b, nh, hd, n):
+        raise ValueError(f"init_state must be {(b, nh, hd, n)}, got "
+                         f"{tuple(init_state.shape)}")
+    if xh.dtype not in _DTYPES:
+        raise TypeError(f"ssd_scan: unsupported xh dtype {xh.dtype}")
+
+
+def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+             bm: torch.Tensor, cm: torch.Tensor, *, chunk: int,
+             init_state: Optional[torch.Tensor] = None,
+             return_final_state: bool = False):
+    """xh: (B, S, nh, hd) f32 or bf16, dt: (B, S, nh), a: (nh,), bm/cm:
+    (B, S, G, N), init_state: (B, nh, hd, N) or None (zeros); S % chunk
+    == 0. Returns y (B, S, nh, hd) in xh's dtype, or (y, final state
+    (B, nh, hd, N) f32) with ``return_final_state``.
+
+    On the GPU: G == 1, hd and N among those ``csrc/ssd_scan.cu`` is
+    built for and a chunk that fits its shared memory (the launcher
+    refuses others, and the refusal raises); dt, a, bm, cm and
+    init_state f32 and every tensor contiguous."""
+    _check_shapes(xh, dt, a, bm, cm, chunk, init_state)
+    tensors = [xh, dt, a, bm, cm] + ([] if init_state is None
+                                     else [init_state])
+    if all(t.device.type == "cpu" for t in tensors):
+        y, final = ssd_scan_plain(xh, dt, a, bm, cm, chunk, init_state)
+        return (y, final) if return_final_state else y
+
+    b, s, nh, hd = xh.shape
+    g, n = bm.shape[2], bm.shape[3]
+    if g != 1:
+        raise ValueError(f"ssd_scan: the CUDA kernel takes n_groups == 1, "
+                         f"got {g}")
+    if any(t.dtype != torch.float32 for t in tensors[1:]):
+        raise TypeError("ssd_scan: dt, a, bm, cm and init_state must be "
+                        "float32")
+    _build.check_cuda("ssd_scan", *tensors)
+    y = torch.empty_like(xh)
+    final = torch.empty((b, nh, hd, n), dtype=torch.float32,
+                        device=xh.device)
+    _build.launch("reconic_ssd_scan", xh.data_ptr(), dt.data_ptr(),
+                  a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                  None if init_state is None else init_state.data_ptr(),
+                  y.data_ptr(), final.data_ptr(), b, nh, s, hd, n, chunk,
+                  int(xh.dtype == torch.bfloat16),
+                  _build.stream_ptr(xh.device))
+    ssd_scan.launches += 1
+    return (y, final) if return_final_state else y
+
+
+ssd_scan.launches = 0

@@ -1,14 +1,21 @@
 """Serving entry point: batched prefill + greedy decode of one request batch.
 
 The serving-side host application: a batch of requests is prefilled
-into KV caches (attention through K6), then every sequence advances one
-token per decode step. Runs on the GPU unless ``--device cpu``.
+into the model's caches, then every sequence advances one token per
+decode step. Prefill runs attention through K6 (dense and hybrid
+models) and the SSD scan through K7 (SSM and hybrid models); decode is
+plain PyTorch over the caches. Runs on the GPU unless ``--device cpu``.
 
 Usage::
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tiny --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \\
       --requests 8 --prompt-len 512 --gen-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
+      --requests 8 --prompt-len 512 --gen-len 32
+
+SSM and hybrid models need a prompt length that is a multiple of
+``min(chunk_size, prompt_len)``, as in the reference.
 """
 from __future__ import annotations
 

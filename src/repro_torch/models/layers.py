@@ -174,6 +174,10 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
         cv[:, pos:pos + s] = v.to(cv.dtype)
         cache["pos"].fill_(pos + s)
     if cache is None or pos == 0:
+        if cache is not None:
+            # K and V rounded as the cache holds them (a bf16 cache), as
+            # the reference attends over its cache; no copy for f32
+            k, v = k.to(ck.dtype).to(q.dtype), v.to(cv.dtype).to(q.dtype)
         out = attention_core(q, k.contiguous(), v.contiguous(),
                              causal=causal, window=window)
     else:

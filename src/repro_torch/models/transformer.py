@@ -1,15 +1,18 @@
-"""Model backbone, the dense subset: embeds -> blocks -> norm -> lm head.
+"""Model backbone: embeds -> blocks -> norm -> lm head.
 
 The port of ``repro/models/transformer.py`` for dense GQA decoders
-(tinyllama, the qwen dense configs, ``tiny``). Parameters keep the
+(tinyllama, the qwen dense configs, ``tiny``), the SSM family
+(mamba2-370m, ``tiny-ssm``: a Mamba-2 mixer, ``models/ssm.py``) and
+hybrid parallel heads (hymba-1.5b: attention and SSM heads on the same
+input, each output RMS-normed, then averaged). Parameters keep the
 reference's pytree layout — nested dicts with the layer dimension
 stacked first under ``"layers"`` — so ``convert.params_from_jax`` maps a
 JAX pytree leaf for leaf. The reference scans the stack with
 ``lax.scan``; here a Python loop runs the layers on views of the stacked
 tensors.
 
-Families and features of later slices (SSM, hybrid, MoE, MLA,
-encoder-decoder, M-RoPE) raise ``NotImplementedError``.
+Features of later slices (MoE, MLA, encoder-decoder, M-RoPE, the
+frontend stub) raise ``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -19,24 +22,26 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (attention_block, init_attention,
                                        init_dense, init_mlp, mlp_block,
                                        rms_norm)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA decoder (this slice's path)."""
+    """Raise unless ``cfg`` is a dense GQA decoder, an SSM model or a
+    hybrid-heads model (the ported paths)."""
     unsupported = [name for name, on in (
-        (f"family {cfg.family!r}", cfg.family != "dense"),
+        (f"family {cfg.family!r}",
+         cfg.family not in ("dense", "ssm", "hybrid")),
         ("MLA", cfg.mla.enabled), ("MoE", cfg.moe.enabled),
-        ("SSM", cfg.ssm.enabled),
-        ("hybrid heads", cfg.hybrid_parallel_heads),
         ("encoder-decoder", cfg.enc_dec), ("M-RoPE", cfg.mrope),
         ("frontend stub", cfg.embedding_frontend_stub)) if on]
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} not ported yet (the "
-            "PyTorch port serves dense GQA decoders)")
+            "PyTorch port serves dense GQA decoders, SSM and hybrid-heads "
+            "models)")
 
 
 # ---------------------------------------------------------------------------
@@ -64,9 +69,17 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
          "final_norm_scale": ones(d)}
     if not cfg.tie_embeddings:
         p["lm_head"] = init_dense(gen, d, pv, dtype, dev)
+    if cfg.family == "ssm":
+        mixer = {"ssm": ssm_mod.init_ssm(gen, cfg, dtype, dev, n)}
+    else:
+        mixer = {"attn": init_attention(gen, cfg, dtype, dev, n)}
+        if cfg.hybrid_parallel_heads:
+            mixer["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype, dev, n)
+            mixer["attn_out_norm_scale"] = ones(n, d)
+            mixer["ssm_out_norm_scale"] = ones(n, d)
     p["layers"] = {
         "pre_norm_scale": ones(n, d),
-        "mixer": {"attn": init_attention(gen, cfg, dtype, dev, n)},
+        "mixer": mixer,
         "post_norm_scale": ones(n, d),
         "ffn": {"mlp": init_mlp(gen, d, cfg.d_ff, dtype, dev, n)},
     }
@@ -97,17 +110,53 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
+                 cache, pos: int):
+    """Returns (out, cache); the cache is updated in place."""
+    if cfg.family == "ssm":
+        return ssm_mod.ssm_block(mp["ssm"], cfg, x, cache=cache)
+    if cfg.hybrid_parallel_heads:
+        a_out, _ = attention_block(
+            mp["attn"], cfg, x, positions, window=window,
+            cache=cache["attn"] if cache is not None else None, pos=pos)
+        s_out, _ = ssm_mod.ssm_block(
+            mp["ssm"], cfg, x,
+            cache=cache["ssm"] if cache is not None else None)
+        out = 0.5 * (rms_norm(a_out, mp["attn_out_norm_scale"], cfg.rms_eps)
+                     + rms_norm(s_out, mp["ssm_out_norm_scale"],
+                                cfg.rms_eps))
+        return out, cache
+    return attention_block(mp["attn"], cfg, x, positions, window=window,
+                           cache=cache, pos=pos)
+
+
 def _block_apply(bp: dict, cfg: ModelConfig, x, positions, window: int,
                  cache, pos: int):
     """One transformer block. Returns (x, cache); the cache is updated in
-    place."""
+    place. The FFN runs on every family, as in the reference (a reduced
+    mamba2 has one); a zero-width FFN (full mamba2, ``d_ff`` 0) adds an
+    exact 0 there and is skipped here."""
     h = rms_norm(x, bp["pre_norm_scale"], cfg.rms_eps)
-    mix, cache = attention_block(bp["mixer"]["attn"], cfg, h, positions,
-                                 window=window, cache=cache, pos=pos)
+    mix, cache = _mixer_apply(bp["mixer"], cfg, h, positions, window,
+                              cache, pos)
     x = x + mix
-    h2 = rms_norm(x, bp["post_norm_scale"], cfg.rms_eps)
-    x = x + mlp_block(bp["ffn"]["mlp"], h2)
+    if cfg.d_ff:
+        h2 = rms_norm(x, bp["post_norm_scale"], cfg.rms_eps)
+        x = x + mlp_block(bp["ffn"]["mlp"], h2)
     return x, cache
+
+
+def _conv_caches_to(tree, dtype) -> None:
+    """Give the stacked SSM conv buffers the activations' dtype, in
+    place in the cache dict: the reference's ``ssm_block`` returns its
+    new conv state in that dtype, whatever the cache was made with, so a
+    conv buffer of another dtype updated in place would round where the
+    reference does not."""
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            _conv_caches_to(val, dtype)
+        elif key == "conv" and val.dtype != dtype:
+            tree[key] = val.to(dtype)
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
@@ -125,6 +174,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
                                         device=tokens.device)
                      ).expand(b, s)
     x = params["embed"][tokens]                         # (B, S, D)
+    if caches is not None:
+        _conv_caches_to(caches["scan"], x.dtype)
     wins = layer_windows(cfg, cfg.num_layers)
     for i in range(cfg.num_layers):
         cache = (None if caches is None
@@ -145,14 +196,22 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16, device=None) -> dict:
-    """Stacked cache pytree, the reference's keys and shapes:
+    """Stacked cache pytree, the reference's keys, shapes and dtypes:
     ``{"scan": {"k": (L, B, max_seq, Hkv, hd), "v": ..., "pos": (L,)
-    int32}}``."""
+    int32}}`` for attention, ``{"scan": {"conv": (L, B, K-1, C), "ssm":
+    (L, B, nh, hd, N) f32}}`` for SSM, ``{"scan": {"attn": {...}, "ssm":
+    {...}}}`` for hybrid heads. A forward gives the conv buffers the
+    activations' dtype on its first step (``_conv_caches_to``)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    hd, n = cfg.resolved_head_dim(), cfg.num_layers
-    shape = (n, batch, max_seq, cfg.num_kv_heads, hd)
-    return {"scan": {
-        "k": torch.zeros(shape, dtype=dtype, device=dev),
-        "v": torch.zeros(shape, dtype=dtype, device=dev),
-        "pos": torch.zeros((n,), dtype=torch.int32, device=dev)}}
+    n = cfg.num_layers
+    if cfg.family == "ssm":
+        return {"scan": ssm_mod.init_ssm_cache(cfg, n, batch, dtype, dev)}
+    shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim())
+    attn = {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev),
+            "pos": torch.zeros((n,), dtype=torch.int32, device=dev)}
+    if cfg.hybrid_parallel_heads:
+        return {"scan": {"attn": attn, "ssm": ssm_mod.init_ssm_cache(
+            cfg, n, batch, dtype, dev)}}
+    return {"scan": attn}

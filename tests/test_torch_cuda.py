@@ -12,7 +12,9 @@ library product (no TF32 on either side), bf16 within ``3e-2``. K6
 attention is within 2e-4 of its plain version in f32 (the reference's
 tolerance; sums in another order), and in bf16 within 2e-4 plus one
 bf16 step of the result (2^-7 relative: bf16 keeps 8 significant
-bits).
+bits). K7 ``ssd_scan`` is within 2e-5 of its plain version in f32 and
+6e-2 in bf16 (the reference's ``tests/test_kernels.py`` tolerances); its
+final state, f32 in both dtypes, within 2e-5.
 """
 import numpy as np
 import pytest
@@ -37,6 +39,7 @@ from repro_torch.kernels.quantize_stream import (dequantize_stream,
                                                  dequantize_stream_plain,
                                                  quantize_stream,
                                                  quantize_stream_plain)
+from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
 from repro_torch.kernels.systolic_mm import systolic_mm, systolic_mm_plain
 
 RNG = np.random.default_rng(77)
@@ -208,6 +211,8 @@ def test_cuda_offloaded_matmul_launches_the_kernel(cuda):
     (128, 63, 200, False, 0, 4, 2, torch.float32),
     (32, 1, 40, False, 0, 2, 1, torch.float32),
     (64, 512, 512, True, 32, 8, 8, torch.float32),
+    (64, 512, 512, True, 1024, 25, 5, torch.float32),
+    (64, 768, 768, True, 0, 25, 5, torch.float32),
     (64, 512, 512, True, 0, 8, 2, torch.bfloat16),
     (16, 1000, 1000, False, 100, 2, 1, torch.bfloat16),
 ])
@@ -266,3 +271,97 @@ def test_cuda_prefill_launches_k6_once_per_layer(cuda):
     assert flash_attention.launches == before + cfg.num_layers
     torch.testing.assert_close(lg[:, 0], full[:, 11], rtol=5e-5, atol=5e-5)
     torch.testing.assert_close(lg2[:, 0], full[:, 12], rtol=5e-5, atol=5e-5)
+
+
+def _scan_case(cuda, b, s, nh, hd, n, seeded, g=1):
+    """Model-like SSD inputs on the card: x, B, C standard normal, dt
+    uniform in (0.1, 0.9), the model's a = -linspace(1, 16, nh)."""
+    f = np.float32
+    x = torch.from_numpy(RNG.standard_normal((b, s, nh, hd)).astype(f))
+    dt = torch.from_numpy(RNG.uniform(0.1, 0.9, (b, s, nh)).astype(f))
+    a = torch.from_numpy(-np.linspace(1.0, 16.0, nh).astype(f))
+    bm, cm = (torch.from_numpy(RNG.standard_normal((b, s, g, n)).astype(f))
+              for _ in "bc")
+    init = (torch.from_numpy(RNG.standard_normal((b, nh, hd, n)).astype(f))
+            if seeded else None)
+    return [None if t is None else t.to(cuda)
+            for t in (x, dt, a, bm, cm, init)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,n,chunk,s,nh,seeded,dtype", [
+    (16, 16, 8, 32, 1, False, torch.float32),
+    (16, 32, 12, 48, 4, True, torch.float32),
+    (16, 128, 48, 96, 3, True, torch.bfloat16),
+    (64, 128, 256, 512, 2, True, torch.float32),
+    (64, 128, 256, 512, 2, False, torch.bfloat16),
+    (64, 32, 48, 144, 32, True, torch.float32),
+    (64, 16, 256, 512, 50, True, torch.float32),
+    (64, 16, 12, 36, 50, False, torch.bfloat16),
+])
+def test_cuda_ssd_scan_matches_plain(cuda, hd, n, chunk, s, nh, seeded,
+                                     dtype):
+    x, dt, a, bm, cm, init = _scan_case(cuda, 2, s, nh, hd, n, seeded)
+    x = x.to(dtype)
+    before = ssd_scan.launches
+    y, final = ssd_scan(x, dt, a, bm, cm, chunk=chunk, init_state=init,
+                        return_final_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    assert y.dtype == dtype and y.shape == x.shape
+    assert final.dtype == torch.float32 and final.shape == (2, nh, hd, n)
+    want_y, want_f = ssd_scan_plain(x, dt, a, bm, cm, chunk, init)
+    tol = 6e-2 if dtype == torch.bfloat16 else 2e-5
+    torch.testing.assert_close(y.float(), want_y.float(), rtol=tol,
+                               atol=tol)
+    torch.testing.assert_close(final, want_f, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_raises_rather_than_falls_back(cuda):
+    """n_groups != 1 and a non-f32 dt raise on the card; a head_dim
+    without an instance and a chunk too long for shared memory are
+    refused by the launcher, which raises; none of them launches."""
+    x, dt, a, bm, cm, _ = _scan_case(cuda, 1, 32, 4, 16, 16, False, g=2)
+    before = ssd_scan.launches
+    with pytest.raises(ValueError, match="n_groups"):
+        ssd_scan(x, dt, a, bm, cm, chunk=16)
+    x, dt, a, bm, cm, _ = _scan_case(cuda, 1, 32, 2, 48, 16, False)
+    with pytest.raises(RuntimeError, match="reconic_ssd_scan"):
+        ssd_scan(x, dt, a, bm, cm, chunk=16)
+    x, dt, a, bm, cm, _ = _scan_case(cuda, 1, 8192, 1, 64, 128, False)
+    with pytest.raises(RuntimeError, match="reconic_ssd_scan"):
+        ssd_scan(x, dt, a, bm, cm, chunk=8192)
+    x, dt, a, bm, cm, _ = _scan_case(cuda, 1, 32, 2, 16, 16, False)
+    with pytest.raises(TypeError, match="float32"):
+        ssd_scan(x, dt.double(), a, bm, cm, chunk=16)
+    assert ssd_scan.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tiny-ssm", "hymba-1.5b-smoke"])
+def test_cuda_ssm_prefill_launches_k7_once_per_layer(cuda, arch):
+    """SSM and hybrid models served on the card: prefill launches K7 once
+    per layer (and K6 too for hybrid heads), decode launches neither, and
+    prefill + decode logits match a forward over 32 tokens within 5e-5."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.serve import decode_step, prefill_step
+
+    cfg = get_config(arch)
+    params = init_params(cfg, 0)
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 32))).to(cuda)
+    full, _, _ = forward(params, cfg, {"tokens": toks})
+    caches = init_caches(cfg, 2, 40, torch.float32)
+    k6, k7 = flash_attention.launches, ssd_scan.launches
+    lg, caches = prefill_step(params, cfg, {"tokens": toks[:, :16]}, caches)
+    torch.cuda.synchronize()
+    hybrid = cfg.hybrid_parallel_heads
+    assert ssd_scan.launches == k7 + cfg.num_layers
+    assert flash_attention.launches == k6 + (cfg.num_layers if hybrid else 0)
+    lg2, _ = decode_step(params, cfg, toks[:, 16:17], caches, 16)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == k7 + cfg.num_layers
+    assert flash_attention.launches == k6 + (cfg.num_layers if hybrid else 0)
+    torch.testing.assert_close(lg[:, 0], full[:, 15], rtol=5e-5, atol=5e-5)
+    torch.testing.assert_close(lg2[:, 0], full[:, 16], rtol=5e-5, atol=5e-5)
