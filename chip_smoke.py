@@ -2,20 +2,27 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc`` and
-runs, on the card:
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
+(printing each kernel's registers, shared memory and spills as ptxas
+reports them) and runs, on the card:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. each kernel against its plain PyTorch version at the shapes the main
      path gives it — bit-exact for quantize, dequantize, parse and the
      field classifier (K4 at 1024, 4096 and 65536 packets), within
-     ``1e-5 * k / 128`` for the f32 matmul (no TF32), within 2e-4 for
-     K6 attention at the tinyllama prefill shape (256 x 512 x 64, causal,
-     GQA 8, f32; also with window 32, in bf16, and at hymba's 25 q over 5
-     kv heads with window 1024) — with its time, the
-     plain version's time, its bound and, for the matmul and attention,
-     the time of ``torch.matmul`` and of
-     ``scaled_dot_product_attention`` (yardsticks the port never calls);
+     ``1e-5 * k / 128`` for the f32 matmul (K5 on the CUDA cores, no
+     TF32; at 512x16x512 and 2048^3), within 2e-4 (plus one bf16 step
+     in bf16) for K6 attention on the tensor cores (3xTF32 in f32, bf16
+     with P split in two halves) at the tinyllama prefill shape (256 x
+     512 x 64, causal, GQA 8, f32; also with window 32, in bf16, at d =
+     128, and at hymba's 25 q over 5 kv heads with window 1024) — with
+     its time, the plain version's time, its bound (the function's own
+     work at its dtype's peak; for K6 also the bound of the products its
+     route runs) and, for the matmul and attention, the time of
+     ``torch.matmul`` and of ``scaled_dot_product_attention``
+     (yardsticks the port never calls), each time read per traced name
+     (``ms``), as the trace's plain sum (``ms_summed``) and between CUDA
+     events (``call_ms``);
      K7 ``ssd_scan`` within 2e-5 in f32 (6e-2 in bf16) of its plain
      version, outputs and final state, at hymba's prefill shape (8 x 512,
      50 heads, d_state 16), in bf16, and at mamba2's (8 x 512, 32 heads
@@ -77,6 +84,7 @@ is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits with an error before printing a result.
 """
 import json
+import math
 import os
 import re
 import subprocess
@@ -92,6 +100,7 @@ from torch.autograd import DeviceType
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12       # dense, tensor cores
+PEAK_TF32_FLOPS = 495e12       # dense, tensor cores
 
 POOL = 1 << 26
 # the 8 sequences' mamba2-370m caches: 48 x (8*32*64*128 + 8*3*2304) words,
@@ -120,23 +129,26 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters=20):
-    """GPU time per call of ``fn``: the smaller of two readings.
+def device_ms(fn, iters=20, wrapper=None):
+    """GPU time per call of ``fn`` as (ms, summed_ms), each the smaller of
+    two readings.
 
-    * The summed device time of the kernels and copies it launches,
-      traced by torch.profiler (CUPTI), each call run alone: leaves out
-      the host's launch overhead, but overstates calls whose kernels
-      overlap.
+    * The device time of the kernels and copies it launches, traced by
+      torch.profiler (CUPTI), each call run alone (``_traced_ms``, read
+      per name and summed): leaves out the host's launch overhead, but
+      overstates calls whose kernels overlap.
     * ``cuda_ms``: events around back-to-back calls, exact for device-
       bound calls, the host's launch rate for small ones.
     """
-    return min(_traced_ms(fn, iters), cuda_ms(fn, iters))
+    per_name, summed = _traced_ms(fn, iters, wrapper)
+    events = cuda_ms(fn, iters)
+    return min(per_name, events), min(summed, events)
 
 
 def _trace(fn):
     """Run ``fn`` once under torch.profiler (CUPTI); return (its result,
-    the summed device time of every kernel and copy it ran, in µs). Only
-    the device rows count: the profiler also files each kernel under the
+    the trace's device rows, one per kernel or copy name). Only the
+    device rows count: the profiler also files each kernel under the
     aten op that launched it, so summing every row would count an aten
     op's kernels twice (the CUDA kernels here launch through ctypes,
     outside any aten op, and appear once either way)."""
@@ -145,8 +157,8 @@ def _trace(fn):
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return out, sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == DeviceType.CUDA)
+    return out, [e for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA]
 
 
 def traced_device_us(fn, tries=1):
@@ -155,22 +167,69 @@ def traced_device_us(fn, tries=1):
     on 64 MiB executor copies and on a cache fetch), so a pure call, run
     only for its device time, may be traced up to ``tries`` times."""
     for _ in range(tries):
-        out, total_us = _trace(fn)
+        out, rows = _trace(fn)
+        total_us = sum(e.self_device_time_total for e in rows)
         if total_us > 0:
             return out, total_us
     raise AssertionError(f"the profiler traced no device time in {tries} "
                          f"traces")
 
 
-def _traced_ms(fn, iters):
+# the __global__ function each counted wrapper launches
+KERNEL_SYMBOL = {"systolic_mm": "systolic_mm_kernel",
+                 "flash_attention": "flash_attention_kernel",
+                 "parse_packets": "parse_packets_kernel",
+                 "parse_packet_fields": "parse_packet_fields_kernel",
+                 "quantize_stream": "quantize_kernel",
+                 "dequantize_stream": "dequantize_kernel",
+                 "ssd_scan": "ssd_scan_kernel"}
+
+
+def _traced_ms(fn, iters, wrapper=None):
+    """Device ms per call from one trace of ``iters`` calls, each run
+    alone, read two ways: (per_name, summed).
+
+    * per_name: for each kernel or copy name, its mean traced duration
+      times the times one call runs it. For the kernel of ``wrapper`` (a
+      counted wrapper of the port) that is the wrapper's launch count
+      over the traced calls; for any other name, its record count over
+      ``iters`` rounded up, which holds while CUPTI drops fewer than 1/n
+      of the records of a name that runs n times a call.
+    * summed: every record's duration, summed, over ``iters``. CUPTI can
+      drop some of a trace's records, and then this reads low: a trace of
+      20 K5 launches at 2048^3 once summed to 0.245 ms a call, under the
+      0.256 ms that the f32 peak allows, where CUDA events read 0.43.
+    """
     fn()
+    sym = (re.compile(rf"\b{KERNEL_SYMBOL[wrapper.__name__]}\b")
+           if wrapper is not None else None)
 
     def run():
         for _ in range(iters):
             fn()
             torch.cuda.synchronize()
 
-    return traced_device_us(run, tries=2)[1] / iters / 1e3
+    for _ in range(2):
+        n0 = wrapper.launches if wrapper is not None else 0
+        _, rows = _trace(run)
+        rows = [e for e in rows if e.count]
+        if not any(e.self_device_time_total > 0 for e in rows):
+            continue
+        summed = sum(e.self_device_time_total for e in rows) / iters
+        own = [bool(sym and sym.search(e.key)) for e in rows]
+        if sym and not any(own):
+            continue            # every record of the kernel was dropped
+        per_name = sum(e.self_device_time_total / e.count
+                       * math.ceil(e.count / iters)
+                       for e, o in zip(rows, own) if not o)
+        if sym:
+            per_call = (wrapper.launches - n0) / iters
+            per_name += (sum(e.self_device_time_total
+                             for e, o in zip(rows, own) if o)
+                         / sum(e.count for e, o in zip(rows, own) if o)
+                         * per_call)
+        return per_name / 1e3, summed / 1e3
+    raise AssertionError("the profiler traced no device time in 2 traces")
 
 
 def bound(nbytes, flops=0.0, peak_flops=PEAK_F32_FLOPS):
@@ -262,17 +321,27 @@ def main():
     rec = {}
     csrc = "src/repro_torch/kernels/csrc/"
 
+    wrappers = {f.__name__: f for f in (
+        systolic_mm, parse_packets, parse_packet_fields, quantize_stream,
+        dequantize_stream, flash_attention, ssd_scan)}
+
     def measure(name, src, replaces, shape, err, fn, plain, nbytes,
-                flops=0.0, library=None, peak_flops=PEAK_F32_FLOPS):
+                flops=0.0, library=None, peak_flops=PEAK_F32_FLOPS,
+                **extra):
         """Time kernel, plain version and library call; print and record
         (the last shape measured per kernel is the one recorded)."""
         b = bound(nbytes, flops, peak_flops)
+        ms, ms_summed = device_ms(fn, wrapper=wrappers[name])
+        plain_ms, plain_ms_summed = device_ms(plain)
+        lib_ms, lib_ms_summed = (device_ms(library) if library
+                                 else (None, None))
         r = {"name": name, "route": "cuda", "source": csrc + src,
              "replaces": replaces, "shape": shape, "max_abs_err": err,
-             "ms": device_ms(fn), "plain_ms": device_ms(plain),
-             "bound_ms": b[0], "bound_by": b[1],
-             "library_ms": device_ms(library) if library else None,
-             "call_ms": cuda_ms(fn), "plain_call_ms": cuda_ms(plain)}
+             "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms,
+             "call_ms": cuda_ms(fn), "plain_call_ms": cuda_ms(plain),
+             "ms_summed": ms_summed, "plain_ms_summed": plain_ms_summed,
+             "library_ms_summed": lib_ms_summed, **extra}
         phase("kernel " + name, **{k: v for k, v in r.items()
                                    if k not in ("name", "route", "source",
                                                 "replaces")})
@@ -351,15 +420,21 @@ def main():
 
     # K6 at the tinyllama prefill shape (8 sequences x 32 q heads over 4 kv
     # heads, S = 512, d = 64, causal, f32; recorded last), with window 32,
-    # in bf16, and at hymba's prefill shape (25 q heads over 5 kv heads, a
-    # GQA group of 5, window 1024); SDPA on the same inputs is the
-    # yardstick (the port never calls it)
+    # in bf16, at hymba's prefill shape (25 q heads over 5 kv heads, a GQA
+    # group of 5, window 1024) and at d = 128 (the largest shared-memory
+    # case); SDPA on the same inputs is the yardstick (the port never
+    # calls it). The bound is the function's own work (4 d flops per
+    # visible q-k pair) at the peak of its dtype; route_bound_ms counts
+    # the products the kernel's route runs: in bf16 two PV products (P
+    # split in a high and a low bf16 half) at the bf16 peak, in f32 three
+    # TF32 products each (3xTF32) at the TF32 peak.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ab, asq, ad = 8, 512, 64
-    for window, dtype, ahq, ahkv in ((32, torch.float32, 32, 4),
-                                     (0, torch.bfloat16, 32, 4),
-                                     (1024, torch.float32, 25, 5),
-                                     (0, torch.float32, 32, 4)):
+    ab, asq = 8, 512
+    for window, dtype, ahq, ahkv, ad in ((32, torch.float32, 32, 4, 64),
+                                         (0, torch.bfloat16, 32, 4, 64),
+                                         (1024, torch.float32, 25, 5, 64),
+                                         (0, torch.float32, 32, 4, 128),
+                                         (0, torch.float32, 32, 4, 64)):
         qa = torch.from_numpy(rng.standard_normal(
             (ab, asq, ahq, ad), np.float32)).to(dev, dtype)
         ka, va = (torch.from_numpy(rng.standard_normal(
@@ -371,7 +446,7 @@ def main():
         # may also sit one bf16 step (2^-7 relative) apart
         rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
         check(bool((err <= 2e-4 + rel * want.float().abs()).all()),
-              f"flash_attention window={window} {dtype}: max err "
+              f"flash_attention d={ad} window={window} {dtype}: max err "
               f"{err.max().item()}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qa, ka, va))
         if window:
@@ -386,6 +461,15 @@ def main():
                 return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
         pairs = sum(min(i + 1, window or asq) for i in range(asq))
         esz = qa.element_size()
+        nbytes = esz * ab * asq * ad * 2 * (ahq + ahkv)
+        flops = 4.0 * ad * pairs * ab * ahq
+        if dtype == torch.bfloat16:
+            peak, route = PEAK_BF16_FLOPS, "bf16 tensor cores, P split"
+            route_flops, route_peak = 1.5 * flops, PEAK_BF16_FLOPS
+        else:
+            peak, route = PEAK_F32_FLOPS, "3xTF32 tensor cores"
+            route_flops, route_peak = 3.0 * flops, PEAK_TF32_FLOPS
+        rb = bound(nbytes, route_flops, route_peak)
         measure("flash_attention", "flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:102",
                 f"{ab * ahq}x{asq}x{ad} gqa{ahq // ahkv} causal"
@@ -396,10 +480,9 @@ def main():
                                         window=window),
                 lambda: flash_attention_plain(qa, ka, va, causal=True,
                                               window=window),
-                esz * ab * asq * ad * 2 * (ahq + ahkv),
-                4.0 * ad * pairs * ab * ahq, library=library,
-                peak_flops=(PEAK_BF16_FLOPS if dtype == torch.bfloat16
-                            else PEAK_F32_FLOPS))
+                nbytes, flops, library=library, peak_flops=peak,
+                route_work=route, route_flops=route_flops,
+                route_bound_ms=rb[0], route_bound_by=rb[1])
     del qa, ka, va, qt, kt, vt, got, want, err
 
     # K7 at hymba's prefill shape (8 x 512, 50 heads of 64, d_state 16), in
@@ -620,7 +703,7 @@ def main():
               wall_ms_each=[round(w * 1e3, 4) for w in walls],
               gbps_median=nbytes * 8 / wall / 1e9,
               executor_call_ms=cuda_ms(execute, iters=5, warmup=1),
-              executor_device_ms=device_ms(execute, iters=5))
+              executor_device_ms=device_ms(execute, iters=5)[0])
 
     # read_batch_16k: 50 READs of 16 KiB, strided so none coalesce
     words, batch, gap = 4096, 50, 8192
@@ -1078,7 +1161,13 @@ def main():
             traces.append(1)
             return client.fetch_caches(1, caches, tenant)
 
-        _, fetch_dev_us = traced_device_us(fetch_traced, tries=3)
+        try:
+            _, fetch_dev_us = traced_device_us(fetch_traced, tries=6)
+            fetch_dev_ms, fetch_dev_src = fetch_dev_us / 1e3, "traced"
+        except AssertionError:
+            # CUPTI handed back only empty traces of this copy-only call:
+            # its device time is not measured
+            fetch_dev_ms, fetch_dev_src = None, "untraced"
         kv_pool.evict(1)
         local, gen_s = timed(lambda: greedy_generate(
             params, cfg, prompt, g_len, max_seq))
@@ -1091,7 +1180,8 @@ def main():
         phase("serve handoff", arch=cfg.name, pages=n_pages,
               page_words=page, mib=n_pages * page * 4 / 2 ** 20,
               publish_ms=pub_s * 1e3, fetch_ms=json.dumps(fetch_ms),
-              fetch_device_ms=fetch_dev_us / 1e3, fetch_traces=len(traces),
+              fetch_device_ms=fetch_dev_ms,
+              fetch_device_source=fetch_dev_src, fetch_traces=len(traces),
               fetch_cuda_mallocs=json.dumps(mallocs),
               fetch_alloc_retries=json.dumps(retries),
               wire_words=eng_.stats["kv_serve"]["posted_words"],

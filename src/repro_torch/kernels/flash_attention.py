@@ -4,10 +4,13 @@
 Online-softmax attention with causal and sliding-window masks, GQA (q
 head ``h`` reads kv head ``h // group``) and a zero output for a row that
 sees no key. On the H100 the CUDA kernel (``csrc/flash_attention.cu``)
-gives each thread block one (sequence, q head, 64-row q tile), walks the
-KV tiles it can see with the running max, denominator and accumulator in
-f32 registers, and masks ragged edges itself: any ``Sq``, ``Skv`` runs
-without padding, and K/V are never repeated per q head.
+gives each 4-warp thread block one (sequence, q head, 64-row q tile) and
+walks the 64-key K/V tiles it can see, double-buffered in shared memory,
+with QK^T and PV on the tensor cores (``mma.sync``: bf16 with P split
+into two bf16 halves, f32 as 3xTF32, both within the reference's f32
+tolerance) and the online softmax in the accumulator registers. It masks
+ragged edges itself: any ``Sq``, ``Skv`` runs without padding, and K/V
+are never repeated per q head. It takes 16-byte aligned tensors.
 
 ``flash_attention`` runs the plain PyTorch version for tensors on the
 CPU and launches the CUDA kernel for tensors on the GPU;
@@ -103,6 +106,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if b * hq > 65535:
         raise ValueError(f"flash_attention: B * Hq = {b * hq} > 65535")
     _build.check_cuda("flash_attention", q4, k4, v4)
+    for name, t in (("q", q4), ("k", k4), ("v", v4)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention: {name} is not 16-byte "
+                             f"aligned (the kernel loads 16-byte rows)")
     out = torch.empty_like(q4)
     if out.numel():
         _build.launch("reconic_flash_attention", q4.data_ptr(),

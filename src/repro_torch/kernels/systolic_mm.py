@@ -3,9 +3,11 @@
 
 The paper's HLS systolic array accumulates partial products across the K
 dimension for each output tile. On the H100 the CUDA kernel
-(``csrc/systolic_mm.cu``) gives each thread block one output tile and
-walks K inside the block with an f32 accumulator in registers; it masks
-ragged edges itself, so any (M, K) x (K, N) runs without padding.
+(``csrc/systolic_mm.cu``) gives each 256-thread block one 128x128 output
+tile (64x64 where that leaves SMs idle) and walks K inside the block in
+double-buffered 8-deep slices, with 8x8 f32 accumulators per thread on
+the CUDA cores (full f32, no TF32); it masks ragged edges itself, so any
+(M, K) x (K, N) runs without padding, misaligned operands included.
 
 ``systolic_mm`` runs the plain PyTorch version for tensors on the CPU
 and launches the CUDA kernel for tensors on the GPU;

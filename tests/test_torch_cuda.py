@@ -159,7 +159,9 @@ def test_cuda_dispatch_pass_launches_k4_k3_and_k1(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(512, 16, 512), (200, 33, 17),
-                                   (256, 1024, 384), (1, 5, 130)])
+                                   (256, 1024, 384), (1, 5, 130),
+                                   (130, 37, 66), (1600, 64, 1700),
+                                   (1601, 63, 1701)])
 def test_cuda_systolic_mm_matches_plain(cuda, m, k, n):
     x = torch.from_numpy(RNG.standard_normal((m, k)).astype(np.float32))
     y = torch.from_numpy(RNG.standard_normal((k, n)).astype(np.float32))
@@ -174,6 +176,40 @@ def test_cuda_systolic_mm_matches_plain(cuda, m, k, n):
     torch.testing.assert_close(
         systolic_mm(xb, yb, out_dtype=torch.float32),
         systolic_mm_plain(xb, yb, torch.float32), rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_systolic_mm_misaligned_view(cuda, dtype):
+    """Operands that are contiguous views one element into their storage
+    (not 16-byte aligned), with K and N multiples of 4: the kernel takes
+    its masked scalar loads and matches its plain version."""
+    m, k, n = 300, 64, 260
+    xs = torch.from_numpy(RNG.standard_normal(m * k + 1).astype(
+        np.float32)).to(cuda).to(dtype)
+    ys = torch.from_numpy(RNG.standard_normal(k * n + 3).astype(
+        np.float32)).to(cuda).to(dtype)
+    x, y = xs[1:].view(m, k), ys[3:].view(k, n)
+    assert x.is_contiguous() and x.data_ptr() % 16
+    tol = 1e-5 * k / 128 if dtype == torch.float32 else 3e-2
+    torch.testing.assert_close(systolic_mm(x, y).float(),
+                               systolic_mm_plain(x, y).float(), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+def test_cuda_systolic_mm_error_within_f32_bound(cuda):
+    """2048^3 f32 against a float64 product: every element within the
+    f32 bound of a k-term sum, ``k * 2^-24 * (|A| @ |B|)``. A TF32
+    product (10 mantissa bits) misses it by orders of magnitude."""
+    m = k = n = 2048
+    x = torch.from_numpy(RNG.standard_normal((m, k)).astype(np.float32))
+    y = torch.from_numpy(RNG.standard_normal((k, n)).astype(np.float32))
+    x, y = x.to(cuda), y.to(cuda)
+    got = systolic_mm(x, y).double()
+    want = x.double() @ y.double()
+    bound = k * 2.0 ** -24 * (x.double().abs() @ y.double().abs())
+    assert bool(((got - want).abs() <= bound).all())
 
 
 @pytest.mark.cuda
@@ -215,6 +251,15 @@ def test_cuda_offloaded_matmul_launches_the_kernel(cuda):
     (64, 768, 768, True, 0, 25, 5, torch.float32),
     (64, 512, 512, True, 0, 8, 2, torch.bfloat16),
     (16, 1000, 1000, False, 100, 2, 1, torch.bfloat16),
+    (64, 100, 177, False, 0, 4, 2, torch.float32),
+    (64, 130, 77, False, 0, 4, 4, torch.bfloat16),
+    (64, 300, 300, True, 40, 4, 1, torch.float32),
+    (32, 200, 200, True, 100, 2, 2, torch.bfloat16),
+    (128, 333, 333, True, 0, 8, 1, torch.float32),
+    (128, 200, 150, False, 70, 4, 2, torch.bfloat16),
+    (16, 77, 130, True, 0, 4, 1, torch.bfloat16),
+    (64, 190, 190, True, 0, 10, 2, torch.bfloat16),
+    (32, 129, 129, True, 0, 16, 2, torch.float32),
 ])
 def test_cuda_flash_attention_matches_plain(cuda, d, sq, skv, causal,
                                             window, hq, hkv, dtype):
@@ -235,6 +280,29 @@ def test_cuda_flash_attention_matches_plain(cuda, d, sq, skv, causal,
 
 
 @pytest.mark.cuda
+def test_cuda_flash_attention_f32_is_not_tf32(cuda):
+    """K6 in f32 at the tinyllama prefill shape (8 x 512, 32 q heads over
+    4 kv heads of 64, causal) against a float64 oracle, within 1e-5: a
+    3xTF32 or f32 route passes, a single TF32 product (~1e-3 here) does
+    not."""
+    def rand(*shape):
+        return torch.from_numpy(RNG.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+
+    b, s, hq, hkv, d = 8, 512, 32, 4, 64
+    q, k, v = rand(b, s, hq, d), rand(b, s, hkv, d), rand(b, s, hkv, d)
+    got = flash_attention(q, k, v, causal=True).double()
+    qg = q.double().reshape(b, s, hkv, hq // hkv, d) * d ** -0.5
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double())
+    pos = torch.arange(s, device=cuda)
+    sc = sc.masked_fill(pos[:, None] < pos[None, :], float("-inf"))
+    want = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(sc, dim=-1),
+                        v.double()).reshape(b, s, hq, d)
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_flat_heads_and_bad_head_dim(cuda):
     q = torch.randn((6, 70, 64), device=cuda)
     k, v = torch.randn((6, 90, 64), device=cuda), torch.randn(
@@ -246,6 +314,13 @@ def test_cuda_flash_attention_flat_heads_and_bad_head_dim(cuda):
     bad = torch.randn((1, 8, 2, 48), device=cuda)
     with pytest.raises(ValueError, match="head_dim 48"):
         flash_attention(bad, bad, bad)
+    # a contiguous view one element into its storage is not 16-byte
+    # aligned: the wrapper refuses it, and nothing runs in its place
+    off = torch.randn(1 * 8 * 2 * 64 + 1, device=cuda)[1:].view(1, 8, 2, 64)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        flash_attention(off, off, off)
+    assert flash_attention.launches == before
 
 
 @pytest.mark.cuda

@@ -1,0 +1,226 @@
+"""The numerics of K6's tensor-core routes and of K5's f32 contract,
+emulated in PyTorch on the CPU and held against the JAX reference.
+
+K6 runs QK^T and PV on the tensor cores (``csrc/flash_attention.cu``):
+
+* f32 as 3xTF32: ``x_hi = tf32_rna(x)``, ``x_lo = tf32_rna(x - x_hi)``
+  (``cvt.rna.tf32.f32``: 10 mantissa bits, nearest, ties away from zero)
+  and ``a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi``;
+* bf16 with exact bf16 x bf16 products and P split into
+  ``P_hi = bf16(p)`` and ``P_lo = bf16(p - P_hi)``, two PV products.
+
+The emulation runs each product as the kernel's chain of ``mma`` calls:
+k in chunks of the mma depth (8 for TF32, 16 for bf16), each chunk's
+products summed exactly (float64 holds a product of two TF32 or bf16
+values and their short sums exactly) and added to an f32 accumulator,
+one rounding per ``mma``. The softmax between the products is f32, as in
+the kernel; its tiling by 64 keys moves a result by a few f32 steps and
+is left out. Tolerances: 2e-4 against ``repro.kernels.ref.ref_attention``
+(the reference's own), and 1e-5 against a float64 oracle, which the GPU
+test ``test_cuda_flash_attention_f32_is_not_tf32`` holds the kernel to:
+3xTF32 meets it and a single TF32 product misses it here, so that test
+tells the two apart.
+
+These tests check the arithmetic of the kernels' design, emulated here,
+and no code of ``repro_torch``: the kernels themselves are held by the
+GPU tests of ``tests/test_torch_cuda.py``.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref
+
+TOL = 2e-4
+ORACLE_TOL = 1e-5
+
+
+def tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on an f32 tensor: keep 10 mantissa bits,
+    rounding to nearest with ties away from zero (on the magnitude, which
+    the low 31 bits of the pattern hold)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _mma_chain(pairs, kc):
+    """Sum of ``a @ b`` over ``pairs``, as a chain of mma calls: for each
+    k chunk of ``kc``, each pair's chunk product in turn is summed exactly
+    and added to the f32 accumulator with one rounding."""
+    a0, b0 = pairs[0]
+    acc = torch.zeros(a0.shape[:-1] + b0.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, a0.shape[-1], kc):
+        for a, b in pairs:
+            part = a[..., k0:k0 + kc].double() @ b[..., k0:k0 + kc, :].double()
+            acc = (acc.double() + part).float()
+    return acc
+
+
+def mm_3xtf32(a, b):
+    ah, bh = tf32_rna(a), tf32_rna(b)
+    al, bl = tf32_rna(a - ah), tf32_rna(b - bh)
+    return _mma_chain([(al, bh), (ah, bl), (ah, bh)], 8)
+
+
+def mm_1xtf32(a, b):
+    return _mma_chain([(tf32_rna(a), tf32_rna(b))], 8)
+
+
+def _mask(sq, skv, causal, window):
+    q_pos = torch.arange(sq)[:, None]
+    k_pos = torch.arange(skv)[None, :]
+    mask = torch.ones((sq, skv), dtype=torch.bool)
+    if causal:
+        mask &= q_pos >= k_pos
+    if window > 0:
+        mask &= (q_pos - k_pos) < window
+    return mask
+
+
+def attention_emulated(q, k, v, route, *, causal, window=0):
+    """q: (BH, Sq, d), k/v: (BH, Skv, d), f32 (bf16 values widened for
+    the bf16 routes) -> (BH, Sq, d) f32, by ``route``: "3xtf32" and
+    "bf16" as the kernel computes, "tf32" (one TF32 product) and
+    "bf16_single_p" (P rounded to bf16 once) as it does not."""
+    d = q.shape[-1]
+    scale = d ** -0.5
+    kt = k.transpose(-1, -2)
+    if route in ("bf16", "bf16_single_p"):
+        s = _mma_chain([(q, kt)], 16) * scale
+    elif route == "3xtf32":
+        s = mm_3xtf32(q * scale, kt)
+    else:
+        s = mm_1xtf32(q * scale, kt)
+    mask = _mask(q.shape[1], k.shape[1], causal, window)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
+    den = p.sum(-1, keepdim=True)
+    if route == "bf16":
+        p_hi = p.bfloat16().float()
+        p_lo = (p - p_hi).bfloat16().float()
+        o = _mma_chain([(p_lo, v), (p_hi, v)], 16)
+    elif route == "bf16_single_p":
+        o = _mma_chain([(p.bfloat16().float(), v)], 16)
+    elif route == "3xtf32":
+        o = mm_3xtf32(p, v)
+    else:
+        o = mm_1xtf32(p, v)
+    return torch.where(den > 0, o / den, torch.zeros_like(o))
+
+
+def attention_f64(q, k, v, *, causal, window=0):
+    d = q.shape[-1]
+    s = (q.double() * d ** -0.5) @ k.double().transpose(-1, -2)
+    mask = _mask(q.shape[1], k.shape[1], causal, window)
+    s = s.masked_fill(~mask, float("-inf"))
+    o = torch.softmax(s, dim=-1) @ v.double()
+    return torch.where(mask.any(-1)[None, :, None], o, torch.zeros_like(o))
+
+
+def _inputs(seed, b, sq, skv, hq, hkv, d, bf16):
+    """(B*Hq, S, d) q, k, v from a seed, KV heads repeated per q head (the
+    layout ``ref_attention`` takes); bf16 values widened to f32."""
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((b, sq, hq, d), np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, skv, hkv, d),
+                                                 np.float32))
+            for _ in "kv")
+    if bf16:
+        q, k, v = (t.bfloat16().float() for t in (q, k, v))
+    k, v = (t.repeat_interleave(hq // hkv, dim=2) for t in (k, v))
+    return tuple(t.transpose(1, 2).reshape(b * hq, -1, d).contiguous()
+                 for t in (q, k, v))
+
+
+# (b, sq, skv, hq, hkv, d, causal, window): the flash-attention cases of
+# tests/test_kernels.py, then 2 x 512 x (8 q heads over 1) x 64 causal
+CASES = [
+    (3, 128, 128, 1, 1, 16, True, 0),
+    (3, 128, 128, 1, 1, 16, False, 0),
+    (3, 256, 256, 1, 1, 16, True, 0),
+    (3, 256, 256, 1, 1, 16, False, 0),
+    (3, 64, 192, 1, 1, 16, False, 0),
+    (2, 128, 128, 1, 1, 8, True, 32),
+    (2, 64, 64, 4, 4, 16, True, 0),
+    (2, 64, 64, 4, 2, 16, True, 0),
+    (2, 64, 64, 8, 1, 16, True, 0),
+    (2, 512, 512, 8, 1, 64, True, 0),
+]
+
+
+def test_tf32_rna_rounds_to_nearest_ties_away():
+    x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
+                      1 + 3 * 2.0 ** -12, 3.0, -0.0], dtype=torch.float32)
+    want = torch.tensor([1 + 2.0 ** -10, -(1 + 2.0 ** -10), 1.0,
+                         1 + 2.0 ** -10, 3.0, -0.0], dtype=torch.float32)
+    got = tf32_rna(x)
+    assert torch.equal(got, want) and torch.equal(got.signbit(),
+                                                  want.signbit())
+    y = torch.from_numpy(np.random.default_rng(5).standard_normal(
+        4096).astype(np.float32))
+    hi = tf32_rna(y)
+    lo = tf32_rna(y - hi)
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF,
+                       torch.zeros_like(hi, dtype=torch.int32))
+    assert bool(((hi.double() + lo.double() - y.double()).abs()
+                 <= 2.0 ** -22 * y.double().abs()).all())
+
+
+@pytest.mark.parametrize("route", ["3xtf32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", CASES)
+def test_emulated_route_matches_reference(route, b, sq, skv, hq, hkv, d,
+                                          causal, window):
+    q, k, v = _inputs(sq + d + hq, b, sq, skv, hq, hkv, d, route == "bf16")
+    want = np.asarray(ref.ref_attention(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+        jnp.asarray(v.numpy()), causal=causal, window=window))
+    got = attention_emulated(q, k, v, route, causal=causal, window=window)
+    err = np.abs(got.numpy() - want).max()
+    assert err < TOL, err
+
+
+def test_f64_oracle_tells_3xtf32_from_single_tf32():
+    """At 2 x 512 x (8 over 1) x 64, causal: 3xTF32 within 1e-5 of the
+    float64 oracle, a single TF32 product over it."""
+    q, k, v = _inputs(11, 2, 512, 512, 8, 1, 64, False)
+    want = attention_f64(q, k, v, causal=True)
+    err3 = (attention_emulated(q, k, v, "3xtf32", causal=True).double()
+            - want).abs().max().item()
+    err1 = (attention_emulated(q, k, v, "tf32", causal=True).double()
+            - want).abs().max().item()
+    assert err3 <= ORACLE_TOL < err1, (err3, err1)
+
+
+def test_p_split_beats_a_single_bf16_p():
+    """bf16 inputs at 2 x 512 x (8 over 1) x 64, causal: with P split in
+    two bf16 halves PV is the f32 ``p @ v`` to within the oracle's 1e-5;
+    P rounded to bf16 once is not."""
+    q, k, v = _inputs(12, 2, 512, 512, 8, 1, 64, True)
+    want = attention_f64(q, k, v, causal=True)
+    err2 = (attention_emulated(q, k, v, "bf16", causal=True).double()
+            - want).abs().max().item()
+    err1 = (attention_emulated(q, k, v, "bf16_single_p",
+                               causal=True).double()
+            - want).abs().max().item()
+    assert err2 <= ORACLE_TOL < err1, (err2, err1)
+
+
+@pytest.mark.parametrize("m,k,n", [(512, 16, 512), (64, 1024, 64)])
+def test_single_tf32_product_misses_k5_tolerance(m, k, n):
+    """K5's tolerance, ``1e-5 * k / 128`` against an f32 product, rules
+    out TF32: one TF32 product misses it where an f32 chain of fmaf in k
+    order (K5's sum) meets it."""
+    rng = np.random.default_rng(m + k)
+    x = torch.from_numpy(rng.standard_normal((m, k), np.float32))
+    y = torch.from_numpy(rng.standard_normal((k, n), np.float32))
+    want = x @ y
+    tol = 1e-5 * k / 128
+    chain = torch.zeros((m, n), dtype=torch.float32)
+    for kk in range(k):
+        chain = (chain.double() + x[:, kk:kk + 1].double()
+                 * y[kk:kk + 1].double()).float()
+    assert bool(((chain - want).abs() <= tol + tol * want.abs()).all())
+    tf32 = (tf32_rna(x).double() @ tf32_rna(y).double()).float()
+    assert not bool(((tf32 - want).abs() <= tol + tol * want.abs()).all())
