@@ -17,8 +17,9 @@ reports them) and runs, on the card:
      512 x 64, causal, GQA 8, f32; also with window 32, in bf16, at d =
      128, and at hymba's 25 q over 5 kv heads with window 1024) — with
      its time, the plain version's time, its bound (the function's own
-     work at its dtype's peak; for K6 also the bound of the products its
-     route runs) and, for the matmul and attention, the time of
+     work at its dtype's peak; for K6 and K7 also the bound of the
+     products their routes run) and, for the matmul and attention, the
+     time of
      ``torch.matmul`` and of ``scaled_dot_product_attention``
      (yardsticks the port never calls), each time read per traced name
      (``ms``), as the trace's plain sum (``ms_summed``) and between CUDA
@@ -26,7 +27,11 @@ reports them) and runs, on the card:
      K7 ``ssd_scan`` within 2e-5 in f32 (6e-2 in bf16) of its plain
      version, outputs and final state, at hymba's prefill shape (8 x 512,
      50 heads, d_state 16), in bf16, and at mamba2's (8 x 512, 32 heads
-     of 64, d_state 128, chunk 256, f32) from a zero and a given state;
+     of 64, d_state 128, chunk 256, f32) from a zero and a given state,
+     with each of its five passes' traced time on a line of its own,
+     and K7 in f32 at mamba2's shape within 2e-5 (relative to 1 +
+     |value|) of its plain version run in float64, from three seeds,
+     with the plain f32 version's distance from it beside;
   3-6. the RecoNIC main path with every launch counter at 0 first: the
      Fig 6 networked matmul (2048^3 and the ``lc_offload_mm`` shape
      512x16x512) through ``RDMAEngine`` + ``LookasideBlock`` +
@@ -101,6 +106,7 @@ PEAK_BYTES_S = 3.35e12
 PEAK_F32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12       # dense, tensor cores
 PEAK_TF32_FLOPS = 495e12       # dense, tensor cores
+PEAK_FP64_TC_FLOPS = 67e12     # FP64 on the tensor cores
 
 POOL = 1 << 26
 # the 8 sequences' mamba2-370m caches: 48 x (8*32*64*128 + 8*3*2304) words,
@@ -130,8 +136,9 @@ def cuda_ms(fn, iters=20, warmup=3):
 
 
 def device_ms(fn, iters=20, wrapper=None):
-    """GPU time per call of ``fn`` as (ms, summed_ms), each the smaller of
-    two readings.
+    """GPU time per call of ``fn`` as (ms, summed_ms, passes): the first
+    two each the smaller of two readings, ``passes`` the traced ms per
+    call of each ``__global__`` function of ``wrapper``'s kernel.
 
     * The device time of the kernels and copies it launches, traced by
       torch.profiler (CUPTI), each call run alone (``_traced_ms``, read
@@ -140,9 +147,9 @@ def device_ms(fn, iters=20, wrapper=None):
     * ``cuda_ms``: events around back-to-back calls, exact for device-
       bound calls, the host's launch rate for small ones.
     """
-    per_name, summed = _traced_ms(fn, iters, wrapper)
+    per_name, summed, passes = _traced_ms(fn, iters, wrapper)
     events = cuda_ms(fn, iters)
-    return min(per_name, events), min(summed, events)
+    return min(per_name, events), min(summed, events), passes
 
 
 def _trace(fn):
@@ -175,34 +182,44 @@ def traced_device_us(fn, tries=1):
                          f"traces")
 
 
-# the __global__ function each counted wrapper launches
-KERNEL_SYMBOL = {"systolic_mm": "systolic_mm_kernel",
-                 "flash_attention": "flash_attention_kernel",
-                 "parse_packets": "parse_packets_kernel",
-                 "parse_packet_fields": "parse_packet_fields_kernel",
-                 "quantize_stream": "quantize_kernel",
-                 "dequantize_stream": "dequantize_kernel",
-                 "ssd_scan": "ssd_scan_kernel"}
+# the __global__ functions one call of each counted wrapper launches, once
+# each: K7 runs five passes per call, each named ssd_scan_<pass>
+KERNEL_SYMBOL = {"systolic_mm": ("systolic_mm_kernel",),
+                 "flash_attention": ("flash_attention_kernel",),
+                 "parse_packets": ("parse_packets_kernel",),
+                 "parse_packet_fields": ("parse_packet_fields_kernel",),
+                 "quantize_stream": ("quantize_kernel",),
+                 "dequantize_stream": ("dequantize_kernel",),
+                 "ssd_scan": ("ssd_scan_cum", "ssd_scan_cb",
+                              "ssd_scan_chunk_state", "ssd_scan_state_pass",
+                              "ssd_scan_chunk_scan")}
 
 
 def _traced_ms(fn, iters, wrapper=None):
     """Device ms per call from one trace of ``iters`` calls, each run
-    alone, read two ways: (per_name, summed).
+    alone, read two ways, with the wrapper's own functions apart:
+    (per_name, summed, passes).
 
     * per_name: for each kernel or copy name, its mean traced duration
-      times the times one call runs it. For the kernel of ``wrapper`` (a
-      counted wrapper of the port) that is the wrapper's launch count
-      over the traced calls; for any other name, its record count over
-      ``iters`` rounded up, which holds while CUPTI drops fewer than 1/n
-      of the records of a name that runs n times a call.
+      times the times one call runs it. For each ``__global__`` function
+      of ``wrapper`` (a counted wrapper of the port; one call runs each
+      of its functions once) that is the wrapper's launch count over the
+      traced calls; for any other name, its record count over ``iters``
+      rounded up, which holds while CUPTI drops fewer than 1/n of the
+      records of a name that runs n times a call. ``passes`` holds the
+      wrapper's functions' shares, keyed by the symbol that matched
+      (their sum is the wrapper's part of per_name). A trace that holds
+      no record of one of them (CUPTI dropped them all) is taken again
+      once, and then raises.
     * summed: every record's duration, summed, over ``iters``. CUPTI can
       drop some of a trace's records, and then this reads low: a trace of
       20 K5 launches at 2048^3 once summed to 0.245 ms a call, under the
       0.256 ms that the f32 peak allows, where CUDA events read 0.43.
     """
     fn()
-    sym = (re.compile(rf"\b{KERNEL_SYMBOL[wrapper.__name__]}\b")
-           if wrapper is not None else None)
+    names = set(KERNEL_SYMBOL[wrapper.__name__]) if wrapper else set()
+    sym = (re.compile(r"\b(" + "|".join(sorted(names)) + r")\b")
+           if names else None)
 
     def run():
         for _ in range(iters):
@@ -217,19 +234,25 @@ def _traced_ms(fn, iters, wrapper=None):
             continue
         summed = sum(e.self_device_time_total for e in rows) / iters
         own = [bool(sym and sym.search(e.key)) for e in rows]
-        if sym and not any(own):
-            continue            # every record of the kernel was dropped
+        if names - {sym.search(e.key).group(0)
+                    for e, o in zip(rows, own) if o}:
+            continue            # every record of one of its kernels dropped
         per_name = sum(e.self_device_time_total / e.count
                        * math.ceil(e.count / iters)
                        for e, o in zip(rows, own) if not o)
+        passes = {}
         if sym:
             per_call = (wrapper.launches - n0) / iters
-            per_name += (sum(e.self_device_time_total
-                             for e, o in zip(rows, own) if o)
-                         / sum(e.count for e, o in zip(rows, own) if o)
-                         * per_call)
-        return per_name / 1e3, summed / 1e3
-    raise AssertionError("the profiler traced no device time in 2 traces")
+            for e, o in zip(rows, own):
+                if o:
+                    name = sym.search(e.key).group(0)
+                    passes[name] = (passes.get(name, 0.0)
+                                    + e.self_device_time_total / e.count
+                                    * per_call / 1e3)
+            per_name += sum(passes.values()) * 1e3
+        return per_name / 1e3, summed / 1e3, passes
+    raise AssertionError("in 2 traces the profiler traced no device time, "
+                         f"or no record of one of {sorted(names)}")
 
 
 def bound(nbytes, flops=0.0, peak_flops=PEAK_F32_FLOPS):
@@ -331,10 +354,10 @@ def main():
         """Time kernel, plain version and library call; print and record
         (the last shape measured per kernel is the one recorded)."""
         b = bound(nbytes, flops, peak_flops)
-        ms, ms_summed = device_ms(fn, wrapper=wrappers[name])
-        plain_ms, plain_ms_summed = device_ms(plain)
-        lib_ms, lib_ms_summed = (device_ms(library) if library
-                                 else (None, None))
+        ms, ms_summed, passes = device_ms(fn, wrapper=wrappers[name])
+        plain_ms, plain_ms_summed, _ = device_ms(plain)
+        lib_ms, lib_ms_summed, _ = (device_ms(library) if library
+                                    else (None, None, None))
         r = {"name": name, "route": "cuda", "source": csrc + src,
              "replaces": replaces, "shape": shape, "max_abs_err": err,
              "ms": ms, "plain_ms": plain_ms,
@@ -342,6 +365,11 @@ def main():
              "call_ms": cuda_ms(fn), "plain_call_ms": cuda_ms(plain),
              "ms_summed": ms_summed, "plain_ms_summed": plain_ms_summed,
              "library_ms_summed": lib_ms_summed, **extra}
+        if len(passes) > 1:
+            # each pass's traced ms per call, on a line of its own
+            r["passes_ms_sum"] = sum(passes.values())
+            phase("kernel " + name + " passes", shape=shape,
+                  **{k: v for k, v in sorted(passes.items())})
         phase("kernel " + name, **{k: v for k, v in r.items()
                                    if k not in ("name", "route", "source",
                                                 "replaces")})
@@ -519,12 +547,29 @@ def main():
                   for e, w in zip(errs7, (py7, pf7))),
               f"ssd_scan nh {snh} n {sn} {dtype} seeded={seeded}: max err "
               f"y {errs7[0].max().item()}, final {errs7[1].max().item()}")
+        # the function's work: C.B^T over each chunk's lower triangle
+        # once per (sequence, chunk); per head w.x over that triangle, the
+        # state increment and C_i . S_prev. The route bound counts the
+        # products the kernel's route runs: w.x, the state increment and
+        # C_i . S_prev as 3xTF32, three TF32 products each (two for those
+        # with a bf16 x as an operand: x is exact in TF32) at the TF32
+        # peak, and C.B^T once on the FP64 tensor cores at theirs
         tri = schunk * (schunk + 1) // 2
-        flops = 2.0 * sb * (ss // schunk) * (
-            tri * sn + snh * (tri * shd + 2 * schunk * sn * shd))
+        nc7 = sb * (ss // schunk)
+        f_cb = 2.0 * nc7 * tri * sn
+        f_wx = 2.0 * nc7 * snh * tri * shd
+        f_state = f_cs = 2.0 * nc7 * snh * schunk * sn * shd
+        flops = f_cb + f_wx + f_state + f_cs
+        kx = 2 if dtype == torch.bfloat16 else 3
+        route_flops = 3 * f_cs + kx * (f_wx + f_state)
         nbytes = (2 * sx.element_size() * sb * ss * snh * shd
                   + 4 * (sb * ss * snh + snh + 2 * sb * ss * sn
                          + (1 + seeded) * sb * snh * shd * sn))
+        route_ops_ms = (route_flops / PEAK_TF32_FLOPS
+                        + f_cb / PEAK_FP64_TC_FLOPS) * 1e3
+        bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+        rb = ((route_ops_ms, "operations") if route_ops_ms >= bytes_ms
+              else (bytes_ms, "bytes"))
         measure("ssd_scan", "ssd_scan.cu",
                 "src/repro/kernels/ssd_scan.py:79",
                 f"{sb}x{ss} nh{snh} hd{shd} n{sn} chunk{schunk} "
@@ -535,8 +580,47 @@ def main():
                                  return_final_state=True),
                 lambda: ssd_scan_plain(*args, schunk, sinit), nbytes, flops,
                 peak_flops=(PEAK_BF16_FLOPS if dtype == torch.bfloat16
-                            else PEAK_F32_FLOPS))
+                            else PEAK_F32_FLOPS),
+                route_work=("3xTF32 tensor cores"
+                            + (", bf16 x" if kx == 2 else "")
+                            + "; C.B^T on the FP64 tensor cores"),
+                route_flops=route_flops, route_fp64_flops=f_cb,
+                route_bound_ms=rb[0], route_bound_by=rb[1])
     del sx, sdt, sa, sbm, scm, sinit, args, y7, f7, py7, pf7, errs7
+
+    # K7 and its plain f32 version against the float64 oracle (the plain
+    # version in float64 on the f32 in-order cumsum) at mamba2's shape,
+    # seeded, from three seeds: K7 within the 2e-5 relative to 1 + |value|
+    # that tests/test_torch_ssd_numerics.py sets, both errors printed
+    def rel_err(got, want):
+        got, want = got.double(), want.double()
+        return ((got - want).abs() / (1.0 + want.abs())).max().item()
+
+    for i in range(3):
+        orng = np.random.default_rng(SEED + 10 + i)
+
+        def normal(*shape):
+            return torch.from_numpy(orng.standard_normal(
+                shape, np.float32)).to(dev)
+
+        snh, sn = 32, 128
+        args = (normal(sb, ss, snh, shd),
+                torch.from_numpy(orng.uniform(0.1, 0.9, (sb, ss, snh))
+                                 .astype(np.float32)).to(dev),
+                torch.from_numpy(-np.linspace(1.0, 16.0, snh)
+                                 .astype(np.float32)).to(dev),
+                normal(sb, ss, 1, sn), normal(sb, ss, 1, sn))
+        sinit = normal(sb, snh, shd, sn)
+        got = ssd_scan(*args, chunk=schunk, init_state=sinit,
+                       return_final_state=True)
+        plain = ssd_scan_plain(*args, schunk, sinit)
+        oracle = ssd_scan_plain(*args, schunk, sinit, dtype=torch.float64)
+        k7_err = max(rel_err(g, w) for g, w in zip(got, oracle))
+        plain_err = max(rel_err(g, w) for g, w in zip(plain, oracle))
+        phase("kernel ssd_scan oracle", seed=SEED + 10 + i,
+              k7_err=k7_err, plain_f32_err=plain_err, bound=2e-5)
+        check(k7_err <= 2e-5, f"ssd_scan: {k7_err} from the float64 oracle")
+    del args, sinit, got, plain, oracle
 
     # ---- 3-6. the main path ----------------------------------------------
     # each path runs with every launch counter at 0 and is read right

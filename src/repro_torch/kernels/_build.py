@@ -30,8 +30,9 @@ NVCC_FLAGS = [*ARCH_FLAGS, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-#: C entry points and their argument types (every one returns an int
-#: cudaError_t code, except the error-string lookup).
+_L = ctypes.c_longlong
+#: C entry points and their argument types (each returns an int
+#: cudaError_t code unless ``RESTYPES`` says otherwise).
 SIGNATURES = {
     "reconic_systolic_mm": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
     "reconic_parse_packets": [_P, _P, _I, _P],
@@ -40,9 +41,12 @@ SIGNATURES = {
     "reconic_dequantize": [_P, _P, _P, _I, _I, _I, _P],
     "reconic_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                 _I, _I, ctypes.c_float, _I, _P],
-    "reconic_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _P],
+    "reconic_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
+                         _I, _I, _I, _I, _P],
+    "reconic_ssd_scan_work_floats": [_I, _I, _I, _I, _I, _I],
 }
+#: entry points that return something else than a cudaError_t code
+RESTYPES = {"reconic_ssd_scan_work_floats": ctypes.c_longlong}
 
 
 @dataclass
@@ -111,7 +115,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         lib.reconic_error_string.argtypes = [ctypes.c_int]
         lib.reconic_error_string.restype = ctypes.c_char_p
         _lib = lib

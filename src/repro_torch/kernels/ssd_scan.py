@@ -2,10 +2,12 @@
 
 Within fixed-size chunks the scan is a masked quadratic form; across
 chunks a ``(head_dim, d_state)`` state per (sequence, head) carries the
-recurrence. On the H100 the CUDA kernel (``csrc/ssd_scan.cu``) gives each
-thread block one (sequence, head), walks the chunks in order with the
-state in shared memory, and tiles each chunk's quadratic form in 64-row
-tiles, skipping those above the diagonal. Unlike the TPU kernel it
+recurrence. On the H100 the CUDA kernel (``csrc/ssd_scan.cu``) runs it as
+Mamba-2's chunked algorithm in five launches: the in-chunk cumsum (in
+order, as the plain version sums it), C·B^T once per (sequence, chunk),
+each chunk's state increment, the state passed from chunk to chunk (the
+only pass that walks the chunks in order), and each chunk's outputs, with
+the products as 3xTF32 on the tensor cores. Unlike the TPU kernel it
 replaces, it starts from an optional initial state and returns the final
 one, so the model's prefill (seeded from ``cache["ssm"]``) and its
 forward without caches both run through it.
@@ -13,9 +15,11 @@ forward without caches both run through it.
 ``ssd_scan`` runs the plain PyTorch version for tensors on the CPU and
 launches the CUDA kernel for tensors on the GPU, where it takes
 ``n_groups == 1`` only and raises otherwise. The launcher itself refuses
-a head or state dim the kernel is not built for and a chunk too long for
-its shared memory, and the wrapper raises on that refusal.
-``ssd_scan.launches`` counts the launches.
+a head or state dim the kernel is not built for and a chunk longer than
+its largest (4096), and the wrapper raises on that refusal. The scratch
+the passes share is allocated here with ``torch.empty``.
+``ssd_scan.launches`` counts the calls that launched the kernel (one per
+call, whatever the number of passes).
 """
 from __future__ import annotations
 
@@ -47,24 +51,29 @@ def _cumsum_in_order(da: torch.Tensor) -> torch.Tensor:
 
 def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                    bm: torch.Tensor, cm: torch.Tensor, chunk: int,
-                   init_state: Optional[torch.Tensor] = None):
+                   init_state: Optional[torch.Tensor] = None,
+                   dtype: torch.dtype = torch.float32):
     """The reference's ``models/ssm._ssd_chunked`` in PyTorch. xh:
     (B, S, nh, hd), dt: (B, S, nh), a: (nh,) negative, bm/cm: (B, S, G, N)
     with ``nh % G == 0`` (head h reads group h // (nh // G)); init_state:
-    (B, nh, hd, N) or None for zeros. Computed in f32. Returns (y
-    (B, S, nh, hd) in xh's dtype, final state (B, nh, hd, N) f32)."""
+    (B, nh, hd, N) or None for zeros. Computed in ``dtype``: f32, or
+    float64 for an oracle of the f32 versions, whose in-chunk cumsum
+    stays the f32 one summed in order (the kernel's contract fixes it, and
+    ulps of |cum| ~ 3000 would otherwise swamp the products' error).
+    Returns (y (B, S, nh, hd), final state (B, nh, hd, N)): in f32, y in
+    xh's dtype; in float64, both float64."""
     b, s, nh, hd = xh.shape
     g, n = bm.shape[2], bm.shape[3]
     nc = s // chunk
     hg = nh // g
-    f32 = torch.float32
-    xc = xh.to(f32).reshape(b, nc, chunk, nh, hd)
-    dtc = dt.to(f32).reshape(b, nc, chunk, nh)
-    bc = bm.to(f32).reshape(b, nc, chunk, g, n)
-    cc = cm.to(f32).reshape(b, nc, chunk, g, n)
+    ct = dtype
+    xc = xh.to(ct).reshape(b, nc, chunk, nh, hd)
+    dtc = dt.to(ct).reshape(b, nc, chunk, nh)
+    bc = bm.to(ct).reshape(b, nc, chunk, g, n)
+    cc = cm.to(ct).reshape(b, nc, chunk, g, n)
 
-    da = dtc * a.to(f32)                                  # (b,nc,L,nh)
-    cum = _cumsum_in_order(da)                            # within chunk
+    da = dt.float().reshape(b, nc, chunk, nh) * a.float()  # f32 (b,nc,L,nh)
+    cum = _cumsum_in_order(da).to(ct)                     # within chunk
     seg_end = cum[:, :, -1]                               # (b,nc,nh)
 
     # intra-chunk: exp(cum_i - cum_j) for i >= j, masked BEFORE exp
@@ -72,7 +81,7 @@ def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool,
                                 device=xh.device))
     rel = torch.where(tri[None, None, :, :, None], rel,
-                      torch.full((), NEG_INF, dtype=f32, device=xh.device))
+                      torch.full((), NEG_INF, dtype=ct, device=xh.device))
     decay = torch.exp(rel)
     cb = torch.einsum("bclgn,bcmgn->bclmg", cc, bc)       # (b,nc,L,L,g)
     cb = torch.repeat_interleave(cb, hg, dim=-1)          # (b,nc,L,L,nh)
@@ -86,8 +95,8 @@ def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
     # inter-chunk recurrence, the state before each chunk kept
     seg_decay = torch.exp(seg_end)                        # (b,nc,nh)
-    carry = (torch.zeros((b, nh, hd, n), dtype=f32, device=xh.device)
-             if init_state is None else init_state.to(f32))
+    carry = (torch.zeros((b, nh, hd, n), dtype=ct, device=xh.device)
+             if init_state is None else init_state.to(ct))
     prev = []
     for c in range(nc):
         prev.append(carry)
@@ -98,7 +107,18 @@ def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y_inter = torch.einsum("bclhn,bchdn,bclh->bclhd", ch, prev_states,
                            torch.exp(cum))
     y = (y_intra + y_inter).reshape(b, s, nh, hd)
-    return y.to(xh.dtype), carry
+    return y.to(xh.dtype if dtype == torch.float32 else dtype), carry
+
+
+def work_floats(b: int, s: int, nh: int, hd: int, n: int,
+                chunk: int) -> int:
+    """Floats of scratch the CUDA kernel takes for these shapes (the
+    launcher's own count, ``reconic_ssd_scan_work_floats``): the in-chunk
+    cumsum in dt's layout, C·B^T as (B, nc, Lp, Lp) with Lp the chunk
+    rounded up to 64, and the chunk states as (B, nc, nh, hd, N); 0 for a
+    chunk it refuses."""
+    return int(_build.library().reconic_ssd_scan_work_floats(
+        b, nh, s, hd, n, chunk))
 
 
 def _check_shapes(xh, dt, a, bm, cm, chunk, init_state):
@@ -134,9 +154,10 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (B, nh, hd, N) f32) with ``return_final_state``.
 
     On the GPU: G == 1, hd and N among those ``csrc/ssd_scan.cu`` is
-    built for and a chunk that fits its shared memory (the launcher
-    refuses others, and the refusal raises); dt, a, bm, cm and
-    init_state f32 and every tensor contiguous."""
+    built for and a chunk of at most 4096 (the launcher refuses others,
+    and the refusal raises); dt, a, bm, cm and init_state f32 and every
+    tensor contiguous, xh 4-byte aligned (a bf16 view at an odd element
+    offset raises)."""
     _check_shapes(xh, dt, a, bm, cm, chunk, init_state)
     tensors = [xh, dt, a, bm, cm] + ([] if init_state is None
                                      else [init_state])
@@ -153,13 +174,19 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         raise TypeError("ssd_scan: dt, a, bm, cm and init_state must be "
                         "float32")
     _build.check_cuda("ssd_scan", *tensors)
+    if xh.data_ptr() % 4:
+        raise ValueError("ssd_scan: xh is not 4-byte aligned (the kernel "
+                         "loads x rows by 4-byte cp.async)")
     y = torch.empty_like(xh)
     final = torch.empty((b, nh, hd, n), dtype=torch.float32,
                         device=xh.device)
+    workspace = torch.empty(work_floats(b, s, nh, hd, n, chunk),
+                            dtype=torch.float32, device=xh.device)
     _build.launch("reconic_ssd_scan", xh.data_ptr(), dt.data_ptr(),
                   a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
                   None if init_state is None else init_state.data_ptr(),
-                  y.data_ptr(), final.data_ptr(), b, nh, s, hd, n, chunk,
+                  y.data_ptr(), final.data_ptr(), workspace.data_ptr(),
+                  workspace.numel(), b, nh, s, hd, n, chunk,
                   int(xh.dtype == torch.bfloat16),
                   _build.stream_ptr(xh.device))
     ssd_scan.launches += 1

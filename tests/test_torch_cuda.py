@@ -373,6 +373,9 @@ def _scan_case(cuda, b, s, nh, hd, n, seeded, g=1):
     (64, 32, 48, 144, 32, True, torch.float32),
     (64, 16, 256, 512, 50, True, torch.float32),
     (64, 16, 12, 36, 50, False, torch.bfloat16),
+    (32, 64, 12, 36, 8, True, torch.float32),
+    (32, 128, 48, 144, 5, True, torch.bfloat16),
+    (16, 16, 4096, 4096, 1, True, torch.float32),
 ])
 def test_cuda_ssd_scan_matches_plain(cuda, hd, n, chunk, s, nh, seeded,
                                      dtype):
@@ -394,9 +397,10 @@ def test_cuda_ssd_scan_matches_plain(cuda, hd, n, chunk, s, nh, seeded,
 
 @pytest.mark.cuda
 def test_cuda_ssd_scan_raises_rather_than_falls_back(cuda):
-    """n_groups != 1 and a non-f32 dt raise on the card; a head_dim
-    without an instance and a chunk too long for shared memory are
-    refused by the launcher, which raises; none of them launches."""
+    """n_groups != 1, a non-f32 dt and a bf16 x at an odd element offset
+    raise on the card; a head_dim without an instance and a chunk longer
+    than the kernel's largest (4096) are refused by the launcher, which
+    raises; none of them launches."""
     x, dt, a, bm, cm, _ = _scan_case(cuda, 1, 32, 4, 16, 16, False, g=2)
     before = ssd_scan.launches
     with pytest.raises(ValueError, match="n_groups"):
@@ -410,7 +414,91 @@ def test_cuda_ssd_scan_raises_rather_than_falls_back(cuda):
     x, dt, a, bm, cm, _ = _scan_case(cuda, 1, 32, 2, 16, 16, False)
     with pytest.raises(TypeError, match="float32"):
         ssd_scan(x, dt.double(), a, bm, cm, chunk=16)
+    odd = torch.empty(x.numel() + 1, dtype=torch.bfloat16, device=cuda)
+    xb = odd[1:].view(x.shape)          # a bf16 view 2 bytes off alignment
+    xb.copy_(x)
+    with pytest.raises(ValueError, match="xh is not 4-byte aligned"):
+        ssd_scan(xb, dt, a, bm, cm, chunk=16)
     assert ssd_scan.launches == before
+
+
+def _rel_err(got, want):
+    """max |got - want| / (1 + |want|), in float64."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs() / (1.0 + want.abs())).max().item()
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_f32_is_not_tf32(cuda):
+    """K7 in f32 at mamba2-370m's prefill shape (8 x 512, 32 heads of 64,
+    d_state 128, chunk 256, seeded) against its plain version in float64
+    (on the f32 in-order cumsum): y and the final state within 2e-5
+    relative to 1 + |value|, the bound ``tests/test_torch_ssd_numerics.py``
+    sets. The route meets it there; one TF32 product in any of the four
+    products (~1e-2 off) does not."""
+    x, dt, a, bm, cm, init = _scan_case(cuda, 8, 512, 32, 64, 128, True)
+    y, final = ssd_scan(x, dt, a, bm, cm, chunk=256, init_state=init,
+                        return_final_state=True)
+    want_y, want_f = ssd_scan_plain(x, dt, a, bm, cm, 256, init,
+                                    dtype=torch.float64)
+    err = max(_rel_err(y, want_y), _rel_err(final, want_f))
+    assert err <= 2e-5, err
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_deterministic_prefix_and_cumsum(cuda):
+    """Two calls give the same bits; a scan over 768 tokens and one over
+    its first 512 give the same bits on those 512 positions (chunk c's
+    outputs depend only on chunk c and the state before it); and the
+    kernel's in-chunk cumsum, which the launcher leaves at the head of
+    its scratch, equals ``_cumsum_in_order`` bit for bit."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.ssd_scan import _cumsum_in_order, work_floats
+
+    b, nh, hd, n, chunk = 2, 4, 64, 128, 256
+    x, dt, a, bm, cm, init = _scan_case(cuda, b, 768, nh, hd, n, True)
+    y1, f1 = ssd_scan(x, dt, a, bm, cm, chunk=chunk, init_state=init,
+                      return_final_state=True)
+    y2, f2 = ssd_scan(x, dt, a, bm, cm, chunk=chunk, init_state=init,
+                      return_final_state=True)
+    assert torch.equal(y1, y2) and torch.equal(f1, f2)
+    ws = torch.empty(work_floats(b, 768, nh, hd, n, chunk), device=cuda)
+    y4, f4 = torch.empty_like(y1), torch.empty_like(f1)
+    _build.launch("reconic_ssd_scan", x.data_ptr(), dt.data_ptr(),
+                  a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                  init.data_ptr(), y4.data_ptr(), f4.data_ptr(),
+                  ws.data_ptr(), ws.numel(), b, nh, 768, hd, n, chunk, 0,
+                  _build.stream_ptr(x.device))
+    torch.cuda.synchronize()
+    assert torch.equal(y4, y1) and torch.equal(f4, f1)
+    y3 = ssd_scan(x[:, :512].contiguous(), dt[:, :512].contiguous(), a,
+                  bm[:, :512].contiguous(), cm[:, :512].contiguous(),
+                  chunk=chunk, init_state=init)
+    assert torch.equal(y3, y1[:, :512])
+    want = _cumsum_in_order((dt * a).reshape(b, 3, chunk, nh))
+    assert torch.equal(ws[:b * 768 * nh].view(b, 768, nh),
+                       want.reshape(b, 768, nh))
+
+
+@pytest.mark.cuda
+def test_cuda_ssd_scan_underflow_range(cuda):
+    """The model's decay range (a = -linspace(1, 16)) with dt up to 4 over
+    64-long chunks: exp(cum) underflows through the subnormals to 0 inside
+    a chunk, and the kernel stays finite and within 2e-5 of its plain
+    version, seeded and not."""
+    nh = 16
+    for seeded in (True, False):
+        x, _, a, bm, cm, init = _scan_case(cuda, 2, 128, nh, 16, 16, seeded)
+        dt = torch.from_numpy((RNG.integers(2, 17, (2, 128, nh)) / 4.0)
+                              .astype(np.float32)).to(cuda)
+        cum = torch.cumsum(dt[0, :64] * a, dim=0)
+        assert bool((torch.exp(cum) == 0).any())
+        y, final = ssd_scan(x, dt, a, bm, cm, chunk=64, init_state=init,
+                            return_final_state=True)
+        assert torch.isfinite(y).all() and torch.isfinite(final).all()
+        want_y, want_f = ssd_scan_plain(x, dt, a, bm, cm, 64, init)
+        torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
+        torch.testing.assert_close(final, want_f, rtol=2e-5, atol=2e-5)
 
 
 @pytest.mark.cuda
