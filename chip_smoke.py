@@ -9,7 +9,8 @@ reports them) and runs, on the card:
   1. the card's name and power limit (``nvidia-smi``);
   2. each kernel against its plain PyTorch version at the shapes the main
      path gives it — bit-exact for quantize, dequantize, parse and the
-     field classifier (K4 at 1024, 4096 and 65536 packets), within
+     field classifier (K3 at 65536 and 4096 packets, K4 at 1024, 4096
+     and 65536), within
      ``1e-5 * k / 128`` for the f32 matmul (K5 on the CUDA cores, no
      TF32; at 512x16x512 and 2048^3), within 2e-4 (plus one bf16 step
      in bf16) for K6 attention on the tensor cores (3xTF32 in f32, bf16
@@ -79,10 +80,26 @@ reports them) and runs, on the card:
   16. hybrid heads: hymba-1.5b at full width and depth (32 layers), the
      same invariant at 768 tokens with K6 and K7 each launched 32 times
      per prefill and per forward and none in decode;
-  17. each kernel's launch count on the five paths (3-6, 7-10, 11-13,
-     14-15 and 16), each path run with the counters at 0 and read right
-     after: every kernel a path runs must have launched on it, and each
-     of the seven > 0.
+  18. training, the plain step: tinyllama-1.1b at full width and depth,
+     f32, random weights, one repeated ``SyntheticPipeline`` batch of 4 x
+     512 tokens, 3 steps of ``make_train_step`` with remat: ms per step,
+     tokens/s, losses (finite, step 3's below step 1's), peak memory and
+     K6 launches per step (44: a forward and a remat recompute per layer;
+     K6's backward recomputes its plain version); step 1's state saved
+     async beside step 2, restored onto the card and held bit-equal;
+  19. training, the engine-synced step: the same weights and batch
+     through ``make_bucketed_train_step(sync="rdma", n_peers=2)``, its
+     16 MiB gradient buckets ring-all-reduced as RDMA READs on a shared
+     engine with an ``EngineHeartbeatBridge``: the first loss within 1e-5
+     of the plain step's, the synced mean gradients within 1e-5 of the
+     global gradient norm of the plain step's, no transport or QDMA
+     compile and some overlapped flushes in step 2, no peer failed; its
+     buckets, rounds, flushes, wire bytes, collective ms, step ms, peak
+     memory and K6 launches (88 per step);
+  17. each kernel's launch count on the seven paths (3-6, 7-10, 11-13,
+     14-15, 16, 18 and 19), each path run with the counters at 0 and
+     read right after: every kernel a path runs must have launched on
+     it, and each of the seven > 0.
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -92,8 +109,10 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -116,6 +135,10 @@ SSM_POOL = 1 << 27
 N_FETCH = 3
 DATA_PEER, LC_PEER = 1, 0
 SEED = 0
+# the rdma step's synced mean gradients against the plain step's: max
+# |difference| over the global gradient norm (the two sum the batch in
+# another order, and the embedding's backward adds with atomics)
+GRAD_SYNC_TOL = 1e-5
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -288,6 +311,178 @@ def phase(name, **nums):
           flush=True)
 
 
+def train_phases(cfg, dev, k6, zero_counts, read_counts, ckpt_dir,
+                 batch=4, seq=512, steps=3):
+    """Phases 18-19: ``cfg`` trained in f32 from random weights (SEED) on
+    one repeated ``SyntheticPipeline`` batch (``data_cycle`` 1).
+
+    18. ``steps`` plain steps (``make_train_step``, remat on): the loss
+        finite and falling, K6 launched twice per attention layer per step
+        (forward and remat recompute); step 1's (params, AdamState) saved
+        async, restored onto the card after step 2 and held bit-equal.
+    19. two steps of ``make_bucketed_train_step(sync="rdma", n_peers=2,
+        grad_bucket_mb=16)`` from the same weights: the first loss within
+        1e-5 relative of the plain step's first, the synced mean gradients
+        within GRAD_SYNC_TOL of the global gradient norm of the plain
+        step's (max |difference| over the norm), no transport or QDMA
+        compile in step 2, overlapped flushes, and an
+        ``EngineHeartbeatBridge`` on the engine that fails no peer.
+    """
+    from repro_torch._tree import tree_leaves
+    from repro_torch.checkpoint.checkpoint import CheckpointManager
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import init_params
+    from repro_torch.runtime.fault_tolerance import (EngineHeartbeatBridge,
+                                                     HeartbeatMonitor)
+    from repro_torch.train import (init_adam, make_bucketed_train_step,
+                                   make_train_step)
+    from repro_torch.train.optimizer import global_norm
+
+    tokens = batch * seq
+    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
+                       total_steps=steps, remat=True, zero1=False,
+                       sequence_parallel=False, grad_bucket_mb=16)
+    params0 = init_params(cfg, SEED, device=dev)
+    data = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticPipeline(
+        DataConfig(seed=SEED, vocab_size=cfg.vocab_size, batch=batch,
+                   seq_len=seq)).batch_at(0).items()}
+    n_attn = cfg.num_layers if cfg.family != "ssm" else 0
+
+    def run(step_fn, *args):
+        """(outputs, seconds, K6 launches) of one synchronised step."""
+        torch.cuda.synchronize()
+        n0, t = k6.launches, time.perf_counter()
+        out = step_fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, k6.launches - n0
+
+    # 18. the plain step
+    step = make_train_step(cfg, tcfg)
+    step.keep_grads = True
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    params, opt = params0, init_adam(params0)
+    cm = CheckpointManager(ckpt_dir, keep=1)
+    losses, secs, k6s = [], [], []
+    saved = None
+    for i in range(steps):
+        (loss, params, opt), dt, n6 = run(step, params, opt, data)
+        losses.append(float(loss))
+        secs.append(dt)
+        k6s.append(n6)
+        if i == 0:
+            plain_grads, step.keep_grads = step.last_grads, False
+            step.last_grads = None
+            saved = (params, opt)
+            t_save = time.perf_counter()
+            cm.save(1, saved, blocking=False)
+            save_call_s = time.perf_counter() - t_save
+        elif i == 1:
+            # the save ran beside step 2; restore onto the card
+            t_wait = time.perf_counter()
+            cm.wait()
+            wait_s = time.perf_counter() - t_wait
+            (rp, ro), rstep_no = cm.restore(saved, target_device=dev)
+            check(rstep_no == 1, f"restored step {rstep_no}")
+            pairs = list(zip(tree_leaves(rp) + [ro.step] + tree_leaves(ro.m)
+                             + tree_leaves(ro.v),
+                             tree_leaves(saved[0]) + [saved[1].step]
+                             + tree_leaves(saved[1].m)
+                             + tree_leaves(saved[1].v)))
+            check(all(a.device == b.device and a.dtype == b.dtype
+                      and torch.equal(a, b) for a, b in pairs),
+                  "the restored checkpoint is not bit-equal to the saved "
+                  "state")
+            n_leaves = len(pairs)
+            del rp, ro, pairs, saved
+    peak_plain = torch.cuda.max_memory_allocated()
+    read_counts("train plain", (k6,) if n_attn else ())
+    check(all(np.isfinite(losses)), f"plain step losses {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    check(all(n == 2 * n_attn for n in k6s),
+          f"K6 launches per step {k6s}, want {2 * n_attn}")
+    ms = [s * 1e3 for s in secs]
+    phase("train plain", arch=cfg.name, batch=batch, seq=seq, steps=steps,
+          losses=json.dumps(losses), step_ms=json.dumps(ms),
+          ms_per_step=float(np.mean(ms[1:])),
+          tokens_per_s=tokens / float(np.mean(secs[1:])),
+          peak_mem_gb=peak_plain / 1e9, k6_per_step=json.dumps(k6s))
+    phase("train checkpoint", leaves=n_leaves,
+          gb=sum(t.numel() * t.element_size() for t in tree_leaves(params0))
+          * 3 / 1e9, save_call_s=save_call_s, wait_after_step2_s=wait_s,
+          bit_equal=True)
+    del params, opt, loss
+
+    # 19. the engine-synced step, the batch split over two peers
+    rstep = make_bucketed_train_step(cfg, tcfg, None, sync="rdma",
+                                     n_peers=2)
+    rstep.keep_grads = True
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (loss1, p1, o1, _), dt1, n6_1 = run(rstep, params0, init_adam(params0),
+                                        data)
+    coll = rstep.collective(0)
+    eng = coll.engine
+    check(eng.pool.device.type == dev.type, "the collective's pool is not "
+          "on the card")
+    bridge = EngineHeartbeatBridge(eng, HeartbeatMonitor(eng.n_peers,
+                                                         timeout=600.0))
+    rel = abs(float(loss1) - losses[0]) / abs(losses[0])
+    check(rel <= 1e-5, f"rdma loss {float(loss1)} vs plain {losses[0]}")
+    norm = float(global_norm(plain_grads))
+    diff = max(float((a - b).abs().max()) for a, b in zip(
+        tree_leaves(rstep.last_grads), tree_leaves(plain_grads)))
+    rstep.keep_grads, rstep.last_grads = False, None
+    del plain_grads
+    check(diff <= GRAD_SYNC_TOL * norm,
+          f"synced grads {diff} from the plain step's, norm {norm}")
+    led0 = dict(eng.stats["collectives"])
+    tr = eng.stats["transport"]
+    c0, q0 = tr["compiles"], tr["qdma_compiles"]
+    # time step 2's collective inside the step
+    coll_s = []
+    all_reduce = coll.all_reduce_buckets
+
+    def timed_all_reduce(*a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = all_reduce(*a, **kw)
+        torch.cuda.synchronize()
+        coll_s.append(time.perf_counter() - t)
+        return out
+
+    coll.all_reduce_buckets = timed_all_reduce
+    (loss2, p2, o2, _), dt2, n6_2 = run(rstep, p1, o1, data)
+    coll.all_reduce_buckets = all_reduce
+    peak_rdma = torch.cuda.max_memory_allocated()
+    read_counts("train rdma", (k6,) if n_attn else ())
+    led = eng.stats["collectives"]
+    per_step = {k: led[k] - led0[k] for k in led}
+    check(np.isfinite(float(loss2)), f"rdma step 2 loss {float(loss2)}")
+    check(tr["compiles"] == c0 and tr["qdma_compiles"] == q0,
+          f"step 2 compiled: {tr['compiles'] - c0} descriptor, "
+          f"{tr['qdma_compiles'] - q0} QDMA")
+    check(per_step["overlapped_flushes"] > 0, f"no overlapped flush {led}")
+    dead = bridge.check()
+    check(dead == [] and bridge.monitor.alive_hosts() == list(
+        range(eng.n_peers)), f"the heartbeat bridge failed peers {dead}")
+    check(n6_1 == n6_2 == 2 * 2 * n_attn,
+          f"K6 launches per rdma step {n6_1}, {n6_2}, want {4 * n_attn}")
+    phase("train rdma", arch=cfg.name, peers=2, batch=batch, seq=seq,
+          losses=json.dumps([float(loss1), float(loss2)]),
+          loss_rel_to_plain=rel, grad_max_abs_diff=diff, grad_norm=norm,
+          grad_diff_over_norm=diff / norm, tolerance=GRAD_SYNC_TOL,
+          step_ms=json.dumps([dt1 * 1e3, dt2 * 1e3]),
+          tokens_per_s=tokens / dt2, collective_ms=coll_s[0] * 1e3,
+          pool_words=eng.pool_size, peak_mem_gb=peak_rdma / 1e9,
+          k6_per_step=json.dumps([n6_1, n6_2]))
+    phase("train rdma ledger", **per_step,
+          compiles=tr["compiles"], qdma_compiles=tr["qdma_compiles"],
+          heartbeat_dead=len(dead))
+    return losses
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -396,13 +591,19 @@ def main():
     pkts_np[::2, 23] = 17
     pkts_np[::2, 36:38] = [18, 183]
     pkts_np[::2, 42] = rng.integers(0, 20, size=2048)
-    pk = torch.from_numpy(pkts_np).to(dev)
-    check(torch.equal(parse_packets(pk), parse_packets_plain(pk)),
-          "parse_packets differs from its plain version")
-    measure("parse_packets", "packet_parser.cu",
-            "src/repro/kernels/packet_parser.py:92", "4096x64", 0.0,
-            lambda: parse_packets(pk), lambda: parse_packets_plain(pk),
-            4096 * (64 + 16))
+    # K3 at 65536 packets (where it has real work, as K4 below), from a
+    # generator of its own so the later phases keep their inputs; then at
+    # 4096, recorded last
+    big = torch.from_numpy(roce_mix(np.random.default_rng(SEED + 5),
+                                    65536)).to(dev)
+    for n, pk in ((65536, big), (4096, torch.from_numpy(pkts_np).to(dev))):
+        check(torch.equal(parse_packets(pk), parse_packets_plain(pk)),
+              f"parse_packets {n}x64 differs from its plain version")
+        measure("parse_packets", "packet_parser.cu",
+                "src/repro/kernels/packet_parser.py:92", f"{n}x64", 0.0,
+                lambda: parse_packets(pk), lambda: parse_packets_plain(pk),
+                n * (64 + 16))
+    del big
 
     # K4 at 4096, at a large batch and, recorded last, at the 1024-packet
     # bursts the streaming phases ingest; K4 and the streaming path draw
@@ -1342,6 +1543,16 @@ def main():
         "hymba-1.5b", (ssd_scan, flash_attention), 768, SEED + 4)
     read_counts("hybrid", (ssd_scan, flash_attention))
     del params, caches
+
+    # ---- 18-19. training -------------------------------------------------
+    # tinyllama-1.1b at full width and depth, f32, batch 4 x 512; the
+    # checkpoint goes to a temporary directory, removed after
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    try:
+        train_phases(get_config("tinyllama-1.1b"), dev, flash_attention,
+                     zero_counts, read_counts, ckpt_dir)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     # ---- 17. launches on the main path -------------------------------------
     counts = {fn.__name__: sum(c[fn.__name__] for c in launches.values())

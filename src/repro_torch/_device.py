@@ -24,6 +24,12 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return torch.device(device)
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the work queued on ``device`` (a no-op on the CPU)."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def torch_dtype(dtype) -> torch.dtype:
     """A numpy dtype (or a torch dtype, passed through) as a torch dtype."""
     if isinstance(dtype, torch.dtype):

@@ -14,7 +14,9 @@ are never repeated per q head. It takes 16-byte aligned tensors.
 
 ``flash_attention`` runs the plain PyTorch version for tensors on the
 CPU and launches the CUDA kernel for tensors on the GPU;
-``flash_attention.launches`` counts the launches.
+``flash_attention.launches`` counts the launches. On the GPU the result
+carries a ``grad_fn`` whose backward recomputes the plain version and
+differentiates it (``_FlashAttention``); the forward stays the kernel.
 """
 from __future__ import annotations
 
@@ -110,16 +112,42 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if t.data_ptr() % 16:
             raise ValueError(f"flash_attention: {name} is not 16-byte "
                              f"aligned (the kernel loads 16-byte rows)")
-    out = torch.empty_like(q4)
-    if out.numel():
-        _build.launch("reconic_flash_attention", q4.data_ptr(),
-                      k4.data_ptr(), v4.data_ptr(), out.data_ptr(), b, hq,
-                      hkv, sq, skv, d, int(causal), int(window),
-                      float(np.float32(scale)),
-                      int(q.dtype == torch.bfloat16),
-                      _build.stream_ptr(q.device))
-        flash_attention.launches += 1
+    out = _FlashAttention.apply(q4, k4, v4, causal, window, scale)
     return out[:, :, 0] if squeeze else out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """K6 as an autograd op: the forward launches the CUDA kernel; the
+    backward recomputes ``flash_attention_plain`` on the saved inputs and
+    returns its gradients (the JAX package trains through plain
+    attention too). Under ``no_grad`` it is the bare launch."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        b, sq, hq, d = q.shape
+        _, skv, hkv, _ = k.shape
+        out = torch.empty_like(q)
+        if out.numel():
+            _build.launch("reconic_flash_attention", q.data_ptr(),
+                          k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
+                          hkv, sq, skv, d, int(causal), int(window),
+                          float(np.float32(scale)),
+                          int(q.dtype == torch.bfloat16),
+                          _build.stream_ptr(q.device))
+            flash_attention.launches += 1
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        causal, window, scale = ctx.opts
+        inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = flash_attention_plain(*inputs, causal=causal,
+                                        window=window, scale=scale)
+            grads = torch.autograd.grad(out, inputs, grad_out)
+        return (*grads, None, None, None)
 
 
 flash_attention.launches = 0

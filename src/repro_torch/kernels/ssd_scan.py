@@ -19,7 +19,9 @@ a head or state dim the kernel is not built for and a chunk longer than
 its largest (4096), and the wrapper raises on that refusal. The scratch
 the passes share is allocated here with ``torch.empty``.
 ``ssd_scan.launches`` counts the calls that launched the kernel (one per
-call, whatever the number of passes).
+call, whatever the number of passes). On the GPU the outputs carry a
+``grad_fn`` whose backward recomputes the plain version and
+differentiates it (``_SSDScan``); the forward stays the kernel.
 """
 from __future__ import annotations
 
@@ -40,13 +42,15 @@ def _cumsum_in_order(da: torch.Tensor) -> torch.Tensor:
     large sums (|cum| ~ 3000 over a 256-long chunk at a = -16, where one
     f32 step is 2.4e-4), so a scan in another order (``torch.cumsum`` on
     the GPU runs a parallel one) moves it by up to that much; summing in
-    one order keeps the two versions within the reference's 2e-5."""
-    out = torch.empty_like(da)
+    one order keeps the two versions within the reference's 2e-5.
+    Built with ``torch.stack`` (no in-place writes), so autograd takes it
+    as it is."""
+    sums = []
     run = torch.zeros_like(da[:, :, 0])
     for i in range(da.shape[2]):
         run = run + da[:, :, i]
-        out[:, :, i] = run
-    return out
+        sums.append(run)
+    return torch.stack(sums, dim=2)
 
 
 def ssd_scan_plain(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -177,20 +181,50 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     if xh.data_ptr() % 4:
         raise ValueError("ssd_scan: xh is not 4-byte aligned (the kernel "
                          "loads x rows by 4-byte cp.async)")
-    y = torch.empty_like(xh)
-    final = torch.empty((b, nh, hd, n), dtype=torch.float32,
-                        device=xh.device)
-    workspace = torch.empty(work_floats(b, s, nh, hd, n, chunk),
-                            dtype=torch.float32, device=xh.device)
-    _build.launch("reconic_ssd_scan", xh.data_ptr(), dt.data_ptr(),
-                  a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
-                  None if init_state is None else init_state.data_ptr(),
-                  y.data_ptr(), final.data_ptr(), workspace.data_ptr(),
-                  workspace.numel(), b, nh, s, hd, n, chunk,
-                  int(xh.dtype == torch.bfloat16),
-                  _build.stream_ptr(xh.device))
-    ssd_scan.launches += 1
+    y, final = _SSDScan.apply(xh, dt, a, bm, cm, init_state, chunk)
     return (y, final) if return_final_state else y
+
+
+class _SSDScan(torch.autograd.Function):
+    """K7 as an autograd op: the forward launches the CUDA kernel; the
+    backward recomputes ``ssd_scan_plain`` on the saved inputs and
+    returns its gradients for xh, dt, a, bm, cm and init_state (the JAX
+    package trains through its plain ``_ssd_chunked``). Under ``no_grad``
+    it is the bare launch."""
+
+    @staticmethod
+    def forward(ctx, xh, dt, a, bm, cm, init_state, chunk):
+        b, s, nh, hd = xh.shape
+        n = bm.shape[3]
+        y = torch.empty_like(xh)
+        final = torch.empty((b, nh, hd, n), dtype=torch.float32,
+                            device=xh.device)
+        workspace = torch.empty(work_floats(b, s, nh, hd, n, chunk),
+                                dtype=torch.float32, device=xh.device)
+        _build.launch("reconic_ssd_scan", xh.data_ptr(), dt.data_ptr(),
+                      a.data_ptr(), bm.data_ptr(), cm.data_ptr(),
+                      None if init_state is None else init_state.data_ptr(),
+                      y.data_ptr(), final.data_ptr(), workspace.data_ptr(),
+                      workspace.numel(), b, nh, s, hd, n, chunk,
+                      int(xh.dtype == torch.bfloat16),
+                      _build.stream_ptr(xh.device))
+        ssd_scan.launches += 1
+        ctx.save_for_backward(xh, dt, a, bm, cm, init_state)
+        ctx.chunk = chunk
+        return y, final
+
+    @staticmethod
+    def backward(ctx, grad_y, grad_final):
+        saved = ctx.saved_tensors
+        inputs = [None if t is None else t.detach().requires_grad_()
+                  for t in saved]
+        wrt = [t for t in inputs if t is not None]
+        with torch.enable_grad():
+            y, final = ssd_scan_plain(*inputs[:5], ctx.chunk, inputs[5])
+            grads = iter(torch.autograd.grad((y, final), wrt,
+                                             (grad_y, grad_final)))
+        return (*[None if t is None else next(grads) for t in inputs],
+                None)
 
 
 ssd_scan.launches = 0

@@ -26,15 +26,11 @@ import time
 import numpy as np
 import torch
 
-from repro_torch._device import resolve_device
+from repro_torch._device import resolve_device, synchronize
 from repro_torch.configs.registry import get_config
 from repro_torch.models.transformer import init_caches, init_params
 from repro_torch.serve.serve_step import decode_step, prefill_step
 
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def run(arch: str, n_requests: int = 8, prompt_len: int = 32,
@@ -53,10 +49,10 @@ def run(arch: str, n_requests: int = 8, prompt_len: int = 32,
         0, cfg.vocab_size, size=(batch, prompt_len))).to(dev)
 
     caches = init_caches(cfg, batch, max_seq, torch.float32, device=dev)
-    _sync(dev)
+    synchronize(dev)
     t0 = time.perf_counter()
     logits, caches = prefill_step(params, cfg, {"tokens": prompts}, caches)
-    _sync(dev)
+    synchronize(dev)
     prefill_s = time.perf_counter() - t0
 
     tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
@@ -67,7 +63,7 @@ def run(arch: str, n_requests: int = 8, prompt_len: int = 32,
                                      prompt_len + i)
         tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
         generated.append(tok)
-    _sync(dev)
+    synchronize(dev)
     decode_s = time.perf_counter() - t0
     out = torch.cat(generated, dim=1)
 

@@ -9,7 +9,8 @@ reference's pytree layout — nested dicts with the layer dimension
 stacked first under ``"layers"`` — so ``convert.params_from_jax`` maps a
 JAX pytree leaf for leaf. The reference scans the stack with
 ``lax.scan``; here a Python loop runs the layers on views of the stacked
-tensors.
+tensors. Training takes ``loss_fn`` (the reference's cross entropy over
+the padded vocab) with ``remat`` checkpointing each block.
 
 Features of later slices (MoE, MLA, encoder-decoder, M-RoPE, the
 frontend stub) raise ``NotImplementedError``.
@@ -19,6 +20,7 @@ from __future__ import annotations
 from typing import List
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
@@ -110,6 +112,17 @@ def _layer(tree, i: int):
     return tree[i]
 
 
+def _unstack(tree, n: int) -> List[dict]:
+    """The ``n`` layers of a stacked pytree, as views, split once by
+    ``unbind``: its backward stacks the layers' gradients in one write,
+    where indexing each layer would add a stack-sized zero-padded
+    gradient per layer."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
                  cache, pos: int):
     """Returns (out, cache); the cache is updated in place."""
@@ -160,11 +173,14 @@ def _conv_caches_to(tree, dtype) -> None:
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
-            pos: int = 0):
+            pos: int = 0, remat: bool = False):
     """Full forward. batch keys: tokens (B,S)[, positions]. ``pos`` is the
     host position where the tokens enter the caches (0 for prefill).
     Returns (logits (B, S, V_padded), caches, aux); caches are updated in
-    place, aux is 0 (no MoE)."""
+    place, aux is 0 (no MoE). ``remat`` checkpoints each block
+    (``torch.utils.checkpoint``, non-reentrant) when gradients are being
+    recorded: its activations are recomputed in the backward, as the
+    reference's ``jax.checkpoint`` of the scanned block does."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -177,17 +193,55 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     if caches is not None:
         _conv_caches_to(caches["scan"], x.dtype)
     wins = layer_windows(cfg, cfg.num_layers)
-    for i in range(cfg.num_layers):
+    layers = _unstack(params["layers"], cfg.num_layers)
+    checkpointed = remat and caches is None and torch.is_grad_enabled()
+    for i, bp in enumerate(layers):
+        if checkpointed:
+            x = torch.utils.checkpoint.checkpoint(
+                _remat_block, bp, x, cfg, positions, wins[i],
+                use_reentrant=False)
+            continue
         cache = (None if caches is None
                  else _layer(caches["scan"], i))
-        x, _ = _block_apply(_layer(params["layers"], i), cfg, x, positions,
-                            wins[i], cache, pos)
+        x, _ = _block_apply(bp, cfg, x, positions, wins[i], cache, pos)
     x = rms_norm(x, params["final_norm_scale"], cfg.rms_eps)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
     logits = x @ head
     return logits, caches, torch.zeros((), dtype=torch.float32,
                                        device=x.device)
+
+
+def _remat_block(bp: dict, x, cfg: ModelConfig, positions, window: int):
+    """A block without caches, the function each remat checkpoint
+    recomputes."""
+    return _block_apply(bp, cfg, x, positions, window, None, 0)[0]
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  vocab: int) -> torch.Tensor:
+    """Mean token cross entropy over the ``vocab``-wide (padded) logits,
+    the reference's stable form: the max is held constant for the
+    gradient, and the label's logit is picked from the shifted logits."""
+    if logits.shape[-1] != vocab:
+        raise ValueError(f"logits are {logits.shape[-1]} wide, the vocab "
+                         f"{vocab}")
+    logits = logits.to(torch.float32)
+    m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    shifted = logits - m
+    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
+    picked = torch.gather(shifted, -1,
+                          labels.long()[..., None])[..., 0] + m[..., 0]
+    return torch.mean(lse - picked)
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
+            remat: bool = False) -> torch.Tensor:
+    """Cross entropy of the forward's logits against ``batch["labels"]``
+    over the padded vocab (MoE's aux term comes with MoE, which
+    ``check_supported`` refuses)."""
+    logits, _, _ = forward(params, cfg, batch, remat=remat)
+    return cross_entropy(logits, batch["labels"], cfg.padded_vocab())
 
 
 # ---------------------------------------------------------------------------

@@ -14,7 +14,11 @@ tolerance; sums in another order), and in bf16 within 2e-4 plus one
 bf16 step of the result (2^-7 relative: bf16 keeps 8 significant
 bits). K7 ``ssd_scan`` is within 2e-5 of its plain version in f32 and
 6e-2 in bf16 (the reference's ``tests/test_kernels.py`` tolerances); its
-final state, f32 in both dtypes, within 2e-5.
+final state, f32 in both dtypes, within 2e-5. Under autograd, K6's and
+K7's gradients are within the same 2e-4 and 2e-5 of autograd's through
+the plain versions, and one ``tiny`` train step on the card is within
+1e-5 (loss, relative) and 1e-4 of each gradient leaf's largest |value|
+of the same step on the CPU.
 """
 import numpy as np
 import pytest
@@ -528,3 +532,111 @@ def test_cuda_ssm_prefill_launches_k7_once_per_layer(cuda, arch):
     assert flash_attention.launches == k6 + (cfg.num_layers if hybrid else 0)
     torch.testing.assert_close(lg[:, 0], full[:, 15], rtol=5e-5, atol=5e-5)
     torch.testing.assert_close(lg2[:, 0], full[:, 16], rtol=5e-5, atol=5e-5)
+
+
+# ---------------------------------------------------------------------------
+# K6 and K7 under autograd, and a train step on the card
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,s,hq,hkv,window,dtype", [
+    (64, 128, 8, 2, 0, torch.float32),
+    (16, 63, 4, 4, 20, torch.float32),
+    (64, 96, 4, 1, 0, torch.bfloat16),
+])
+def test_cuda_flash_attention_grads_match_plain(cuda, d, s, hq, hkv,
+                                                window, dtype):
+    """Under grad mode K6's output carries a ``grad_fn`` (the forward is
+    still one launch), and its gradients for q, k and v equal
+    ``torch.autograd.grad`` of the plain version within K6's 2e-4 (bf16:
+    plus one bf16 step)."""
+    def rand(*shape):
+        return torch.from_numpy(RNG.standard_normal(shape).astype(
+            np.float32)).to(cuda).to(dtype).requires_grad_()
+
+    q, k, v = rand(2, s, hq, d), rand(2, s, hkv, d), rand(2, s, hkv, d)
+    w = torch.from_numpy(RNG.standard_normal((2, s, hq, d)).astype(
+        np.float32)).to(cuda).to(dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True, window=window)
+    assert flash_attention.launches == before + 1
+    assert out.grad_fn is not None
+    got = torch.autograd.grad((out.float() * w.float()).sum(), (q, k, v))
+    assert flash_attention.launches == before + 1       # plain backward
+    ref = flash_attention_plain(q, k, v, causal=True, window=window)
+    want = torch.autograd.grad((ref.float() * w.float()).sum(), (q, k, v))
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-4
+    for g, e in zip(got, want):
+        assert g.dtype == dtype
+        torch.testing.assert_close(g.float(), e.float(), rtol=rtol,
+                                   atol=2e-4)
+    with torch.no_grad():
+        assert flash_attention(q, k, v).grad_fn is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seeded", [False, True])
+def test_cuda_ssd_scan_grads_match_plain(cuda, seeded):
+    """K7's outputs carry a ``grad_fn``; the gradients for xh, dt, a,
+    bm, cm and the initial state, through y and the final state, equal
+    ``torch.autograd.grad`` of the plain version within 2e-5."""
+    x, dt, a, bm, cm, init = _scan_case(cuda, 2, 96, 4, 16, 32, seeded)
+    inputs = [t for t in (x, dt, a, bm, cm, init) if t is not None]
+    for t in inputs:
+        t.requires_grad_()
+    wy = torch.randn(x.shape, device=cuda)
+    wf = torch.randn((2, 4, 16, 32), device=cuda)
+
+    def loss(y, final):
+        return (y * wy).sum() + (final * wf).sum()
+
+    before = ssd_scan.launches
+    y, final = ssd_scan(x, dt, a, bm, cm, chunk=32, init_state=init,
+                        return_final_state=True)
+    assert ssd_scan.launches == before + 1
+    assert y.grad_fn is not None and final.grad_fn is not None
+    got = torch.autograd.grad(loss(y, final), inputs)
+    want = torch.autograd.grad(
+        loss(*ssd_scan_plain(x, dt, a, bm, cm, 32, init)), inputs)
+    for g, e in zip(got, want):
+        torch.testing.assert_close(g, e, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_tiny_train_step_matches_cpu(cuda):
+    """One plain train step of ``tiny`` (remat on) on the card against
+    the same step on the CPU from the same weights and batch: K6 launches
+    twice per layer (forward and remat recompute), the loss within 1e-5
+    relative and each unclipped gradient leaf within 1e-4 of the leaf's
+    largest |value| (K6 and the GEMMs sum in another order)."""
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import init_params
+    from repro_torch.train import init_adam, make_train_step
+
+    cfg = get_config("tiny")
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, remat=True)
+    host = init_params(cfg, 0, device="cpu")
+    card = tree_map(lambda t: t.to(cuda), host)
+    batch = SyntheticPipeline(DataConfig(seed=0, vocab_size=cfg.vocab_size,
+                                         batch=4, seq_len=64)).batch_at(0)
+    losses, grads = [], []
+    for params, dev in ((host, "cpu"), (card, cuda)):
+        step = make_train_step(cfg, tcfg)
+        step.keep_grads = True
+        before = flash_attention.launches
+        loss, new_params, _ = step(params, init_adam(params), {
+            k: torch.from_numpy(v).to(dev) for k, v in batch.items()})
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert flash_attention.launches == before + 2 * cfg.num_layers
+            assert all(bool(torch.isfinite(p).all())
+                       for p in tree_leaves(new_params))
+        losses.append(float(loss))
+        grads.append([g.cpu() for g in tree_leaves(step.last_grads)])
+    assert abs(losses[1] - losses[0]) <= 1e-5 * abs(losses[0])
+    for g, e in zip(grads[1], grads[0]):
+        torch.testing.assert_close(g, e, rtol=0,
+                                   atol=1e-4 * float(e.abs().max()))
