@@ -16,7 +16,9 @@ reports them) and runs, on the card:
      in bf16) for K6 attention on the tensor cores (3xTF32 in f32, bf16
      with P split in two halves) at the tinyllama prefill shape (256 x
      512 x 64, causal, GQA 8, f32; also with window 32, in bf16, at d =
-     128, and at hymba's 25 q over 5 kv heads with window 1024) — with
+     128, at hymba's 25 q over 5 kv heads with window 1024, and at
+     deepseek-v2-lite's MLA prefill, 16 heads with q and k 192 wide and
+     v 128) — with
      its time, the plain version's time, its bound (the function's own
      work at its dtype's peak; for K6 and K7 also the bound of the
      products their routes run) and, for the matmul and attention, the
@@ -80,6 +82,18 @@ reports them) and runs, on the card:
   16. hybrid heads: hymba-1.5b at full width and depth (32 layers), the
      same invariant at 768 tokens with K6 and K7 each launched 32 times
      per prefill and per forward and none in decode;
+  20. MoE + MLA serving: deepseek-v2-lite-16b at full width and depth (27
+     layers, 15.7B parameters in f32), the same traffic. The invariant at
+     capacity_factor 8 over 544 tokens with every MoE layer's top-6 sets
+     recorded on both routes: no assignment dropped, a routing flip first
+     in its sequence a near-tie (margin under 1e-4 on both routes), every
+     sequence without a flip within 1e-4 of the logits' scale, and at
+     least one such; K6 (at 192/128) launched 27 times per prefill and
+     per forward, none in decode. Then at the config's capacity factor:
+     prefill and decode times with their traced device share, the MLA
+     cache handoff (1048 pages on 2 x 2^27 words, byte-exact, greedy
+     tokens equal) beside a per-head K/V cache's words, free memory
+     before the weights and the peak allocated;
   18. training, the plain step: tinyllama-1.1b at full width and depth,
      f32, random weights, one repeated ``SyntheticPipeline`` batch of 4 x
      512 tokens, 3 steps of ``make_train_step`` with remat: ms per step,
@@ -96,10 +110,10 @@ reports them) and runs, on the card:
      compile and some overlapped flushes in step 2, no peer failed; its
      buckets, rounds, flushes, wire bytes, collective ms, step ms, peak
      memory and K6 launches (88 per step);
-  17. each kernel's launch count on the seven paths (3-6, 7-10, 11-13,
-     14-15, 16, 18 and 19), each path run with the counters at 0 and
+  17. each kernel's launch count on the eight paths (3-6, 7-10, 11-13,
+     14-15, 16, 20, 18 and 19), each path run with the counters at 0 and
      read right after: every kernel a path runs must have launched on
-     it, and each of the seven > 0.
+     it, and each of the eight > 0.
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -139,6 +153,9 @@ SEED = 0
 # |difference| over the global gradient norm (the two sum the batch in
 # another order, and the embedding's backward adds with atomics)
 GRAD_SYNC_TOL = 1e-5
+# a routing flip between two f32 routes (other summation orders) is a
+# near-tie: its 6th and 7th experts' probabilities within this
+FLIP_MARGIN = 1e-4
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -483,6 +500,202 @@ def train_phases(cfg, dev, k6, zero_counts, read_counts, ckpt_dir,
     return losses
 
 
+def moe_phases(dev, timed, during, counted, trace_share, handoff, ledger,
+               traffic):
+    """Phase 20: deepseek-v2-lite-16b (27 layers, d_model 2048, MLA with
+    q.k over 192 dims and v over 128, 64 routed experts top-6 plus 2
+    shared, layer 0 dense) at full width and depth in f32, random weights
+    from SEED, served through ``models`` and ``serve`` as ``launch/serve.py``
+    serves it; ``traffic`` is (requests, prompt, greedy tokens, max_seq).
+
+    * The invariant, with drops off (capacity_factor 8): prefill + decode
+      teacher-forced against one forward over all prompt + decode tokens,
+      with every MoE layer's routing recorded (``route`` wrapped; no
+      assignment may be dropped). The two routes sum in other orders, so a
+      near-tie between a token's 6th and 7th expert may flip: a flip in
+      the lowest layer where its sequence has any must have a margin (6th
+      prob - 7th prob) under ``FLIP_MARGIN`` on both routes; later flips
+      follow from it. Sequences with no flip hold their logits within 1e-4
+      of the logits' scale; at least one must. K6 launches once per layer
+      in the prefill and the forward, none in decode.
+    * Serving at the config's capacity factor: prefill and decode times,
+      their traced device share, and the MLA cache handoff over the
+      engine (byte-exact, greedy tokens equal), beside the words a
+      per-head K/V cache of the same tokens would move.
+    * Free memory before the weights, and the peak allocated across the
+      phase. Everything is freed after."""
+    import dataclasses
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import decode_step, prefill_step
+
+    n_req, p_len, g_len, max_seq = traffic
+    cfg = get_config("deepseek-v2-lite-16b")
+    inv_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=8.0))
+    n_moe = cfg.num_layers - cfg.moe.first_dense_layers
+    k = cfg.moe.top_k
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    free0, total = torch.cuda.mem_get_info()
+    torch.cuda.reset_peak_memory_stats()
+    params, init_s = timed(lambda: init_params(cfg, SEED))
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    phase("moe init", arch=cfg.name, layers=cfg.num_layers,
+          params=n_params, param_gb=n_params * 4 / 1e9,
+          free_gb_before=free0 / 1e9, total_gb=total / 1e9,
+          seconds=init_s)
+
+    # ---- the invariant, with routing recorded
+    inner = moe_mod.route
+    calls = []
+
+    def recording(router_w, x2d, c):
+        out = inner(router_w, x2d, c)
+        with torch.no_grad():
+            top = torch.topk(torch.softmax(x2d.float() @ router_w, -1),
+                             k + 1, dim=-1).values
+            load = torch.bincount(out[0].reshape(-1),
+                                  minlength=c.moe.num_experts).max()
+        calls.append((torch.sort(out[0], dim=-1).values,
+                      top[:, k - 1] - top[:, k], load,
+                      moe_mod._capacity(x2d.shape[0], c)))
+        return out
+
+    toks = torch.from_numpy(np.random.default_rng(SEED + 6).integers(
+        0, cfg.vocab_size, (n_req, p_len + g_len))).to(dev)
+    prompt = toks[:, :p_len]
+    moe_mod.route = recording
+    try:
+        full, full_s, n_full = during(
+            lambda: forward(params, inv_cfg, {"tokens": toks})[0])
+        full_routes, calls[:] = list(calls), []
+        full = full[:, p_len - 1:].clone()     # frees the other 1.7 GB
+        caches = init_caches(inv_cfg, n_req, max_seq, torch.float32)
+        (lg, caches), pre_s, n_pre = during(lambda: prefill_step(
+            params, inv_cfg, {"tokens": prompt}, caches))
+        step_routes, calls[:] = [list(calls)], []
+        errs = [(lg[:, 0] - full[:, 0]).abs().amax(-1)]
+
+        def decode_all():
+            c = caches
+            for i in range(p_len, p_len + g_len):
+                out, c = decode_step(params, inv_cfg, toks[:, i:i + 1], c, i)
+                errs.append((out[:, 0] - full[:, i - p_len + 1]).abs()
+                            .amax(-1))
+                step_routes.append(list(calls))
+                calls[:] = []
+            return c
+
+        caches, dec_s, n_dec = during(decode_all)
+    finally:
+        moe_mod.route = inner
+    want = {f.__name__: cfg.num_layers if f is flash_attention else 0
+            for f in counted}
+    check(n_full == n_pre == want,
+          f"{cfg.name}: launches per forward {n_full}, per prefill {n_pre}, "
+          f"want {want}")
+    check(not any(n_dec.values()), f"{cfg.name}: decode launched {n_dec}")
+    check(len(full_routes) == n_moe and all(len(r) == n_moe
+                                            for r in step_routes),
+          f"{cfg.name}: routed {len(full_routes)} / "
+          f"{[len(r) for r in step_routes]} times, want {n_moe}")
+    # no assignment dropped on either route
+    check(all(int(load) <= cap for _, _, load, cap in
+              full_routes + [c for r in step_routes for c in r]),
+          f"{cfg.name}: an expert took more than its capacity at "
+          "capacity_factor 8")
+    # each layer's sets and margins as (B, S, k) / (B, S): the prefill's
+    # 512 positions, then one per decode step
+    n_tok = p_len + g_len
+    f_sets = torch.stack([r[0] for r in full_routes]).view(
+        n_moe, n_req, n_tok, k)
+    f_marg = torch.stack([r[1] for r in full_routes]).view(
+        n_moe, n_req, n_tok)
+    s_sets = torch.cat([torch.stack([r[0] for r in rs]).view(
+        n_moe, n_req, -1, k) for rs in step_routes], dim=2)
+    s_marg = torch.cat([torch.stack([r[1] for r in rs]).view(
+        n_moe, n_req, -1) for rs in step_routes], dim=2)
+    flip = (f_sets != s_sets).any(-1)                  # (L, B, S)
+    seq_flips = flip.any(-1)                           # (L, B)
+    first = torch.where(seq_flips.any(0), seq_flips.float().argmax(0),
+                        torch.full((n_req,), n_moe, device=dev))
+    at_first = flip & (torch.arange(n_moe, device=dev)[:, None, None]
+                       == first[None, :, None])
+    first_margin = torch.maximum(f_marg, s_marg)[at_first]
+    worst_first = (first_margin.max().item() if first_margin.numel()
+                   else 0.0)
+    check(worst_first < FLIP_MARGIN,
+          f"{cfg.name}: a first routing flip has margin {worst_first}, "
+          f"not a near-tie (< {FLIP_MARGIN})")
+    held = ~seq_flips.any(0)                           # (B,)
+    scale = full.abs().max().item()
+    tol_s = 1e-4 * scale
+    err = torch.stack(errs, dim=1)                     # (B, 1 + g_len)
+    held_err = err[held].max().item() if bool(held.any()) else float("nan")
+    check(bool(held.any()), f"{cfg.name}: every sequence had a routing "
+          "flip, so no sequence's logits were held")
+    check(np.isfinite(held_err) and held_err <= tol_s,
+          f"{cfg.name} prefill/decode vs full forward: max err {held_err} "
+          f"over {tol_s} (logit scale {scale})")
+    phase("serve invariant", arch=cfg.name, requests=n_req, prompt=p_len,
+          decode_steps=g_len, forward_tokens=n_tok, capacity_factor=8.0,
+          decisions=flip.numel(), flipped=int(flip.sum()),
+          first_flips=int(at_first.sum()),
+          worst_first_flip_margin=worst_first, margin_bound=FLIP_MARGIN,
+          sequences_held=int(held.sum()), max_abs_err=held_err,
+          tolerance=tol_s, logit_scale=scale,
+          min_margin=torch.minimum(f_marg, s_marg).min().item(),
+          per_prefill=json.dumps({k_: v for k_, v in n_pre.items() if v}),
+          forward_ms=full_s * 1e3, prefill_ms=pre_s * 1e3,
+          decode_ms_per_step=dec_s * 1e3 / g_len)
+    del full, lg, caches, errs, full_routes, step_routes, f_sets, s_sets
+
+    # ---- serving at the config's capacity factor
+    caches = init_caches(cfg, n_req, max_seq, torch.float32)
+    (lg, caches), pre_s, n_pre = during(
+        lambda: prefill_step(params, cfg, {"tokens": prompt}, caches))
+    check(n_pre["flash_attention"] == cfg.num_layers,
+          f"{cfg.name}: launches per prefill {n_pre}")
+    check(bool(torch.isfinite(lg).all()), f"{cfg.name}: non-finite logits")
+
+    def decode_all():
+        c = caches
+        for i in range(p_len, p_len + g_len):
+            _, c = decode_step(params, cfg, toks[:, i:i + 1], c, i)
+        return c
+
+    _, dec_s, n_dec = during(decode_all)
+    check(not any(n_dec.values()), f"{cfg.name}: decode launched {n_dec}")
+    phase("serve prefill", arch=cfg.name, ms=pre_s * 1e3,
+          tokens_per_s=n_req * p_len / pre_s,
+          capacity_factor=cfg.moe.capacity_factor)
+    phase("serve decode", arch=cfg.name, ms_per_step=dec_s * 1e3 / g_len,
+          tokens_per_s=n_req * g_len / dec_s)
+    trace_share(cfg, params, prompt, caches)
+
+    s_eng, n_pages, n_fetches = handoff(cfg, params, prompt, caches,
+                                        SSM_POOL)
+    ledger(s_eng, n_pages, n_fetches)
+    m = cfg.mla
+    kv_words = (cfg.num_layers * n_req * max_seq * cfg.num_heads
+                * (m.qk_head_dim + m.v_head_dim))
+    mla_words = sum(t.numel() for t in tree_leaves(caches))
+    phase("serve handoff mla", arch=cfg.name, cache_words=mla_words,
+          per_head_kv_words=kv_words, per_head_kv_gb=kv_words * 4 / 1e9,
+          ratio=kv_words / mla_words)
+    torch.cuda.synchronize()
+    phase("moe memory", arch=cfg.name,
+          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+          free_gb_before=free0 / 1e9)
+    del params, caches, s_eng, lg
+    torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -510,6 +723,7 @@ def main():
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch._tree import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -650,24 +864,28 @@ def main():
     # K6 at the tinyllama prefill shape (8 sequences x 32 q heads over 4 kv
     # heads, S = 512, d = 64, causal, f32; recorded last), with window 32,
     # in bf16, at hymba's prefill shape (25 q heads over 5 kv heads, a GQA
-    # group of 5, window 1024) and at d = 128 (the largest shared-memory
-    # case); SDPA on the same inputs is the yardstick (the port never
-    # calls it). The bound is the function's own work (4 d flops per
-    # visible q-k pair) at the peak of its dtype; route_bound_ms counts
-    # the products the kernel's route runs: in bf16 two PV products (P
-    # split in a high and a low bf16 half) at the bf16 peak, in f32 three
-    # TF32 products each (3xTF32) at the TF32 peak.
+    # group of 5, window 1024), at d = 128 and at deepseek-v2-lite's MLA
+    # prefill shape (16 heads, q and k 192 wide, v 128: the largest
+    # shared-memory case); SDPA on the same inputs is the yardstick (the
+    # port never calls it). The bound is the function's own work (2 (d +
+    # dv) flops per visible q-k pair) at the peak of its dtype;
+    # route_bound_ms counts the products the kernel's route runs: in bf16
+    # two PV products (P split in a high and a low bf16 half) at the bf16
+    # peak, in f32 three TF32 products each (3xTF32) at the TF32 peak.
     sdpa = torch.nn.functional.scaled_dot_product_attention
     ab, asq = 8, 512
-    for window, dtype, ahq, ahkv, ad in ((32, torch.float32, 32, 4, 64),
-                                         (0, torch.bfloat16, 32, 4, 64),
-                                         (1024, torch.float32, 25, 5, 64),
-                                         (0, torch.float32, 32, 4, 128),
-                                         (0, torch.float32, 32, 4, 64)):
+    for window, dtype, ahq, ahkv, ad, adv in (
+            (32, torch.float32, 32, 4, 64, 64),
+            (0, torch.bfloat16, 32, 4, 64, 64),
+            (1024, torch.float32, 25, 5, 64, 64),
+            (0, torch.float32, 32, 4, 128, 128),
+            (0, torch.float32, 16, 16, 192, 128),
+            (0, torch.float32, 32, 4, 64, 64)):
         qa = torch.from_numpy(rng.standard_normal(
             (ab, asq, ahq, ad), np.float32)).to(dev, dtype)
         ka, va = (torch.from_numpy(rng.standard_normal(
-            (ab, asq, ahkv, ad), np.float32)).to(dev, dtype) for _ in "kv")
+            (ab, asq, ahkv, w), np.float32)).to(dev, dtype)
+            for w in (ad, adv))
         got = flash_attention(qa, ka, va, causal=True, window=window)
         want = flash_attention_plain(qa, ka, va, causal=True, window=window)
         err = (got.float() - want.float()).abs()
@@ -675,8 +893,8 @@ def main():
         # may also sit one bf16 step (2^-7 relative) apart
         rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
         check(bool((err <= 2e-4 + rel * want.float().abs()).all()),
-              f"flash_attention d={ad} window={window} {dtype}: max err "
-              f"{err.max().item()}")
+              f"flash_attention d={ad}/{adv} window={window} {dtype}: max "
+              f"err {err.max().item()}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qa, ka, va))
         if window:
             pos_ = torch.arange(asq, device=dev)
@@ -690,8 +908,8 @@ def main():
                 return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
         pairs = sum(min(i + 1, window or asq) for i in range(asq))
         esz = qa.element_size()
-        nbytes = esz * ab * asq * ad * 2 * (ahq + ahkv)
-        flops = 4.0 * ad * pairs * ab * ahq
+        nbytes = esz * ab * asq * (ad + adv) * (ahq + ahkv)
+        flops = 2.0 * (ad + adv) * pairs * ab * ahq
         if dtype == torch.bfloat16:
             peak, route = PEAK_BF16_FLOPS, "bf16 tensor cores, P split"
             route_flops, route_peak = 1.5 * flops, PEAK_BF16_FLOPS
@@ -701,7 +919,8 @@ def main():
         rb = bound(nbytes, route_flops, route_peak)
         measure("flash_attention", "flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:102",
-                f"{ab * ahq}x{asq}x{ad} gqa{ahq // ahkv} causal"
+                f"{ab * ahq}x{asq}x{ad}{f'/{adv}' if adv != ad else ''} "
+                f"gqa{ahq // ahkv} causal"
                 f"{f' window{window}' if window else ''} "
                 f"{str(dtype).split('.')[-1]}",
                 err.max().item(),
@@ -1401,12 +1620,6 @@ def main():
               wall_ms=wall * 1e3, device_ms=dev_us / 1e3,
               device_share=dev_us / 1e3 / (wall * 1e3))
 
-    def leaves(tree):
-        """Cache leaves in JAX's tree order (dict keys sorted)."""
-        if isinstance(tree, dict):
-            return [x for k in sorted(tree) for x in leaves(tree[k])]
-        return [tree]
-
     def handoff(cfg, params, prompt, caches, pool_size):
         """The cache handoff over the RDMA engine, uncompressed, on an
         engine of its own: publish and fetch the caches byte for byte
@@ -1432,7 +1645,8 @@ def main():
                 lambda: client.fetch_caches(1, caches, tenant))
             mem1 = torch.cuda.memory_stats()
             check(all(g.dtype == w.dtype and torch.equal(g, w)
-                      for g, w in zip(leaves(fetched), leaves(caches))),
+                      for g, w in zip(tree_leaves(fetched),
+                                      tree_leaves(caches))),
                   f"{cfg.name}: the uncompressed handoff is not byte-exact")
             del fetched
             fetch_ms.append(fetch_s * 1e3)
@@ -1543,6 +1757,12 @@ def main():
         "hymba-1.5b", (ssd_scan, flash_attention), 768, SEED + 4)
     read_counts("hybrid", (ssd_scan, flash_attention))
     del params, caches
+
+    # 20. MoE + MLA: deepseek-v2-lite-16b at full width and depth
+    zero_counts()
+    moe_phases(dev, timed, during, counted, trace_share, handoff, ledger,
+               (n_req, p_len, g_len, max_seq))
+    read_counts("moe", (flash_attention,))
 
     # ---- 18-19. training -------------------------------------------------
     # tinyllama-1.1b at full width and depth, f32, batch 4 x 512; the

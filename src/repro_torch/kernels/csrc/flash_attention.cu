@@ -35,6 +35,13 @@
 // KV repeat, no transpose, no padding. Blocks start with the longest
 // causal rows, so the short ones fill the tail.
 //
+// V and the output may have a head dim DV narrower than q and k's DQK:
+// DeepSeek-V2's MLA attends with q.k over 192 dims (128 nope + 64 rope)
+// and v over 128. Each gets its own row stride, K/V tile width and
+// output tiles; (192, 128) in f32 takes 221,184 bytes of shared memory
+// for two K/V stages and q (V padded to 192 would need 253,952, over the
+// 232,448 a block may have), bf16 86,016.
+//
 // The two routes keep the reference's f32 arithmetic (the 2e-4
 // tolerance; no fast math; masked scores -1e30 and an exact 0 weight; a
 // row with no visible key writes 0):
@@ -71,25 +78,27 @@ constexpr int kThreads = 32 * kWarps;     // 128
 constexpr int kNT = kBK / 8;              // 8-key n-tiles of S per tile
 constexpr float kNegInf = -1e30f;
 
-template <typename T, int D>
+// DQK: the head dim of q and k; DV: that of v and the output.
+template <typename T, int DQK, int DV>
 struct Cfg {
   static constexpr bool kBF16 = std::is_same<T, __nv_bfloat16>::value;
   // Row strides in elements. bf16: +8 (16 bytes) puts the 8 rows of an
   // ldmatrix on 8 distinct 16-byte bank groups. f32: K rows +8 words make
   // a half-warp's 8-byte fragment loads distinct, V rows +4 words the
   // warp's 4-byte loads of 8 keys x 4 rows.
-  static constexpr int kKStride = D + 8;
-  static constexpr int kVStride = D + (kBF16 ? 8 : 4);
+  static constexpr int kKStride = DQK + 8;
+  static constexpr int kVStride = DV + (kBF16 ? 8 : 4);
   static constexpr int kKTile = kBK * kKStride;
   static constexpr int kVTile = kBK * kVStride;
-  // f32 at d = 128 keeps q * scale in shared memory (K's row stride):
+  // f32 at d >= 128 keeps q * scale in shared memory (K's row stride):
   // in registers it would push the kernel past 255 and spill
-  static constexpr bool kQSmem = !kBF16 && D > 64;
+  static constexpr bool kQSmem = !kBF16 && DQK > 64;
   static constexpr int kQTile = kQSmem ? kBQ * kKStride : 0;
   static constexpr int kSmem =
       (2 * (kKTile + kVTile) + kQTile) * (int)sizeof(T);
   static constexpr int kVec = 16 / (int)sizeof(T);   // elements per copy
-  static constexpr int kCopies = D / kVec;           // copies per row
+  static constexpr int kKCopies = DQK / kVec;        // copies per K row
+  static constexpr int kVCopies = DV / kVec;         // copies per V row
 };
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
@@ -124,19 +133,43 @@ __device__ __forceinline__ void split_bf16(float p0, float p1, uint32_t& hi,
 }
 
 // One 64-key tile of K and V into shared memory (one commit group).
-template <typename T, int D>
+// k_row and v_row are the global row strides in elements.
+template <typename T, int DQK, int DV>
 __device__ __forceinline__ void load_tile(T* ks, T* vs, const T* kb,
-                                          const T* vb, size_t kv_row, int k0,
-                                          int skv) {
-  using C = Cfg<T, D>;
+                                          const T* vb, size_t k_row,
+                                          size_t v_row, int k0, int skv) {
+  using C = Cfg<T, DQK, DV>;
+  if constexpr (DQK == DV) {
+    // each row's K and V copies issued together: K's, then V's, in two
+    // loops timed slower on the square shapes (PERF.md §6)
 #pragma unroll
-  for (int e = threadIdx.x; e < kBK * C::kCopies; e += kThreads) {
-    const int j = e / C::kCopies;
-    const int c = (e % C::kCopies) * C::kVec;
-    const bool valid = k0 + j < skv;
-    const size_t off = valid ? static_cast<size_t>(k0 + j) * kv_row + c : 0;
-    cp_async16(ks + j * C::kKStride + c, kb + off, valid);
-    cp_async16(vs + j * C::kVStride + c, vb + off, valid);
+    for (int e = threadIdx.x; e < kBK * C::kKCopies; e += kThreads) {
+      const int j = e / C::kKCopies;
+      const int c = (e % C::kKCopies) * C::kVec;
+      const bool valid = k0 + j < skv;
+      const size_t off = valid ? static_cast<size_t>(k0 + j) * k_row + c : 0;
+      cp_async16(ks + j * C::kKStride + c, kb + off, valid);
+      cp_async16(vs + j * C::kVStride + c, vb + off, valid);
+    }
+  } else {
+#pragma unroll
+    for (int e = threadIdx.x; e < kBK * C::kKCopies; e += kThreads) {
+      const int j = e / C::kKCopies;
+      const int c = (e % C::kKCopies) * C::kVec;
+      const bool valid = k0 + j < skv;
+      cp_async16(ks + j * C::kKStride + c,
+                 kb + (valid ? static_cast<size_t>(k0 + j) * k_row + c : 0),
+                 valid);
+    }
+#pragma unroll
+    for (int e = threadIdx.x; e < kBK * C::kVCopies; e += kThreads) {
+      const int j = e / C::kVCopies;
+      const int c = (e % C::kVCopies) * C::kVec;
+      const bool valid = k0 + j < skv;
+      cp_async16(vs + j * C::kVStride + c,
+                 vb + (valid ? static_cast<size_t>(k0 + j) * v_row + c : 0),
+                 valid);
+    }
   }
   cp_async_commit();
 }
@@ -192,15 +225,15 @@ __device__ __forceinline__ void softmax_tile(float (&s)[kNT][4],
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
                            int hq, int hkv, int sq, int skv, int causal,
                            int window, float scale) {
-  using C = Cfg<T, D>;
+  using C = Cfg<T, DQK, DV>;
   constexpr bool kBF16 = C::kBF16;
-  constexpr int kDT = D / 8;              // 8-wide n-tiles of the output
+  constexpr int kDT = DV / 8;             // 8-wide n-tiles of the output
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);           // [2][kBK][kKStride]
   T* vs = ks + 2 * C::kKTile;                        // [2][kBK][kVStride]
@@ -216,11 +249,13 @@ __global__ void __launch_bounds__(kThreads)
   const int g = lane >> 2;                // fragment row (and key) group
   const int t = lane & 3;                 // lane within the quad
   const int r0 = q0 + warp * 16 + g;      // this lane's rows r0, r0 + 8
-  const size_t q_row = static_cast<size_t>(hq) * D;
-  const size_t kv_row = static_cast<size_t>(hkv) * D;
-  const T* qb = q + static_cast<size_t>(b) * sq * q_row + h * D;
-  const T* kb = k + static_cast<size_t>(b) * skv * kv_row + hk * D;
-  const T* vb = v + static_cast<size_t>(b) * skv * kv_row + hk * D;
+  const size_t q_row = static_cast<size_t>(hq) * DQK;
+  const size_t o_row = static_cast<size_t>(hq) * DV;
+  const size_t k_row = static_cast<size_t>(hkv) * DQK;
+  const size_t v_row = static_cast<size_t>(hkv) * DV;
+  const T* qb = q + static_cast<size_t>(b) * sq * q_row + h * DQK;
+  const T* kb = k + static_cast<size_t>(b) * skv * k_row + hk * DQK;
+  const T* vb = v + static_cast<size_t>(b) * skv * v_row + hk * DV;
   const bool live0 = r0 < sq;
   const bool live1 = r0 + 8 < sq;
 
@@ -230,14 +265,15 @@ __global__ void __launch_bounds__(kThreads)
   const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK
                                       : 0;
-  if (n_tiles > 0) load_tile<T, D>(ks, vs, kb, vb, kv_row, k_begin, skv);
+  if (n_tiles > 0)
+    load_tile<T, DQK, DV>(ks, vs, kb, vb, k_row, v_row, k_begin, skv);
 
   // Q fragments, loaded once. bf16: the m16n8k16 A layout as it is. f32:
   // q * scale in the permuted m16n8k8 A layout (elements 0/2 of a k-step
   // are columns 2t and 2t + 1 of row r0, 1/3 the same of row r0 + 8),
-  // split into TF32 hi and lo; at d = 128 staged in shared memory and
+  // split into TF32 hi and lo; at d >= 128 staged in shared memory and
   // split at each use.
-  constexpr int kQK = kBF16 ? D / 16 : D / 8;        // k-steps of QK^T
+  constexpr int kQK = kBF16 ? DQK / 16 : DQK / 8;    // k-steps of QK^T
   constexpr bool kQSmem = C::kQSmem;
   uint32_t qa[kQSmem ? 1 : kQK][4];
   uint32_t qlo[kBF16 || kQSmem ? 1 : kQK][4];
@@ -246,9 +282,9 @@ __global__ void __launch_bounds__(kThreads)
   if constexpr (kQSmem) {
     // the block's 64 rows of q * scale (read by the first tile's sync)
 #pragma unroll
-    for (int e = threadIdx.x; e < kBQ * D / 4; e += kThreads) {
-      const int rr = e / (D / 4);
-      const int c = (e % (D / 4)) * 4;
+    for (int e = threadIdx.x; e < kBQ * DQK / 4; e += kThreads) {
+      const int rr = e / (DQK / 4);
+      const int c = (e % (DQK / 4)) * 4;
       float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
       if (q0 + rr < sq)
         x = *reinterpret_cast<const float4*>(
@@ -298,8 +334,9 @@ __global__ void __launch_bounds__(kThreads)
     const int k0 = k_begin + it * kBK;
     const int st = it & 1;
     if (it + 1 < n_tiles) {
-      load_tile<T, D>(ks + (st ^ 1) * C::kKTile, vs + (st ^ 1) * C::kVTile,
-                      kb, vb, kv_row, k0 + kBK, skv);
+      load_tile<T, DQK, DV>(ks + (st ^ 1) * C::kKTile,
+                            vs + (st ^ 1) * C::kVTile, kb, vb, k_row, v_row,
+                            k0 + kBK, skv);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
@@ -434,12 +471,12 @@ __global__ void __launch_bounds__(kThreads)
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 1);
     l[hr] += __shfl_xor_sync(0xffffffffu, l[hr], 2);
   }
-  T* ob = o + static_cast<size_t>(b) * sq * q_row + h * D;
+  T* ob = o + static_cast<size_t>(b) * sq * o_row + h * DV;
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = r0 + 8 * hr;
     if (row >= sq) continue;
-    T* orow = ob + static_cast<size_t>(row) * q_row + 2 * t;
+    T* orow = ob + static_cast<size_t>(row) * o_row + 2 * t;
     // a row with no visible key keeps l == 0 and writes 0
     const float lr = l[hr];
 #pragma unroll
@@ -455,12 +492,12 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D>
+template <typename T, int DQK, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
              int hq, int hkv, int sq, int skv, int causal, int window,
              float scale, cudaStream_t stream) {
-  using C = Cfg<T, D>;
-  auto kern = flash_attention_kernel<T, D>;
+  using C = Cfg<T, DQK, DV>;
+  auto kern = flash_attention_kernel<T, DQK, DV>;
   if (C::kSmem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
@@ -476,36 +513,32 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
-           int hq, int hkv, int sq, int skv, int d, int causal, int window,
-           float scale, cudaStream_t stream) {
-  switch (d) {
-    case 16:
-      return launch_d<T, 16>(q, k, v, o, batch, hq, hkv, sq, skv, causal,
-                             window, scale, stream);
-    case 32:
-      return launch_d<T, 32>(q, k, v, o, batch, hq, hkv, sq, skv, causal,
-                             window, scale, stream);
-    case 64:
-      return launch_d<T, 64>(q, k, v, o, batch, hq, hkv, sq, skv, causal,
-                             window, scale, stream);
-    case 128:
-      return launch_d<T, 128>(q, k, v, o, batch, hq, hkv, sq, skv, causal,
-                              window, scale, stream);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+           int hq, int hkv, int sq, int skv, int d, int dv, int causal,
+           int window, float scale, cudaStream_t stream) {
+#define RECONIC_FA_CASE(DQK, DV)                                           \
+  if (d == DQK && dv == DV)                                                \
+    return launch_d<T, DQK, DV>(q, k, v, o, batch, hq, hkv, sq, skv, causal, \
+                                window, scale, stream);
+  RECONIC_FA_CASE(16, 16)
+  RECONIC_FA_CASE(32, 32)
+  RECONIC_FA_CASE(64, 64)
+  RECONIC_FA_CASE(128, 128)
+  RECONIC_FA_CASE(192, 128)
+#undef RECONIC_FA_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
 
-// q: (B, Sq, Hq, d), k and v: (B, Skv, Hkv, d), out: (B, Sq, Hq, d), all
-// contiguous, 16-byte aligned and of one dtype (f32, or bf16 when
-// is_bf16); Hq % Hkv == 0, d in {16, 32, 64, 128}, B * Hq <= 65535.
-// window 0 means no window.
+// q: (B, Sq, Hq, d), k: (B, Skv, Hkv, d), v: (B, Skv, Hkv, dv), out: (B,
+// Sq, Hq, dv), all contiguous, 16-byte aligned and of one dtype (f32, or
+// bf16 when is_bf16); Hq % Hkv == 0, (d, dv) one of (16, 16), (32, 32),
+// (64, 64), (128, 128), (192, 128); B * Hq <= 65535. window 0 means no
+// window.
 RECONIC_API int reconic_flash_attention(const void* q, const void* k,
                                         const void* v, void* out, int batch,
                                         int hq, int hkv, int sq, int skv,
-                                        int d, int causal, int window,
+                                        int d, int dv, int causal, int window,
                                         float scale, int is_bf16,
                                         void* stream) {
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -515,7 +548,7 @@ RECONIC_API int reconic_flash_attention(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, sq, skv, d,
-                                 causal, window, scale, s);
-  return launch<float>(q, k, v, out, batch, hq, hkv, sq, skv, d, causal,
+                                 dv, causal, window, scale, s);
+  return launch<float>(q, k, v, out, batch, hq, hkv, sq, skv, d, dv, causal,
                        window, scale, s);
 }

@@ -10,7 +10,9 @@ with QK^T and PV on the tensor cores (``mma.sync``: bf16 with P split
 into two bf16 halves, f32 as 3xTF32, both within the reference's f32
 tolerance) and the online softmax in the accumulator registers. It masks
 ragged edges itself: any ``Sq``, ``Skv`` runs without padding, and K/V
-are never repeated per q head. It takes 16-byte aligned tensors.
+are never repeated per q head. It takes 16-byte aligned tensors. V and
+the output may be narrower than q and k for a listed pair of head dims
+(MLA's 192 for q and k, 128 for v).
 
 ``flash_attention`` runs the plain PyTorch version for tensors on the
 CPU and launches the CUDA kernel for tensors on the GPU;
@@ -29,8 +31,9 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 
-#: head dims the CUDA kernel is instantiated for
-HEAD_DIMS = (16, 32, 64, 128)
+#: (q and k head dim, v and output head dim) pairs the CUDA kernel is
+#: instantiated for: the square dims, and MLA's nope + rope / v
+HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -49,13 +52,15 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           window: int = 0,
                           scale: Optional[float] = None) -> torch.Tensor:
-    """q: (B, Sq, Hq, d), k/v: (B, Skv, Hkv, d) -> (B, Sq, Hq, d), the
-    reference oracle's arithmetic (``kernels/ref.py:ref_attention``):
-    f32 scores of ``q * scale`` against k, ``-1e30`` where masked, softmax,
-    zeros for a row with no visible key, cast to q's dtype. GQA groups q
-    heads onto kv heads by a reshape, not a repeat."""
+    """q: (B, Sq, Hq, d), k: (B, Skv, Hkv, d), v: (B, Skv, Hkv, dv) ->
+    (B, Sq, Hq, dv), the reference oracle's arithmetic
+    (``kernels/ref.py:ref_attention``): f32 scores of ``q * scale``
+    against k, ``-1e30`` where masked, softmax, zeros for a row with no
+    visible key, cast to q's dtype. GQA groups q heads onto kv heads by
+    a reshape, not a repeat."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
+    dv = v.shape[-1]
     group = hq // hkv
     scale = scale if scale is not None else d ** -0.5
     qg = q.reshape(b, sq, hkv, group, d).to(torch.float32) * scale
@@ -72,22 +77,24 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
     out = torch.where(mask.any(dim=-1)[None, :, None, None, None], out,
                       torch.zeros_like(out))
-    return out.reshape(b, sq, hq, d).to(q.dtype)
+    return out.reshape(b, sq, hq, dv).to(q.dtype)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
-    """q: (BH, Sq, d), k/v: (BH, Skv, d) -> (BH, Sq, d); or, with GQA,
-    q: (B, Sq, Hq, d), k/v: (B, Skv, Hkv, d) -> (B, Sq, Hq, d) with
-    ``Hq % Hkv == 0``. f32 or bf16 inputs of one dtype, computed in f32,
-    output in the input dtype. ``window`` 0 means no window; ``scale``
-    defaults to ``d ** -0.5``."""
+    """q: (BH, Sq, d), k: (BH, Skv, d), v: (BH, Skv, dv) -> (BH, Sq, dv);
+    or, with GQA, q: (B, Sq, Hq, d), k: (B, Skv, Hkv, d), v: (B, Skv,
+    Hkv, dv) -> (B, Sq, Hq, dv) with ``Hq % Hkv == 0``. On the GPU ``(d,
+    dv)`` is one of ``HEAD_DIMS``. f32 or bf16 inputs of one dtype,
+    computed in f32, output in the input dtype. ``window`` 0 means no
+    window; ``scale`` defaults to ``d ** -0.5``."""
     squeeze = q.ndim == 3
     q4, k4, v4 = _as_bshd(q), _as_bshd(k), _as_bshd(v)
     b, sq, hq, d = q4.shape
     bk, skv, hkv, dk = k4.shape
-    if (bk, d) != (b, dk) or tuple(v4.shape) != tuple(k4.shape) \
+    dv = v4.shape[-1]
+    if (bk, d) != (b, dk) or tuple(v4.shape[:3]) != tuple(k4.shape[:3]) \
             or hkv == 0 or hq % hkv:
         raise ValueError(f"bad attention shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
@@ -102,9 +109,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         out = flash_attention_plain(q4, k4, v4, causal=causal,
                                     window=window, scale=scale)
         return out[:, :, 0] if squeeze else out
-    if d not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} not in "
-                         f"{HEAD_DIMS}")
+    if (d, dv) not in HEAD_DIMS:
+        raise ValueError(f"flash_attention: head_dim {d} with v head_dim "
+                         f"{dv} not in {HEAD_DIMS}")
     if b * hq > 65535:
         raise ValueError(f"flash_attention: B * Hq = {b * hq} > 65535")
     _build.check_cuda("flash_attention", q4, k4, v4)
@@ -125,12 +132,12 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         b, sq, hq, d = q.shape
-        _, skv, hkv, _ = k.shape
-        out = torch.empty_like(q)
+        _, skv, hkv, dv = v.shape
+        out = q.new_empty((b, sq, hq, dv))
         if out.numel():
             _build.launch("reconic_flash_attention", q.data_ptr(),
                           k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-                          hkv, sq, skv, d, int(causal), int(window),
+                          hkv, sq, skv, d, dv, int(causal), int(window),
                           float(np.float32(scale)),
                           int(q.dtype == torch.bfloat16),
                           _build.stream_ptr(q.device))

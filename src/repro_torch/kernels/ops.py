@@ -24,7 +24,8 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0) -> torch.Tensor:
-    """q: (B, Sq, Hq, d), k/v: (B, Skv, Hkv, d) -> (B, Sq, Hq, d).
+    """q: (B, Sq, Hq, d), k: (B, Skv, Hkv, d), v: (B, Skv, Hkv, dv) ->
+    (B, Sq, Hq, dv).
 
     GQA: q heads grouped onto kv heads (Hq % Hkv == 0). The kernel maps
     q head h to kv head h // group itself, so K and V are never repeated

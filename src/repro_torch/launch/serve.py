@@ -2,9 +2,10 @@
 
 The serving-side host application: a batch of requests is prefilled
 into the model's caches, then every sequence advances one token per
-decode step. Prefill runs attention through K6 (dense and hybrid
-models) and the SSD scan through K7 (SSM and hybrid models); decode is
-plain PyTorch over the caches. Runs on the GPU unless ``--device cpu``.
+decode step. Prefill runs attention through K6 (dense, hybrid and MoE
+models; MLA's at head dims 192/128) and the SSD scan through K7 (SSM and
+hybrid models); decode is plain PyTorch over the caches. Runs on the GPU
+unless ``--device cpu``.
 
 Usage::
 
@@ -13,6 +14,8 @@ Usage::
       --requests 8 --prompt-len 512 --gen-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-370m \\
       --requests 8 --prompt-len 512 --gen-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch deepseek-v2-lite-16b --requests 8 --prompt-len 512 --gen-len 32
 
 SSM and hybrid models need a prompt length that is a multiple of
 ``min(chunk_size, prompt_len)``, as in the reference.

@@ -1,15 +1,16 @@
-"""Shared model layers, the dense subset (PyTorch, explicit param dicts).
+"""Shared model layers (PyTorch, explicit param dicts).
 
 RMSNorm, RoPE, GQA attention with optional qk-norm / QKV bias / sliding
-window, and the SwiGLU MLP — what the dense serving path runs. Attention
-from an empty cache (prefill at position 0, or a forward without caches)
-goes through K6 (``kernels.ops.attention``); decode attends over the
-cache with plain masked attention, the reference's own split (its XLA
-path there, ``repro/models/layers.py:_attention_naive``). Projections are
+window, DeepSeek-V2's multi-head latent attention (MLA), and the SwiGLU
+MLP. Attention from an empty cache (prefill at position 0, or a forward
+without caches) goes through K6 (``kernels.ops.attention``; MLA's at
+head dims 192 for q and k, 128 for v); decode attends over the cache
+with plain masked attention, the reference's own split (its XLA path
+there, ``repro/models/layers.py:_attention_naive``). Projections are
 ``torch.matmul``, as the reference leaves them to XLA. There is one
 device, so the reference's sharding annotations have no counterpart.
 
-The KV cache is updated in place (the reference returns a new one): a
+The caches are updated in place (the reference returns new ones): a
 tinyllama cache at 8 x 552 tokens is ~200 MB, and copying it per layer
 and step would dominate decode.
 """
@@ -27,14 +28,18 @@ NEG_INF = -1e30
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
-               device, *, layers: Optional[int] = None) -> torch.Tensor:
+               device, *, layers=None) -> torch.Tensor:
     """N(0, 1) * sqrt(2 / (d_in + d_out)), the reference's ``init_dense``
-    distribution, drawn from ``gen``; with ``layers``, a stacked
-    ``(layers, d_in, d_out)`` draw."""
-    shape = (d_in, d_out) if layers is None else (layers, d_in, d_out)
+    distribution, drawn from ``gen``; with ``layers`` (an int or a tuple
+    of leading dims), a stacked ``(*layers, d_in, d_out)`` draw. Scaled
+    in place: a stacked expert leaf is ~19 GB in f32, and a second
+    buffer for the product would not fit beside the model."""
+    lead = () if layers is None else (
+        (layers,) if isinstance(layers, int) else tuple(layers))
     scale = (2.0 / (d_in + d_out)) ** 0.5
-    return (torch.randn(shape, generator=gen, dtype=torch.float32,
-                        device=device) * scale).to(dtype)
+    w = torch.randn((*lead, d_in, d_out), generator=gen,
+                    dtype=torch.float32, device=device)
+    return w.mul_(scale).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float
@@ -72,10 +77,12 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
 # ---------------------------------------------------------------------------
 
 def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device,
-                   layers: int) -> dict:
-    """Stacked ``(layers, ...)`` attention params of ``cfg``."""
+                   layers) -> dict:
+    """Stacked ``(layers, ...)`` attention params of ``cfg`` (``layers``
+    None for one unstacked block)."""
     hd = cfg.resolved_head_dim()
     d, qd, kvd = cfg.d_model, cfg.num_heads * hd, cfg.num_kv_heads * hd
+    lead = () if layers is None else (layers,)
 
     def dense(a, b):
         return init_dense(gen, a, b, dtype, device, layers=layers)
@@ -84,10 +91,10 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig, dtype, device,
          "wo": dense(qd, d)}
     if cfg.qkv_bias:
         for name, n in (("b_q", qd), ("b_k", kvd), ("b_v", kvd)):
-            p[name] = torch.zeros((layers, n), dtype=dtype, device=device)
+            p[name] = torch.zeros((*lead, n), dtype=dtype, device=device)
     if cfg.qk_norm:
         for name in ("q_norm_scale", "k_norm_scale"):
-            p[name] = torch.ones((layers, hd), dtype=dtype, device=device)
+            p[name] = torch.ones((*lead, hd), dtype=dtype, device=device)
     return p
 
 
@@ -106,8 +113,8 @@ def _causal_window_mask(sq: int, skv: int, q_offset: int, window: int,
 def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, window: int = 0, q_offset: int = 0,
                    kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """q: (B,Sq,Hq,d), k/v: (B,Skv,Hkv,d) -> (B,Sq,Hq,d). ``kv_len``:
-    optional (B,) valid length (decode caches).
+    """q: (B,Sq,Hq,d), k: (B,Skv,Hkv,d), v: (B,Skv,Hkv,dv) ->
+    (B,Sq,Hq,dv). ``kv_len``: optional (B,) valid length (decode caches).
 
     Attention from an empty cache (no offset, no ``kv_len``) is K6;
     attention over a cache is plain masked attention."""
@@ -191,11 +198,90 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+             layers) -> dict:
+    """Stacked ``(layers, ...)`` MLA params of ``cfg`` (``layers`` None
+    for one unstacked block)."""
+    m, d, h = cfg.mla, cfg.d_model, cfg.num_heads
+
+    def dense(a, b):
+        return init_dense(gen, a, b, dtype, device, layers=layers)
+
+    lead = () if layers is None else (layers,)
+    return {
+        "wq": dense(d, h * m.qk_head_dim),
+        "w_dkv": dense(d, m.kv_lora_rank),
+        "w_kr": dense(d, m.qk_rope_head_dim),
+        "kv_norm_scale": torch.ones((*lead, m.kv_lora_rank), dtype=dtype,
+                                    device=device),
+        "w_uk": dense(m.kv_lora_rank, h * m.qk_nope_head_dim),
+        "w_uv": dense(m.kv_lora_rank, h * m.v_head_dim),
+        "wo": dense(h * m.v_head_dim, d),
+    }
+
+
+def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
+              positions: torch.Tensor, *, cache: Optional[dict] = None,
+              pos: int = 0):
+    """MLA: the KV cache is the compressed ``c_kv`` (kv_lora_rank) and the
+    one rope key shared by all heads, per token. Returns (out, cache).
+
+    With ``cache`` ({"c_kv", "k_rope", "pos"} views of one layer), the new
+    tokens' entries are written in place at host position ``pos``;
+    ``pos == 0`` attends over them alone (K6 at head dims 192/128), a
+    later position up-projects the whole cache and attends plainly with
+    ``kv_len`` masking, as the reference does (no weight absorption)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q = (x @ params["wq"]).reshape(b, s, h, m.qk_head_dim)
+    q_nope, q_rope = torch.split(
+        q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv = rms_norm(x @ params["w_dkv"], params["kv_norm_scale"],
+                    cfg.rms_eps)                        # (b, s, r)
+    k_rope = apply_rope((x @ params["w_kr"])[:, :, None, :], positions,
+                        cfg.rope_theta)                 # (b, s, 1, dr)
+
+    kv_len = None
+    if cache is not None:
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        cc[:, pos:pos + s] = c_kv.to(cc.dtype)
+        cr[:, pos:pos + s] = k_rope[:, :, 0].to(cr.dtype)
+        cache["pos"].fill_(pos + s)
+        if pos == 0:
+            # the new tokens as the cache holds them (a bf16 cache), as
+            # the reference attends over its cache; no copy for f32
+            c_kv = c_kv.to(cc.dtype).to(x.dtype)
+            k_rope = k_rope.to(cr.dtype).to(x.dtype)
+        else:
+            c_kv, k_rope = cc.to(x.dtype), cr.to(x.dtype)[:, :, None]
+            kv_len = torch.full((b,), pos + s, dtype=torch.int32,
+                                device=x.device)
+    skv = c_kv.shape[1]
+    k_nope = (c_kv @ params["w_uk"]).reshape(b, skv, h, m.qk_nope_head_dim)
+    v = (c_kv @ params["w_uv"]).reshape(b, skv, h, m.v_head_dim)
+    k = torch.cat([k_nope, k_rope.expand(b, skv, h, m.qk_rope_head_dim)],
+                  dim=-1)
+    qfull = torch.cat([q_nope, q_rope], dim=-1)
+    # MLA scales by the full qk head dim (the attention's default)
+    out = attention_core(qfull, k, v, causal=True,
+                         q_offset=0 if kv_len is None else pos,
+                         kv_len=kv_len)
+    out = out.reshape(b, s, h * m.v_head_dim)
+    return out @ params["wo"], cache
+
+
+# ---------------------------------------------------------------------------
 # SwiGLU MLP
 # ---------------------------------------------------------------------------
 
 def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
-             layers: int) -> dict:
+             layers) -> dict:
     def dense(a, b):
         return init_dense(gen, a, b, dtype, device, layers=layers)
 

@@ -1,0 +1,150 @@
+"""Mixture-of-Experts FFN with capacity-based top-k routing.
+
+The port of ``repro/models/moe.py``. Routing: router logits in f32,
+softmax, top-k (descending, as ``lax.top_k``) with the gates
+renormalised, per-expert capacity ``C = max(int(k*T/E *
+capacity_factor), k)``; a token's assignments past an expert's capacity
+are dropped (its residual passes through), the Switch/GShard policy. A
+Switch-style load-balancing aux loss is returned for the trainer.
+
+Token -> slot assignment is sort arithmetic (a stable argsort by expert
+and ``searchsorted`` for each expert's segment start), dispatch is a
+gather into ``(E, C, d)`` expert buffers, the experts are stacked
+``(E, d_in, d_out)`` SwiGLU products (``torch.einsum``, batched over E,
+as the reference leaves them to XLA outside Pallas), and the combine is
+a gate-weighted gather and sum. There is one device, so the reference's
+expert-parallel sharding has no counterpart.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.layers import init_dense, init_mlp, mlp_block
+
+
+def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device,
+             layers) -> dict:
+    """Stacked ``(layers, ...)`` MoE params of ``cfg``: the router (f32
+    whatever ``dtype``, as in the reference), the ``(layers, E, d_in,
+    d_out)`` expert stacks and, with shared experts, their MLP."""
+    m, d = cfg.moe, cfg.d_model
+    lead = () if layers is None else (layers,)
+
+    def expert_stack(d_in, d_out):
+        return init_dense(gen, d_in, d_out, dtype, device,
+                          layers=(*lead, m.num_experts))
+
+    p = {
+        "router": init_dense(gen, d, m.num_experts, torch.float32, device,
+                             layers=layers),
+        "experts": {
+            "w_gate": expert_stack(d, m.expert_d_ff),
+            "w_up": expert_stack(d, m.expert_d_ff),
+            "w_down": expert_stack(m.expert_d_ff, d),
+        },
+    }
+    if m.num_shared_experts:
+        p["shared"] = init_mlp(gen, d, m.shared_d_ff, dtype, device, layers)
+    return p
+
+
+def _capacity(tokens: int, cfg: ModelConfig) -> int:
+    m = cfg.moe
+    c = int(m.top_k * tokens / m.num_experts * m.capacity_factor)
+    return max(c, m.top_k)
+
+
+def route(router_w: torch.Tensor, x2d: torch.Tensor, cfg: ModelConfig):
+    """x2d: (T, d). Returns (expert_idx (T, k) int64, gate_w (T, k),
+    aux_loss)."""
+    m = cfg.moe
+    logits = x2d.to(torch.float32) @ router_w           # (T, E)
+    probs = torch.softmax(logits, dim=-1)
+    gate_w, expert_idx = torch.topk(probs, m.top_k, dim=-1, sorted=True)
+    gate_w = gate_w / torch.sum(gate_w, dim=-1, keepdim=True)
+    # Switch-style aux loss: E * sum_e f_e * P_e. The count adds exact
+    # 1.0s, so its order does not matter; unlike ``torch.bincount`` it
+    # does not wait for the device to size its output.
+    me = torch.mean(probs, dim=0)                       # (E,)
+    flat = expert_idx.reshape(-1)
+    ce = torch.zeros((m.num_experts,), dtype=torch.float32,
+                     device=x2d.device).index_add_(
+        0, flat, torch.ones(flat.shape, dtype=torch.float32,
+                            device=x2d.device)) / (x2d.shape[0] * m.top_k)
+    aux = m.num_experts * torch.sum(me * ce)
+    return expert_idx, gate_w, aux
+
+
+def _dispatch_indices(expert_idx: torch.Tensor, k: int, e: int, cap: int):
+    """Slot assignment. expert_idx: (T, k).
+
+    Returns (slot_pos (T, k), keep (T, k)): each assignment's position
+    within its expert's capacity buffer, in token order, and whether it
+    fits."""
+    t = expert_idx.shape[0]
+    dev = expert_idx.device
+    flat_e = expert_idx.reshape(-1)                     # (T*k,)
+    # stable sort by expert; position within expert via index arithmetic
+    order = torch.argsort(flat_e, stable=True)          # (T*k,)
+    sorted_e = flat_e[order]
+    seg_starts = torch.searchsorted(
+        sorted_e, torch.arange(e, dtype=sorted_e.dtype, device=dev))
+    pos_sorted = torch.arange(t * k, device=dev) - seg_starts[sorted_e]
+    pos = torch.empty((t * k,), dtype=torch.int32, device=dev)
+    pos[order] = pos_sorted.to(torch.int32)
+    keep = pos < cap
+    return pos.reshape(t, k), keep.reshape(t, k)
+
+
+def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d) -> (out, aux_loss)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    t = b * s
+    e = m.num_experts
+    x2d = x.reshape(t, d)
+    cap = _capacity(t, cfg)
+
+    expert_idx, gate_w, aux = route(params["router"], x2d, cfg)
+    pos, keep = _dispatch_indices(expert_idx, m.top_k, e, cap)
+
+    # flat slot id per assignment; dropped ones park on a dummy slot
+    slot = torch.where(keep, expert_idx * cap + pos,
+                       torch.full_like(expert_idx, e * cap))  # (T, k)
+    flat_slot = slot.reshape(-1)
+
+    # dispatch: scatter token ids into slots, then gather tokens. Every
+    # kept assignment has a slot of its own; the dropped ones all write
+    # the dummy slot, in an order that is unspecified on CUDA (and in the
+    # reference), which is harmless only because that slot is cut off
+    # right after.
+    token_of_slot = torch.full((e * cap + 1,), t, dtype=torch.int64,
+                               device=x.device)
+    token_of_slot[flat_slot] = torch.arange(
+        t, device=x.device).repeat_interleave(m.top_k)
+    token_of_slot = token_of_slot[:-1]                  # drop the dummy
+    x_pad = torch.cat([x2d, x2d.new_zeros((1, d))], dim=0)
+    xe = x_pad[token_of_slot].reshape(e, cap, d)
+
+    # expert computation (per-expert SwiGLU)
+    we = params["experts"]
+    h = F.silu(torch.einsum("ecd,edf->ecf", xe, we["w_gate"]))
+    h = h * torch.einsum("ecd,edf->ecf", xe, we["w_up"])
+    ye = torch.einsum("ecf,efd->ecd", h, we["w_down"])
+
+    # combine: gate-weighted gather back to tokens
+    ye_slots = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))],
+                         dim=0)
+    gathered = ye_slots[flat_slot].reshape(t, m.top_k, d)
+    w = torch.where(keep, gate_w, torch.zeros_like(gate_w)).to(
+        gathered.dtype)
+    out = torch.einsum("tkd,tk->td", gathered, w)
+
+    if "shared" in params:
+        out = out + mlp_block(params["shared"], x2d)
+    return out.reshape(b, s, d), aux

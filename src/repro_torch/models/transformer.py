@@ -2,48 +2,59 @@
 
 The port of ``repro/models/transformer.py`` for dense GQA decoders
 (tinyllama, the qwen dense configs, ``tiny``), the SSM family
-(mamba2-370m, ``tiny-ssm``: a Mamba-2 mixer, ``models/ssm.py``) and
-hybrid parallel heads (hymba-1.5b: attention and SSM heads on the same
-input, each output RMS-normed, then averaged). Parameters keep the
-reference's pytree layout — nested dicts with the layer dimension
-stacked first under ``"layers"`` — so ``convert.params_from_jax`` maps a
-JAX pytree leaf for leaf. The reference scans the stack with
-``lax.scan``; here a Python loop runs the layers on views of the stacked
-tensors. Training takes ``loss_fn`` (the reference's cross entropy over
-the padded vocab) with ``remat`` checkpointing each block.
+(mamba2-370m, ``tiny-ssm``: a Mamba-2 mixer, ``models/ssm.py``), hybrid
+parallel heads (hymba-1.5b: attention and SSM heads on the same input,
+each output RMS-normed, then averaged) and MoE decoders (phi3.5-moe: GQA
+attention with a routed-expert FFN, ``models/moe.py``; deepseek-v2-lite:
+MLA attention, shared experts and leading dense blocks). Parameters keep
+the reference's pytree layout — nested dicts with the layer dimension
+stacked first under ``"layers"``, the leading dense blocks unstacked
+under ``"dense_blocks"`` — so ``convert.params_from_jax`` maps a JAX
+pytree leaf for leaf. The reference scans the stack with ``lax.scan``;
+here a Python loop runs the layers on views of the stacked tensors.
+Training takes ``loss_fn`` (the reference's cross entropy over the
+padded vocab, plus MoE's weighted aux loss) with ``remat`` checkpointing
+each block.
 
-Features of later slices (MoE, MLA, encoder-decoder, M-RoPE, the
-frontend stub) raise ``NotImplementedError``.
+Encoder-decoder stacks, M-RoPE and the frontend stub raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import torch
 import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (attention_block, init_attention,
-                                       init_dense, init_mlp, mlp_block,
-                                       rms_norm)
+                                       init_dense, init_mla, init_mlp,
+                                       mla_block, mlp_block, rms_norm)
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA decoder, an SSM model or a
-    hybrid-heads model (the ported paths)."""
+    """Raise unless ``cfg`` is a dense GQA decoder, an SSM model, a
+    hybrid-heads model or an MoE decoder (with GQA or MLA attention):
+    the ported paths."""
     unsupported = [name for name, on in (
         (f"family {cfg.family!r}",
-         cfg.family not in ("dense", "ssm", "hybrid")),
-        ("MLA", cfg.mla.enabled), ("MoE", cfg.moe.enabled),
+         cfg.family not in ("dense", "ssm", "hybrid", "moe")),
         ("encoder-decoder", cfg.enc_dec), ("M-RoPE", cfg.mrope),
         ("frontend stub", cfg.embedding_frontend_stub)) if on]
     if unsupported:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(unsupported)} not ported yet (the "
-            "PyTorch port serves dense GQA decoders, SSM and hybrid-heads "
-            "models)")
+            "PyTorch port serves dense GQA decoders, SSM, hybrid-heads "
+            "and MoE models)")
+
+
+def _n_scanned(cfg: ModelConfig) -> int:
+    """Layers of the stack: all but MoE's leading dense blocks."""
+    return cfg.num_layers - (cfg.moe.first_dense_layers
+                             if cfg.moe.enabled else 0)
 
 
 # ---------------------------------------------------------------------------
@@ -62,30 +73,48 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
-    n, d, pv = cfg.num_layers, cfg.d_model, cfg.padded_vocab()
-
-    def ones(*shape):
-        return torch.ones(shape, dtype=dtype, device=dev)
-
+    d, pv = cfg.d_model, cfg.padded_vocab()
     p = {"embed": init_dense(gen, pv, d, dtype, dev),
-         "final_norm_scale": ones(d)}
+         "final_norm_scale": torch.ones((d,), dtype=dtype, device=dev)}
     if not cfg.tie_embeddings:
         p["lm_head"] = init_dense(gen, d, pv, dtype, dev)
+    if cfg.moe.enabled and cfg.moe.first_dense_layers:
+        p["dense_blocks"] = {
+            str(i): _init_block(gen, cfg, dtype, dev, None, dense_ffn=True)
+            for i in range(cfg.moe.first_dense_layers)}
+    p["layers"] = _init_block(gen, cfg, dtype, dev, _n_scanned(cfg))
+    return p
+
+
+def _init_block(gen, cfg: ModelConfig, dtype, dev, n: Optional[int],
+                dense_ffn: bool = False) -> dict:
+    """One block's params, stacked ``(n, ...)`` (``n`` None: unstacked).
+    ``dense_ffn``: an MoE model's leading dense block, a SwiGLU MLP of
+    ``dense_d_ff``."""
+    d = cfg.d_model
+    lead = () if n is None else (n,)
+
+    def ones():
+        return torch.ones((*lead, d), dtype=dtype, device=dev)
+
     if cfg.family == "ssm":
         mixer = {"ssm": ssm_mod.init_ssm(gen, cfg, dtype, dev, n)}
+    elif cfg.mla.enabled:
+        mixer = {"mla": init_mla(gen, cfg, dtype, dev, n)}
     else:
         mixer = {"attn": init_attention(gen, cfg, dtype, dev, n)}
         if cfg.hybrid_parallel_heads:
             mixer["ssm"] = ssm_mod.init_ssm(gen, cfg, dtype, dev, n)
-            mixer["attn_out_norm_scale"] = ones(n, d)
-            mixer["ssm_out_norm_scale"] = ones(n, d)
-    p["layers"] = {
-        "pre_norm_scale": ones(n, d),
-        "mixer": mixer,
-        "post_norm_scale": ones(n, d),
-        "ffn": {"mlp": init_mlp(gen, d, cfg.d_ff, dtype, dev, n)},
-    }
-    return p
+            mixer["attn_out_norm_scale"] = ones()
+            mixer["ssm_out_norm_scale"] = ones()
+    if cfg.moe.enabled and not dense_ffn:
+        ffn = {"moe": moe_mod.init_moe(gen, cfg, dtype, dev, n)}
+    else:
+        d_ff = ((cfg.moe.dense_d_ff or cfg.d_ff) if cfg.moe.enabled
+                else cfg.d_ff)
+        ffn = {"mlp": init_mlp(gen, d, d_ff, dtype, dev, n)}
+    return {"pre_norm_scale": ones(), "mixer": mixer,
+            "post_norm_scale": ones(), "ffn": ffn}
 
 
 def layer_windows(cfg: ModelConfig, n: int) -> List[int]:
@@ -128,6 +157,8 @@ def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
     """Returns (out, cache); the cache is updated in place."""
     if cfg.family == "ssm":
         return ssm_mod.ssm_block(mp["ssm"], cfg, x, cache=cache)
+    if cfg.mla.enabled:
+        return mla_block(mp["mla"], cfg, x, positions, cache=cache, pos=pos)
     if cfg.hybrid_parallel_heads:
         a_out, _ = attention_block(
             mp["attn"], cfg, x, positions, window=window,
@@ -145,18 +176,24 @@ def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
 
 def _block_apply(bp: dict, cfg: ModelConfig, x, positions, window: int,
                  cache, pos: int):
-    """One transformer block. Returns (x, cache); the cache is updated in
-    place. The FFN runs on every family, as in the reference (a reduced
-    mamba2 has one); a zero-width FFN (full mamba2, ``d_ff`` 0) adds an
-    exact 0 there and is skipped here."""
+    """One transformer block. Returns (x, cache, aux): the cache is
+    updated in place, aux is the MoE FFN's load-balancing loss (None
+    without MoE). The FFN runs on every family, as in the reference (a
+    reduced mamba2 has one); a zero-width FFN (full mamba2, ``d_ff`` 0)
+    adds an exact 0 there and is skipped here."""
     h = rms_norm(x, bp["pre_norm_scale"], cfg.rms_eps)
     mix, cache = _mixer_apply(bp["mixer"], cfg, h, positions, window,
                               cache, pos)
     x = x + mix
-    if cfg.d_ff:
+    aux = None
+    if "moe" in bp["ffn"]:
+        h2 = rms_norm(x, bp["post_norm_scale"], cfg.rms_eps)
+        f, aux = moe_mod.moe_ffn(bp["ffn"]["moe"], cfg, h2)
+        x = x + f
+    elif cfg.d_ff:
         h2 = rms_norm(x, bp["post_norm_scale"], cfg.rms_eps)
         x = x + mlp_block(bp["ffn"]["mlp"], h2)
-    return x, cache
+    return x, cache, aux
 
 
 def _conv_caches_to(tree, dtype) -> None:
@@ -177,7 +214,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     """Full forward. batch keys: tokens (B,S)[, positions]. ``pos`` is the
     host position where the tokens enter the caches (0 for prefill).
     Returns (logits (B, S, V_padded), caches, aux); caches are updated in
-    place, aux is 0 (no MoE). ``remat`` checkpoints each block
+    place, aux is the MoE layers' summed load-balancing loss (0 without
+    MoE). The leading dense blocks of an MoE model run first, then the
+    stack. ``remat`` checkpoints each block
     (``torch.utils.checkpoint``, non-reentrant) when gradients are being
     recorded: its activations are recomputed in the backward, as the
     reference's ``jax.checkpoint`` of the scanned block does."""
@@ -192,30 +231,39 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     x = params["embed"][tokens]                         # (B, S, D)
     if caches is not None:
         _conv_caches_to(caches["scan"], x.dtype)
-    wins = layer_windows(cfg, cfg.num_layers)
-    layers = _unstack(params["layers"], cfg.num_layers)
     checkpointed = remat and caches is None and torch.is_grad_enabled()
-    for i, bp in enumerate(layers):
+    # (block params, its cache, its window): the dense blocks, then the stack
+    blocks = [(bp, None if caches is None else caches["dense"][i], 0)
+              for i, bp in sorted(params.get("dense_blocks", {}).items(),
+                                  key=lambda kv: int(kv[0]))]
+    n = _n_scanned(cfg)
+    wins = layer_windows(cfg, n)
+    blocks += [(bp, None if caches is None else _layer(caches["scan"], i),
+                wins[i])
+               for i, bp in enumerate(_unstack(params["layers"], n))]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp, cache, window in blocks:
         if checkpointed:
-            x = torch.utils.checkpoint.checkpoint(
-                _remat_block, bp, x, cfg, positions, wins[i],
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _remat_block, bp, x, cfg, positions, window,
                 use_reentrant=False)
-            continue
-        cache = (None if caches is None
-                 else _layer(caches["scan"], i))
-        x, _ = _block_apply(bp, cfg, x, positions, wins[i], cache, pos)
+        else:
+            x, _, aux = _block_apply(bp, cfg, x, positions, window, cache,
+                                     pos)
+        if aux is not None:
+            aux_total = aux_total + aux
     x = rms_norm(x, params["final_norm_scale"], cfg.rms_eps)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
     logits = x @ head
-    return logits, caches, torch.zeros((), dtype=torch.float32,
-                                       device=x.device)
+    return logits, caches, aux_total
 
 
 def _remat_block(bp: dict, x, cfg: ModelConfig, positions, window: int):
     """A block without caches, the function each remat checkpoint
-    recomputes."""
-    return _block_apply(bp, cfg, x, positions, window, None, 0)[0]
+    recomputes: (x, aux)."""
+    x, _, aux = _block_apply(bp, cfg, x, positions, window, None, 0)
+    return x, aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -236,12 +284,17 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
-            remat: bool = False) -> torch.Tensor:
+            remat: bool = False,
+            aux_weight: Optional[float] = None) -> torch.Tensor:
     """Cross entropy of the forward's logits against ``batch["labels"]``
-    over the padded vocab (MoE's aux term comes with MoE, which
-    ``check_supported`` refuses)."""
-    logits, _, _ = forward(params, cfg, batch, remat=remat)
-    return cross_entropy(logits, batch["labels"], cfg.padded_vocab())
+    over the padded vocab; an MoE model adds its aux loss weighted by
+    ``aux_weight`` (default ``cfg.moe.aux_loss_weight``)."""
+    logits, _, aux = forward(params, cfg, batch, remat=remat)
+    loss = cross_entropy(logits, batch["labels"], cfg.padded_vocab())
+    if cfg.moe.enabled:
+        w = cfg.moe.aux_loss_weight if aux_weight is None else aux_weight
+        loss = loss + w * aux
+    return loss
 
 
 # ---------------------------------------------------------------------------
@@ -252,20 +305,45 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
                 dtype=torch.bfloat16, device=None) -> dict:
     """Stacked cache pytree, the reference's keys, shapes and dtypes:
     ``{"scan": {"k": (L, B, max_seq, Hkv, hd), "v": ..., "pos": (L,)
-    int32}}`` for attention, ``{"scan": {"conv": (L, B, K-1, C), "ssm":
-    (L, B, nh, hd, N) f32}}`` for SSM, ``{"scan": {"attn": {...}, "ssm":
-    {...}}}`` for hybrid heads. A forward gives the conv buffers the
-    activations' dtype on its first step (``_conv_caches_to``)."""
+    int32}}`` for attention, ``{"scan": {"c_kv": (L, B, max_seq,
+    kv_lora_rank), "k_rope": (L, B, max_seq, rope_dim), "pos": (L,)}}``
+    for MLA, ``{"scan": {"conv": (L, B, K-1, C), "ssm": (L, B, nh, hd, N)
+    f32}}`` for SSM, ``{"scan": {"attn": {...}, "ssm": {...}}}`` for
+    hybrid heads; an MoE model's leading dense blocks add ``{"dense":
+    {"0": <one unstacked layer>, ...}}``. A forward gives the conv
+    buffers the activations' dtype on its first step
+    (``_conv_caches_to``)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    n = cfg.num_layers
+    n = _n_scanned(cfg)
+    caches = {"scan": _layer_caches(cfg, n, batch, max_seq, dtype, dev)}
+    if cfg.moe.enabled and cfg.moe.first_dense_layers:
+        caches["dense"] = {
+            str(i): _layer_caches(cfg, None, batch, max_seq, dtype, dev)
+            for i in range(cfg.moe.first_dense_layers)}
+    return caches
+
+
+def _layer_caches(cfg: ModelConfig, n: Optional[int], batch: int,
+                  max_seq: int, dtype, dev) -> dict:
+    """The caches of ``n`` stacked layers (``n`` None: one unstacked)."""
+    lead = () if n is None else (n,)
+
+    def zeros(*shape, dt=dtype):
+        return torch.zeros((*lead, *shape), dtype=dt, device=dev)
+
     if cfg.family == "ssm":
-        return {"scan": ssm_mod.init_ssm_cache(cfg, n, batch, dtype, dev)}
-    shape = (n, batch, max_seq, cfg.num_kv_heads, cfg.resolved_head_dim())
-    attn = {"k": torch.zeros(shape, dtype=dtype, device=dev),
-            "v": torch.zeros(shape, dtype=dtype, device=dev),
-            "pos": torch.zeros((n,), dtype=torch.int32, device=dev)}
+        return ssm_mod.init_ssm_cache(cfg, n, batch, dtype, dev)
+    if cfg.mla.enabled:
+        m = cfg.mla
+        return {"c_kv": zeros(batch, max_seq, m.kv_lora_rank),
+                "k_rope": zeros(batch, max_seq, m.qk_rope_head_dim),
+                "pos": zeros(dt=torch.int32)}
+    hd = cfg.resolved_head_dim()
+    attn = {"k": zeros(batch, max_seq, cfg.num_kv_heads, hd),
+            "v": zeros(batch, max_seq, cfg.num_kv_heads, hd),
+            "pos": zeros(dt=torch.int32)}
     if cfg.hybrid_parallel_heads:
-        return {"scan": {"attn": attn, "ssm": ssm_mod.init_ssm_cache(
-            cfg, n, batch, dtype, dev)}}
-    return {"scan": attn}
+        return {"attn": attn, "ssm": ssm_mod.init_ssm_cache(
+            cfg, n, batch, dtype, dev)}
+    return attn

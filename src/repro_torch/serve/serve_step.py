@@ -1,5 +1,6 @@
 """Serving steps: prefill + decode over the model's caches (attention
-KV, SSM conv and state, or both for hybrid heads), and a greedy loop.
+KV, MLA's compressed latent, SSM conv and state, or attention and SSM
+for hybrid heads), and a greedy loop.
 
 Positions are host ints: prefill starts at 0 and decode knows its step,
 so no step reads a cache's ``pos`` back from the device.

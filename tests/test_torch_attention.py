@@ -145,7 +145,8 @@ def test_bad_arguments_raise():
         flash_attention(q, q.double(), q.double())
     with pytest.raises(ValueError, match="window"):
         flash_attention(q, q, q, window=-1)
-    assert HEAD_DIMS == (16, 32, 64, 128)
+    assert HEAD_DIMS == ((16, 16), (32, 32), (64, 64), (128, 128),
+                         (192, 128))
 
 
 def test_ragged_non_causal_keys_are_masked_unlike_reference_padding():

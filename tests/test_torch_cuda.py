@@ -640,3 +640,97 @@ def test_cuda_tiny_train_step_matches_cpu(cuda):
     for g, e in zip(grads[1], grads[0]):
         torch.testing.assert_close(g, e, rtol=0,
                                    atol=1e-4 * float(e.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,causal,hq,hkv,dtype", [
+    (512, 512, True, 16, 16, torch.float32),
+    (100, 100, True, 4, 4, torch.float32),
+    (63, 200, False, 4, 2, torch.float32),
+    (130, 77, False, 2, 2, torch.float32),
+    (1, 1, True, 2, 2, torch.float32),
+    (512, 512, True, 16, 16, torch.bfloat16),
+    (77, 130, True, 4, 1, torch.bfloat16),
+    (200, 150, False, 2, 2, torch.bfloat16),
+])
+def test_cuda_flash_attention_mla_heads_match_plain(cuda, sq, skv, causal,
+                                                    hq, hkv, dtype):
+    """K6 at MLA's head dims, q and k 192 wide, v and the output 128:
+    within 2e-4 of the plain version in f32 (plus one bf16 step in
+    bf16), ragged Sq and Skv, causal and not; the scale is 192^-0.5."""
+    def rand(*shape):
+        return torch.from_numpy(RNG.standard_normal(shape).astype(
+            np.float32)).to(cuda).to(dtype)
+
+    q, k, v = rand(2, sq, hq, 192), rand(2, skv, hkv, 192), rand(
+        2, skv, hkv, 128)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (2, sq, hq, 128)
+    want = flash_attention_plain(q, k, v, causal=causal)
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-4
+    torch.testing.assert_close(got.float(), want.float(), rtol=rtol,
+                               atol=2e-4)
+    with pytest.raises(ValueError, match="head_dim 192 with v head_dim 64"):
+        flash_attention(q, k, v[..., :64].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_flash_attention_mla_heads_grads_match_plain(cuda, dtype):
+    """K6 at (192, 128) under autograd: one launch, and the gradients
+    for q, k and v equal autograd's through the plain version within
+    2e-4 (bf16: plus one bf16 step)."""
+    def rand(*shape):
+        return torch.from_numpy(RNG.standard_normal(shape).astype(
+            np.float32)).to(cuda).to(dtype).requires_grad_()
+
+    q, k, v = rand(2, 96, 4, 192), rand(2, 96, 4, 192), rand(2, 96, 4, 128)
+    w = torch.from_numpy(RNG.standard_normal((2, 96, 4, 128)).astype(
+        np.float32)).to(cuda).to(dtype)
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, causal=True)
+    got = torch.autograd.grad((out.float() * w.float()).sum(), (q, k, v))
+    assert flash_attention.launches == before + 1
+    ref = flash_attention_plain(q, k, v, causal=True)
+    want = torch.autograd.grad((ref.float() * w.float()).sum(), (q, k, v))
+    rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-4
+    for g, e in zip(got, want):
+        assert g.dtype == dtype and g.shape == e.shape
+        torch.testing.assert_close(g.float(), e.float(), rtol=rtol,
+                                   atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_mla_moe_prefill_launches_k6_once_per_layer(cuda):
+    """deepseek-v2-lite's structure at a small width but MLA's full head
+    dims (192 for q.k, 128 for v), served on the card: K6 once per layer
+    in a prefill and a forward, none in decode, and prefill + decode
+    within 5e-5 of the full forward with capacity drops off."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.serve import decode_step, prefill_step
+
+    cfg = get_config("deepseek-v2-lite-16b-smoke")
+    cfg = dataclasses.replace(
+        cfg, mla=get_config("deepseek-v2-lite-16b").mla,
+        moe=dataclasses.replace(cfg.moe, capacity_factor=8.0))
+    params = init_params(cfg, 0)
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 13))).to(cuda)
+    before = flash_attention.launches
+    full, _, aux = forward(params, cfg, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.num_layers
+    assert bool(torch.isfinite(aux))
+    caches = init_caches(cfg, 2, 16, torch.float32)
+    lg, caches = prefill_step(params, cfg, {"tokens": toks[:, :12]}, caches)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2 * cfg.num_layers
+    lg2, _ = decode_step(params, cfg, toks[:, 12:13], caches, 12)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2 * cfg.num_layers
+    torch.testing.assert_close(lg[:, 0], full[:, 11], rtol=5e-5, atol=5e-5)
+    torch.testing.assert_close(lg2[:, 0], full[:, 12], rtol=5e-5, atol=5e-5)

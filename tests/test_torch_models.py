@@ -182,8 +182,7 @@ def test_init_params_tree_and_distribution():
     assert torch.equal(again["embed"], tp["embed"])      # seeded
 
 
-@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b-smoke",
-                                  "phi3.5-moe-42b-smoke", "qwen2-vl-7b-smoke",
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b-smoke",
                                   "seamless-m4t-large-v2-smoke"])
 def test_later_slice_families_raise(arch):
     cfg = get_config(arch)
