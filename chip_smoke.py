@@ -16,9 +16,12 @@ reports them) and runs, on the card:
      in bf16) for K6 attention on the tensor cores (3xTF32 in f32, bf16
      with P split in two halves) at the tinyllama prefill shape (256 x
      512 x 64, causal, GQA 8, f32; also with window 32, in bf16, at d =
-     128, at hymba's 25 q over 5 kv heads with window 1024, and at
+     128, at hymba's 25 q over 5 kv heads with window 1024, at
      deepseek-v2-lite's MLA prefill, 16 heads with q and k 192 wide and
-     v 128) — with
+     v 128, at seamless-m4t's encoder (128 x 128, not causal), its
+     cross-attention in prefill (512 x 128) and in decode (1 x 128), 16
+     heads of 64, and at qwen2-vl's prefill, 28 q over 4 kv heads of
+     128) — with
      its time, the plain version's time, its bound (the function's own
      work at its dtype's peak; for K6 and K7 also the bound of the
      products their routes run) and, for the matmul and attention, the
@@ -94,6 +97,27 @@ reports them) and runs, on the card:
      cache handoff (1048 pages on 2 x 2^27 words, byte-exact, greedy
      tokens equal) beside a per-head K/V cache's words, free memory
      before the weights and the peak allocated;
+  21. encoder-decoder serving: seamless-m4t-large-v2 at full width and
+     depth (24 encoder and 24 decoder layers, f32, random weights), the
+     speech frontend a stub: 128 N(0, 1) frame embeddings a request. The
+     invariant over 544 tokens with the frames on every step, K6 launched
+     72 times per prefill and forward (encoder, decoder self and cross)
+     and 48 per decode step (the encoder and the cross-attention run from
+     no cache on every step, as in the reference); prefill and decode
+     times with their traced device share, and the encoder's wall and
+     device time alone (what each decode step re-runs); the ``{"self"}``
+     cache handoff (3313 pages on 2 x 2^28 words, byte-exact, greedy
+     tokens through the remote pool equal local ones, the frames given
+     to every step) and the ``kv_serve`` ledger clean; free memory and
+     the peak allocated;
+  22. vision-language serving: qwen2-vl-7b at full width and depth (28
+     layers, 7.6B parameters in f32), the vision tower a stub: 128 patch
+     embeddings over the first positions, M-RoPE ids of one 8 x 16 frame
+     and then text from 16, each decode step given its ids. The invariant
+     over 544 tokens with K6 (28 q over 4 kv heads of 128) launched 28
+     times per prefill and forward, none in decode; prefill and decode
+     times with their traced device share; free memory before the
+     weights and the peak allocated;
   18. training, the plain step: tinyllama-1.1b at full width and depth,
      f32, random weights, one repeated ``SyntheticPipeline`` batch of 4 x
      512 tokens, 3 steps of ``make_train_step`` with remat: ms per step,
@@ -110,10 +134,10 @@ reports them) and runs, on the card:
      compile and some overlapped flushes in step 2, no peer failed; its
      buckets, rounds, flushes, wire bytes, collective ms, step ms, peak
      memory and K6 launches (88 per step);
-  17. each kernel's launch count on the eight paths (3-6, 7-10, 11-13,
-     14-15, 16, 20, 18 and 19), each path run with the counters at 0 and
-     read right after: every kernel a path runs must have launched on
-     it, and each of the eight > 0.
+  17. each kernel's launch count on the ten paths (3-6, 7-10, 11-13,
+     14-15, 16, 20, 21, 22, 18 and 19), each path run with the counters at
+     0 and read right after: every kernel a path runs must have launched
+     on it, and each of the seven > 0.
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -145,6 +169,9 @@ POOL = 1 << 26
 # the 8 sequences' mamba2-370m caches: 48 x (8*32*64*128 + 8*3*2304) words,
 # 1577 pages of 65,536 words, more than POOL
 SSM_POOL = 1 << 27
+# seamless-m4t-large-v2's decoder caches for the 8 sequences: 24 x 2 x 8 x
+# 552 x 16 x 64 words, 3313 pages of 65,536 words, more than SSM_POOL
+ENCDEC_POOL = 1 << 28
 # timed fetches of each uncompressed cache handoff
 N_FETCH = 3
 DATA_PEER, LC_PEER = 1, 0
@@ -866,35 +893,45 @@ def main():
     # in bf16, at hymba's prefill shape (25 q heads over 5 kv heads, a GQA
     # group of 5, window 1024), at d = 128 and at deepseek-v2-lite's MLA
     # prefill shape (16 heads, q and k 192 wide, v 128: the largest
-    # shared-memory case); SDPA on the same inputs is the yardstick (the
-    # port never calls it). The bound is the function's own work (2 (d +
-    # dv) flops per visible q-k pair) at the peak of its dtype;
-    # route_bound_ms counts the products the kernel's route runs: in bf16
-    # two PV products (P split in a high and a low bf16 half) at the bf16
-    # peak, in f32 three TF32 products each (3xTF32) at the TF32 peak.
+    # shared-memory case), at seamless-m4t-large-v2's attentions (16 heads
+    # of 64, not causal: its encoder over 128 frames, its cross-attention
+    # in prefill, 512 decoder rows over the 128 frames, and in a decode
+    # step, 1 row) and at qwen2-vl-7b's prefill (28 q heads over 4 kv heads
+    # of 128, a GQA group of 7, causal); SDPA on the same inputs is the
+    # yardstick (the port never calls it). The bound is the function's own
+    # work (2 (d + dv) flops per visible q-k pair) at the peak of its
+    # dtype; route_bound_ms counts the products the kernel's route runs: in
+    # bf16 two PV products (P split in a high and a low bf16 half) at the
+    # bf16 peak, in f32 three TF32 products each (3xTF32) at the TF32 peak.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ab, asq = 8, 512
-    for window, dtype, ahq, ahkv, ad, adv in (
-            (32, torch.float32, 32, 4, 64, 64),
-            (0, torch.bfloat16, 32, 4, 64, 64),
-            (1024, torch.float32, 25, 5, 64, 64),
-            (0, torch.float32, 32, 4, 128, 128),
-            (0, torch.float32, 16, 16, 192, 128),
-            (0, torch.float32, 32, 4, 64, 64)):
+    ab = 8
+    for window, dtype, ahq, ahkv, ad, adv, asq, askv, causal in (
+            (32, torch.float32, 32, 4, 64, 64, 512, 512, True),
+            (0, torch.bfloat16, 32, 4, 64, 64, 512, 512, True),
+            (1024, torch.float32, 25, 5, 64, 64, 512, 512, True),
+            (0, torch.float32, 32, 4, 128, 128, 512, 512, True),
+            (0, torch.float32, 16, 16, 192, 128, 512, 512, True),
+            (0, torch.float32, 16, 16, 64, 64, 128, 128, False),
+            (0, torch.float32, 16, 16, 64, 64, 512, 128, False),
+            (0, torch.float32, 16, 16, 64, 64, 1, 128, False),
+            (0, torch.float32, 28, 4, 128, 128, 512, 512, True),
+            (0, torch.float32, 32, 4, 64, 64, 512, 512, True)):
         qa = torch.from_numpy(rng.standard_normal(
             (ab, asq, ahq, ad), np.float32)).to(dev, dtype)
         ka, va = (torch.from_numpy(rng.standard_normal(
-            (ab, asq, ahkv, w), np.float32)).to(dev, dtype)
+            (ab, askv, ahkv, w), np.float32)).to(dev, dtype)
             for w in (ad, adv))
-        got = flash_attention(qa, ka, va, causal=True, window=window)
-        want = flash_attention_plain(qa, ka, va, causal=True, window=window)
+        got = flash_attention(qa, ka, va, causal=causal, window=window)
+        want = flash_attention_plain(qa, ka, va, causal=causal,
+                                     window=window)
         err = (got.float() - want.float()).abs()
         # f32: the reference's 2e-4 (sums in another order); bf16 outputs
         # may also sit one bf16 step (2^-7 relative) apart
         rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
         check(bool((err <= 2e-4 + rel * want.float().abs()).all()),
-              f"flash_attention d={ad}/{adv} window={window} {dtype}: max "
-              f"err {err.max().item()}")
+              f"flash_attention {asq}x{askv} d={ad}/{adv} gqa "
+              f"{ahq // ahkv} window={window} {dtype}: max err "
+              f"{err.max().item()}")
         qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (qa, ka, va))
         if window:
             pos_ = torch.arange(asq, device=dev)
@@ -905,10 +942,13 @@ def main():
                 return sdpa(qt, kt, vt, attn_mask=wmask, enable_gqa=True)
         else:
             def library():
-                return sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
-        pairs = sum(min(i + 1, window or asq) for i in range(asq))
+                return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
+        # visible (q, k) pairs of one head: rows see keys up to their own
+        # index when causal, within the window when there is one
+        pairs = sum(min(i + 1 if causal else askv, window or askv)
+                    for i in range(asq))
         esz = qa.element_size()
-        nbytes = esz * ab * asq * (ad + adv) * (ahq + ahkv)
+        nbytes = esz * ab * (ad + adv) * (asq * ahq + askv * ahkv)
         flops = 2.0 * (ad + adv) * pairs * ab * ahq
         if dtype == torch.bfloat16:
             peak, route = PEAK_BF16_FLOPS, "bf16 tensor cores, P split"
@@ -919,14 +959,15 @@ def main():
         rb = bound(nbytes, route_flops, route_peak)
         measure("flash_attention", "flash_attention.cu",
                 "src/repro/kernels/flash_attention.py:102",
-                f"{ab * ahq}x{asq}x{ad}{f'/{adv}' if adv != ad else ''} "
-                f"gqa{ahq // ahkv} causal"
+                f"{ab * ahq}x{asq}{f'/{askv}' if askv != asq else ''}"
+                f"x{ad}{f'/{adv}' if adv != ad else ''} "
+                f"gqa{ahq // ahkv} {'causal' if causal else 'noncausal'}"
                 f"{f' window{window}' if window else ''} "
                 f"{str(dtype).split('.')[-1]}",
                 err.max().item(),
-                lambda: flash_attention(qa, ka, va, causal=True,
+                lambda: flash_attention(qa, ka, va, causal=causal,
                                         window=window),
-                lambda: flash_attention_plain(qa, ka, va, causal=True,
+                lambda: flash_attention_plain(qa, ka, va, causal=causal,
                                               window=window),
                 nbytes, flops, library=library, peak_flops=peak,
                 route_work=route, route_flops=route_flops,
@@ -1511,9 +1552,10 @@ def main():
     # each cache handoff on an engine of its own, in 65,536-word pages
     from repro_torch.configs.registry import get_config
     from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.models.transformer import encode
     from repro_torch.serve import (PagedKVPool, RemoteKVClient,
                                    decode_step, greedy_generate,
-                                   prefill_step)
+                                   model_inputs, prefill_step, step_inputs)
     from repro_torch.serve.kv_cache import flatten_cache_leaves
 
     n_req, p_len, g_len = 8, 512, 32
@@ -1530,35 +1572,42 @@ def main():
         return out, time.perf_counter() - t, {
             f.__name__: f.launches - n0[f.__name__] for f in counted}
 
-    def invariant(arch, per_layer, n_tokens, seed):
+    def invariant(arch, per_layer, n_tokens, seed, per_step=None):
         """Prefill 512 + 32 teacher-forced decode steps against one forward
         over ``n_tokens`` tokens without caches, held within 1e-4 of the
         logits' scale (the forward's largest |logit|): f32 on both routes,
         which differ only in summation order (cuBLAS picks other kernels
         for 8 rows than for thousands, K6 or the scan's chunks against
-        plain decode), and the difference grows through the layers.
-        ``per_layer``: the kernels a prefill and a forward launch once per
-        layer; decode launches none. Returns (cfg, params, prompt, caches
-        after decode)."""
+        plain decode), and the difference grows through the layers. The
+        inputs beside the tokens (an enc-dec model's frames, a VLM's image
+        and M-RoPE ids) come from ``model_inputs``, each step given its
+        share. ``per_layer``: the kernels a prefill and a forward launch
+        once per layer, and decode none; or ``per_step``, each counted
+        kernel's launches (per prefill and forward, per decode step).
+        Returns (cfg, params, prompt, caches after decode, the inputs)."""
         cfg = get_config(arch)
         params = init_params(cfg, SEED)
         toks = torch.from_numpy(np.random.default_rng(seed).integers(
             0, cfg.vocab_size, (n_req, n_tokens))).to(dev)
+        inp = model_inputs(cfg, n_req, p_len, n_tokens, seed=seed + 100)
         prompt = toks[:, :p_len]
-        full, full_s, n_full = during(
-            lambda: forward(params, cfg, {"tokens": toks})[0])
+        full, full_s, n_full = during(lambda: forward(
+            params, cfg, {"tokens": toks,
+                          **step_inputs(inp, 0, n_tokens)})[0])
         scale = full.abs().max().item()
         # a forward over the prompt alone runs the prefill's shapes; against
         # the longer forward it shows what the GEMMs' row count alone moves
-        same = forward(params, cfg, {"tokens": prompt})[0]
+        pre_batch = {"tokens": prompt, **step_inputs(inp, 0, p_len)}
+        same = forward(params, cfg, pre_batch)[0]
         rows_err = (same - full[:, :p_len]).abs().max().item()
         same = same[:, -1]
         full = full[:, p_len - 1:p_len + g_len]
         caches = init_caches(cfg, n_req, max_seq, torch.float32)
         (lg, caches), pre_s, n_pre = during(
-            lambda: prefill_step(params, cfg, {"tokens": prompt}, caches))
-        want = {f.__name__: cfg.num_layers if f in per_layer else 0
-                for f in counted}
+            lambda: prefill_step(params, cfg, pre_batch, caches))
+        want, want_dec = per_step or (
+            {f.__name__: cfg.num_layers if f in per_layer else 0
+             for f in counted}, {f.__name__: 0 for f in counted})
         check(n_full == n_pre == want,
               f"{arch}: launches per forward {n_full}, per prefill "
               f"{n_pre}, want {want}")
@@ -1568,13 +1617,15 @@ def main():
         def decode_all():
             c = caches
             for i in range(p_len, p_len + g_len):
-                out, c = decode_step(params, cfg, toks[:, i:i + 1], c, i)
+                out, c = decode_step(params, cfg, toks[:, i:i + 1], c, i,
+                                     extra=step_inputs(inp, i, i + 1))
                 errs.append((out[:, 0] - full[:, i - p_len + 1]).abs()
                             .max().item())
             return c
 
         caches, dec_s, n_dec = during(decode_all)
-        check(not any(n_dec.values()), f"{arch}: decode launched {n_dec}")
+        check(n_dec == {k: g_len * v for k, v in want_dec.items()},
+              f"{arch}: decode launched {n_dec}, want {want_dec} a step")
         tol_s = 1e-4 * scale
         check(all(np.isfinite(errs)) and max(errs) <= tol_s,
               f"{arch} prefill/decode vs full forward: max err {max(errs)} "
@@ -1588,19 +1639,25 @@ def main():
               err_last_prompt=errs[0], worst_step=int(np.argmax(errs)),
               err_prefill_vs_prompt_forward=same_err,
               err_prompt_forward_vs_forward=rows_err,
-              per_prefill=json.dumps({k: v for k, v in n_pre.items() if v}))
+              per_prefill=json.dumps({k: v for k, v in n_pre.items() if v}),
+              per_decode_step=json.dumps({k: v // g_len for k, v in
+                                          n_dec.items() if v}))
         phase("serve prefill", arch=cfg.name, ms=pre_s * 1e3,
               tokens_per_s=n_req * p_len / pre_s, forward_ms=full_s * 1e3)
         phase("serve decode", arch=cfg.name, ms_per_step=dec_s * 1e3 / g_len,
               tokens_per_s=n_req * g_len / dec_s)
-        return cfg, params, prompt, caches
+        return cfg, params, prompt, caches, inp
 
-    def trace_share(cfg, params, prompt, caches):
-        """Traced device share of one more prefill and of 8 decode steps."""
+    def trace_share(cfg, params, prompt, caches, inp=None):
+        """Traced device share of one more prefill and of 8 decode steps,
+        each given its share of the inputs ``inp`` beside the tokens."""
         spare = init_caches(cfg, n_req, max_seq, torch.float32)
+        inp = inp or {}
 
         def prefill_again():
-            return prefill_step(params, cfg, {"tokens": prompt}, spare)
+            return prefill_step(params, cfg, {"tokens": prompt,
+                                              **step_inputs(inp, 0, p_len)},
+                                spare)
 
         _, dev_us = traced_device_us(prefill_again)
         _, wall = timed(prefill_again)
@@ -1610,8 +1667,9 @@ def main():
 
         def decode8():
             c = caches
-            for i in range(8):
-                _, c = decode_step(params, cfg, prompt[:, :1], c, p_len + i)
+            for i in range(p_len, p_len + 8):
+                _, c = decode_step(params, cfg, prompt[:, :1], c, i,
+                                   extra=step_inputs(inp, i, i + 1))
             return c
 
         _, dev_us = traced_device_us(decode8)
@@ -1620,11 +1678,31 @@ def main():
               wall_ms=wall * 1e3, device_ms=dev_us / 1e3,
               device_share=dev_us / 1e3 / (wall * 1e3))
 
-    def handoff(cfg, params, prompt, caches, pool_size):
+    def greedy_with(params, cfg, prompt, inp, kv_client=None, kv_tenant=None):
+        """``greedy_generate`` for a model that takes inputs beside the
+        tokens (``greedy_generate`` feeds tokens alone, as the
+        reference's): prefill and each decode step given their share of
+        ``inp``, the caches handed over through ``kv_client`` as there."""
+        caches = init_caches(cfg, n_req, max_seq, torch.float32)
+        lg, caches = prefill_step(params, cfg, {
+            "tokens": prompt, **step_inputs(inp, 0, p_len)}, caches)
+        if kv_client is not None:
+            caches = kv_client.roundtrip_caches(0, caches, kv_tenant)
+        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+        outs = [tok]
+        for i in range(p_len, p_len + g_len - 1):
+            lg, caches = decode_step(params, cfg, tok, caches, i,
+                                     extra=step_inputs(inp, i, i + 1))
+            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
+            outs.append(tok)
+        return torch.cat(outs, dim=1)
+
+    def handoff(cfg, params, prompt, caches, pool_size, inp=None):
         """The cache handoff over the RDMA engine, uncompressed, on an
         engine of its own: publish and fetch the caches byte for byte
         (every leaf, dtypes included), then greedy tokens through the
-        remote pool equal those with local caches. Returns (the engine,
+        remote pool equal those with local caches (``greedy_with`` the
+        inputs ``inp`` where the model takes any). Returns (the engine,
         its pool's pages, the fetches made)."""
         eng_ = RDMAEngine(n_peers=2, pool_size=pool_size)
         n_pages = -(-flatten_cache_leaves(caches).numel() // page)
@@ -1668,11 +1746,18 @@ def main():
             # its device time is not measured
             fetch_dev_ms, fetch_dev_src = None, "untraced"
         kv_pool.evict(1)
-        local, gen_s = timed(lambda: greedy_generate(
-            params, cfg, prompt, g_len, max_seq))
-        remote, rgen_s = timed(lambda: greedy_generate(
-            params, cfg, prompt, g_len, max_seq, kv_client=client,
-            kv_seq_id=0, kv_tenant=tenant))
+        if inp:
+            local, gen_s = timed(lambda: greedy_with(params, cfg, prompt,
+                                                     inp))
+            remote, rgen_s = timed(lambda: greedy_with(
+                params, cfg, prompt, inp, kv_client=client,
+                kv_tenant=tenant))
+        else:
+            local, gen_s = timed(lambda: greedy_generate(
+                params, cfg, prompt, g_len, max_seq))
+            remote, rgen_s = timed(lambda: greedy_generate(
+                params, cfg, prompt, g_len, max_seq, kv_client=client,
+                kv_seq_id=0, kv_tenant=tenant))
         check(torch.equal(local, remote),
               "greedy tokens through the remote pool differ from local")
         check(kv_pool.allocated == 0, "the handoff left pages in the pool")
@@ -1699,7 +1784,7 @@ def main():
     # 11. tinyllama-1.1b (dense GQA, K6): the invariant over all 544
     # tokens, then times and device share
     zero_counts()
-    cfg, params, prompt, caches = invariant(
+    cfg, params, prompt, caches, _ = invariant(
         "tinyllama-1.1b", (flash_attention,), p_len + g_len, SEED + 2)
     trace_share(cfg, params, prompt, caches)
 
@@ -1739,8 +1824,8 @@ def main():
     # the forward runs 768 tokens (544 % 256 != 0); causality makes its
     # positions 511-543 the ones to compare
     zero_counts()
-    cfg, params, prompt, caches = invariant("mamba2-370m", (ssd_scan,), 768,
-                                            SEED + 4)
+    cfg, params, prompt, caches, _ = invariant("mamba2-370m", (ssd_scan,),
+                                               768, SEED + 4)
     trace_share(cfg, params, prompt, caches)
 
     # 15. the state handoff of the SSM caches, on a larger pool
@@ -1753,7 +1838,7 @@ def main():
     # 16. hymba-1.5b: attention (K6, window 1024, global at layers 0, 16
     # and 31) and SSM heads (K7) on the same input in every layer
     zero_counts()
-    cfg, params, prompt, caches = invariant(
+    cfg, params, prompt, caches, _ = invariant(
         "hymba-1.5b", (ssd_scan, flash_attention), 768, SEED + 4)
     read_counts("hybrid", (ssd_scan, flash_attention))
     del params, caches
@@ -1763,6 +1848,66 @@ def main():
     moe_phases(dev, timed, during, counted, trace_share, handoff, ledger,
                (n_req, p_len, g_len, max_seq))
     read_counts("moe", (flash_attention,))
+
+    def memory_before():
+        """Free device memory, with the caching allocator emptied and the
+        peak counter reset."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.mem_get_info()[0]
+
+    def memory_phase(name, cfg, free0):
+        torch.cuda.synchronize()
+        phase(name, arch=cfg.name,
+              peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+              free_gb_before=free0 / 1e9)
+
+    # 21. seamless-m4t-large-v2 (enc-dec, the speech frontend a stub: 128
+    # N(0, 1) frames a request): K6 in the encoder (not causal, 128 x 128),
+    # in the decoder's self-attention from an empty cache and in the
+    # cross-attention (512 x 128 in prefill); a decode step re-runs the
+    # encoder and the cross-attention from no cache, as the reference
+    # does, so it launches K6 48 times. Then the {"self"} cache handoff.
+    zero_counts()
+    free0 = memory_before()
+    seam = get_config("seamless-m4t-large-v2")
+    n_enc, n_dec = seam.encoder_layers, seam.num_layers
+    per_step = tuple({f.__name__: n if f is flash_attention else 0
+                      for f in counted}
+                     for n in (n_enc + 2 * n_dec, n_enc + n_dec))
+    cfg, params, prompt, caches, inp = invariant(
+        "seamless-m4t-large-v2", (), p_len + g_len, SEED + 7, per_step)
+    trace_share(cfg, params, prompt, caches, inp)
+    # the encoder alone, as each decode step re-runs it: its share of a
+    # step is what caching its output would save
+    enc_embeds = inp["enc_embeds"]
+    enc_s = [timed(lambda: encode(params, cfg, enc_embeds))[1]
+             for _ in range(3)]
+    _, enc_us = traced_device_us(lambda: encode(params, cfg, enc_embeds))
+    phase("encdec encoder", arch=cfg.name, frames=tuple(enc_embeds.shape),
+          ms=json.dumps([t * 1e3 for t in enc_s]), device_ms=enc_us / 1e3)
+    s_eng, n_pages, n_fetches = handoff(cfg, params, prompt, caches,
+                                        ENCDEC_POOL, inp)
+    ledger(s_eng, n_pages, n_fetches)
+    memory_phase("encdec memory", cfg, free0)
+    read_counts("encdec", (flash_attention,))
+    del params, caches, s_eng, inp
+
+    # 22. qwen2-vl-7b (M-RoPE; the vision tower a stub): 128 patch
+    # embeddings over the first positions, one frame on an 8 x 16 grid,
+    # the text from id 16 on; K6 at 28 q heads over 4 kv heads of 128
+    # once per layer in prefill and forward, none in decode. Its caches
+    # are laid out as tinyllama's, whose handoff phase 12 holds.
+    zero_counts()
+    free0 = memory_before()
+    cfg, params, prompt, caches, inp = invariant(
+        "qwen2-vl-7b", (flash_attention,), p_len + g_len, SEED + 8)
+    trace_share(cfg, params, prompt, caches, inp)
+    memory_phase("vlm memory", cfg, free0)
+    read_counts("vlm", (flash_attention,))
+    del params, caches, inp
+    torch.cuda.empty_cache()
 
     # ---- 18-19. training -------------------------------------------------
     # tinyllama-1.1b at full width and depth, f32, batch 4 x 512; the

@@ -2,10 +2,18 @@
 
 The serving-side host application: a batch of requests is prefilled
 into the model's caches, then every sequence advances one token per
-decode step. Prefill runs attention through K6 (dense, hybrid and MoE
-models; MLA's at head dims 192/128) and the SSD scan through K7 (SSM and
-hybrid models); decode is plain PyTorch over the caches. Runs on the GPU
-unless ``--device cpu``.
+decode step. Prefill runs attention through K6 (dense, hybrid, MoE and
+VLM models; MLA's at head dims 192/128) and the SSD scan through K7 (SSM
+and hybrid models); decode is plain PyTorch over the caches. Runs on the
+GPU unless ``--device cpu``.
+
+As the reference's launcher, it feeds tokens alone: qwen2-vl then turns
+by RoPE over positions (no image, no M-RoPE ids), and an enc-dec model
+(seamless-m4t), whose encoder needs the frontend stub's frames, raises
+``KeyError: 'enc_embeds'``. Those inputs are laid out by
+``serve.inputs.model_inputs`` and go through ``prefill_step`` and
+``decode_step(extra=)``, as ``chip_smoke.py`` phases 21 and 22 serve
+them.
 
 Usage::
 

@@ -1,10 +1,11 @@
 """Shared model layers (PyTorch, explicit param dicts).
 
-RMSNorm, RoPE, GQA attention with optional qk-norm / QKV bias / sliding
-window, DeepSeek-V2's multi-head latent attention (MLA), and the SwiGLU
-MLP. Attention from an empty cache (prefill at position 0, or a forward
-without caches) goes through K6 (``kernels.ops.attention``; MLA's at
-head dims 192 for q and k, 128 for v); decode attends over the cache
+RMSNorm, RoPE and M-RoPE (qwen2-vl's t/h/w sections), GQA attention
+with optional qk-norm / QKV bias / sliding window, DeepSeek-V2's
+multi-head latent attention (MLA), and the SwiGLU MLP. Attention from
+an empty cache (prefill at position 0, or a forward without caches)
+goes through K6 (``kernels.ops.attention``; MLA's at head dims 192 for
+q and k, 128 for v); decode attends over the cache
 with plain masked attention, the reference's own split (its XLA path
 there, ``repro/models/layers.py:_attention_naive``). Projections are
 ``torch.matmul``, as the reference leaves them to XLA. There is one
@@ -59,17 +60,42 @@ def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
                                          device=device) / head_dim))
 
 
-def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
-               ) -> torch.Tensor:
-    """x: (B, S, H, d); positions: (B, S) int."""
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, x.device)                  # (d/2,)
-    angles = positions[..., None].to(torch.float32) * freqs  # (B, S, d/2)
+def _rotate(x: torch.Tensor, angles: torch.Tensor) -> torch.Tensor:
+    """x: (B, S, H, d) rotated by angles (B, S, d/2), half against half."""
     cos = torch.cos(angles)[:, :, None, :]
     sin = torch.sin(angles)[:, :, None, :]
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+               ) -> torch.Tensor:
+    """x: (B, S, H, d); positions: (B, S) int."""
+    freqs = rope_freqs(x.shape[-1], theta, x.device)        # (d/2,)
+    return _rotate(x, positions[..., None].to(torch.float32) * freqs)
+
+
+def mrope_section_ids(half: int, sections) -> list:
+    """Which of the t/h/w ids (0/1/2) drives each of the ``half``
+    frequency slots: ``sections[i]`` slots of id ``i`` in turn, cut at
+    ``half`` and padded with id 2 below it (``jnp.repeat(arange(3),
+    sections, total_repeat_length=half)``, as the reference builds it)."""
+    ids = [i for i, n in enumerate(sections) for _ in range(n)][:half]
+    return ids + [2] * (half - len(ids))
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections) -> torch.Tensor:
+    """M-RoPE (qwen2-vl). x: (B, S, H, d); positions: (3, B, S) int, the
+    (t, h, w) ids. Each frequency slot of the head-dim halves turns by
+    the id its section names (``mrope_section_ids``)."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, x.device)                  # (d/2,)
+    ids = torch.tensor(mrope_section_ids(d // 2, sections),
+                       device=positions.device)
+    picked = positions[ids].permute(1, 2, 0)                # (B, S, d/2)
+    return _rotate(x, picked.to(torch.float32) * freqs)
 
 
 # ---------------------------------------------------------------------------
@@ -151,12 +177,16 @@ def _attention_naive(q, k, v, *, causal, window, q_offset, kv_len):
 def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
                     window: int = 0, cache: Optional[dict] = None,
-                    pos: int = 0):
+                    pos: int = 0,
+                    mrope_positions: Optional[torch.Tensor] = None):
     """Full attention sub-block. Returns (out, cache).
 
+    q and k turn by M-RoPE over ``mrope_positions`` (3, B, S) when the
+    config has it and they are given, else by RoPE over ``positions``.
     With ``cache`` ({"k", "v", "pos"} views of one layer), the new keys
-    and values are written in place at host position ``pos``; ``pos ==
-    0`` attends over them alone (K6), a later position over the cache."""
+    and values are written in place at host position ``pos`` (the cache
+    slot, apart from the rotation ids); ``pos == 0`` attends over them
+    alone (K6), a later position over the cache."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
     q = x @ params["wq"]
@@ -172,8 +202,14 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.qk_norm:
         q = rms_norm(q, params["q_norm_scale"], cfg.rms_eps)
         k = rms_norm(k, params["k_norm_scale"], cfg.rms_eps)
-    q = apply_rope(q, positions, cfg.rope_theta)
-    k = apply_rope(k, positions, cfg.rope_theta)
+    if cfg.mrope and mrope_positions is not None:
+        q = apply_mrope(q, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+    else:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
 
     if cache is not None:
         ck, cv = cache["k"], cache["v"]

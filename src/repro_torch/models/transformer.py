@@ -6,18 +6,24 @@ The port of ``repro/models/transformer.py`` for dense GQA decoders
 parallel heads (hymba-1.5b: attention and SSM heads on the same input,
 each output RMS-normed, then averaged) and MoE decoders (phi3.5-moe: GQA
 attention with a routed-expert FFN, ``models/moe.py``; deepseek-v2-lite:
-MLA attention, shared experts and leading dense blocks). Parameters keep
-the reference's pytree layout — nested dicts with the layer dimension
-stacked first under ``"layers"``, the leading dense blocks unstacked
-under ``"dense_blocks"`` — so ``convert.params_from_jax`` maps a JAX
-pytree leaf for leaf. The reference scans the stack with ``lax.scan``;
-here a Python loop runs the layers on views of the stacked tensors.
+MLA attention, shared experts and leading dense blocks), the
+encoder-decoder stack (seamless-m4t: a non-causal encoder over the
+frontend stub's frame embeddings ``enc_embeds``, a decoder with
+cross-attention onto its output) and vision-language decoders
+(qwen2-vl: M-RoPE over (t, h, w) ids, ``patch_embeds`` merged over the
+first token embeddings). Parameters keep the reference's pytree layout
+— nested dicts with the layer dimension stacked first under
+``"layers"`` (``"enc_layers"`` and ``"dec_layers"`` for enc-dec), the
+leading dense blocks unstacked under ``"dense_blocks"`` — so
+``convert.params_from_jax`` maps a JAX pytree leaf for leaf. The
+reference scans the stack with ``lax.scan``; here a Python loop runs
+the layers on views of the stacked tensors.
 Training takes ``loss_fn`` (the reference's cross entropy over the
 padded vocab, plus MoE's weighted aux loss) with ``remat`` checkpointing
 each block.
 
-Encoder-decoder stacks, M-RoPE and the frontend stub raise
-``NotImplementedError``.
+As in the reference, the encoder runs on every call, decode steps
+included: its output and the cross K/V are not cached.
 """
 from __future__ import annotations
 
@@ -30,25 +36,22 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
-from repro_torch.models.layers import (attention_block, init_attention,
-                                       init_dense, init_mla, init_mlp,
-                                       mla_block, mlp_block, rms_norm)
+from repro_torch.models.layers import (attention_block, attention_core,
+                                       init_attention, init_dense, init_mla,
+                                       init_mlp, mla_block, mlp_block,
+                                       rms_norm)
+
+
+FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "audio")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise unless ``cfg`` is a dense GQA decoder, an SSM model, a
-    hybrid-heads model or an MoE decoder (with GQA or MLA attention):
-    the ported paths."""
-    unsupported = [name for name, on in (
-        (f"family {cfg.family!r}",
-         cfg.family not in ("dense", "ssm", "hybrid", "moe")),
-        ("encoder-decoder", cfg.enc_dec), ("M-RoPE", cfg.mrope),
-        ("frontend stub", cfg.embedding_frontend_stub)) if on]
-    if unsupported:
+    """Raise unless ``cfg`` is of one of the registry's families
+    (``FAMILIES``)."""
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(unsupported)} not ported yet (the "
-            "PyTorch port serves dense GQA decoders, SSM, hybrid-heads "
-            "and MoE models)")
+            f"{cfg.name}: family {cfg.family!r} not ported (the PyTorch "
+            f"port runs {', '.join(FAMILIES)})")
 
 
 def _n_scanned(cfg: ModelConfig) -> int:
@@ -82,15 +85,22 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
         p["dense_blocks"] = {
             str(i): _init_block(gen, cfg, dtype, dev, None, dense_ffn=True)
             for i in range(cfg.moe.first_dense_layers)}
-    p["layers"] = _init_block(gen, cfg, dtype, dev, _n_scanned(cfg))
+    if cfg.enc_dec:
+        p["enc_layers"] = _init_block(gen, cfg, dtype, dev,
+                                      cfg.encoder_layers)
+        p["dec_layers"] = _init_block(gen, cfg, dtype, dev, cfg.num_layers,
+                                      cross_attn=True)
+    else:
+        p["layers"] = _init_block(gen, cfg, dtype, dev, _n_scanned(cfg))
     return p
 
 
 def _init_block(gen, cfg: ModelConfig, dtype, dev, n: Optional[int],
-                dense_ffn: bool = False) -> dict:
+                dense_ffn: bool = False, cross_attn: bool = False) -> dict:
     """One block's params, stacked ``(n, ...)`` (``n`` None: unstacked).
     ``dense_ffn``: an MoE model's leading dense block, a SwiGLU MLP of
-    ``dense_d_ff``."""
+    ``dense_d_ff``. ``cross_attn``: a decoder block of an enc-dec stack,
+    with a cross-attention onto the encoder's output."""
     d = cfg.d_model
     lead = () if n is None else (n,)
 
@@ -113,8 +123,12 @@ def _init_block(gen, cfg: ModelConfig, dtype, dev, n: Optional[int],
         d_ff = ((cfg.moe.dense_d_ff or cfg.d_ff) if cfg.moe.enabled
                 else cfg.d_ff)
         ffn = {"mlp": init_mlp(gen, d, d_ff, dtype, dev, n)}
-    return {"pre_norm_scale": ones(), "mixer": mixer,
-            "post_norm_scale": ones(), "ffn": ffn}
+    p = {"pre_norm_scale": ones(), "mixer": mixer,
+         "post_norm_scale": ones(), "ffn": ffn}
+    if cross_attn:
+        p["cross_norm_scale"] = ones()
+        p["cross"] = init_attention(gen, cfg, dtype, dev, n)
+    return p
 
 
 def layer_windows(cfg: ModelConfig, n: int) -> List[int]:
@@ -153,8 +167,12 @@ def _unstack(tree, n: int) -> List[dict]:
 
 
 def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
-                 cache, pos: int):
-    """Returns (out, cache); the cache is updated in place."""
+                 cache, pos: int, causal: bool = True,
+                 mrope_positions=None):
+    """Returns (out, cache); the cache is updated in place. ``causal``
+    (the encoder's False) and M-RoPE reach the plain attention mixer
+    only, as in the reference; an enc-dec decoder block's cache is
+    ``{"self": {...}}``."""
     if cfg.family == "ssm":
         return ssm_mod.ssm_block(mp["ssm"], cfg, x, cache=cache)
     if cfg.mla.enabled:
@@ -170,21 +188,44 @@ def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
                      + rms_norm(s_out, mp["ssm_out_norm_scale"],
                                 cfg.rms_eps))
         return out, cache
-    return attention_block(mp["attn"], cfg, x, positions, window=window,
-                           cache=cache, pos=pos)
+    if isinstance(cache, dict) and "self" in cache:
+        cache = cache["self"]
+    return attention_block(mp["attn"], cfg, x, positions, causal=causal,
+                           window=window, cache=cache, pos=pos,
+                           mrope_positions=mrope_positions)
+
+
+def _cross_attention(params: dict, cfg: ModelConfig, x, enc_out):
+    """Cross-attention: q from the decoder's ``x``, k and v from the
+    encoder's output; no rope, no bias, not causal, from no cache (K6
+    over the encoder's frames)."""
+    b, s, _ = x.shape
+    se = enc_out.shape[1]
+    hd = cfg.resolved_head_dim()
+    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
+    k = (enc_out @ params["wk"]).reshape(b, se, cfg.num_kv_heads, hd)
+    v = (enc_out @ params["wv"]).reshape(b, se, cfg.num_kv_heads, hd)
+    out = attention_core(q, k, v, causal=False)
+    return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"]
 
 
 def _block_apply(bp: dict, cfg: ModelConfig, x, positions, window: int,
-                 cache, pos: int):
+                 cache, pos: int, mrope_positions=None, enc_out=None,
+                 causal: bool = True):
     """One transformer block. Returns (x, cache, aux): the cache is
     updated in place, aux is the MoE FFN's load-balancing loss (None
-    without MoE). The FFN runs on every family, as in the reference (a
-    reduced mamba2 has one); a zero-width FFN (full mamba2, ``d_ff`` 0)
-    adds an exact 0 there and is skipped here."""
+    without MoE). With ``enc_out`` (an enc-dec decoder block), a
+    cross-attention onto it follows the mixer. The FFN runs on every
+    family, as in the reference (a reduced mamba2 has one); a zero-width
+    FFN (full mamba2, ``d_ff`` 0) adds an exact 0 there and is skipped
+    here."""
     h = rms_norm(x, bp["pre_norm_scale"], cfg.rms_eps)
     mix, cache = _mixer_apply(bp["mixer"], cfg, h, positions, window,
-                              cache, pos)
+                              cache, pos, causal, mrope_positions)
     x = x + mix
+    if enc_out is not None:
+        hc = rms_norm(x, bp["cross_norm_scale"], cfg.rms_eps)
+        x = x + _cross_attention(bp["cross"], cfg, hc, enc_out)
     aux = None
     if "moe" in bp["ffn"]:
         h2 = rms_norm(x, bp["post_norm_scale"], cfg.rms_eps)
@@ -209,14 +250,66 @@ def _conv_caches_to(tree, dtype) -> None:
             tree[key] = val.to(dtype)
 
 
+def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
+                 ) -> torch.Tensor:
+    """Token embeddings, with the frontend stub's ``embeds`` passed
+    through (no ``enc_embeds`` given) and a VLM's ``patch_embeds`` (B, P,
+    D) over the first P positions."""
+    if cfg.embedding_frontend_stub and "enc_embeds" not in batch \
+            and "embeds" in batch:
+        return batch["embeds"]
+    x = params["embed"][batch["tokens"]]                # (B, S, D)
+    if cfg.mrope and "patch_embeds" in batch:
+        pe = batch["patch_embeds"].to(x.dtype)
+        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+    return x
+
+
+def _run_stack(blocks, cfg: ModelConfig, x, positions, checkpointed: bool,
+               pos: int = 0, mrope_positions=None, enc_out=None,
+               causal: bool = True):
+    """``blocks`` ((block params, its cache, its window), ...) in turn.
+    Returns (x, the MoE layers' summed aux, 0 without MoE)."""
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for bp, cache, window in blocks:
+        if checkpointed:
+            x, aux = torch.utils.checkpoint.checkpoint(
+                _remat_block, bp, x, cfg, positions, window,
+                mrope_positions, enc_out, causal, use_reentrant=False)
+        else:
+            x, _, aux = _block_apply(bp, cfg, x, positions, window, cache,
+                                     pos, mrope_positions, enc_out, causal)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return x, aux_total
+
+
+def encode(params: dict, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
+           checkpointed: bool = False) -> torch.Tensor:
+    """The enc-dec encoder over the frontend stub's frame embeddings (B,
+    S_enc, D), in the parameters' dtype: not causal, no cache, RoPE over
+    0..S_enc-1, no final norm."""
+    b, se = enc_embeds.shape[:2]
+    x = enc_embeds.to(params["embed"].dtype)
+    positions = torch.arange(se, dtype=torch.int32,
+                             device=x.device).expand(b, se)
+    n = cfg.encoder_layers
+    blocks = zip(_unstack(params["enc_layers"], n), [None] * n,
+                 layer_windows(cfg, n))
+    x, _ = _run_stack(blocks, cfg, x, positions, checkpointed, causal=False)
+    return x
+
+
 def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
             pos: int = 0, remat: bool = False):
-    """Full forward. batch keys: tokens (B,S)[, positions]. ``pos`` is the
-    host position where the tokens enter the caches (0 for prefill).
-    Returns (logits (B, S, V_padded), caches, aux); caches are updated in
-    place, aux is the MoE layers' summed load-balancing loss (0 without
-    MoE). The leading dense blocks of an MoE model run first, then the
-    stack. ``remat`` checkpoints each block
+    """Full forward. batch keys: tokens (B,S)[, positions,
+    mrope_positions (3,B,S), patch_embeds (B,P,D), enc_embeds
+    (B,S_enc,D), embeds]. ``pos`` is the host position where the tokens
+    enter the caches (0 for prefill). Returns (logits (B, S, V_padded),
+    caches, aux); caches are updated in place, aux is the MoE layers'
+    summed load-balancing loss (0 without MoE). An enc-dec model runs its
+    encoder first, on every call; the leading dense blocks of an MoE
+    model run before the stack. ``remat`` checkpoints each block
     (``torch.utils.checkpoint``, non-reentrant) when gradients are being
     recorded: its activations are recomputed in the backward, as the
     reference's ``jax.checkpoint`` of the scanned block does."""
@@ -228,30 +321,24 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
         positions = (pos + torch.arange(s, dtype=torch.int32,
                                         device=tokens.device)
                      ).expand(b, s)
-    x = params["embed"][tokens]                         # (B, S, D)
+    mrope_positions = batch.get("mrope_positions")
+    checkpointed = remat and caches is None and torch.is_grad_enabled()
+    enc_out = (encode(params, cfg, batch["enc_embeds"],
+                      checkpointed=checkpointed) if cfg.enc_dec else None)
+    x = embed_inputs(params, cfg, batch)
     if caches is not None:
         _conv_caches_to(caches["scan"], x.dtype)
-    checkpointed = remat and caches is None and torch.is_grad_enabled()
     # (block params, its cache, its window): the dense blocks, then the stack
     blocks = [(bp, None if caches is None else caches["dense"][i], 0)
               for i, bp in sorted(params.get("dense_blocks", {}).items(),
                                   key=lambda kv: int(kv[0]))]
     n = _n_scanned(cfg)
     wins = layer_windows(cfg, n)
+    stack = _unstack(params["dec_layers" if cfg.enc_dec else "layers"], n)
     blocks += [(bp, None if caches is None else _layer(caches["scan"], i),
-                wins[i])
-               for i, bp in enumerate(_unstack(params["layers"], n))]
-    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for bp, cache, window in blocks:
-        if checkpointed:
-            x, aux = torch.utils.checkpoint.checkpoint(
-                _remat_block, bp, x, cfg, positions, window,
-                use_reentrant=False)
-        else:
-            x, _, aux = _block_apply(bp, cfg, x, positions, window, cache,
-                                     pos)
-        if aux is not None:
-            aux_total = aux_total + aux
+                wins[i]) for i, bp in enumerate(stack)]
+    x, aux_total = _run_stack(blocks, cfg, x, positions, checkpointed, pos,
+                              mrope_positions, enc_out)
     x = rms_norm(x, params["final_norm_scale"], cfg.rms_eps)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
@@ -259,10 +346,12 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     return logits, caches, aux_total
 
 
-def _remat_block(bp: dict, x, cfg: ModelConfig, positions, window: int):
+def _remat_block(bp: dict, x, cfg: ModelConfig, positions, window: int,
+                 mrope_positions=None, enc_out=None, causal: bool = True):
     """A block without caches, the function each remat checkpoint
     recomputes: (x, aux)."""
-    x, _, aux = _block_apply(bp, cfg, x, positions, window, None, 0)
+    x, _, aux = _block_apply(bp, cfg, x, positions, window, None, 0,
+                             mrope_positions, enc_out, causal)
     return x, aux
 
 
@@ -309,10 +398,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     kv_lora_rank), "k_rope": (L, B, max_seq, rope_dim), "pos": (L,)}}``
     for MLA, ``{"scan": {"conv": (L, B, K-1, C), "ssm": (L, B, nh, hd, N)
     f32}}`` for SSM, ``{"scan": {"attn": {...}, "ssm": {...}}}`` for
-    hybrid heads; an MoE model's leading dense blocks add ``{"dense":
-    {"0": <one unstacked layer>, ...}}``. A forward gives the conv
-    buffers the activations' dtype on its first step
-    (``_conv_caches_to``)."""
+    hybrid heads, ``{"scan": {"self": {"k", "v", "pos"}}}`` for an
+    enc-dec decoder (the encoder keeps no cache); an MoE model's leading
+    dense blocks add ``{"dense": {"0": <one unstacked layer>, ...}}``. A
+    forward gives the conv buffers the activations' dtype on its first
+    step (``_conv_caches_to``)."""
     check_supported(cfg)
     dev = resolve_device(device)
     n = _n_scanned(cfg)
@@ -346,4 +436,6 @@ def _layer_caches(cfg: ModelConfig, n: Optional[int], batch: int,
     if cfg.hybrid_parallel_heads:
         return {"attn": attn, "ssm": ssm_mod.init_ssm_cache(
             cfg, n, batch, dtype, dev)}
+    if cfg.enc_dec:
+        return {"self": attn}
     return attn

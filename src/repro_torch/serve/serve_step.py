@@ -1,11 +1,14 @@
 """Serving steps: prefill + decode over the model's caches (attention
-KV, MLA's compressed latent, SSM conv and state, or attention and SSM
-for hybrid heads), and a greedy loop.
+KV, an enc-dec decoder's under ``"self"``, MLA's compressed latent, SSM
+conv and state, or attention and SSM for hybrid heads), and a greedy
+loop.
 
 Positions are host ints: prefill starts at 0 and decode knows its step,
 so no step reads a cache's ``pos`` back from the device.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -14,20 +17,26 @@ from repro_torch.models.transformer import forward, init_caches
 
 
 def prefill_step(params, cfg: ModelConfig, batch: dict, caches):
-    """Process the prompt from position 0, filling caches. Returns
+    """Process the prompt from position 0, filling caches. ``batch`` goes
+    to the forward whole (tokens, and ``enc_embeds``, ``patch_embeds``,
+    ``mrope_positions`` where the model takes them). Returns
     (last_logits (B, 1, V), caches)."""
     logits, caches, _ = forward(params, cfg, batch, caches=caches, pos=0)
     return logits[:, -1:], caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches,
-                pos: int):
+                pos: int, extra: Optional[dict] = None):
     """One decode step. tokens: (B, 1); pos: host int, the position the
-    tokens take. Returns (logits (B, 1, V), caches)."""
+    tokens take (their cache slot). ``extra`` joins the batch: an enc-dec
+    model's ``enc_embeds``, a VLM's ``mrope_positions`` (3, B, 1).
+    Returns (logits (B, 1, V), caches)."""
     b = tokens.shape[0]
     batch = {"tokens": tokens,
              "positions": torch.full((b, 1), pos, dtype=torch.int32,
                                      device=tokens.device)}
+    if extra:
+        batch.update(extra)
     logits, caches, _ = forward(params, cfg, batch, caches=caches, pos=pos)
     return logits, caches
 
@@ -42,7 +51,9 @@ def greedy_generate(params, cfg: ModelConfig, prompt: torch.Tensor,
     decode: published as pages into the remote KV pool, then fetched
     back over one-sided READ WQEs on ``kv_tenant``'s QP. Decode runs on
     the fetched caches — bit-identical tokens for uncompressed f32
-    pools. Returns (B, max_new) token ids."""
+    pools. Tokens only, as in the reference: an enc-dec model, which
+    needs ``enc_embeds``, is served by ``prefill_step`` and
+    ``decode_step(extra=)``. Returns (B, max_new) token ids."""
     b, s = prompt.shape
     caches = init_caches(cfg, b, max_seq, dtype, device=prompt.device)
     logits, caches = prefill_step(params, cfg, {"tokens": prompt}, caches)

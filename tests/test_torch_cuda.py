@@ -18,7 +18,9 @@ final state, f32 in both dtypes, within 2e-5. Under autograd, K6's and
 K7's gradients are within the same 2e-4 and 2e-5 of autograd's through
 the plain versions, and one ``tiny`` train step on the card is within
 1e-5 (loss, relative) and 1e-4 of each gradient leaf's largest |value|
-of the same step on the CPU.
+of the same step on the CPU. M-RoPE on the card is within 1e-5 of the
+CPU's, and a full-width seamless-m4t layer's encoder output and logits
+within 1e-4 of their largest |value| of the CPU's.
 """
 import numpy as np
 import pytest
@@ -734,3 +736,88 @@ def test_cuda_mla_moe_prefill_launches_k6_once_per_layer(cuda):
     assert flash_attention.launches == before + 2 * cfg.num_layers
     torch.testing.assert_close(lg[:, 0], full[:, 11], rtol=5e-5, atol=5e-5)
     torch.testing.assert_close(lg2[:, 0], full[:, 12], rtol=5e-5, atol=5e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,causal,hq,hkv,d", [
+    (128, 128, False, 16, 16, 64),     # seamless-m4t's encoder
+    (512, 128, False, 16, 16, 64),     # its cross-attention in prefill
+    (1, 128, False, 16, 16, 64),       # and in a decode step
+    (512, 512, True, 28, 4, 128),      # qwen2-vl-7b's prefill, GQA 7
+])
+def test_cuda_flash_attention_encdec_and_vlm_shapes(cuda, sq, skv, causal,
+                                                    hq, hkv, d):
+    """K6 at the shapes seamless-m4t-large-v2 and qwen2-vl-7b serve at (8
+    sequences): not causal with Sq != Skv and Sq = 1, and 28 q heads over
+    4 kv heads of 128; one launch, within 2e-4 of the plain version."""
+    def rand(*shape):
+        return torch.from_numpy(RNG.standard_normal(shape).astype(
+            np.float32)).to(cuda)
+
+    q, k, v = rand(8, sq, hq, d), rand(8, skv, hkv, d), rand(8, skv, hkv, d)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_apply_mrope_matches_cpu(cuda):
+    """M-RoPE at qwen2-vl's head dim 128, distinct t/h/w ids, on the card
+    against the CPU within 1e-5 (cos and sin of the same f32 angles)."""
+    from repro_torch.models.layers import apply_mrope
+    x = torch.from_numpy(RNG.standard_normal((2, 33, 4, 128)).astype(
+        np.float32))
+    ids = torch.from_numpy(RNG.integers(0, 600, (3, 2, 33)).astype(np.int32))
+    want = apply_mrope(x, ids, 1e6, (16, 24, 24))
+    got = apply_mrope(x.to(cuda), ids.to(cuda), 1e6, (16, 24, 24))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_seamless_block_matches_cpu(cuda):
+    """One seamless-m4t-large-v2 layer of each stack at full width (d_model
+    1024, 16 heads of 64, d_ff 8192) over 128 frames and 40 tokens: the
+    encoder's output and a forward's logits on the card within 1e-4 of
+    their largest |value| of the CPU's; K6 launched 3 times in the
+    forward (encoder, self, cross) and 2 in a decode step."""
+    import dataclasses
+    from repro_torch._tree import tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.models.transformer import encode
+    from repro_torch.serve import decode_step, model_inputs, prefill_step
+
+    cfg = dataclasses.replace(get_config("seamless-m4t-large-v2"),
+                              num_layers=1, encoder_layers=1,
+                              vocab_size=512)
+    params = init_params(cfg, 0, device="cpu")
+    on_card = tree_map(lambda t: t.to(cuda), params)
+    inp = model_inputs(cfg, 2, 512, seed=1, device="cpu")
+    toks = torch.from_numpy(RNG.integers(0, cfg.vocab_size, (2, 40)))
+    want = encode(params, cfg, inp["enc_embeds"])
+    got = encode(on_card, cfg, inp["enc_embeds"].to(cuda)).cpu()
+    torch.testing.assert_close(got, want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    before = flash_attention.launches
+    batch = {"tokens": toks, **inp}
+    want, _, _ = forward(params, cfg, batch)
+    got, _, _ = forward(on_card, cfg, tree_map(lambda t: t.to(cuda), batch))
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 3
+    torch.testing.assert_close(got.cpu(), want, rtol=0,
+                               atol=1e-4 * float(want.abs().max()))
+    card = tree_map(lambda t: t.to(cuda), {"tokens": toks, **inp})
+    caches = init_caches(cfg, 2, 48, torch.float32)
+    _, caches = prefill_step(on_card, cfg, {"tokens": card["tokens"][:, :39],
+                                            "enc_embeds": card["enc_embeds"]},
+                             caches)
+    lg, _ = decode_step(on_card, cfg, card["tokens"][:, 39:40], caches, 39,
+                        extra={"enc_embeds": card["enc_embeds"]})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 3 + 3 + 2
+    torch.testing.assert_close(lg[:, 0].cpu(), want[:, 39], rtol=0,
+                               atol=1e-4 * float(want.abs().max()))

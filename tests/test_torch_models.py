@@ -22,6 +22,7 @@ from repro_torch.configs.registry import ARCHS, get_config
 from repro_torch.launch.serve import run
 from repro_torch.models import (forward, init_caches, init_params,
                                 layer_windows, params_from_jax)
+from repro_torch.models.transformer import check_supported
 from repro_torch.serve import decode_step, greedy_generate, prefill_step
 
 DENSE = ["tiny", "tinyllama-1.1b-smoke", "qwen2.5-3b-smoke",
@@ -182,13 +183,33 @@ def test_init_params_tree_and_distribution():
     assert torch.equal(again["embed"], tp["embed"])      # seeded
 
 
-@pytest.mark.parametrize("arch", ["qwen2-vl-7b-smoke",
-                                  "seamless-m4t-large-v2-smoke"])
-def test_later_slice_families_raise(arch):
-    cfg = get_config(arch)
-    with pytest.raises(NotImplementedError, match="not ported"):
+@pytest.mark.parametrize("arch", [a + "-smoke" for a in ARCHS])
+def test_every_registry_arch_builds(arch):
+    """Every architecture of the registry is admitted: the port's own
+    ``init_params`` and ``init_caches`` give the JAX package's trees,
+    shapes and dtypes (``enc_layers`` / ``dec_layers`` and ``{"self"}``
+    caches for enc-dec, QKV biases for qwen2-vl, ...)."""
+    jc, tc = jax_config(arch), get_config(arch)
+
+    def shapes(tree):
+        if isinstance(tree, dict):
+            return {k: shapes(v) for k, v in tree.items()}
+        return (tuple(tree.shape), str(tree.dtype).split(".")[-1])
+
+    want = shapes(jax.eval_shape(
+        lambda: JM.init_params(jc, jax.random.PRNGKey(0))))
+    assert shapes(init_params(tc, 1, device="cpu")) == want
+    want = shapes(JM.init_caches(jc, 2, 8, jnp.float32))
+    assert shapes(init_caches(tc, 2, 8, torch.float32, device="cpu")) == want
+
+
+def test_unknown_family_raises():
+    for arch in ("deepseek-v2-lite-16b-smoke", "phi3.5-moe-42b-smoke"):
+        check_supported(get_config(arch))          # the MoE configs pass
+    cfg = dataclasses.replace(get_config("tiny"), family="diffusion")
+    with pytest.raises(NotImplementedError, match="family 'diffusion'"):
         init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="not ported"):
         init_caches(cfg, 1, 8, device="cpu")
 
 

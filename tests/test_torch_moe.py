@@ -270,22 +270,6 @@ def test_serve_launcher_on_cpu():
     assert res["prefill_s"] > 0 and res["decode_tokens_per_s"] > 0
 
 
-@pytest.mark.parametrize("feature,field", [
-    ("encoder-decoder", "enc_dec"), ("M-RoPE", "mrope"),
-    ("frontend stub", "embedding_frontend_stub")])
-def test_check_supported_raises_for_unported_features(feature, field):
-    """MoE and MLA are admitted; an encoder-decoder stack, M-RoPE and the
-    frontend stub still raise, each by name, on init and on caches."""
-    from repro_torch.models.transformer import check_supported
-    for arch in MOE:
-        check_supported(get_config(arch))
-    cfg = dataclasses.replace(get_config(MOE[0]), **{field: True})
-    with pytest.raises(NotImplementedError, match=feature):
-        init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=feature):
-        init_caches(cfg, 1, 8, device="cpu")
-
-
 @pytest.mark.parametrize("arch", MOE)
 def test_remat_loss_and_grads_equal_plain(arch):
     """``remat`` checkpoints each block (the dense block's too) and
