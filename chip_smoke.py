@@ -45,6 +45,25 @@ reports them) and runs, on the card:
      ``PARSER_WORKLOAD`` over 4096 packets, 1024 slots quantized by
      32-slot ``STREAM_QUANT_WORKLOAD`` messages and decompressed, and the
      ``read_batch_16k`` / ``dma_64mib`` READs;
+  23. the knob sweep: a live engine on the card with the reference
+     bench's geometry (2 peers, 4096 words, seed 7, eight host READs),
+     two ``AutoTuner(passes=2, rows=128)`` sweeps (``apply=False``) that
+     must give the same chosen point and surface, equal to a sweep of a
+     CPU engine of the same geometry, the choice then installed with
+     ``apply_tuning``; the chosen point, trials, improvement, the sweeps'
+     walls and each trial's wall on the card;
+  24. the executor's cost profile (``cost_model.ExecutorCost``) measured
+     on the card: the median host wall of a synchronised one-descriptor
+     ``execute_batch`` (``dispatch_s``) and of a 16-word ``host_write``
+     (``staging_dispatch_s``) over 64 calls each, and a fresh bucket's
+     first call less a warm call (``compile_s``, median of eight
+     buckets), printed beside the committed profile (no timing checked);
+  25. the paper model beside the card: ``predict_from_stats`` over the
+     datapath engine's stats after 3-6 and over ``read_batch_16k``'s own
+     counts, under the committed profile and this run's, beside the
+     phases' measured walls; ``simulate_rdma`` at ``read_batch_16k``
+     (the paper's ~89 Gb/s) beside the port's rate; ``run_testcase`` over
+     every ``tests/testcases/*.json``, each anchor checked;
   7-10. the streaming dispatch plane on the same engine: ``streaming_rx``
      (16384 packets through ``TrafficRouter.ingest_packets`` into a
      1024-slot ring drained by ``LCKernel.stream()``),
@@ -183,6 +202,10 @@ GRAD_SYNC_TOL = 1e-5
 # a routing flip between two f32 routes (other summation orders) is a
 # near-tie: its 6th and 7th experts' probabilities within this
 FLIP_MARGIN = 1e-4
+# the knob sweep's live engine: the reference bench's geometry and seed
+# (benchmarks/bench_autotune.py)
+TUNER_POOL = 1 << 12
+TUNER_SEED = 7
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -723,6 +746,193 @@ def moe_phases(dev, timed, during, counted, trace_share, handoff, ledger,
     torch.cuda.empty_cache()
 
 
+def _median(xs):
+    xs = sorted(xs)
+    return xs[len(xs) // 2]
+
+
+def _tuner_live(device, seed=TUNER_SEED, pool=TUNER_POOL):
+    """A live engine with the reference bench's traffic profile
+    (``benchmarks/bench_autotune.py``): eight host READs of 8..47 words
+    on one QP, one doorbell; its learned buckets seed the trials."""
+    from repro_torch.core.rdma import Opcode, RDMAEngine, WQE
+    eng = RDMAEngine(n_peers=2, pool_size=pool, device=device)
+    mr = eng.register_mr(1, 0, pool // 4)
+    qp = eng.create_qp(0, 1)
+    rng = np.random.default_rng(seed)
+    for i in range(8):
+        ln = int(rng.integers(8, 48))
+        eng.post_send(qp, WQE(Opcode.READ, qp.qp_num, wr_id=i,
+                              local_addr=int(rng.integers(0, pool // 4 - ln)),
+                              remote_addr=int(rng.integers(0, pool // 4 - ln)),
+                              length=ln, rkey=mr.rkey))
+    eng.ring_sq_doorbell(qp)
+    return eng
+
+
+def autotune_phase(dev):
+    """Phase 23: the knob sweep on the card's engine. Two
+    ``AutoTuner(passes=2, rows=128)`` sweeps of a live engine on ``dev``
+    (``apply=False``) must give the same chosen point and surface, and
+    the same as a sweep of a CPU engine of the same geometry; the first
+    choice is then installed with ``apply_tuning``. Scores are functions
+    of the trials' flush and WQE counts, so the card must choose as the
+    CPU does; the trials' walls are the card's own."""
+    from repro_torch._device import synchronize
+    from repro_torch.core.rdma import AutoTuner
+
+    def surface(t):
+        return [(r.tuning.key(), r.flushes, r.wqes, r.score)
+                for r in t.surface]
+
+    eng = _tuner_live(dev)
+    check(eng.pool.device.type == dev.type, "tuner engine off the device")
+    tuners, picks, walls = [], [], []
+    for _ in range(2):
+        synchronize(dev)
+        t = time.perf_counter()
+        tuner = AutoTuner(eng, seed=TUNER_SEED, passes=2, rows=128)
+        picks.append(tuner.sweep(apply=False))
+        synchronize(dev)
+        walls.append(time.perf_counter() - t)
+        tuners.append(tuner)
+    at = tuners[0].result
+    eng.stats["autotune"] = at
+    eng.apply_tuning(picks[0])
+    t = time.perf_counter()
+    cpu = AutoTuner(_tuner_live("cpu"), seed=TUNER_SEED, passes=2, rows=128)
+    cpu_pick = cpu.sweep(apply=False)
+    cpu_wall = time.perf_counter() - t
+    check(picks[1] == picks[0] and surface(tuners[1]) == surface(tuners[0]),
+          "two sweeps on the card disagree")
+    check(cpu_pick == picks[0] and surface(cpu) == surface(tuners[0]),
+          f"the card chose {picks[0]}, the CPU {cpu_pick}")
+    check(eng.tuning == picks[0], "apply_tuning did not install the choice")
+    check(all(r.wall_s > 0 for r in tuners[0].surface), "trial walls")
+    phase("autotune", device=dev.type, seed=TUNER_SEED,
+          chosen=json.dumps({k: v for k, v in picks[0].as_dict().items()
+                             if k != "rx_depth"}),
+          trials=at["trials"], improvement=at["improvement"],
+          score=at["score"], default_score=at["default_score"],
+          sweep_s=[round(w, 4) for w in walls], cpu_sweep_s=cpu_wall,
+          same_as_cpu=True)
+    phase("autotune trials", device=dev.type,
+          wall_ms=[round(r.wall_s * 1e3, 3) for r in tuners[0].surface],
+          flushes=[r.flushes for r in tuners[0].surface],
+          wqes=[r.wqes for r in tuners[0].surface])
+
+
+def executor_cost_phase(dev, calls=64):
+    """Phase 24: the port's executor cost profile on ``dev``, host walls
+    of synchronised calls on an engine of its own: ``dispatch_s`` the
+    median of ``calls`` one-descriptor ``execute_batch`` calls (16 words,
+    a warm bucket), ``staging_dispatch_s`` the median of ``calls`` 16-word
+    ``host_write`` calls, ``compile_s`` the median over eight fresh
+    (slots, chunk) buckets of a bucket's first call less the median of
+    nine warm calls of it. Printed beside the committed profile; no
+    timing is checked (host walls move up to 2x between runs). Returns
+    the measured ``ExecutorCost``."""
+    from repro_torch._device import synchronize
+    from repro_torch.core.rdma import RDMAEngine
+    from repro_torch.core.rdma.cost_model import EXECUTOR_COST, ExecutorCost
+
+    tr = RDMAEngine(n_peers=2, pool_size=1 << 20, device=dev).transport
+
+    def wall(fn):
+        synchronize(dev)
+        t = time.perf_counter()
+        fn()
+        synchronize(dev)
+        return time.perf_counter() - t
+
+    def desc(length):
+        return [("xfer", 1, 0, 0, 1 << 19, length)]
+
+    one = desc(16)
+    data = np.arange(16, dtype=np.float32)
+    for _ in range(5):                     # the 16-word buckets, warm
+        tr.execute_batch(one)
+        tr.host_write(0, 4096, data)
+    dispatch = _median([wall(lambda: tr.execute_batch(one))
+                        for _ in range(calls)])
+    staging = _median([wall(lambda: tr.host_write(0, 4096, data))
+                       for _ in range(calls)])
+    extra = []
+    for length in (32, 64, 128, 256, 512, 1024, 2048, 4096):
+        p = desc(length)
+        misses = tr.stats["cache_misses"]
+        first = wall(lambda: tr.execute_batch(p))
+        check(tr.stats["cache_misses"] == misses + 1,
+              f"bucket of {length} words was not fresh")
+        extra.append(first - _median([wall(lambda: tr.execute_batch(p))
+                                      for _ in range(9)]))
+    measured = ExecutorCost(compile_s=_median(extra), dispatch_s=dispatch,
+                            staging_dispatch_s=staging)
+    phase("executor cost", device=dev.type, calls=calls,
+          dispatch_us=measured.dispatch_s * 1e6,
+          staging_dispatch_us=measured.staging_dispatch_s * 1e6,
+          compile_us=measured.compile_s * 1e6,
+          compile_us_each=[round(x * 1e6, 2) for x in extra],
+          committed_dispatch_us=EXECUTOR_COST.dispatch_s * 1e6,
+          committed_staging_dispatch_us=EXECUTOR_COST.staging_dispatch_s
+          * 1e6,
+          committed_compile_us=EXECUTOR_COST.compile_s * 1e6)
+    return measured
+
+
+def paper_model_phase(stats, walls, read16k, measured, testcase_dir):
+    """Phase 25: the paper's hardware beside the port on the card.
+    ``predict_from_stats`` over the datapath engine's stats after phases
+    3-6 (``stats``) and over ``read_batch_16k``'s own counts
+    (``read16k``), each under the committed executor profile and the one
+    measured in this run, beside the measured walls; ``simulate_rdma`` at
+    ``read_batch_16k`` (the paper's ~89 Gb/s) beside the port's rate; and
+    ``run_testcase`` over every JSON testcase, each anchor checked."""
+    import glob
+
+    from repro_torch.core.rdma.simulator import (predict_from_stats,
+                                                 run_testcase,
+                                                 simulate_rdma)
+
+    def model(st, name, wall_s, **extra):
+        p = predict_from_stats(st, payload=16384, op="read")
+        q = predict_from_stats(st, payload=16384, op="read",
+                               executor=measured)
+        check(p["hw_predicted_s"] > 0 and p["wqes_per_doorbell"] > 0,
+              f"paper model of {name}: no executed work")
+        phase("paper model " + name,
+              dispatches=st.get("dispatches", st.get("doorbells")),
+              wqes=st.get("transport", st)["wqes"],
+              wqes_per_doorbell=p["wqes_per_doorbell"],
+              hw_predicted_s=p["hw_predicted_s"],
+              executor_predicted_s=p["executor_predicted_s"],
+              executor_predicted_s_this_run=q["executor_predicted_s"],
+              measured_wall_s=wall_s,
+              measured_over_executor_predicted=(
+                  wall_s / p["executor_predicted_s"]
+                  if p["executor_predicted_s"] else None),
+              **extra)
+
+    model(stats, "datapath", sum(walls.values()),
+          walls_ms=json.dumps({k: round(v * 1e3, 3)
+                               for k, v in walls.items()}))
+    sim = simulate_rdma("read", 16384, 50)
+    model(read16k["stats"], "read_batch_16k", read16k["wall_s"],
+          reps=read16k["reps"], paper_gbps=sim.throughput_bps / 1e9,
+          paper_us_per_doorbell=sim.total_time * 1e6,
+          measured_gbps_median=read16k["gbps_median"],
+          measured_us_per_doorbell_median=read16k["wall_median_s"] * 1e6)
+    cases = sorted(glob.glob(os.path.join(testcase_dir, "*.json")))
+    check(len(cases) >= 8, f"{len(cases)} testcases in {testcase_dir}")
+    n_checks = 0
+    for path in cases:
+        out = run_testcase(path)
+        check(out["pass"], f"{os.path.basename(path)}: {out['checks']}")
+        n_checks += len(out["checks"])
+    phase("paper model testcases", cases=len(cases), anchors=n_checks,
+          passed=True)
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1118,6 +1328,7 @@ def main():
                             eager_writeback=False)
     lco.register_default_kernels(st_blk)
     data_mr = eng.register_mr(DATA_PEER, 0, POOL)
+    dp_walls = {}       # each datapath phase's synchronised wall, seconds
 
     # 3. Fig 6 networked matmul
     for tag, (m, k, n) in enumerate(((2048, 2048, 2048), (512, 16, 512))):
@@ -1145,6 +1356,7 @@ def main():
         err = (C.double() - ref).abs()
         check(bool(torch.isfinite(C).all()) and bool((err <= lim).all()),
               f"networked matmul {m}x{k}x{n}: err {err.max().item()}")
+        dp_walls[f"fig6 {m}x{k}x{n}"] = wall / 1e3
         phase("fig6 networked_matmul", shape=f"{m}x{k}x{n}",
               wall_ms=wall, max_abs_err_vs_f64=err.max().item(),
               status_ok=st.ok)
@@ -1166,6 +1378,7 @@ def main():
     want = parse_packets_plain(torch.from_numpy(pkts_np)).numpy()
     check(np.array_equal(meta, want.astype(np.float32)),
           "PARSER_WORKLOAD meta rows are not byte-exact")
+    dp_walls["parser_workload"] = wall / 1e3
     phase("parser_workload", packets=n_pkts, wall_ms=wall,
           rdma_pkts=int(want[:, 0].sum()))
 
@@ -1204,6 +1417,7 @@ def main():
     half = (back.cpu() - torch.from_numpy(payload)).abs() - s.cpu() * 0.5
     check(bool((half <= 1e-7).all()), "decompress beyond half a step")
     lp = eng.stats["lc_pipeline"]
+    dp_walls["stream_quant"] = wall / 1e3
     phase("stream_quant", slots=n_slots, burst=burst, wall_ms=wall,
           overlapped_flushes=lp["overlapped_flushes"],
           in_flight_peak=lp["in_flight_peak"])
@@ -1238,7 +1452,7 @@ def main():
         desc, chunk = pack_descriptors(
             [("xfer", DATA_PEER, LC_PEER, rem, loc, ln)
              for loc, rem, ln in wqes], POOL)
-        wall = sorted(walls)[len(walls) // 2]
+        wall = _median(walls)
 
         def execute():      # the descriptor executor alone, same table
             _exec_descriptors_local(pool, desc, chunk)
@@ -1253,7 +1467,16 @@ def main():
     # read_batch_16k: 50 READs of 16 KiB, strided so none coalesce
     words, batch, gap = 4096, 50, 8192
     wqes = [((1 << 25) + i * gap, i * gap, words) for i in range(batch)]
+    counters = ("dispatches", "wqes", "compiles", "coalesced_wqes",
+                "qdma_writes", "qdma_compiles")
+    before = {c: eng.transport.stats[c] for c in counters}
     walls = [doorbell(wqes) for _ in range(reps)]
+    read16k = {"stats": {c: eng.transport.stats[c] - before[c]
+                         for c in counters},
+               "reps": reps, "wall_s": sum(walls),
+               "wall_median_s": _median(walls),
+               "gbps_median": 4 * words * batch * 8 / _median(walls) / 1e9}
+    dp_walls["read_batch_16k"] = sum(walls)
     for loc, rem, ln in wqes:
         check(torch.equal(pool[LC_PEER, loc:loc + ln],
                           pool[DATA_PEER, rem:rem + ln]),
@@ -1267,9 +1490,17 @@ def main():
     check(torch.equal(pool[LC_PEER, 1 << 25:(1 << 25) + n], src.to(dev)),
           "dma_64mib bytes")
     report("dma_64mib", wqes, walls)
+    dp_walls["dma_64mib"] = sum(walls)
 
     read_counts("datapath", (systolic_mm, parse_packets, quantize_stream,
                              dequantize_stream))
+
+    # ---- 23-25. the engine's models: knob sweep, executor cost, paper ----
+    autotune_phase(dev)
+    measured_cost = executor_cost_phase(dev)
+    paper_model_phase(eng.stats, dp_walls, read16k, measured_cost,
+                      os.path.join(os.path.dirname(os.path.abspath(
+                          __file__)), "tests", "testcases"))
 
     # ---- 7-10. the streaming dispatch plane --------------------------------
     # LC peer: rings below 2^20, block scratch in [2^20, 2^23); data peer:

@@ -1,5 +1,5 @@
 from repro_torch.core.rdma.autotune import (  # noqa: F401
-    BucketLearner, TransportTuning,
+    AutoTuner, BucketLearner, TransportTuning, TuningGrid,
 )
 from repro_torch.core.rdma.doorbell import (  # noqa: F401
     DoorbellCoalescer, coalesce_plan, plan_buckets, schedule_plan,

@@ -20,7 +20,9 @@ the plain versions, and one ``tiny`` train step on the card is within
 1e-5 (loss, relative) and 1e-4 of each gradient leaf's largest |value|
 of the same step on the CPU. M-RoPE on the card is within 1e-5 of the
 CPU's, and a full-width seamless-m4t layer's encoder output and logits
-within 1e-4 of their largest |value| of the CPU's.
+within 1e-4 of their largest |value| of the CPU's. A knob sweep of a
+CUDA engine gives a CPU engine's surface and choice exactly (its scores
+are functions of counts).
 """
 import numpy as np
 import pytest
@@ -821,3 +823,36 @@ def test_cuda_seamless_block_matches_cpu(cuda):
     assert flash_attention.launches == before + 3 + 3 + 2
     torch.testing.assert_close(lg[:, 0].cpu(), want[:, 39], rtol=0,
                                atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_autotune_sweep_equals_the_cpu_sweep(cuda):
+    """The knob sweep's trials run on the live engine's device; their
+    counts, and so the surface and the choice, are the CPU's."""
+    from repro_torch.core.rdma import AutoTuner, Opcode, TuningGrid, WQE
+
+    def live(device):
+        eng = RDMAEngine(n_peers=2, pool_size=4096, device=device)
+        mr = eng.register_mr(1, 0, 1024)
+        qp = eng.create_qp(0, 1)
+        rng = np.random.default_rng(7)
+        for i in range(8):
+            ln = int(rng.integers(8, 48))
+            eng.post_send(qp, WQE(Opcode.READ, qp.qp_num, wr_id=i,
+                                  local_addr=int(rng.integers(0, 1024 - ln)),
+                                  remote_addr=int(rng.integers(0, 1024 - ln)),
+                                  length=ln, rkey=mr.rkey))
+        eng.ring_sq_doorbell(qp)
+        return eng
+
+    grid = TuningGrid(ring_burst=(16, 32, 64), pipeline_depth=(1, 4),
+                      flush_budget=(None, 8), qp_window=(None, 4))
+    surfaces, chosen = [], []
+    for device in ("cpu", cuda):
+        tuner = AutoTuner(live(device), grid=grid, seed=7, passes=1,
+                          rows=64)
+        chosen.append(tuner.sweep(apply=False))
+        surfaces.append([(r.tuning.key(), r.flushes, r.wqes, r.score)
+                         for r in tuner.surface])
+    assert chosen[0] == chosen[1]
+    assert surfaces[0] == surfaces[1]
