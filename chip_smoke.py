@@ -153,15 +153,39 @@ reports them) and runs, on the card:
      compile and some overlapped flushes in step 2, no peer failed; its
      buckets, rounds, flushes, wire bytes, collective ms, step ms, peak
      memory and K6 launches (88 per step);
-  17. each kernel's launch count on the ten paths (3-6, 7-10, 11-13,
-     14-15, 16, 20, 21, 22, 18 and 19), each path run with the counters at
-     0 and read right after: every kernel a path runs must have launched
-     on it, and each of the seven > 0.
+  26. the multi-process path: two gloo ranks sharing the card
+     (``run_peers``; the parent's memory freed first, the wire gloo
+     through host memory): (a) ``read_batch_16k`` on a 2-peer engine over
+     the ranks (``ICITransport``, one pool row a rank), its pool byte-equal
+     to a LocalTransport run of the same traffic on the card; (b) the
+     Lookaside block over the twin, ``lc_offload_mm`` 512x16x512 and a
+     4096-packet ``PARSER_WORKLOAD``, byte-equal to the single-process run
+     (K5 and K3 launched in every rank); (c) tinyllama-1.1b at full width
+     and depth, f32, remat, phase 18's batch of 4 x 512 split over a
+     ("data",) = (2,) mesh: two ``sync="psum"`` steps with 16 MiB buckets
+     (their losses within 1e-5 of phase 18's first two, step 1's synced
+     gradients' global norm within GRAD_SYNC_TOL of phase 18's,
+     ``buckets + 1`` collectives a step) and one ZeRO-1
+     ``make_train_step(mesh)`` step (its loss and the loss of the weights
+     it leaves within 1e-5 of phase 18's third and of the loss after its
+     third step, each rank holding half the moments), with ms per step
+     and each rank's peak memory; (d) one ``compress_grads`` step on a
+     ("pod", "data") = (2, 1) mesh (K1 and K2 in every rank, bit-exact
+     against their plain versions on the largest bucket; the synced
+     gradient norm within the compression's own error of phase 18's
+     norm), its loss and residual norm; (e) the reference test's
+     pipeline over 2 stages, within 1e-5 of the sequential stack;
+  17. each kernel's launch count on the eleven paths (3-6, 7-10, 11-13,
+     14-15, 16, 20, 21, 22, 18, 19 and 26, the last summed over its
+     ranks), each path run with the counters at 0 and read right after:
+     every kernel a path runs must have launched on it, and each of the
+     seven > 0.
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits with an error before printing a result.
 """
+import hashlib
 import json
 import math
 import os
@@ -206,6 +230,15 @@ FLIP_MARGIN = 1e-4
 # (benchmarks/bench_autotune.py)
 TUNER_POOL = 1 << 12
 TUNER_SEED = 7
+# phase 26: gloo ranks sharing the card, the twin's pool words per peer
+MP_RANKS = 2
+MP_POOL = 1 << 21
+MP_TIMEOUT_S = 900
+# traces of a kernel's timed calls before the profiler's empty-handed
+# traces fail the smoke (_traced_ms)
+TRACE_TRIES = 4
+# read_batch_16k (phases 6 and 26): words a READ, READs a doorbell, stride
+READ16K = (4096, 50, 8192)
 
 
 def cuda_ms(fn, iters=20, warmup=3):
@@ -299,8 +332,9 @@ def _traced_ms(fn, iters, wrapper=None):
       records of a name that runs n times a call. ``passes`` holds the
       wrapper's functions' shares, keyed by the symbol that matched
       (their sum is the wrapper's part of per_name). A trace that holds
-      no record of one of them (CUPTI dropped them all) is taken again
-      once, and then raises.
+      no record of one of them (CUPTI dropped them all: seen twice in a
+      row on K1 at 4096x1024) is taken again, up to TRACE_TRIES traces,
+      and then raises.
     * summed: every record's duration, summed, over ``iters``. CUPTI can
       drop some of a trace's records, and then this reads low: a trace of
       20 K5 launches at 2048^3 once summed to 0.245 ms a call, under the
@@ -316,7 +350,7 @@ def _traced_ms(fn, iters, wrapper=None):
             fn()
             torch.cuda.synchronize()
 
-    for _ in range(2):
+    for _ in range(TRACE_TRIES):
         n0 = wrapper.launches if wrapper is not None else 0
         _, rows = _trace(run)
         rows = [e for e in rows if e.count]
@@ -341,8 +375,9 @@ def _traced_ms(fn, iters, wrapper=None):
                                     * per_call / 1e3)
             per_name += sum(passes.values()) * 1e3
         return per_name / 1e3, summed / 1e3, passes
-    raise AssertionError("in 2 traces the profiler traced no device time, "
-                         f"or no record of one of {sorted(names)}")
+    raise AssertionError(f"in {TRACE_TRIES} traces the profiler traced no "
+                         f"device time, or no record of one of "
+                         f"{sorted(names)}")
 
 
 def bound(nbytes, flops=0.0, peak_flops=PEAK_F32_FLOPS):
@@ -394,11 +429,13 @@ def train_phases(cfg, dev, k6, zero_counts, read_counts, ckpt_dir,
         step's (max |difference| over the norm), no transport or QDMA
         compile in step 2, overlapped flushes, and an
         ``EngineHeartbeatBridge`` on the engine that fails no peer.
+
+    Returns the plain steps' losses followed by the loss of the weights
+    the last step left (one forward), and the global norm of step 1's
+    gradients.
     """
     from repro_torch._tree import tree_leaves
     from repro_torch.checkpoint.checkpoint import CheckpointManager
-    from repro_torch.configs.base import TrainConfig
-    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.models import init_params
     from repro_torch.runtime.fault_tolerance import (EngineHeartbeatBridge,
                                                      HeartbeatMonitor)
@@ -407,13 +444,9 @@ def train_phases(cfg, dev, k6, zero_counts, read_counts, ckpt_dir,
     from repro_torch.train.optimizer import global_norm
 
     tokens = batch * seq
-    tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1,
-                       total_steps=steps, remat=True, zero1=False,
-                       sequence_parallel=False, grad_bucket_mb=16)
+    tcfg = _train_config(total_steps=steps + 1)
     params0 = init_params(cfg, SEED, device=dev)
-    data = {k: torch.from_numpy(v).to(dev) for k, v in SyntheticPipeline(
-        DataConfig(seed=SEED, vocab_size=cfg.vocab_size, batch=batch,
-                   seq_len=seq)).batch_at(0).items()}
+    data = _train_data(cfg, dev, batch, seq)
     n_attn = cfg.num_layers if cfg.family != "ssm" else 0
 
     def run(step_fn, *args):
@@ -464,6 +497,7 @@ def train_phases(cfg, dev, k6, zero_counts, read_counts, ckpt_dir,
             n_leaves = len(pairs)
             del rp, ro, pairs, saved
     peak_plain = torch.cuda.max_memory_allocated()
+    after = forward_loss(params, cfg, data)
     read_counts("train plain", (k6,) if n_attn else ())
     check(all(np.isfinite(losses)), f"plain step losses {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses}")
@@ -471,7 +505,8 @@ def train_phases(cfg, dev, k6, zero_counts, read_counts, ckpt_dir,
           f"K6 launches per step {k6s}, want {2 * n_attn}")
     ms = [s * 1e3 for s in secs]
     phase("train plain", arch=cfg.name, batch=batch, seq=seq, steps=steps,
-          losses=json.dumps(losses), step_ms=json.dumps(ms),
+          losses=json.dumps(losses), loss_after=after,
+          step_ms=json.dumps(ms),
           ms_per_step=float(np.mean(ms[1:])),
           tokens_per_s=tokens / float(np.mean(secs[1:])),
           peak_mem_gb=peak_plain / 1e9, k6_per_step=json.dumps(k6s))
@@ -547,7 +582,7 @@ def train_phases(cfg, dev, k6, zero_counts, read_counts, ckpt_dir,
     phase("train rdma ledger", **per_step,
           compiles=tr["compiles"], qdma_compiles=tr["qdma_compiles"],
           heartbeat_dead=len(dead))
-    return losses
+    return losses + [after], norm
 
 
 def moe_phases(dev, timed, during, counted, trace_share, handoff, ledger,
@@ -933,6 +968,482 @@ def paper_model_phase(stats, walls, read16k, measured, testcase_dir):
           passed=True)
 
 
+# ---- 26. the multi-process path --------------------------------------------
+
+def _digest(arr) -> str:
+    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def read16k_wqes(base):
+    """``read_batch_16k``'s (local, remote, length) READs: 50 of 16 KiB,
+    strided so none coalesce, landing from ``base``."""
+    words, batch, gap = READ16K
+    return [(base + i * gap, i * gap, words) for i in range(batch)]
+
+
+def read_doorbell(eng, qp, rkey, wqes, dev):
+    """Post ``wqes`` as (local, remote, length) READs on ``qp``, ring one
+    doorbell; returns the synchronised wall in seconds (every completion
+    checked)."""
+    from repro_torch.core.rdma import Opcode, WQE
+    for i, (loc, rem, ln) in enumerate(wqes):
+        eng.post_send(qp, WQE(Opcode.READ, qp.qp_num, i, local_addr=loc,
+                              remote_addr=rem, length=ln, rkey=rkey))
+    _sync(dev)
+    t = time.perf_counter()
+    eng.ring_sq_doorbell(qp)
+    _sync(dev)
+    wall = time.perf_counter() - t
+    cq = eng.poll_cq(qp, 1 << 10)
+    check(len(cq) == len(wqes) and all(c.status.value == "success"
+                                       for c in cq), "READ completions")
+    return wall
+
+
+def read16k_traffic(eng, dev):
+    """``read_batch_16k`` on ``eng``: 5 doorbells of its READs from
+    DATA_PEER into LC_PEER over a host_mem QP, as phase 6 runs it;
+    returns each doorbell's synchronised wall in seconds and a digest of
+    the whole pool."""
+    from repro_torch.core.rdma import Placement
+    base = MP_POOL // 2
+    mr = eng.register_mr(DATA_PEER, 0, MP_POOL)
+    eng.write_buffer(DATA_PEER, 0, np.random.default_rng(
+        SEED + 20).standard_normal(base, np.float32))
+    qp = eng.create_qp(LC_PEER, DATA_PEER, placement=Placement.HOST_MEM)
+    eng.create_qp(DATA_PEER, LC_PEER, placement=Placement.HOST_MEM)
+    wqes = read16k_wqes(base)
+    walls = [read_doorbell(eng, qp, mr.rkey, wqes, dev) for _ in range(5)]
+    return walls, _digest(eng.transport.gather_pool())
+
+
+def lookaside_traffic(eng):
+    """``lc_offload_mm`` 512x16x512 and a 4096-packet PARSER_WORKLOAD
+    through a LookasideBlock on LC_PEER; digests of the product, of the
+    meta rows and of the whole pool."""
+    from repro_torch.core.lookaside import ControlMsg, LookasideBlock
+    from repro_torch.kernels import lc_offload as lco
+    rng = np.random.default_rng(SEED + 21)
+    blk = LookasideBlock(eng, peer=LC_PEER, scratch_base=MP_POOL // 2)
+    lco.register_default_kernels(blk)
+    mr = eng.register_mr(DATA_PEER, 0, MP_POOL // 2)
+    m, k, n = 512, 16, 512
+    A = rng.standard_normal((m, k), np.float32)
+    B = rng.standard_normal((k, n), np.float32)
+    a, b, out = 0, m * k, m * k + k * n
+    eng.write_buffer(DATA_PEER, a, A.ravel())
+    eng.write_buffer(DATA_PEER, b, B.ravel())
+    check(blk.dispatch(ControlMsg(lco.MM_WORKLOAD, (
+        DATA_PEER, mr.rkey, a, b, out, m, k, n))) is None,
+        "MM dispatch refused")
+    st = blk.poll(lco.MM_WORKLOAD)
+    check(st is not None and st.ok, f"MM status {st}")
+    C = eng.read_buffer(DATA_PEER, out, m * n)
+    n_pkts = 4096
+    p_addr = out + m * n
+    m_addr = p_addr + n_pkts * 64
+    pkts = roce_mix(rng, n_pkts)
+    eng.write_buffer(DATA_PEER, p_addr, pkts.astype(np.float32).ravel())
+    check(blk.dispatch(ControlMsg(lco.PARSER_WORKLOAD, (
+        DATA_PEER, mr.rkey, p_addr, n_pkts, m_addr))) is None,
+        "parser dispatch refused")
+    st = blk.poll(lco.PARSER_WORKLOAD)
+    check(st is not None and st.ok, f"parser status {st}")
+    meta = eng.read_buffer(DATA_PEER, m_addr, n_pkts * 4)
+    return {"mm": _digest(C), "parser": _digest(meta),
+            "pool": _digest(eng.transport.gather_pool())}
+
+
+def pipeline_case(seed=0, stages=MP_RANKS, micro=8, d=16):
+    """The reference test's pipeline geometry (8 microbatches of 4 x 16,
+    seed 0), ``stages`` stages of ``tanh(x @ w + b)``."""
+    rng = np.random.default_rng(seed)
+    ws = (rng.normal(size=(stages, d, d)) * 0.5).astype(np.float32)
+    bs = (rng.normal(size=(stages, d)) * 0.1).astype(np.float32)
+    xs = rng.normal(size=(micro, 4, d)).astype(np.float32)
+    return ws, bs, xs
+
+
+def _rank_setup(rank, device):
+    """A phase-26 rank's device (``rank_device(rank, device)``) and the
+    counted kernel wrappers, their launches set to 0."""
+    from repro_torch._device import rank_device
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.packet_parser import (parse_packet_fields,
+                                                   parse_packets)
+    from repro_torch.kernels.quantize_stream import (dequantize_stream,
+                                                     quantize_stream)
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.kernels.systolic_mm import systolic_mm
+    torch.backends.cuda.matmul.allow_tf32 = False
+    counted = (systolic_mm, parse_packets, parse_packet_fields,
+               quantize_stream, dequantize_stream, flash_attention,
+               ssd_scan)
+    for fn in counted:
+        fn.launches = 0
+    return rank_device(rank, device), counted
+
+
+def _launches(dev, counted):
+    _sync(dev)
+    return {fn.__name__: fn.launches for fn in counted}
+
+
+def _peak_reset(dev):
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+
+def _peak_gb(dev):
+    return (torch.cuda.max_memory_allocated(dev) / 1e9
+            if dev.type == "cuda" else None)
+
+
+def _mp_datapath_rank(rank, device):
+    """26 (a), (b), (e) in one rank: read_batch_16k on a 2-peer engine
+    over the ranks (an ICITransport), the Lookaside block over the
+    twin, the pipeline over a ("stage",) mesh."""
+    import torch.distributed as dist
+    from repro_torch.core.rdma import RDMAEngine
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train.pipeline_parallel import pipeline_forward
+    dev, counted = _rank_setup(rank, device)
+    out = {"device": str(dev), "world": dist.get_world_size()}
+    eng = RDMAEngine(n_peers=2, pool_size=MP_POOL, device=dev)
+    out["transport"] = type(eng.transport).__name__
+    out["walls"], out["pool"] = read16k_traffic(eng, dev)
+    out["stats"] = {k: eng.transport.stats[k] for k in (
+        "dispatches", "wqes", "compiles", "coalesced_wqes")}
+    out["lookaside"] = lookaside_traffic(
+        RDMAEngine(n_peers=2, pool_size=MP_POOL, device=dev))
+    ws, bs, xs = pipeline_case()
+    run = pipeline_forward(lambda p, x: torch.tanh(x @ p["w"] + p["b"]),
+                           make_mesh((MP_RANKS,), ("stage",)), "stage",
+                           n_microbatches=xs.shape[0])
+    got = run({"w": torch.from_numpy(ws).to(dev),
+               "b": torch.from_numpy(bs).to(dev)},
+              torch.from_numpy(xs).to(dev))
+    out["pipeline"] = {"got": got.cpu().numpy(), "sends": run.sends}
+    out["launches"] = _launches(dev, counted)
+    return out
+
+
+def _train_data(cfg, dev, batch, seq):
+    """Phase 18's batch: ``SyntheticPipeline`` from SEED, on ``dev``."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    return {k: torch.from_numpy(v).to(dev) for k, v in SyntheticPipeline(
+        DataConfig(seed=SEED, vocab_size=cfg.vocab_size, batch=batch,
+                   seq_len=seq)).batch_at(0).items()}
+
+
+def forward_loss(params, cfg, data):
+    """The loss of ``params`` on ``data``: one forward, no gradients."""
+    from repro_torch.models.transformer import loss_fn
+    with torch.no_grad():
+        return float(loss_fn(params, cfg, data))
+
+
+def _train_config(**kw):
+    """Phase 18's training settings (remat, 16 MiB buckets; the cosine
+    reaches 0 at step 4, after phase 18's three)."""
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(**{**dict(
+        learning_rate=3e-4, warmup_steps=1, total_steps=4, remat=True,
+        zero1=False, sequence_parallel=False, grad_bucket_mb=16), **kw})
+
+
+def _near(got, want, what, rtol=1e-5):
+    check(abs(got - want) <= rtol * abs(want), f"{what} {got} vs {want}")
+
+
+def _mp_train_rank(rank, device, cfg, plain, seq, batch):
+    """26 (c) in one rank: ``cfg`` from SEED on phase 18's global batch
+    split over a ("data",) mesh: two ``sync="psum"`` steps, then one
+    ZeRO-1 ``make_train_step(mesh)`` step and one forward. ``plain`` is
+    phase 18's (losses, step 1's gradient norm): the psum steps' losses
+    and the ZeRO-1 step's, then the forward's, within 1e-5 of phase 18's
+    four, step 1's synced norm within GRAD_SYNC_TOL, ``buckets + 1``
+    collectives a step, each rank holding half the moments' words."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import (init_adam, make_bucketed_train_step,
+                                   zero1_init)
+    from repro_torch.train.train_step import _bucketize, make_train_step
+    plain_losses, plain_norm = plain
+    dev, counted = _rank_setup(rank, device)
+    tcfg = _train_config()
+    data = _train_data(cfg, dev, batch, seq)
+    mesh = make_mesh((MP_RANKS,), ("data",))
+    params = init_params(cfg, SEED, device=dev)
+    n_buckets = len(_bucketize(params, 16 << 20)[1])
+    step = make_bucketed_train_step(cfg, tcfg, mesh)
+    opt = init_adam(params)
+    _peak_reset(dev)
+    c = {"step_s": [], "losses": [], "grad_norms": [], "collectives": []}
+    for _ in range(2):
+        _sync(dev)
+        t = time.perf_counter()
+        loss, params, opt, _ = step(params, opt, data, None)
+        _sync(dev)
+        c["step_s"].append(time.perf_counter() - t)
+        c["losses"].append(float(loss))
+        c["grad_norms"].append(float(step.grad_norm))
+        c["collectives"].append(step.collectives)
+    c["peak_gb"] = _peak_gb(dev)
+    c["buckets"] = n_buckets
+    for i in range(2):
+        _near(c["losses"][i], plain_losses[i], f"psum step {i + 1} loss")
+    _near(c["grad_norms"][0], plain_norm, "psum step 1 gradient norm",
+          GRAD_SYNC_TOL)
+    check(c["collectives"] == [n_buckets + 1] * 2,
+          f"collectives {c['collectives']}, buckets {n_buckets}")
+    del step
+    zstep = make_train_step(cfg, _train_config(zero1=True), mesh)
+    opt = zero1_init(opt, mesh)
+    _peak_reset(dev)
+    _sync(dev)
+    t = time.perf_counter()
+    loss, params, opt = zstep(params, opt, data)
+    _sync(dev)
+    z = c["zero1"] = {
+        "step_s": time.perf_counter() - t, "loss": float(loss),
+        "collectives": zstep.collectives, "peak_gb": _peak_gb(dev),
+        "m_words": sum(x.numel() for x in tree_leaves(opt.m)),
+        "param_words": sum(x.numel() for x in tree_leaves(params)),
+        "loss_after": forward_loss(params, cfg, data)}
+    _near(z["loss"], plain_losses[2], "ZeRO-1 step loss")
+    _near(z["loss_after"], plain_losses[3], "loss after the ZeRO-1 step")
+    check(z["m_words"] * MP_RANKS == z["param_words"],
+          f"ZeRO-1 m holds {z['m_words']} of {z['param_words']} words")
+    c["launches"] = _launches(dev, counted)
+    return c
+
+
+def _mp_compressed_rank(rank, device, cfg, plain_norm, seq, batch,
+                        microbatches):
+    """26 (d) in one rank: one ``compress_grads`` step of ``cfg`` from
+    SEED on a ("pod", "data") = (2, 1) mesh, residuals from zero.
+
+    Each bucket's compressed sync is checked on its way in: on the
+    largest bucket, K1 and K2 bit-exact against their plain versions
+    (those launches are put back: they are not the path's); on every
+    bucket, the plain formula's error, this rank's codes at the pods'
+    mean scale less its target, summed over the pods. Its norm over the
+    buckets is how far the synced gradients lie from the pods' true sum,
+    so the step's synced gradient norm must lie within it (and
+    GRAD_SYNC_TOL for the summation order) of phase 18's ``plain_norm``.
+    """
+    import torch.distributed as dist
+    import repro_torch.train.train_step as ts
+    from repro_torch.core.streaming.compress import init_error_state
+    from repro_torch.kernels.quantize_stream import (
+        dequantize_stream, dequantize_stream_plain, quantize_stream,
+        quantize_stream_plain)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params
+    from repro_torch.train import init_adam, make_bucketed_train_step
+    from repro_torch.train.optimizer import global_norm
+    dev, counted = _rank_setup(rank, device)
+    data = _train_data(cfg, dev, batch, seq)
+    step = make_bucketed_train_step(
+        cfg, _train_config(compress_grads=True, microbatches=microbatches),
+        make_mesh((MP_RANKS, 1), ("pod", "data")))
+    params = init_params(cfg, SEED, device=dev)
+    leaves, buckets = ts._bucketize(params, 16 << 20)
+    largest = max(sum(leaves[i].numel() for i in b.leaf_ids)
+                  for b in buckets)
+    del leaves
+    seen = {"err_sq": 0.0, "kernels_checked": 0, "largest_rows": 0}
+    synced = ts.compressed_all_reduce_group
+
+    def checked(flat, residual, group, chunk=1024):
+        x = flat.to(torch.float32) + residual
+        pad = (-x.numel()) % chunk
+        if pad:
+            x = torch.cat([x, x.new_zeros(pad)])
+        x = x.reshape(-1, chunk)
+        q, s = quantize_stream_plain(x)
+        if flat.numel() == largest and not seen["kernels_checked"]:
+            k1, k2 = quantize_stream.launches, dequantize_stream.launches
+            qk, sk = quantize_stream(x)
+            check(torch.equal(qk, q) and torch.equal(sk, s),
+                  f"K1 differs from its plain version at {tuple(x.shape)}")
+            del qk, sk
+            check(torch.equal(dequantize_stream(q, s),
+                              dequantize_stream_plain(q, s)),
+                  f"K2 differs from its plain version at {tuple(q.shape)}")
+            quantize_stream.launches, dequantize_stream.launches = k1, k2
+            seen["kernels_checked"] += 1
+            seen["largest_rows"] = x.shape[0]
+        live = q.ne(0).any(dim=1, keepdim=True)
+        scales = torch.cat([torch.where(live, s, 0.0), live.to(s.dtype)], 1)
+        dist.all_reduce(scales, group=group)
+        s_mean = scales[:, :1] / scales[:, 1:].clamp_min(1)
+        err = q.to(torch.float32).mul_(s_mean).sub_(x)
+        del x, q
+        dist.all_reduce(err, group=group)
+        seen["err_sq"] += float(torch.linalg.vector_norm(err)) ** 2
+        del err
+        return synced(flat, residual, group, chunk=chunk)
+
+    ts.compressed_all_reduce_group = checked
+    _peak_reset(dev)
+    _sync(dev)
+    t = time.perf_counter()
+    # no name holds the zero residuals or the fresh AdamW state, so the
+    # step frees the old residuals once the buckets are synced: two
+    # ranks' f32 state, AdamW's new copy and the residuals fill the card
+    try:
+        loss, params, _, res = step(params, init_adam(params), data,
+                                    init_error_state(params))
+        _sync(dev)
+    finally:
+        ts.compressed_all_reduce_group = synced
+    err = math.sqrt(seen["err_sq"])
+    d = {"step_s": time.perf_counter() - t, "loss": float(loss),
+         "grad_norm": float(step.grad_norm), "error_norm": err,
+         "residual_norm": float(global_norm(res)),
+         "collectives": step.collectives, "peak_gb": _peak_gb(dev),
+         "microbatches": microbatches, "k1": quantize_stream.launches,
+         "k2": dequantize_stream.launches, "largest_rows":
+         seen["largest_rows"], "buckets": len(buckets)}
+    check(seen["kernels_checked"] == 1, "the largest bucket never synced")
+    check(math.isfinite(d["loss"]) and d["residual_norm"] > 0,
+          f"compressed step {d}")
+    check(abs(d["grad_norm"] - plain_norm)
+          <= err + GRAD_SYNC_TOL * plain_norm,
+          f"compressed synced norm {d['grad_norm']} vs plain {plain_norm}, "
+          f"error {err}")
+    check(dev.type != "cuda" or d["k1"] == d["k2"] == len(buckets),
+          f"K1/K2 launches {d}")
+    d["launches"] = _launches(dev, counted)
+    return d
+
+
+def multi_process_phase(dev, cfg, plain, seq=512, batch=4, microbatches=1):
+    """Phase 26 from the parent: the single-process references on
+    ``dev`` (read_batch_16k and the Lookaside traffic on a LocalTransport
+    engine, the pipeline's sequential stack), then three spawns of
+    MP_RANKS gloo ranks on ``dev``'s kind (two on the one card) through
+    ``run_peers`` — (a, b, e), (c), (d) — each rank's results held
+    against the references and each other. ``plain`` is phase 18's
+    (losses, step 1's gradient norm); ``microbatches`` splits (d)'s rank
+    batch. Returns the launches summed over every rank."""
+    from repro_torch.core.rdma import RDMAEngine
+    from repro_torch.launch.mesh import run_peers
+
+    ref_walls, ref_pool = read16k_traffic(
+        RDMAEngine(n_peers=2, pool_size=MP_POOL, device=dev), dev)
+    la_ref = lookaside_traffic(RDMAEngine(n_peers=2, pool_size=MP_POOL,
+                                          device=dev))
+    ws, bs, xs = pipeline_case()
+    seq_ref = torch.from_numpy(xs).to(dev)
+    for s in range(MP_RANKS):
+        seq_ref = torch.tanh(seq_ref @ torch.from_numpy(ws[s]).to(dev)
+                             + torch.from_numpy(bs[s]).to(dev))
+    seq_ref = seq_ref.cpu().numpy()
+    cuda = dev.type == "cuda"
+    kind, rank_dev = ("cuda", None) if cuda else ("cpu", "cpu")
+    # two ranks' f32 training state fill the card: let each rank's
+    # allocator grow its segments rather than fragment (set before the
+    # ranks start their CUDA contexts)
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
+
+    def spawn(fn, *args):
+        _sync(dev)
+        if cuda:
+            torch.cuda.empty_cache()
+        free = torch.cuda.mem_get_info()[0] / 1e9 if cuda else None
+        t = time.perf_counter()
+        got = run_peers(fn, MP_RANKS, device=kind, timeout_s=MP_TIMEOUT_S,
+                        args=(rank_dev,) + args)
+        return got, time.perf_counter() - t, free
+
+    got, wall, free = spawn(_mp_datapath_rank)
+    r0 = got[0]
+    for r in got:
+        check(r["transport"] == "ICITransport", f"the twin runs on "
+              f"{r['transport']}")
+        check(r["pool"] == ref_pool, "the twin's pool after read_batch_16k "
+              "differs from LocalTransport's")
+        check(r["lookaside"] == la_ref, "the Lookaside results over the "
+              "twin differ from the single-process run")
+        err = float(np.abs(r["pipeline"]["got"] - seq_ref).max())
+        check(err < 1e-5, f"pipeline {err} from the sequential stack")
+        check(r["pipeline"]["sends"] == xs.shape[0] + MP_RANKS - 1,
+              f"pipeline sends {r['pipeline']['sends']}")
+    phase("multi-process", ranks=MP_RANKS, device=r0["device"],
+          world=r0["world"], spawn_and_run_s=wall, free_gb_before=free,
+          wire="gloo through host")
+    phase("multi-process twin read_batch_16k", wire="gloo through host",
+          twin_ms=json.dumps([round(w * 1e3, 4) for w in r0["walls"]]),
+          twin_ms_median=_median(r0["walls"]) * 1e3,
+          local_ms=json.dumps([round(w * 1e3, 4) for w in ref_walls]),
+          local_ms_median=_median(ref_walls) * 1e3,
+          byte_equal=True, **r0["stats"])
+    phase("multi-process lookaside", shape="512x16x512", packets=4096,
+          byte_equal=True)
+    phase("multi-process pipeline", stages=MP_RANKS, microbatches=8,
+          max_abs_err=max(float(np.abs(r["pipeline"]["got"] - seq_ref)
+                                .max()) for r in got),
+          sends=r0["pipeline"]["sends"])
+    ranks = list(got)
+
+    plain_losses, plain_norm = plain
+    got, wall, free = spawn(_mp_train_rank, cfg, plain, seq, batch)
+    c = got[0]
+    check(all(r["losses"] == c["losses"] for r in got),
+          "the ranks' psum losses differ")
+    phase("multi-process train psum", arch=cfg.name, ranks=MP_RANKS,
+          batch=f"{batch}x{seq}", wire="gloo through host",
+          losses=json.dumps(c["losses"]),
+          plain_losses=json.dumps(plain_losses[:2]),
+          loss_rel=json.dumps([abs(a - b) / abs(b) for a, b in zip(
+              c["losses"], plain_losses)]),
+          grad_norm=c["grad_norms"][0], plain_grad_norm=plain_norm,
+          norm_rel=abs(c["grad_norms"][0] - plain_norm) / plain_norm,
+          buckets=c["buckets"], collectives=json.dumps(c["collectives"]),
+          step_ms=json.dumps([t * 1e3 for t in c["step_s"]]),
+          peak_gb_each=json.dumps([r["peak_gb"] for r in got]),
+          free_gb_before=free, spawn_and_run_s=wall)
+    z = c["zero1"]
+    phase("multi-process train zero1", loss=z["loss"],
+          plain_loss=plain_losses[2], loss_after=z["loss_after"],
+          plain_loss_after=plain_losses[3],
+          step_ms=z["step_s"] * 1e3, collectives=z["collectives"],
+          m_words=z["m_words"], param_words=z["param_words"],
+          peak_gb_each=json.dumps([r["zero1"]["peak_gb"] for r in got]))
+    ranks += got
+
+    got, wall, free = spawn(_mp_compressed_rank, cfg, plain_norm, seq,
+                            batch, microbatches)
+    d = got[0]
+    check(all(r["loss"] == d["loss"] and r["grad_norm"] == d["grad_norm"]
+              for r in got), "the ranks' compressed steps differ")
+    phase("multi-process train compressed", mesh="pod 2 x data 1",
+          loss=d["loss"], grad_norm=d["grad_norm"],
+          plain_grad_norm=plain_norm,
+          norm_rel=abs(d["grad_norm"] - plain_norm) / plain_norm,
+          error_norm=d["error_norm"], error_rel=d["error_norm"] / plain_norm,
+          buckets=d["buckets"], k1_k2_checked_rows=d["largest_rows"],
+          residual_norm=d["residual_norm"],
+          step_ms=d["step_s"] * 1e3, collectives=d["collectives"],
+          microbatches=d["microbatches"], k1=d["k1"], k2=d["k2"],
+          peak_gb_each=json.dumps([r["peak_gb"] for r in got]),
+          free_gb_before=free, spawn_and_run_s=wall)
+    ranks += got
+    return {name: sum(r["launches"][name] for r in ranks)
+            for name in r0["launches"]}
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -941,7 +1452,7 @@ def main():
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "src"))
     from repro_torch.core.lookaside import ControlMsg, LookasideBlock
-    from repro_torch.core.rdma import Opcode, Placement, RDMAEngine, WQE
+    from repro_torch.core.rdma import Placement, RDMAEngine
     from repro_torch.core.streaming import (Chain, Drop, GradEgressChain,
                                             Handler, MatchTable, RXRing,
                                             Stream, StreamDispatcher,
@@ -1431,21 +1942,7 @@ def main():
     reps = 5
 
     def doorbell(wqes):
-        """Post ``wqes`` as (local, remote, length) READs, ring one
-        doorbell; return the synchronised wall seconds and the CQEs."""
-        for i, (loc, rem, ln) in enumerate(wqes):
-            eng.post_send(qp, WQE(Opcode.READ, qp.qp_num, i,
-                                  local_addr=loc, remote_addr=rem,
-                                  length=ln, rkey=data_mr.rkey))
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        eng.ring_sq_doorbell(qp)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
-        cq = eng.poll_cq(qp, 1 << 10)
-        check(len(cq) == len(wqes) and all(
-            c.status.value == "success" for c in cq), "READ completions")
-        return wall
+        return read_doorbell(eng, qp, data_mr.rkey, wqes, dev)
 
     def report(name, wqes, walls):
         nbytes = 4 * sum(ln for _, _, ln in wqes)
@@ -1465,8 +1962,8 @@ def main():
               executor_device_ms=device_ms(execute, iters=5)[0])
 
     # read_batch_16k: 50 READs of 16 KiB, strided so none coalesce
-    words, batch, gap = 4096, 50, 8192
-    wqes = [((1 << 25) + i * gap, i * gap, words) for i in range(batch)]
+    words, batch, _ = READ16K
+    wqes = read16k_wqes(1 << 25)
     counters = ("dispatches", "wqes", "compiles", "coalesced_wqes",
                 "qdma_writes", "qdma_compiles")
     before = {c: eng.transport.stats[c] for c in counters}
@@ -2145,10 +2642,24 @@ def main():
     # checkpoint goes to a temporary directory, removed after
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
-        train_phases(get_config("tinyllama-1.1b"), dev, flash_attention,
-                     zero_counts, read_counts, ckpt_dir)
+        plain_losses, plain_norm = train_phases(
+            get_config("tinyllama-1.1b"), dev, flash_attention, zero_counts,
+            read_counts, ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+
+    # ---- 26. the multi-process path: two gloo ranks on the one card ------
+    # every rank counts its own launches from 0 and returns them
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    path = "multi-process"
+    launches[path] = multi_process_phase(
+        dev, get_config("tinyllama-1.1b"), (plain_losses, plain_norm))
+    phase("launches " + path, **launches[path])
+    for fn in (systolic_mm, parse_packets, quantize_stream,
+               dequantize_stream, flash_attention):
+        check(launches[path][fn.__name__] > 0,
+              f"{fn.__name__} never launched on the {path} path")
 
     # ---- 17. launches on the main path -------------------------------------
     counts = {fn.__name__: sum(c[fn.__name__] for c in launches.values())

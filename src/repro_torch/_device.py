@@ -24,6 +24,19 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None
     return torch.device(device)
 
 
+def rank_device(rank: int,
+                device: Optional[Union[str, torch.device]] = None
+                ) -> torch.device:
+    """The device of process-group rank ``rank``: ``None`` -> the GPU
+    ``cuda:{rank % device_count}`` (so ranks share the cards round-robin,
+    several on one card), raising without one; a ``cuda`` device without
+    an index takes the same slot; anything else passes through."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return dev
+
+
 def synchronize(device: torch.device) -> None:
     """Wait for the work queued on ``device`` (a no-op on the CPU)."""
     if device.type == "cuda":

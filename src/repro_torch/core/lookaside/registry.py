@@ -47,6 +47,15 @@ pool in place, so an offloaded kernel receives GPU tensors and launches
 its CUDA kernel — the operands never cross PCIe. ``store`` keeps the
 QDMA ledger (``stats["transport"]["qdma_*"]``) of the reference.
 
+On an ``ICITransport`` engine (one process per peer, SPMD) every rank
+runs every block: ``load`` is a broadcast from the block peer's rank, so
+each rank holds the same operands and runs the kernel on them
+redundantly (each rank launches it), and only the owner's ``store``
+lands in the pool; the results leave the block only through the
+transport (its write-back WRITEs broadcast from the owner). A rank that
+skipped the kernel would need the result's shape and the kernel's
+branches anyway; running it keeps every rank on the same path.
+
 Streaming compute (§IV-D): ring consumption lives in the dispatch plane
 (``streaming.dispatch.StreamDispatcher``) — ``attach_ring`` binds a
 kernel to an ``RXRing`` by building a ONE-ENTRY dispatcher (a MatchTable

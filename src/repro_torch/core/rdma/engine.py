@@ -50,10 +50,14 @@ class RDMAEngine:
     """One engine instance manages the peers' buffer pool + QPs/MRs.
 
     ``device=None`` puts the pool on the GPU and raises where there is
-    none; pass ``device="cpu"`` for the host path."""
+    none; pass ``device="cpu"`` for the host path. With ``mesh`` (a 1-D
+    peer ``DeviceMesh``), or inside a process group of exactly
+    ``n_peers`` ranks, the pool is one row per rank on an
+    ``ICITransport`` and every rank drives the engine alike (SPMD)."""
 
     def __init__(self, n_peers: int = 2, pool_size: int = 1 << 16,
-                 dtype=np.float32, device=None, coalesce: bool = True,
+                 dtype=np.float32, device=None, mesh=None,
+                 coalesce: bool = True,
                  scheduler: str = "rr", flush_budget: Optional[int] = None,
                  promote_after: Optional[int] = None,
                  qp_window: Optional[int] = None,
@@ -94,7 +98,9 @@ class RDMAEngine:
         self.promote_after = promote_after
         # cross-flush scheduler memory (drr deficits/rotor, fifo ages)
         self._sched_state: Dict = {}
-        self.transport = make_transport(n_peers, pool_size, dtype, device)
+        self.transport = make_transport(n_peers, pool_size, dtype, device,
+                                        mesh)
+        self.mesh = self.transport.mesh
         # Per-engine rkey allocation: every engine hands out the same
         # deterministic sequence from RKEY_BASE regardless of what other
         # engines (or earlier tests) registered — rkeys are meaningful

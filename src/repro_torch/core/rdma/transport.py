@@ -1,10 +1,18 @@
-"""Local transport: executes RDMA descriptor tables over a pool tensor.
+"""Transports: execute RDMA descriptor tables over the peers' pool.
 
-The "wire" of the RDMA engine. Registered buffers live in one tensor of
-shape ``(n_peers, pool_size)`` on the engine's device: row *i* is peer
-*i*'s device memory (the paper's dev_mem). On an H100 the whole pool sits
-in HBM, so a transfer between two peers is a device-to-device copy that
-never crosses PCIe.
+The "wire" of the RDMA engine. Registered buffers are a pool of shape
+``(n_peers, pool_size)``: row *i* is peer *i*'s device memory (the
+paper's dev_mem). Two transports hold it:
+
+* ``LocalTransport`` — the whole pool in one tensor on one device. On an
+  H100 it sits in HBM, so a transfer between two peers is a
+  device-to-device copy that never crosses PCIe.
+* ``ICITransport`` — one process per peer over a ``torch.distributed``
+  group (the reference's one pool row per device inside ``shard_map``):
+  each rank holds only its own row, as a ``(1, pool_size)`` tensor on its
+  device, and every rank runs the same program on the same tables
+  (SPMD). ``make_transport`` picks it when given a mesh, or when the
+  process group holds exactly ``n_peers`` ranks.
 
 Descriptor-driven execution (the paper's §VI-C engine): each doorbell
 batch is packed into a descriptor table of ``(src, dst, src_addr,
@@ -15,7 +23,19 @@ its whole source range before it scatters (a same-row transfer whose
 ranges overlap copies through a temporary). Source lanes are clipped to
 ``[0, pool_size - 1]``; destination lanes past the row end are dropped,
 and negative ones wrap once, exactly as the reference's masked
-gather/scatter does.
+gather/scatter does. On ``ICITransport`` a descriptor between two rows
+is a ``broadcast`` of the gathered lanes from the source rank, scattered
+by the destination rank: a byte copy. (The reference broadcasts with a
+masked ``psum``, which turns a ``-0.0`` into ``+0.0``; the port does
+not.) Anything a rank reads from a row it does not own — ``host_read``,
+``device_read``, ``gather_pool`` — is a ``broadcast`` from the owner, so
+every rank sees the same bytes and takes the same branches.
+
+The seed executors (``execute_batch_static``, ``host_write_static``)
+keep the reference's ``dynamic_slice`` / ``dynamic_update_slice``
+meaning, the parity oracle of the descriptor path: a negative start
+index wraps once, then it is clamped so that the whole length fits,
+shifting the copy; nothing is clipped per lane or dropped.
 
 The (slots, chunk) shape buckets of the reference stay as host
 bookkeeping — ``shape_buckets``, ``pack_descriptors``' bucket key,
@@ -23,7 +43,10 @@ bookkeeping — ``shape_buckets``, ``pack_descriptors``' bucket key,
 ``BucketLearner`` — so the ``stats`` surface and its counts equal the
 reference's under the same traffic. PyTorch runs eagerly and keeps no
 compile cache, so here a "miss" only marks a bucket as first seen, and
-``prewarm`` only marks buckets as seen.
+``prewarm`` only marks buckets as seen. ``descriptor_cache_size``,
+``staging_cache_size`` and ``host_write_cache_size`` count the distinct
+keys each executor has seen in the process, where the reference counts
+its jit caches' programs: steady-state traffic adds none.
 
 The QDMA staging path (``host_write`` / ``sync_host_to_dev``, the
 paper's host<->dev_mem H2C DMA) keeps the reference's bounds check and
@@ -36,9 +59,13 @@ from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
-from repro_torch._device import numpy_dtype, resolve_device, torch_dtype
+from repro_torch._device import (numpy_dtype, rank_device, resolve_device,
+                                 torch_dtype)
 from repro_torch.core.rdma.autotune import BucketLearner
+
+PEER_AXIS = "peers"
 
 # Bucketing policy: WQE slots and the per-WQE chunk length round up to
 # powers of two (the reference's compiled-shape key, kept as the traffic
@@ -117,44 +144,57 @@ def pack_staging(length: int, addr: int, pool_size: int) -> int:
 
 
 # ---------------------------------------------------------------------------
-# Descriptor executor
+# Descriptor executor: one descriptor's gather half and scatter half
 # ---------------------------------------------------------------------------
+
+def _lane_span(dst_addr: int, length: int, chunk: int, pool_size: int):
+    """The lanes a descriptor moves: ``(lo, hi, pieces)``, lanes ``[lo,
+    hi)`` gathered and each ``(a, b, wrap)`` piece of them scattered to
+    ``dst_addr + wrap + lane``; ``None`` when every lane drops. Lanes
+    ``[0, min(length, chunk))`` take part; a negative destination index
+    wraps once (``idx + pool_size``, the reference scatter's index
+    normalisation) and one still outside the row is dropped."""
+    n = min(length, chunk)
+    pieces = [(lo, hi, wrap) for lo, hi, wrap in (
+        (max(0, -dst_addr - pool_size), min(n, -dst_addr), pool_size),
+        (max(0, -dst_addr), min(n, pool_size - dst_addr), 0)) if lo < hi]
+    if not pieces:
+        return None
+    return (min(p[0] for p in pieces), max(p[1] for p in pieces), pieces)
+
+
+def _gather(row: torch.Tensor, src_addr: int, lo: int, hi: int
+            ) -> torch.Tensor:
+    """Lanes ``[lo, hi)`` of ``row`` from ``src_addr``, indices clipped
+    into the row (a view where none needs clipping)."""
+    s0, s1 = src_addr + lo, src_addr + hi
+    if 0 <= s0 and s1 <= row.shape[0]:
+        return row[s0:s1]
+    idx = torch.arange(s0, s1, device=row.device).clamp_(0, row.shape[0] - 1)
+    return row.index_select(0, idx)
+
+
+def _scatter(row: torch.Tensor, dst_addr: int, pieces, vals: torch.Tensor,
+             lo: int) -> None:
+    for a, b, wrap in pieces:
+        d0 = dst_addr + wrap + a
+        row[d0:d0 + (b - a)].copy_(vals[a - lo:b - lo])
+
 
 def _exec_descriptor(pool: torch.Tensor, src: int, dst: int, src_addr: int,
                      dst_addr: int, length: int, chunk: int) -> None:
     """Execute one descriptor in place, as the reference's masked
-    gather/scatter does: lanes ``[0, min(length, chunk))`` gather row
-    ``src`` from ``src_addr`` (indices clipped into the row) and scatter
-    to row ``dst`` at ``dst_addr + lane``. A negative destination index
-    wraps once (``idx + pool_size``, the reference scatter's index
-    normalisation); one still outside the row is dropped. All lanes are
-    gathered before any is written."""
-    pool_size = pool.shape[1]
-    n = min(length, chunk)
-    pieces = []                             # (first lane, end lane, wrap)
-    for lo, hi, wrap in ((max(0, -dst_addr - pool_size),
-                          min(n, -dst_addr), pool_size),
-                         (max(0, -dst_addr), min(n, pool_size - dst_addr),
-                          0)):
-        if lo < hi:
-            pieces.append((lo, hi, wrap))
-    if not pieces:
+    gather/scatter does; all lanes are gathered before any is written."""
+    span = _lane_span(dst_addr, length, chunk, pool.shape[1])
+    if span is None:
         return
-    lo = min(p[0] for p in pieces)
-    hi = max(p[1] for p in pieces)
+    lo, hi, pieces = span
+    vals = _gather(pool[src], src_addr, lo, hi)
     s0, s1 = src_addr + lo, src_addr + hi
-    if 0 <= s0 and s1 <= pool_size:
-        vals = pool[src, s0:s1]
-        if src == dst and any(s0 < dst_addr + w + b and dst_addr + w + a < s1
-                              for a, b, w in pieces):
-            vals = vals.clone()             # gather before scatter
-    else:                                   # clipped source lanes
-        idx = torch.arange(s0, s1, device=pool.device).clamp_(
-            0, pool_size - 1)
-        vals = pool[src].index_select(0, idx)
-    for a, b, wrap in pieces:
-        d0 = dst_addr + wrap + a
-        pool[dst, d0:d0 + (b - a)].copy_(vals[a - lo:b - lo])
+    if src == dst and any(s0 < dst_addr + w + b and dst_addr + w + a < s1
+                          for a, b, w in pieces):
+        vals = vals.clone()                 # gather before scatter
+    _scatter(pool[dst], dst_addr, pieces, vals, lo)
 
 
 def _exec_descriptors_local(pool: torch.Tensor, desc: np.ndarray,
@@ -168,16 +208,80 @@ def _exec_descriptors_local(pool: torch.Tensor, desc: np.ndarray,
 
 
 # ---------------------------------------------------------------------------
-# Transport
+# Seed (static-plan) executors — ``dynamic_slice`` semantics
 # ---------------------------------------------------------------------------
 
-class LocalTransport:
-    """The peer fabric on one device: row i of the pool is peer i's memory.
+def _clamp(start: int, length: int, size: int) -> int:
+    """``dynamic_slice``'s start index: a negative one wraps once (``+
+    size``), then it is clamped so that ``length`` fits."""
+    if length > size:
+        raise ValueError(f"a slice of {length} does not fit in {size}")
+    start = int(start)
+    if start < 0:
+        start += size
+    return min(max(start, 0), size - length)
 
-    ``stats`` carries dispatches, wqes, shape-bucket hits and misses,
-    coalesced WQEs, interleaved multi-QP batches and the ``qdma_*``
-    staging counters, under the reference's key names.
-    """
+
+def _run_plan_local_static(pool: torch.Tensor, plan: Sequence[tuple]
+                           ) -> None:
+    """The reference's seed executor on one pool: each transfer copies a
+    ``dynamic_slice`` of row ``src`` into row ``dst`` by
+    ``dynamic_update_slice`` (peer and address clamped, the copy shifted,
+    nothing dropped), in plan order."""
+    n_peers, pool_size = pool.shape
+    for (_, src, dst, src_addr, dst_addr, length) in plan:
+        s = _clamp(src_addr, length, pool_size)
+        d = _clamp(dst_addr, length, pool_size)
+        chunk = pool[_clamp(src, 1, n_peers), s:s + length].clone()
+        pool[_clamp(dst, 1, n_peers), d:d + length].copy_(chunk)
+
+
+def _flat_host(data, dtype: torch.dtype) -> torch.Tensor:
+    """``data`` flattened: a tensor as it is, anything else cast to
+    ``dtype`` as numpy casts."""
+    if isinstance(data, torch.Tensor):
+        return data.reshape(-1)
+    return torch.from_numpy(np.ascontiguousarray(
+        np.asarray(data).reshape(-1).astype(numpy_dtype(dtype))))
+
+
+# Process-wide keys each executor has seen (the reference counts its jit
+# caches' programs): (slots, chunk) of the local descriptor executor, the
+# chunk of the staging path, (length, dtype) of the seed host write.
+_DESCRIPTOR_KEYS = set()
+_STAGING_KEYS = set()
+_HOST_WRITE_KEYS = set()
+
+
+def descriptor_cache_size() -> int:
+    """Distinct (slots, chunk) buckets the local descriptor executor has
+    run or prewarmed in this process (benchmarks diff this across a
+    workload)."""
+    return len(_DESCRIPTOR_KEYS)
+
+
+def staging_cache_size() -> int:
+    """Distinct chunk buckets the QDMA staging path has run in this
+    process (shared by both transports)."""
+    return len(_STAGING_KEYS)
+
+
+def host_write_cache_size() -> int:
+    """Distinct (length, dtype) keys of the seed (per-length) host write
+    in this process."""
+    return len(_HOST_WRITE_KEYS)
+
+
+# ---------------------------------------------------------------------------
+# Transports
+# ---------------------------------------------------------------------------
+
+class _TransportBase:
+    """Shared bookkeeping: the ``stats`` surface (dispatches, wqes,
+    shape-bucket hits and misses, coalesced WQEs, interleaved multi-QP
+    batches and the ``qdma_*`` staging counters, under the reference's
+    key names), the bucket learner, ``prewarm`` and the fault-injector
+    hook."""
 
     def __init__(self, pool: torch.Tensor):
         self.pool = pool
@@ -207,8 +311,12 @@ class LocalTransport:
     def wqe_count(self) -> int:
         return self.stats["wqes"]
 
+    def _warm(self, key: Tuple[int, int]) -> None:
+        """A bucket's executor is ready (the reference compiles here)."""
+
     def _account(self, key: Tuple[int, int], n_wqes: int,
                  max_len: Optional[int] = None) -> None:
+        self._warm(key)
         if key in self._seen_buckets:
             self.stats["cache_hits"] += 1
         else:
@@ -239,12 +347,14 @@ class LocalTransport:
             key = (int(slots), min(int(chunk), pool_cap))
             if key in self._seen_buckets:
                 continue
+            self._warm(key)
             self._seen_buckets.add(key)
             self.stats["prewarmed_buckets"] += 1
             new += 1
         return new
 
     def _account_qdma(self, chunk: int) -> None:
+        _STAGING_KEYS.add(chunk)
         if chunk in self._seen_qdma_buckets:
             self.stats["qdma_cache_hits"] += 1
         else:
@@ -259,9 +369,34 @@ class LocalTransport:
         if not plan:
             return
         desc, chunk = pack_descriptors(plan, self.pool.shape[1])
-        _exec_descriptors_local(self.pool, desc, chunk)
+        self._run_descriptors(desc, chunk)
         self._account((desc.shape[0], chunk), len(plan),
                       max_len=max((e[5] for e in plan), default=0))
+
+    def execute_batch_static(self, plan: Sequence[tuple]) -> None:
+        """Seed executor (``dynamic_slice`` semantics): the parity
+        reference of ``execute_batch`` and the benches' baseline."""
+        if not plan:
+            return
+        self._run_static(plan)
+        self.stats["dispatches"] += 1
+        self.stats["wqes"] += len(plan)
+
+
+class LocalTransport(_TransportBase):
+    """The peer fabric on one device: row i of the pool is peer i's
+    memory."""
+
+    mesh = None
+
+    def _warm(self, key: Tuple[int, int]) -> None:
+        _DESCRIPTOR_KEYS.add(key)
+
+    def _run_descriptors(self, desc: np.ndarray, chunk: int) -> None:
+        _exec_descriptors_local(self.pool, desc, chunk)
+
+    def _run_static(self, plan: Sequence[tuple]) -> None:
+        _run_plan_local_static(self.pool, plan)
 
     def host_read(self, peer: int, addr: int, length: int) -> np.ndarray:
         """D2H copy of ``length`` words of a peer's row (the host's view)."""
@@ -279,16 +414,22 @@ class LocalTransport:
         copied to the device; a tensor already on the device is copied
         in place there. Both count one ``qdma_writes`` in the chunk
         bucket of its length."""
-        if isinstance(data, torch.Tensor):
-            flat = data.reshape(-1)
-        else:
-            flat = torch.from_numpy(np.ascontiguousarray(
-                np.asarray(data).reshape(-1).astype(
-                    numpy_dtype(self.pool.dtype))))
+        flat = _flat_host(data, self.pool.dtype)
         length = int(flat.shape[0])
         chunk = pack_staging(length, addr, self.pool.shape[1])
         self.pool[peer, addr:addr + length].copy_(flat)
         self._account_qdma(chunk)
+
+    def host_write_static(self, peer: int, addr: int, data) -> None:
+        """Seed QDMA path: ``dynamic_update_slice`` of ``data`` at (peer,
+        addr), both clamped so that it fits — the write shifts, it never
+        raises for a start out of range."""
+        flat = _flat_host(data, self.pool.dtype)
+        n_peers, pool_size = self.pool.shape
+        length = int(flat.shape[0])
+        a = _clamp(addr, length, pool_size)
+        self.pool[_clamp(peer, 1, n_peers), a:a + length].copy_(flat)
+        _HOST_WRITE_KEYS.add((length, str(self.pool.dtype)))
 
     def load_pool(self, np_pool) -> None:
         """Copy a ``(n_peers, pool_size)`` array (``np.asarray`` of another
@@ -300,11 +441,175 @@ class LocalTransport:
         self.pool.copy_(torch.from_numpy(np.ascontiguousarray(
             arr.astype(numpy_dtype(self.pool.dtype)))))
 
+    def gather_pool(self) -> np.ndarray:
+        """The whole ``(n_peers, pool_size)`` pool on the host."""
+        return self.pool.cpu().numpy()
+
+
+class ICITransport(_TransportBase):
+    """The peer fabric over a process group: this rank is peer
+    ``mesh.get_local_rank(axis)`` and ``pool`` its ``(1, pool_size)``
+    row. Every rank executes the same tables (SPMD); a descriptor between
+    two rows is a ``broadcast`` of the gathered lanes from the source
+    peer's rank, scattered by the destination peer's rank (a byte copy,
+    where the reference's masked ``psum`` flattens ``-0.0``). A
+    descriptor within one row runs on its owner alone. Bounds checks run
+    on every rank, so every rank raises alike."""
+
+    def __init__(self, mesh, pool: torch.Tensor, axis: str = PEER_AXIS):
+        if pool.ndim != 2 or pool.shape[0] != 1:
+            raise ValueError(f"an ICITransport holds its own (1, pool_size) "
+                             f"row, got {tuple(pool.shape)}")
+        super().__init__(pool)
+        self.mesh = mesh
+        self.axis = axis
+        self.group = mesh.get_group(axis)
+        self.peer = mesh.get_local_rank(axis)
+        self.n_peers = mesh.size(mesh.mesh_dim_names.index(axis))
+        self._ranks = [dist.get_global_rank(self.group, p)
+                       for p in range(self.n_peers)]
+
+    def _bcast(self, t: torch.Tensor, peer: int) -> torch.Tensor:
+        dist.broadcast(t, src=self._ranks[peer], group=self.group)
+        return t
+
+    def _owned_or_empty(self, peer: int, row_slice: slice, n: int
+                        ) -> torch.Tensor:
+        if peer == self.peer:
+            return self.pool[0, row_slice].clone()
+        return torch.empty(n, dtype=self.pool.dtype, device=self.pool.device)
+
+    def _check_peer(self, peer: int) -> None:
+        if not 0 <= peer < self.n_peers:
+            raise IndexError(f"peer {peer} outside the {self.n_peers}-peer "
+                             f"mesh")
+
+    def _run_descriptors(self, desc: np.ndarray, chunk: int) -> None:
+        row, me, pool_size = self.pool[0], self.peer, self.pool.shape[1]
+        for src, dst, src_addr, dst_addr, length in desc.tolist():
+            if length <= 0:
+                continue
+            self._check_peer(src)
+            self._check_peer(dst)
+            if src == dst:
+                if me == src:
+                    _exec_descriptor(self.pool, 0, 0, src_addr, dst_addr,
+                                     length, chunk)
+                continue
+            span = _lane_span(dst_addr, length, chunk, pool_size)
+            if span is None:
+                continue
+            lo, hi, pieces = span
+            vals = (_gather(row, src_addr, lo, hi).contiguous() if me == src
+                    else torch.empty(hi - lo, dtype=row.dtype,
+                                     device=row.device))
+            self._bcast(vals, src)
+            if me == dst:
+                _scatter(row, dst_addr, pieces, vals, lo)
+
+    def _run_static(self, plan: Sequence[tuple]) -> None:
+        """The reference's ``_run_plan_static``: per transfer, ``src``'s
+        clamped ``dynamic_slice`` reaches ``dst`` (a broadcast where the
+        reference ``ppermute``s), which writes it clamped."""
+        row, me, pool_size = self.pool[0], self.peer, self.pool.shape[1]
+        for (_, src, dst, src_addr, dst_addr, length) in plan:
+            self._check_peer(src)
+            self._check_peer(dst)
+            s = _clamp(src_addr, length, pool_size)
+            d = _clamp(dst_addr, length, pool_size)
+            if src == dst:
+                if me == src:
+                    row[d:d + length].copy_(row[s:s + length].clone())
+                continue
+            vals = self._bcast(self._owned_or_empty(
+                src, slice(s, s + length), length), src)
+            if me == dst:
+                row[d:d + length].copy_(vals)
+
+    def device_read(self, peer: int, addr: int, length: int
+                    ) -> torch.Tensor:
+        """``length`` words of a peer's row on this rank's device, sent by
+        the owner's rank to every rank (the same bytes everywhere)."""
+        self._check_peer(peer)
+        sl = slice(addr, addr + length)
+        n = len(range(self.pool.shape[1])[sl])
+        return self._bcast(self._owned_or_empty(peer, sl, n), peer)
+
+    def host_read(self, peer: int, addr: int, length: int) -> np.ndarray:
+        """``device_read`` copied to this rank's host."""
+        return self.device_read(peer, addr, length).cpu().numpy()
+
+    def host_write(self, peer: int, addr: int, data) -> None:
+        """QDMA H2C write, landed by the owner's rank alone; checked and
+        ledgered on every rank (see ``LocalTransport.host_write``)."""
+        self._check_peer(peer)
+        flat = _flat_host(data, self.pool.dtype)
+        length = int(flat.shape[0])
+        chunk = pack_staging(length, addr, self.pool.shape[1])
+        if peer == self.peer:
+            self.pool[0, addr:addr + length].copy_(flat)
+        self._account_qdma(chunk)
+
+    def host_write_static(self, peer: int, addr: int, data) -> None:
+        """Seed QDMA path (peer and address clamped, never raises for a
+        start out of range), landed by the owner's rank."""
+        flat = _flat_host(data, self.pool.dtype)
+        length = int(flat.shape[0])
+        a = _clamp(addr, length, self.pool.shape[1])
+        if _clamp(peer, 1, self.n_peers) == self.peer:
+            self.pool[0, a:a + length].copy_(flat)
+        _HOST_WRITE_KEYS.add((length, str(self.pool.dtype)))
+
+    def load_pool(self, np_pool) -> None:
+        """Keep this rank's row of a ``(n_peers, pool_size)`` array."""
+        arr = np.asarray(np_pool)
+        want = (self.n_peers, self.pool.shape[1])
+        if tuple(arr.shape) != want:
+            raise ValueError(f"pool shape {arr.shape} != {want}")
+        self.pool[0].copy_(torch.from_numpy(np.ascontiguousarray(
+            arr[self.peer].astype(numpy_dtype(self.pool.dtype)))))
+
+    def gather_pool(self) -> np.ndarray:
+        """The whole ``(n_peers, pool_size)`` pool on every rank's host,
+        each row broadcast by its owner (``np.asarray`` of the
+        reference's sharded pool)."""
+        return np.stack([self.host_read(p, 0, self.pool.shape[1])
+                         for p in range(self.n_peers)])
+
+
+def make_peer_mesh(n_peers: int):
+    """A 1-D ``("peers",)`` mesh over an initialized process group of
+    ``n_peers`` ranks."""
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh("cpu", (n_peers,), mesh_dim_names=(PEER_AXIS,))
+
+
+def alloc_pool(mesh, n_peers: int, pool_size: int, dtype=np.float32,
+               device=None) -> torch.Tensor:
+    """This rank's zeroed ``(1, pool_size)`` pool row on its device
+    (``_device.rank_device``; ``None`` -> its GPU)."""
+    axis = mesh.mesh_dim_names[0]
+    if mesh.size(0) != n_peers:
+        raise ValueError(f"a {n_peers}-peer pool on a mesh of "
+                         f"{mesh.size(0)} peers")
+    return torch.zeros((1, pool_size), dtype=torch_dtype(dtype),
+                       device=rank_device(mesh.get_local_rank(axis),
+                                          device))
+
 
 def make_transport(n_peers: int, pool_size: int, dtype=np.float32,
-                   device=None) -> LocalTransport:
-    """Allocate the zeroed ``(n_peers, pool_size)`` pool on ``device``
-    (``None`` -> the GPU) and wrap it in a ``LocalTransport``."""
+                   device=None, mesh=None):
+    """``ICITransport`` over ``mesh``, or over a fresh peer mesh when a
+    process group of exactly ``n_peers`` ranks is initialized; otherwise
+    a ``LocalTransport`` whose zeroed ``(n_peers, pool_size)`` pool lies
+    on ``device`` (``None`` -> the GPU)."""
+    if mesh is None and dist.is_available() and dist.is_initialized() \
+            and dist.get_world_size() == n_peers:
+        mesh = make_peer_mesh(n_peers)
+    if mesh is not None:
+        return ICITransport(mesh, alloc_pool(mesh, n_peers, pool_size,
+                                             dtype, device),
+                            mesh.mesh_dim_names[0])
     pool = torch.zeros((n_peers, pool_size), dtype=torch_dtype(dtype),
                        device=resolve_device(device))
     return LocalTransport(pool)

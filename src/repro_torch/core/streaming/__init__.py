@@ -4,6 +4,7 @@ from repro_torch.core.streaming.classifier import (  # noqa: F401
 )
 from repro_torch.core.streaming.compress import (  # noqa: F401
     GradEgressChain, compress_bucket, compressed_all_reduce,
+    compressed_all_reduce_group,
     compression_ratio, decompress_bucket, init_error_state,
 )
 from repro_torch.core.streaming.dispatch import (  # noqa: F401

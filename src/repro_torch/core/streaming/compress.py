@@ -7,8 +7,10 @@ they stream into the cross-pod all-reduce, keeping a local fp32 residual
 The pure functions take and return tensors where they lie (K1 and K2 on
 the GPU, their plain versions on the CPU), state threaded explicitly.
 ``compressed_all_reduce`` takes the peers as an explicit leading
-dimension and sums over it, where the JAX package's ``psum`` reduces over
-a named mesh axis. ``GradEgressChain`` is the same compression expressed
+dimension and sums over it on one device; ``compressed_all_reduce_group``
+is the reference's axis form, each rank of a ``torch.distributed`` group
+one peer, where the JAX package's ``psum`` reduces over a named mesh
+axis. ``GradEgressChain`` is the same compression expressed
 as the dispatch plane's first PRODUCTION service chain: gradient rows
 stream through a compress→checksum ``Chain`` on the datapath — the
 compress stage int8-quantizes each 64-lane row (byte parity with
@@ -23,6 +25,7 @@ from typing import Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch.core.lookaside.registry import LookasideBlock
@@ -70,6 +73,17 @@ def decompress_bucket(q: torch.Tensor, scales: torch.Tensor, shape,
     return kops.decompress(q, scales, shape, dtype=dtype)
 
 
+def _mean_scale(s_sum: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """Each chunk's mean scale over the peers whose chunk is not all zero
+    (``s_sum`` their scales' sum, ``live`` their count; a chunk zero
+    everywhere gets 0). K1 gives an all-zero chunk the scale 1.0, and the
+    reference averages that in: where a chunk is zero on one of two peers
+    (an embedding row its tokens miss) the other peer's codes, up to 127,
+    dequantize at a scale near 0.5 instead of their own. With every chunk
+    live this is the reference's mean, bit for bit."""
+    return s_sum / live.clamp_min(1).to(s_sum.dtype)
+
+
 def compressed_all_reduce(flat: torch.Tensor, residual: torch.Tensor, *,
                           chunk: int = 1024
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -81,8 +95,9 @@ def compressed_all_reduce(flat: torch.Tensor, residual: torch.Tensor, *,
     peers in one K1 and one K2 launch. int8 payloads sum as int32 (no
     overflow below ~2^23 peers); scales are summed too so the dequant
     uses the mean scale — a standard 1-bit/8-bit SGD style estimator with
-    error feedback carrying the bias. Returns ``(out (n_peers, n), new
-    residual (n_peers, n))``: every peer's copy of the mean estimate
+    error feedback carrying the bias. The mean is over the peers whose
+    chunk is not all zero (``_mean_scale``). Returns ``(out (n_peers,
+    n), new residual (n_peers, n))``: every peer's copy of the mean estimate
     (equal rows) and each peer's local compression error.
     """
     n_peers, n = flat.shape
@@ -96,12 +111,44 @@ def compressed_all_reduce(flat: torch.Tensor, residual: torch.Tensor, *,
     q, s, _ = kops.compress(target_p, chunk=chunk)
     back = kops.decompress(q, s, (n_peers, rows * chunk))[:, :n]
     new_residual = target - back
-    q_sum = q.reshape(n_peers, rows, chunk).to(torch.int32).sum(dim=0)
-    s_mean = s.reshape(n_peers, rows, 1).sum(dim=0) / n_peers
+    q3 = q.reshape(n_peers, rows, chunk)
+    q_sum = q3.to(torch.int32).sum(dim=0)
+    live = q3.ne(0).any(dim=2, keepdim=True)
+    s_mean = _mean_scale(torch.where(live, s.reshape(n_peers, rows, 1),
+                                     0.0).sum(dim=0), live.sum(dim=0))
     # mean over peers: (sum_i q_i * s_i) ~= s_mean * sum_i q_i  / n
     est = q_sum.to(torch.float32) * s_mean / n_peers
     out = est.reshape(-1)[:n].to(flat.dtype)
     return out.unsqueeze(0).repeat(n_peers, 1), new_residual
+
+
+def compressed_all_reduce_group(flat: torch.Tensor, residual: torch.Tensor,
+                                group, *, chunk: int = 1024
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Compress -> all_reduce(int8 as int32) -> dequant mean, over the
+    ranks of ``group`` (the reference's ``compressed_all_reduce(flat,
+    residual, axis)`` inside ``shard_map``): this rank's ``flat`` bucket
+    and residual in, the group's mean estimate (equal on every rank) and
+    this rank's new residual out. K1 quantizes and K2 dequantizes on the
+    rank's device; the codes and the scales (with each chunk's count of
+    ranks where it is not all zero, ``_mean_scale``) are two
+    ``all_reduce``s."""
+    n = dist.get_world_size(group)
+    q, s, new_residual = compress_bucket(flat, residual, chunk=chunk)
+    live = q.ne(0).any(dim=1, keepdim=True)
+    scales = torch.cat([torch.where(live, s, 0.0), live.to(s.dtype)], 1)
+    q_sum = q.to(torch.int32)
+    del q
+    dist.all_reduce(q_sum, group=group)
+    dist.all_reduce(scales, group=group)
+    s_mean = _mean_scale(scales[:, :1], scales[:, 1:])
+    # mean over peers: (sum_i q_i * s_i) ~= s_mean * sum_i q_i  / n, in
+    # place (a bucket may be a whole stacked weight)
+    est = q_sum.to(torch.float32)
+    del q_sum
+    est.mul_(s_mean).div_(n)
+    out = est.reshape(-1)[: flat.shape[0]].to(flat.dtype)
+    return out, new_residual
 
 
 def compression_ratio(nbytes_fp32: int, chunk: int = 1024) -> float:

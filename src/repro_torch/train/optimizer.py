@@ -2,20 +2,29 @@
 param pytrees (nested dicts of tensors), as ``repro/train/optimizer.py``.
 
 Decay applies to matrices only; the bias corrections are computed in
-f32 from the step, an int32 tensor on the params' device. The
-reference's ZeRO-1 helpers (``zero1_leaf_spec``, ``zero1_specs``,
-``constrain``) lay out optimizer state over a JAX mesh's data axis; they
-wait for the multi-card port (``torch.distributed`` across cards), and
-one card holds the whole state.
+f32 from the step, an int32 tensor on the params' device.
+
+ZeRO-1 (``zero1_leaf_spec``, ``zero1_specs``) lays the optimizer state
+out over the data-parallel ranks of a mesh: each leaf is cut along its
+largest free dimension that the data-parallel size divides, and each
+rank keeps one cut. The reference's ``constrain`` (sharding constraints
+that XLA lowers to a slice and an all-gather) becomes the pair those
+lower to: ``zero1_shard`` takes this rank's cut of each leaf, and
+``zero1_gather`` all-gathers the cuts back into whole leaves.
+``zero1_init`` cuts whole optimizer state once, when a ZeRO-1 run
+starts; the ZeRO-1 step takes and returns the cut form only.
 """
 from __future__ import annotations
 
-from typing import Callable, NamedTuple, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.configs.base import TrainConfig
+from repro_torch.launch.mesh import dp_axes, dp_rank, dp_size
+from repro_torch.models.sharding import param_specs
 
 
 class AdamState(NamedTuple):
@@ -79,3 +88,82 @@ def adamw_update(grads, state: AdamState, params,
     new_m = tree_unflatten(params, [o[1] for o in out])
     new_v = tree_unflatten(params, [o[2] for o in out])
     return new_p, AdamState(step, new_m, new_v)
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1 sharding of optimizer state
+# ---------------------------------------------------------------------------
+
+def zero1_leaf_spec(spec: tuple, shape: tuple, dp_axes: tuple,
+                    dp_size: int) -> tuple:
+    """Add dp sharding on the largest divisible unsharded axis."""
+    if dp_size <= 1 or not shape:
+        return spec
+    entries = list(spec) + [None] * (len(shape) - len(spec))
+    best, best_dim = -1, -1
+    for i, (e, dim) in enumerate(zip(entries, shape)):
+        if e is None and dim % dp_size == 0 and dim > best_dim:
+            best, best_dim = i, dim
+    if best < 0:
+        return spec
+    entries[best] = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    return tuple(entries)
+
+
+def zero1_specs(params, p_specs, dp_axes: tuple, dp_size: int):
+    """Optimizer-state specs = param specs + dp shard (ZeRO-1)."""
+    return tree_map(
+        lambda p, s: zero1_leaf_spec(s, tuple(p.shape), dp_axes, dp_size),
+        params, p_specs)
+
+
+def _shard_dim(spec: tuple, dp_axes: tuple) -> Optional[int]:
+    """The dimension a ZeRO-1 spec cuts over ``dp_axes`` (None: whole)."""
+    entry = dp_axes if len(dp_axes) > 1 else dp_axes[0]
+    return spec.index(entry) if entry in spec else None
+
+
+def zero1_shard(tree, specs, dp_axes: tuple, index: int, size: int):
+    """Data-parallel rank ``index``'s cut of each whole leaf of ``tree``:
+    one of ``size`` equal cuts along the dimension its spec shards (a
+    leaf its spec leaves whole is kept whole)."""
+    def cut(x, spec):
+        d = _shard_dim(spec, dp_axes)
+        if d is None or size == 1:
+            return x
+        n = x.shape[d] // size
+        return x.narrow(d, index * n, n).contiguous()
+    return tree_map(cut, tree, specs)
+
+
+def zero1_init(opt: AdamState, mesh) -> AdamState:
+    """This rank's ZeRO-1 cut of whole optimizer state (``init_adam``'s,
+    or a step's without ZeRO-1): ``m`` and ``v`` cut as ``zero1_specs``
+    lays them over the data-parallel ranks of ``mesh``."""
+    axes, size = dp_axes(mesh), dp_size(mesh)
+    specs = zero1_specs(opt.m, param_specs(opt.m), axes, size)
+    index = dp_rank(mesh)
+    return AdamState(opt.step, zero1_shard(opt.m, specs, axes, index, size),
+                     zero1_shard(opt.v, specs, axes, index, size))
+
+
+def zero1_gather(tree, specs, dp_axes: tuple, group):
+    """Whole leaves from each rank's cut: every cut is ``broadcast`` by
+    its owner in ``group`` (rank order = cut order) and set in place.
+    A broadcast is a byte copy (a summed zero padding would turn
+    ``-0.0`` into ``+0.0``) and gloo takes CUDA tensors for it."""
+    size = dist.get_world_size(group)
+    me = dist.get_rank(group)
+    ranks = [dist.get_global_rank(group, r) for r in range(size)]
+
+    def gather(x, spec):
+        d = _shard_dim(spec, dp_axes)
+        if d is None or size == 1:
+            return x
+        cuts = []
+        for r in range(size):
+            c = x if r == me else torch.empty_like(x)
+            dist.broadcast(c, src=ranks[r], group=group)
+            cuts.append(c)
+        return torch.cat(cuts, dim=d)
+    return tree_map(gather, tree, specs)

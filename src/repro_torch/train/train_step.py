@@ -1,46 +1,62 @@
-"""Training step: loss -> grads -> (bucketed) sync -> AdamW update.
+"""Training step: loss -> grads -> (bucketed) sync -> AdamW/ZeRO-1 update.
 
-The port of ``repro/train/train_step.py`` on one card, in two forms:
+The port of ``repro/train/train_step.py``. Three gradient-synchronization
+paths, mirroring the paper's doorbell modes (§VI-C):
 
 * ``make_train_step`` — the plain step (``launch/train.py``'s): one
   backward over the batch (or its microbatches), global-norm clip, AdamW.
+  Given a mesh, every rank (one process each, SPMD over a
+  ``torch.distributed`` group) takes its slice of the global batch along
+  the data-parallel axes (``pod``, ``data``) and each gradient leaf is
+  one ``all_reduce`` ("single-request", as XLA inserts one per tensor on
+  the reference's pjit path). With ``tcfg.zero1`` each rank updates only
+  its ZeRO-1 cut of the parameters and of ``m`` and ``v``, then the
+  parameters are all-gathered (``train.optimizer.zero1_*``).
+* ``make_bucketed_train_step(sync="psum")`` — "batch-requests": the
+  gradients are coalesced into fixed-byte buckets by the doorbell
+  planner, and each bucket is ONE ``all_reduce`` over the data-parallel
+  group (``bucketed_sync``) — n_params collectives become n_buckets.
+  Optionally (``compress_grads``) a bucket is summed in f32 within a pod
+  and int8-quantized with error feedback across the ``pod`` axis (K1 and
+  K2 on the rank's device) — the Streaming Compute block in its training
+  role.
 * ``make_bucketed_train_step(sync="rdma")`` — RecoNIC's engine-synced
   step: each data-parallel peer's gradients (a loop over the peer-split
-  batch, where the reference ``vmap``s) are coalesced into fixed-byte
-  buckets by the doorbell planner, and each bucket is a ring all-reduce
-  of scheduled RDMA verbs on the shared engine
-  (``repro_torch.train.collectives``): chunk READs through the pow2
-  descriptor buckets, DRR-fair with serving traffic, retransmitted
+  batch, where the reference ``vmap``s) are bucketed the same way and
+  each bucket is a ring all-reduce of scheduled RDMA verbs on the shared
+  engine (``repro_torch.train.collectives``): chunk READs through the
+  pow2 descriptor buckets, DRR-fair with serving traffic, retransmitted
   byte-identically on a lossy fabric. The gradient words stay on the
   pool's device.
 
 Bucket planning bills every leaf at its dtype's itemsize. Attention runs
 K6 and the SSD scan K7 in every forward; their backward recomputes the
 plain versions (``kernels.flash_attention._FlashAttention``,
-``kernels.ssd_scan._SSDScan``).
-
-The reference's mesh paths — ``sync="psum"``, ``bucketed_sync``,
-``compress_grads`` and ZeRO-1 over a mesh — need several cards; they
-raise ``NotImplementedError`` until the multi-card port
-(``torch.distributed`` across cards).
+``kernels.ssd_scan._SSDScan``). Each mesh step counts the collectives
+its last call issued in ``step.collectives`` (the port's stand-in for
+the reference's HLO all-reduce count). The model axis is replicated.
 """
 from __future__ import annotations
 
+from collections import Counter
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 
-from repro_torch._tree import tree_leaves, tree_unflatten
+from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.rdma.doorbell import plan_buckets
 from repro_torch.core.rdma.engine import RDMAEngine
+from repro_torch.core.streaming.compress import compressed_all_reduce_group
+from repro_torch.launch.mesh import (axis_group, dp_axes, dp_group, dp_rank,
+                                     dp_size)
+from repro_torch.models.sharding import param_specs
 from repro_torch.models.transformer import loss_fn
 from repro_torch.train.collectives import RDMACollective
 from repro_torch.train.optimizer import (AdamState, adamw_update,
-                                         clip_by_global_norm)
-
-_MULTI_CARD = ("needs a multi-device mesh; it waits for the multi-card "
-               "port (torch.distributed across cards)")
+                                         clip_by_global_norm, zero1_gather,
+                                         zero1_shard, zero1_specs)
 
 
 def _microbatch_grads(params, cfg: ModelConfig, batch: dict,
@@ -80,33 +96,92 @@ def _microbatch_grads(params, cfg: ModelConfig, batch: dict,
     return loss_sum * inv, tree_unflatten(params, [g * inv for g in g_sum])
 
 
+def _local_batch(batch: dict, index: int, size: int) -> dict:
+    """Data-parallel rank ``index``'s rows of the global batch."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % size:
+        raise ValueError(f"batch of {rows} does not split over {size} "
+                         f"data-parallel ranks")
+    m = rows // size
+    return {k: v[index * m:(index + 1) * m] for k, v in batch.items()}
+
+
+def _all_reduce(t: torch.Tensor, group, issued: Counter) -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place (gloo takes CUDA tensors here)."""
+    dist.all_reduce(t, group=group)
+    issued["all_reduce"] += 1
+    return t
+
+
+def _mean_loss(loss: torch.Tensor, group, size: int, issued: Counter
+               ) -> torch.Tensor:
+    return _all_reduce(loss.reshape(1).clone(), group, issued)[0] / size
+
+
 # ---------------------------------------------------------------------------
-# Path 1: the plain step
+# Path 1: the plain step ("single-request" over a mesh)
 # ---------------------------------------------------------------------------
 
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     """Returns step(params, opt_state, batch) -> (loss, params, opt).
 
     ``batch`` holds ``tokens`` and ``labels`` tensors on the params'
-    device. With ``step.keep_grads = True`` the step keeps its unclipped
-    gradients in ``step.last_grads`` (an introspection hook)."""
+    device. With a ``mesh`` (this process one rank of it) ``batch`` is
+    the global batch, every rank's ``loss`` and ``params`` are the
+    global step's, and under ``tcfg.zero1`` ``opt_state``'s ``m`` and
+    ``v`` are this rank's ZeRO-1 cuts, in and out (cut whole state once
+    with ``train.optimizer.zero1_init``; whole state raises).
+    With ``step.keep_grads = True`` the step keeps its unclipped (synced)
+    gradients in ``step.last_grads``, and ``step.grad_norm`` is their
+    global norm (introspection hooks)."""
     if mesh is not None:
-        raise NotImplementedError(f"make_train_step(mesh=...) {_MULTI_CARD}")
+        axes, size = dp_axes(mesh), dp_size(mesh)
+        group, index = dp_group(mesh), dp_rank(mesh)
+    zero1 = mesh is not None and tcfg.zero1
 
     def step(params, opt_state: AdamState, batch):
-        loss, grads = _microbatch_grads(params, cfg, batch, tcfg)
+        issued = Counter()
+        if zero1:
+            ospecs = zero1_specs(params, param_specs(params), axes, size)
+            shapes = zero1_shard(tree_map(lambda p: p.to("meta"), params),
+                                 ospecs, axes, index, size)
+            if [a.shape for a in tree_leaves(opt_state.m)] != [
+                    p.shape for p in tree_leaves(shapes)]:
+                raise ValueError(
+                    "the ZeRO-1 step takes this rank's cut of m and v; "
+                    "cut whole state once with "
+                    "train.optimizer.zero1_init(opt, mesh)")
+        if mesh is None:
+            loss, grads = _microbatch_grads(params, cfg, batch, tcfg)
+        else:
+            loss, grads = _microbatch_grads(
+                params, cfg, _local_batch(batch, index, size), tcfg)
+            grads = tree_map(
+                lambda g: _all_reduce(g, group, issued).div_(size), grads)
+            loss = _mean_loss(loss, group, size, issued)
+        step.collectives = sum(issued.values())
         step.last_grads = grads if step.keep_grads else None
-        grads, _ = clip_by_global_norm(grads, tcfg.grad_clip)
-        new_params, new_opt = adamw_update(grads, opt_state, params, tcfg)
-        return loss, new_params, new_opt
+        grads, step.grad_norm = clip_by_global_norm(grads, tcfg.grad_clip)
+        if not zero1:
+            new_params, new_opt = adamw_update(grads, opt_state, params,
+                                               tcfg)
+            return loss, new_params, new_opt
+
+        def cut(tree):
+            return zero1_shard(tree, ospecs, axes, index, size)
+        new_cut, new_opt = adamw_update(cut(grads), opt_state, cut(params),
+                                        tcfg)
+        return loss, zero1_gather(new_cut, ospecs, axes, group), new_opt
 
     step.keep_grads = False
     step.last_grads = None
+    step.collectives = 0
+    step.grad_norm = None
     return step
 
 
 # ---------------------------------------------------------------------------
-# Path 2: bucketed sync as scheduled RDMA verbs
+# Path 2: bucketed sync (collectives over a mesh, or RDMA verbs)
 # ---------------------------------------------------------------------------
 
 def _bucketize(grads, bucket_bytes: int):
@@ -121,30 +196,126 @@ def _bucketize(grads, bucket_bytes: int):
 
 
 def bucketed_sync(grads, axes: tuple, bucket_bytes: int,
-                  compress: bool = False, residuals=None):
-    """The reference's ``psum`` of each bucket over mesh axes."""
-    raise NotImplementedError(f"bucketed_sync {_MULTI_CARD}")
+                  compress: bool = False, residuals=None, *, mesh,
+                  issued: Optional[Counter] = None):
+    """Bucketed all-reduce over the ``axes`` of ``mesh`` (this rank's
+    group along them).
+
+    Each bucket: concat leaves -> ONE ``all_reduce`` -> split. With
+    ``compress`` a bucket is summed in f32 within a pod (the axes other
+    than ``pod``), then int8 with error feedback across ``pod``
+    (``compressed_all_reduce_group``'s mean estimate times the number of
+    pods, a sum like the uncompressed path's) — and ``residuals`` is then
+    REQUIRED: a missing error-feedback state raises instead of silently
+    falling back to the uncompressed f32 sum (init with
+    ``streaming.compress.init_error_state``). Returns (synced_grads,
+    new_residuals); without ``compress`` the residuals pass through.
+    ``issued`` counts the collectives."""
+    if compress and residuals is None:
+        raise ValueError(
+            "bucketed_sync(compress=True) requires an error-feedback "
+            "residuals pytree (repro_torch.core.streaming.compress."
+            "init_error_state) — refusing to silently ship uncompressed "
+            "fp32 gradients")
+    issued = Counter() if issued is None else issued
+    leaves, buckets = _bucketize(grads, bucket_bytes)
+    out = [None] * len(leaves)
+    res_leaves = tree_leaves(residuals) if compress else None
+    new_res = [None] * len(leaves)
+
+    def split(flat, ids, dst):
+        offset = 0
+        for i in ids:
+            n = leaves[i].numel()
+            dst[i] = flat[offset:offset + n].reshape(leaves[i].shape)
+            offset += n
+
+    for b in buckets:
+        flat = torch.cat(
+            [leaves[i].reshape(-1).to(torch.float32) for i in b.leaf_ids])
+        if compress:
+            intra = tuple(a for a in axes if a != "pod")
+            if intra:
+                _all_reduce(flat, axis_group(mesh, intra), issued)
+            res_flat = torch.cat(
+                [res_leaves[i].reshape(-1) for i in b.leaf_ids])
+            if "pod" in axes:
+                pods = axis_group(mesh, ("pod",))
+                flat, res_flat = compressed_all_reduce_group(
+                    flat, res_flat, pods)
+                issued["all_reduce"] += 2
+                # the pods' sum, where the reference keeps the mean and
+                # so divides the mean gradient by the pod count twice
+                flat.mul_(dist.get_world_size(pods))
+            split(res_flat, b.leaf_ids, new_res)
+        else:
+            _all_reduce(flat, axis_group(mesh, axes), issued)
+        split(flat, b.leaf_ids, out)
+    out = [o.to(l.dtype) for o, l in zip(out, leaves)]
+    return (tree_unflatten(grads, out),
+            tree_unflatten(grads, new_res) if compress else residuals)
+
+
+def _make_psum_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
+    """The reference's ``shard_map`` ``local_step`` as one rank of the
+    mesh: its slice of the global batch, the mean gradient by
+    ``bucketed_sync`` over the data-parallel axes, the loss by one more
+    ``all_reduce``, then clip and AdamW on every rank alike."""
+    if mesh is None:
+        raise ValueError("sync='psum' needs a mesh")
+    axes, size = dp_axes(mesh), dp_size(mesh)
+    group, index = dp_group(mesh), dp_rank(mesh)
+    bucket_bytes = int(tcfg.grad_bucket_mb * (1 << 20)) or (16 << 20)
+
+    def step(params, opt_state, batch, residuals=None):
+        issued = Counter()
+        loss, grads = _microbatch_grads(
+            params, cfg, _local_batch(batch, index, size), tcfg)
+        grads = tree_map(lambda g: g.div_(size), grads)
+        grads, residuals = bucketed_sync(
+            grads, axes, bucket_bytes, compress=tcfg.compress_grads,
+            residuals=residuals, mesh=mesh, issued=issued)
+        loss = _mean_loss(loss, group, size, issued)
+        step.collectives = sum(issued.values())
+        step.last_grads = grads if step.keep_grads else None
+        grads, step.grad_norm = clip_by_global_norm(grads, tcfg.grad_clip)
+        new_params, new_opt = adamw_update(grads, opt_state, params, tcfg)
+        return loss, new_params, new_opt, residuals
+
+    step.keep_grads = False
+    step.last_grads = None
+    step.collectives = 0
+    step.grad_norm = None
+    return step
 
 
 def make_bucketed_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
                              sync: str = "psum", engine=None,
                              n_peers: Optional[int] = None):
     """Returns step(params, opt, batch, residuals=None) -> (loss, params,
-    opt, residuals), the reference's signature. ``sync="rdma"`` sums
-    each bucket's per-peer shards by ``RDMACollective`` on ``engine`` (one
-    is created at the first step otherwise, on the params' device, with
-    a pool that fits two in-flight buckets); ``n_peers`` is the data-
-    parallel degree and must divide the batch. ``sync="psum"`` needs a
-    mesh and raises.
+    opt, residuals), the reference's signature.
+
+    ``sync="psum"``: this process is one rank of ``mesh``; ``batch`` is
+    the global batch, each bucket one ``all_reduce`` over the
+    data-parallel axes (``compress_grads``: int8 across ``pod``, with
+    the error-feedback ``residuals`` threaded through).
+    ``sync="rdma"`` sums each bucket's per-peer shards by
+    ``RDMACollective`` on ``engine`` (one is created at the first step
+    otherwise, on the params' device, with a pool that fits two
+    in-flight buckets — an ``ICITransport`` when the process group holds
+    ``n_peers`` ranks); ``n_peers`` is the data-parallel degree (the
+    mesh's when not given) and must divide the batch.
 
     Introspection hooks: ``step.collective(max_bucket_words, device)``
-    returns the collective (building it on first use); with
+    returns the rdma step's collective (building it on first use); with
     ``step.keep_grads = True`` the step keeps the synced mean gradients
-    (before the clip) in ``step.last_grads``."""
+    (before the clip) in ``step.last_grads``; the psum step counts the
+    collectives of its last call in ``step.collectives`` and keeps its
+    synced gradients' global norm in ``step.grad_norm``."""
     if sync not in ("psum", "rdma"):
         raise ValueError(f"sync must be psum|rdma, got {sync!r}")
     if sync == "psum":
-        raise NotImplementedError(f"sync='psum' {_MULTI_CARD}")
+        return _make_psum_step(cfg, tcfg, mesh)
     if tcfg.compress_grads:
         raise ValueError(
             "compress_grads is the psum path's cross-pod compression; "
@@ -152,7 +323,7 @@ def make_bucketed_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
     if n_peers is None:
         if mesh is None:
             raise ValueError("sync='rdma' needs n_peers or a mesh")
-        raise NotImplementedError(f"n_peers from a mesh {_MULTI_CARD}")
+        n_peers = dp_size(mesh)
     n = int(n_peers)
     bucket_bytes = int(tcfg.grad_bucket_mb * (1 << 20)) or (16 << 20)
     state = {"coll": None}

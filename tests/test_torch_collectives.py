@@ -36,7 +36,7 @@ from repro_torch.train import init_adam, make_train_step
 from repro_torch.train.collectives import (CollectiveError, RDMACollective,
                                            ideal_wire_words)
 from repro_torch.train.optimizer import global_norm
-from repro_torch.train.train_step import (_bucketize, bucketed_sync,
+from repro_torch.train.train_step import (_bucketize,
                                           make_bucketed_train_step)
 
 
@@ -287,12 +287,8 @@ def test_bucketize_bills_dtype_itemsize():
     assert len(buckets) == 2, [b.bytes for b in buckets]
 
 
-def test_mesh_paths_raise_until_the_multi_card_port():
+def test_rdma_step_refuses_compression_and_a_missing_peer_count():
     tc = get_config("tiny")
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        make_bucketed_train_step(tc, TrainConfig(), object(), sync="psum")
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        bucketed_sync({"w": torch.ones(8)}, ("data",), 1 << 20)
     with pytest.raises(ValueError, match="compress_grads"):
         make_bucketed_train_step(tc, TrainConfig(compress_grads=True), None,
                                  sync="rdma", n_peers=2)

@@ -856,3 +856,22 @@ def test_cuda_autotune_sweep_equals_the_cpu_sweep(cuda):
                          for r in tuner.surface])
     assert chosen[0] == chosen[1]
     assert surfaces[0] == surfaces[1]
+
+
+@pytest.mark.cuda
+def test_cuda_two_ranks_share_the_card(cuda):
+    """Two gloo ranks on the one card (``run_peers``): the ICITransport
+    twin's pool byte-equal to a LocalTransport's on the card (-0.0
+    words included), and ``compressed_all_reduce_group`` bit-equal to
+    the leading-dim ``compressed_all_reduce``, K1 and K2 launched."""
+    import _torch_ranks as R
+    from repro_torch.launch.mesh import run_peers
+    got = run_peers(R.cuda_two_rank_case, 2, device="cuda", timeout_s=300)
+    for r in got:
+        assert r["type"] == "ICITransport" and r["device"].startswith("cuda")
+        assert np.array_equal(r["pool"].view(np.uint32),
+                              r["local_pool"].view(np.uint32))
+        assert np.array_equal(r["est"], r["lead"])
+        assert np.array_equal(r["res"], r["lead_res"])
+        assert r["launched"][0] > 0 and r["launched"][1] > 0
+    assert np.array_equal(got[0]["est"], got[1]["est"])

@@ -260,8 +260,6 @@ def test_train_step_keeps_grads_when_asked():
     step(params, init_adam(params), b)
     assert [g.shape for g in tree_leaves(step.last_grads)] == \
         [p.shape for p in tree_leaves(params)]
-    with pytest.raises(NotImplementedError, match="multi-card"):
-        make_train_step(tc, TrainConfig(), mesh=object())
 
 
 def test_training_memorizes_tiny():
