@@ -23,8 +23,10 @@ reports them) and runs, on the card:
      heads of 64, and at qwen2-vl's prefill, 28 q over 4 kv heads of
      128) — with
      its time, the plain version's time, its bound (the function's own
-     work at its dtype's peak; for K6 and K7 also the bound of the
-     products their routes run) and, for the matmul and attention, the
+     work, by the formula its wrapper charges to the operation counter
+     (``*_cost`` beside each kernel), at its dtype's peak; for K6 and K7
+     also the bound of the products their routes run) and, for the
+     matmul and attention, the
      time of
      ``torch.matmul`` and of ``scaled_dot_product_attention``
      (yardsticks the port never calls), each time read per traced name
@@ -175,11 +177,24 @@ reports them) and runs, on the card:
      gradient norm within the compression's own error of phase 18's
      norm), its loss and residual norm; (e) the reference test's
      pipeline over 2 stages, within 1e-5 of the sequential stack;
-  17. each kernel's launch count on the eleven paths (3-6, 7-10, 11-13,
-     14-15, 16, 20, 21, 22, 18, 19 and 26, the last summed over its
-     ranks), each path run with the counters at 0 and read right after:
-     every kernel a path runs must have launched on it, and each of the
-     seven > 0.
+  27. the dry-run against the card: three steps the smoke runs above
+     (tinyllama-1.1b's prefill of 8 x 512 and train step of 4 x 512 with
+     remat, mamba2-370m's prefill of 8 x 512; f32) traced on ``meta`` by
+     ``launch.dryrun.build_cell`` under ``roofline.count.OpCounter`` and
+     run on the card under the same counter from SEED: (a) FLOPs, bytes
+     and each kernel's charges equal; (b) the predicted peak live bytes
+     within DRYRUN_MEM_TOL of the card's peak allocated over the run
+     (less what lay beside the inputs); (c) the roofline's compute and
+     memory terms on the H100 profile and the bound beside the step's
+     wall, timed once more without the counter (printed, not checked);
+     (d) ``python -m repro_torch.launch.dryrun --all`` over the single
+     and the multi-pod mesh on ``meta``, one process a mesh run
+     together: ok, skipped and failed counts and the wall, 0 failed;
+  17. each kernel's launch count on the twelve paths (3-6, 7-10, 11-13,
+     14-15, 16, 20, 21, 22, 18, 19, 26, the last summed over its ranks,
+     and 27, two runs a cell on the card), each path run with the
+     counters at 0 and read right after: every kernel a path runs must
+     have launched on it, and each of the seven > 0.
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -237,6 +252,9 @@ MP_TIMEOUT_S = 900
 # traces of a kernel's timed calls before the profiler's empty-handed
 # traces fail the smoke (_traced_ms)
 TRACE_TRIES = 4
+# phase 27: the dry-run's predicted peak live bytes against the card's
+# peak, relative (the tolerance PERF.md predicted)
+DRYRUN_MEM_TOL = 0.05
 # read_batch_16k (phases 6 and 26): words a READ, READs a doorbell, stride
 READ16K = (4096, 50, 8192)
 
@@ -1444,6 +1462,139 @@ def multi_process_phase(dev, cfg, plain, seq=512, batch=4, microbatches=1):
             for name in r0["launches"]}
 
 
+# ---- 27. the dry-run against the card -----------------------------------
+
+def _wall_ms(fn):
+    """ms of ``fn()`` between two synchronisations; its result is dropped
+    (a train step's is a second copy of the state)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) * 1e3
+
+
+def dryrun_cells():
+    """Phase 27's cells, each a step the smoke runs elsewhere: (arch,
+    shape) with tinyllama-1.1b's prefill of 8 x 512 (phase 11) and plain
+    train step of 4 x 512 (phase 18), and mamba2-370m's prefill of 8 x
+    512 (phase 14); f32, one device."""
+    from repro_torch.configs.base import ShapeConfig
+    return (("tinyllama-1.1b", ShapeConfig("prefill_8x512", 512, 8,
+                                           "prefill")),
+            ("tinyllama-1.1b", ShapeConfig("train_4x512", 512, 4, "train")),
+            ("mamba2-370m", ShapeConfig("prefill_8x512", 512, 8,
+                                        "prefill")))
+
+
+def dryrun_sweep(meshes=("single", "multi"), timeout_s=900):
+    """``launch.dryrun --all`` on ``meta`` over ``meshes``, one process a
+    mesh, all started together: (ok, skipped, failed, wall seconds)."""
+    env = {**os.environ, "PYTHONPATH": os.path.join(
+        os.path.dirname(os.path.abspath(__file__)), "src")}
+    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
+    procs = []
+    t = time.perf_counter()
+    try:
+        for mesh in meshes:
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+                 "--mesh", mesh, "--out", os.path.join(out_dir, mesh)],
+                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        logs = [p.communicate(timeout=timeout_s)[0] for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        shutil.rmtree(out_dir, ignore_errors=True)
+    wall = time.perf_counter() - t
+    counts = [0, 0, 0]
+    for mesh, p, log in zip(meshes, procs, logs):
+        m = re.search(r"done: (\d+) ok, (\d+) skipped, (\d+) failed", log)
+        check(m is not None, f"dry-run --mesh {mesh} printed no summary "
+                             f"(exit {p.returncode}):\n{log[-3000:]}")
+        counts = [c + int(x) for c, x in zip(counts, m.groups())]
+        for line in log.splitlines():
+            if line.startswith("FAIL"):
+                print("  " + line)
+    return (*counts, wall)
+
+
+def dryrun_phase(dev, mem_tol=None):
+    """27. Each of ``dryrun_cells`` traced by ``roofline.count.OpCounter``
+    on ``meta`` (``launch.dryrun.build_cell``, as the dry-run traces it)
+    and then run on the card under the same counter, from SEED: (a) the
+    FLOPs, bytes and each kernel's charges equal; (b) the predicted peak
+    live bytes within ``mem_tol`` (relative) of the card's peak
+    allocated over the run, less what was allocated beside the inputs;
+    (c) the roofline's compute, memory and bound beside the step's wall,
+    one more run without the counter (printed only). Then (d) the
+    dry-run's sweep, ``--all`` over the single and multi-pod meshes on
+    ``meta``, with 0 failed. Returns the kernels charged on the card."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import build_cell, trace
+    from repro_torch.roofline.analysis import analyze
+
+    mem_tol = DRYRUN_MEM_TOL if mem_tol is None else mem_tol
+    mesh = MeshConfig((1,), ("data",))
+    tcfg = _train_config(param_dtype="float32")
+    charged = {}
+    for arch, shape in dryrun_cells():
+        cfg = get_config(arch)
+        fn, inputs, plan = build_cell(cfg, shape, mesh, tcfg)
+        meta = trace(fn, inputs)
+        del fn, inputs
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        fn, inputs, plan = build_cell(cfg, shape, mesh, tcfg, device=dev,
+                                      seed=SEED)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        card = trace(fn, inputs)
+        torch.cuda.synchronize()
+        # the peak less what lay on the card beside the inputs
+        peak = (torch.cuda.max_memory_allocated()
+                - (base - card["input_bytes"]))
+        for key in ("flops", "bytes", "kernels"):
+            check(meta[key] == card[key],
+                  f"dry-run {arch} {shape.name}: {key} on meta "
+                  f"{meta[key]}, on the card {card[key]}")
+        pred = meta["peak_bytes"]
+        mem_err = (pred - peak) / peak
+        check(abs(mem_err) <= mem_tol,
+              f"dry-run {arch} {shape.name}: predicted peak {pred} bytes, "
+              f"the card {peak} ({mem_err:+.4f}, over {mem_tol})")
+        for name, k in card["kernels"].items():
+            charged[name] = charged.get(name, 0) + k["calls"]
+        wall_ms = _wall_ms(fn)
+        del fn, inputs
+        roof = analyze(arch, shape.name, "1:data", 1, meta, plan.collectives,
+                       cfg, shape, "float32")
+        bound_ms = max(roof.compute_s, roof.memory_s) * 1e3
+        phase("dryrun cell", arch=arch, shape=shape.name, kind=shape.kind,
+              flops=meta["flops"], bytes=meta["bytes"],
+              kernels=json.dumps(meta["kernels"], sort_keys=True),
+              equal_on_meta_and_card=True,
+              predicted_peak_gb=pred / 1e9, card_peak_gb=peak / 1e9,
+              card_max_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
+              peak_err=mem_err, peak_tol=mem_tol,
+              compute_ms=roof.compute_s * 1e3, memory_ms=roof.memory_s * 1e3,
+              bound_ms=bound_ms, dominant=roof.dominant, wall_ms=wall_ms,
+              bound_over_wall=bound_ms / wall_ms, hardware=json.dumps(
+                  roof.hardware))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+    n_ok, n_skip, n_fail, wall = dryrun_sweep()
+    phase("dryrun sweep", meshes="single,multi", processes=2, ok=n_ok,
+          skipped=n_skip, failed=n_fail, wall_s=wall)
+    check(n_fail == 0, f"the dry-run sweep failed {n_fail} cells")
+    return charged
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1462,15 +1613,19 @@ def main():
     from repro_torch.kernels import _build, ops
     from repro_torch.kernels import lc_offload as lco
     from repro_torch.kernels.packet_parser import (
-        parse_packet_fields, parse_packet_fields_plain, parse_packets,
-        parse_packets_plain)
+        parse_cost, parse_packet_fields, parse_packet_fields_plain,
+        parse_packets, parse_packets_plain)
     from repro_torch.kernels.quantize_stream import (
-        dequantize_stream, dequantize_stream_plain, quantize_stream,
-        quantize_stream_plain)
-    from repro_torch.kernels.systolic_mm import systolic_mm, systolic_mm_plain
+        dequantize_stream, dequantize_stream_cost, dequantize_stream_plain,
+        quantize_stream, quantize_stream_cost, quantize_stream_plain)
+    from repro_torch.kernels.systolic_mm import (systolic_mm,
+                                                 systolic_mm_cost,
+                                                 systolic_mm_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost,
                                                      flash_attention_plain)
-    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_cost,
+                                              ssd_scan_plain)
     from repro_torch._tree import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1505,11 +1660,13 @@ def main():
         systolic_mm, parse_packets, parse_packet_fields, quantize_stream,
         dequantize_stream, flash_attention, ssd_scan)}
 
-    def measure(name, src, replaces, shape, err, fn, plain, nbytes,
-                flops=0.0, library=None, peak_flops=PEAK_F32_FLOPS,
-                **extra):
+    def measure(name, src, replaces, shape, err, fn, plain, cost,
+                library=None, peak_flops=PEAK_F32_FLOPS, **extra):
         """Time kernel, plain version and library call; print and record
-        (the last shape measured per kernel is the one recorded)."""
+        (the last shape measured per kernel is the one recorded). ``cost``
+        is the kernel's (flops, bytes), by the formula its wrapper charges
+        to ``roofline.count.OpCounter``."""
+        flops, nbytes = cost
         b = bound(nbytes, flops, peak_flops)
         ms, ms_summed, passes = device_ms(fn, wrapper=wrappers[name])
         plain_ms, plain_ms_summed, _ = device_ms(plain)
@@ -1544,8 +1701,7 @@ def main():
         measure("systolic_mm", "systolic_mm.cu",
                 "src/repro/kernels/systolic_mm.py:50", f"{m}x{k}x{n}",
                 err.max().item(), lambda: systolic_mm(x, y),
-                lambda: systolic_mm_plain(x, y),
-                4 * (m * k + k * n + m * n), 2.0 * m * k * n,
+                lambda: systolic_mm_plain(x, y), systolic_mm_cost(x, y),
                 library=lambda: torch.matmul(x, y))
 
     pkts_np = rng.integers(0, 256, size=(4096, 64)).astype(np.uint8)
@@ -1564,7 +1720,7 @@ def main():
         measure("parse_packets", "packet_parser.cu",
                 "src/repro/kernels/packet_parser.py:92", f"{n}x64", 0.0,
                 lambda: parse_packets(pk), lambda: parse_packets_plain(pk),
-                n * (64 + 16))
+                parse_cost(pk, 4))
     del big
 
     # K4 at 4096, at a large batch and, recorded last, at the 1024-packet
@@ -1581,7 +1737,7 @@ def main():
         measure("parse_packet_fields", "packet_parser.cu",
                 "src/repro/kernels/packet_parser.py:110", f"{n}x64", 0.0,
                 lambda: parse_packet_fields(pf),
-                lambda: parse_packet_fields_plain(pf), n * (64 + 32))
+                lambda: parse_packet_fields_plain(pf), parse_cost(pf, 8))
 
     for n, chunk in ((32, 64), (1024, 64), (4096, 1024)):
         x = torch.from_numpy((rng.standard_normal((n, chunk)) * rng.uniform(
@@ -1594,8 +1750,7 @@ def main():
         measure("quantize_stream", "quantize_stream.cu",
                 "src/repro/kernels/quantize_stream.py:51", f"{n}x{chunk}",
                 0.0, lambda: quantize_stream(x, chunk=chunk),
-                lambda: quantize_stream_plain(x),
-                n * chunk * (4 + 1) + 4 * n, 4.0 * n * chunk)
+                lambda: quantize_stream_plain(x), quantize_stream_cost(x))
         check(torch.equal(dequantize_stream(q, s),
                           dequantize_stream_plain(q, s)),
               f"dequantize_stream {n}x{chunk} is not bit-exact")
@@ -1606,7 +1761,7 @@ def main():
                 "src/repro/kernels/quantize_stream.py:70", f"{n}x{chunk}",
                 0.0, lambda: dequantize_stream(q, s),
                 lambda: dequantize_stream_plain(q, s),
-                n * chunk * (1 + 4) + 4 * n, 1.0 * n * chunk)
+                dequantize_stream_cost(q, s))
     del x, y, q, s, pq, ps
 
     # K6 at the tinyllama prefill shape (8 sequences x 32 q heads over 4 kv
@@ -1664,13 +1819,9 @@ def main():
         else:
             def library():
                 return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
-        # visible (q, k) pairs of one head: rows see keys up to their own
-        # index when causal, within the window when there is one
-        pairs = sum(min(i + 1 if causal else askv, window or askv)
-                    for i in range(asq))
-        esz = qa.element_size()
-        nbytes = esz * ab * (ad + adv) * (asq * ahq + askv * ahkv)
-        flops = 2.0 * (ad + adv) * pairs * ab * ahq
+        cost = flash_attention_cost(qa, ka, va, causal=causal,
+                                    window=window)
+        nbytes, flops = cost[1], float(cost[0])
         if dtype == torch.bfloat16:
             peak, route = PEAK_BF16_FLOPS, "bf16 tensor cores, P split"
             route_flops, route_peak = 1.5 * flops, PEAK_BF16_FLOPS
@@ -1690,7 +1841,7 @@ def main():
                                         window=window),
                 lambda: flash_attention_plain(qa, ka, va, causal=causal,
                                               window=window),
-                nbytes, flops, library=library, peak_flops=peak,
+                cost, library=library, peak_flops=peak,
                 route_work=route, route_flops=route_flops,
                 route_bound_ms=rb[0], route_bound_by=rb[1])
     del qa, ka, va, qt, kt, vt, got, want, err
@@ -1741,12 +1892,10 @@ def main():
         f_cb = 2.0 * nc7 * tri * sn
         f_wx = 2.0 * nc7 * snh * tri * shd
         f_state = f_cs = 2.0 * nc7 * snh * schunk * sn * shd
-        flops = f_cb + f_wx + f_state + f_cs
         kx = 2 if dtype == torch.bfloat16 else 3
         route_flops = 3 * f_cs + kx * (f_wx + f_state)
-        nbytes = (2 * sx.element_size() * sb * ss * snh * shd
-                  + 4 * (sb * ss * snh + snh + 2 * sb * ss * sn
-                         + (1 + seeded) * sb * snh * shd * sn))
+        cost = ssd_scan_cost(*args, schunk, sinit)
+        nbytes = cost[1]
         route_ops_ms = (route_flops / PEAK_TF32_FLOPS
                         + f_cb / PEAK_FP64_TC_FLOPS) * 1e3
         bytes_ms = nbytes / PEAK_BYTES_S * 1e3
@@ -1760,7 +1909,7 @@ def main():
                 max(e.max().item() for e in errs7),
                 lambda: ssd_scan(*args, chunk=schunk, init_state=sinit,
                                  return_final_state=True),
-                lambda: ssd_scan_plain(*args, schunk, sinit), nbytes, flops,
+                lambda: ssd_scan_plain(*args, schunk, sinit), cost,
                 peak_flops=(PEAK_BF16_FLOPS if dtype == torch.bfloat16
                             else PEAK_F32_FLOPS),
                 route_work=("3xTF32 tensor cores"
@@ -2283,7 +2432,8 @@ def main():
     from repro_torch.models.transformer import encode
     from repro_torch.serve import (PagedKVPool, RemoteKVClient,
                                    decode_step, greedy_generate,
-                                   model_inputs, prefill_step, step_inputs)
+                                   greedy_with_inputs, model_inputs,
+                                   prefill_step, step_inputs)
     from repro_torch.serve.kv_cache import flatten_cache_leaves
 
     n_req, p_len, g_len = 8, 512, 32
@@ -2406,31 +2556,12 @@ def main():
               wall_ms=wall * 1e3, device_ms=dev_us / 1e3,
               device_share=dev_us / 1e3 / (wall * 1e3))
 
-    def greedy_with(params, cfg, prompt, inp, kv_client=None, kv_tenant=None):
-        """``greedy_generate`` for a model that takes inputs beside the
-        tokens (``greedy_generate`` feeds tokens alone, as the
-        reference's): prefill and each decode step given their share of
-        ``inp``, the caches handed over through ``kv_client`` as there."""
-        caches = init_caches(cfg, n_req, max_seq, torch.float32)
-        lg, caches = prefill_step(params, cfg, {
-            "tokens": prompt, **step_inputs(inp, 0, p_len)}, caches)
-        if kv_client is not None:
-            caches = kv_client.roundtrip_caches(0, caches, kv_tenant)
-        tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-        outs = [tok]
-        for i in range(p_len, p_len + g_len - 1):
-            lg, caches = decode_step(params, cfg, tok, caches, i,
-                                     extra=step_inputs(inp, i, i + 1))
-            tok = torch.argmax(lg[:, -1], dim=-1)[:, None]
-            outs.append(tok)
-        return torch.cat(outs, dim=1)
-
     def handoff(cfg, params, prompt, caches, pool_size, inp=None):
         """The cache handoff over the RDMA engine, uncompressed, on an
         engine of its own: publish and fetch the caches byte for byte
         (every leaf, dtypes included), then greedy tokens through the
-        remote pool equal those with local caches (``greedy_with`` the
-        inputs ``inp`` where the model takes any). Returns (the engine,
+        remote pool equal those with local caches (``greedy_with_inputs``
+        the inputs ``inp`` where the model takes any). Returns (the engine,
         its pool's pages, the fetches made)."""
         eng_ = RDMAEngine(n_peers=2, pool_size=pool_size)
         n_pages = -(-flatten_cache_leaves(caches).numel() // page)
@@ -2475,10 +2606,10 @@ def main():
             fetch_dev_ms, fetch_dev_src = None, "untraced"
         kv_pool.evict(1)
         if inp:
-            local, gen_s = timed(lambda: greedy_with(params, cfg, prompt,
-                                                     inp))
-            remote, rgen_s = timed(lambda: greedy_with(
-                params, cfg, prompt, inp, kv_client=client,
+            local, gen_s = timed(lambda: greedy_with_inputs(
+                params, cfg, prompt, inp, g_len, max_seq))
+            remote, rgen_s = timed(lambda: greedy_with_inputs(
+                params, cfg, prompt, inp, g_len, max_seq, kv_client=client,
                 kv_tenant=tenant))
         else:
             local, gen_s = timed(lambda: greedy_generate(
@@ -2660,6 +2791,17 @@ def main():
                dequantize_stream, flash_attention):
         check(launches[path][fn.__name__] > 0,
               f"{fn.__name__} never launched on the {path} path")
+
+    # ---- 27. the dry-run against the card ---------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_counts()
+    charged = dryrun_phase(dev)
+    read_counts("dryrun", (flash_attention, ssd_scan))
+    # each cell ran twice on the card: counted, then timed
+    check({k: launches["dryrun"][k] for k in charged}
+          == {k: 2 * n for k, n in charged.items()},
+          f"dry-run launches {launches['dryrun']}, charged {charged} a run")
 
     # ---- 17. launches on the main path -------------------------------------
     counts = {fn.__name__: sum(c[fn.__name__] for c in launches.values())

@@ -1,8 +1,8 @@
 """Architecture registry: ``--arch <id>`` -> ModelConfig.
 
 Ten assigned architectures + reduced smoke variants (``<id>-smoke``) and a
-couple of tiny configs used by examples/tests (the reference's registry
-without its dry-run cell helpers).
+couple of tiny configs used by examples/tests, and the dry-run's (arch x
+shape) cells.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ from repro_torch.configs import (
     tinyllama_1_1b,
 )
 from repro_torch.configs.base import (
-    ModelConfig, MoEConfig, SSMConfig, reduce_for_smoke,
+    ModelConfig, MoEConfig, SHAPES, ShapeConfig, SSMConfig, reduce_for_smoke,
 )
 
 ARCHS = {
@@ -34,6 +34,9 @@ ARCHS = {
     "deepseek-v2-lite-16b": deepseek_v2_lite_16b.CONFIG,
     "phi3.5-moe-42b": phi3_5_moe_42b.CONFIG,
 }
+
+# Sub-quadratic archs that run the long_500k cell.
+LONG_CONTEXT_ARCHS = {"mamba2-370m", "hymba-1.5b"}
 
 # ~100M dense model for the end-to-end training example.
 TRAIN_100M = ModelConfig(
@@ -101,3 +104,26 @@ def get_config(arch: str) -> ModelConfig:
     raise KeyError(
         f"unknown arch {arch!r}; known: {sorted(ARCHS) + sorted(_EXTRA)}")
 
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cell_is_applicable(arch: str, shape: str) -> tuple[bool, str]:
+    """Whether the (arch, shape) dry-run cell runs, and why not if skipped."""
+    if shape == "long_500k" and arch not in LONG_CONTEXT_ARCHS:
+        return False, ("long_500k requires sub-quadratic attention; "
+                       f"{arch} is full-attention (skip per assignment)")
+    return True, ""
+
+
+def all_cells() -> list:
+    """All applicable (arch, shape) dry-run cells."""
+    cells = []
+    for arch in ARCHS:
+        for shape in SHAPES:
+            ok, _ = cell_is_applicable(arch, shape)
+            if ok:
+                cells.append((arch, shape))
+    return cells

@@ -15,10 +15,14 @@ the output may be narrower than q and k for a listed pair of head dims
 (MLA's 192 for q and k, 128 for v).
 
 ``flash_attention`` runs the plain PyTorch version for tensors on the
-CPU and launches the CUDA kernel for tensors on the GPU;
-``flash_attention.launches`` counts the launches. On the GPU the result
-carries a ``grad_fn`` whose backward recomputes the plain version and
-differentiates it (``_FlashAttention``); the forward stays the kernel.
+CPU, launches the CUDA kernel for tensors on the GPU and, for tensors on
+the ``meta`` device (the dry-run's), returns an output of the kernel's
+shape and dtype and launches nothing; ``flash_attention.launches``
+counts the launches. On every device the result carries a ``grad_fn``
+whose backward recomputes the plain version and differentiates it
+(``_FlashAttention``); the forward stays the kernel. An active
+``roofline.count.OpCounter`` is charged ``flash_attention_cost`` per
+call, whatever the device.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline.count import charge
 
 NEG_INF = -1e30
 
@@ -80,6 +85,30 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, sq, hq, dv).to(q.dtype)
 
 
+def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+    """(q, k) pairs of one head that the mask lets through: query ``i``
+    sees key ``j`` when ``j <= i`` (causal) and ``i - j < window``
+    (a window), as ``flash_attention_plain`` masks."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else 0
+    return int(np.clip(hi - lo + 1, 0, None).sum())
+
+
+def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = True, window: int = 0):
+    """(flops, bytes) of one call, the function's own work: 2 (d + dv)
+    flops per visible (q, k) pair and q head, and q, k and v read and
+    the output written once each. Any of the layouts ``flash_attention``
+    takes."""
+    q4, k4, v4 = _as_bshd(q), _as_bshd(k), _as_bshd(v)
+    b, sq, hq, d = q4.shape
+    skv, hkv, dv = k4.shape[1], k4.shape[2], v4.shape[-1]
+    flops = 2 * (d + dv) * visible_pairs(sq, skv, causal, window) * b * hq
+    nbytes = q.element_size() * b * (d + dv) * (sq * hq + skv * hkv)
+    return flops, nbytes
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -104,37 +133,44 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
     scale = scale if scale is not None else d ** -0.5
-    if q.device.type == "cpu" and k.device.type == "cpu" \
-            and v.device.type == "cpu":
-        out = flash_attention_plain(q4, k4, v4, causal=causal,
-                                    window=window, scale=scale)
-        return out[:, :, 0] if squeeze else out
-    if (d, dv) not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head_dim {d} with v head_dim "
-                         f"{dv} not in {HEAD_DIMS}")
-    if b * hq > 65535:
-        raise ValueError(f"flash_attention: B * Hq = {b * hq} > 65535")
-    _build.check_cuda("flash_attention", q4, k4, v4)
-    for name, t in (("q", q4), ("k", k4), ("v", v4)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention: {name} is not 16-byte "
-                             f"aligned (the kernel loads 16-byte rows)")
-    out = _FlashAttention.apply(q4, k4, v4, causal, window, scale)
+    if {t.device.type for t in (q, k, v)} not in ({"cpu"}, {"meta"}):
+        if (d, dv) not in HEAD_DIMS:
+            raise ValueError(f"flash_attention: head_dim {d} with v "
+                             f"head_dim {dv} not in {HEAD_DIMS}")
+        if b * hq > 65535:
+            raise ValueError(f"flash_attention: B * Hq = {b * hq} > 65535")
+        _build.check_cuda("flash_attention", q4, k4, v4)
+        for name, t in (("q", q4), ("k", k4), ("v", v4)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"flash_attention: {name} is not 16-byte "
+                                 f"aligned (the kernel loads 16-byte rows)")
+    with charge("flash_attention", flash_attention_cost, q4, k4, v4,
+                causal=causal, window=window):
+        out = _FlashAttention.apply(q4, k4, v4, causal, window, scale)
     return out[:, :, 0] if squeeze else out
 
 
 class _FlashAttention(torch.autograd.Function):
-    """K6 as an autograd op: the forward launches the CUDA kernel; the
+    """K6 as an autograd op: the forward launches the CUDA kernel (the
+    plain version on the CPU, a shape-only output on ``meta``); the
     backward recomputes ``flash_attention_plain`` on the saved inputs and
     returns its gradients (the JAX package trains through plain
-    attention too). Under ``no_grad`` it is the bare launch."""
+    attention too). Under ``no_grad`` it is the bare forward."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, scale):
         b, sq, hq, d = q.shape
         _, skv, hkv, dv = v.shape
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = (causal, window, scale)
+        if q.device.type == "cpu":
+            # laid out as the kernel writes it, so that later ops see the
+            # same strides on every device
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         window=window,
+                                         scale=scale).contiguous()
         out = q.new_empty((b, sq, hq, dv))
-        if out.numel():
+        if out.numel() and q.device.type == "cuda":
             _build.launch("reconic_flash_attention", q.data_ptr(),
                           k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
                           hkv, sq, skv, d, dv, int(causal), int(window),
@@ -142,8 +178,6 @@ class _FlashAttention(torch.autograd.Function):
                           int(q.dtype == torch.bfloat16),
                           _build.stream_ptr(q.device))
             flash_attention.launches += 1
-        ctx.save_for_backward(q, k, v)
-        ctx.opts = (causal, window, scale)
         return out
 
     @staticmethod

@@ -29,6 +29,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline.count import charge
 
 HDR_BYTES = 64
 ROCE_UDP_PORT = 4791
@@ -80,6 +81,14 @@ def parse_packet_fields_plain(pkts: torch.Tensor) -> torch.Tensor:
     return _raw_fields(pkts.to(torch.int32))
 
 
+def parse_cost(pkts: torch.Tensor, width: int):
+    """(flops, bytes) of parsing ``pkts`` (n, 64) into ``width`` int32
+    fields a packet: no floating-point work, the headers read and the
+    fields written once."""
+    n = pkts.shape[0]
+    return 0, n * (HDR_BYTES + 4 * width)
+
+
 def _parse(wrapper, plain, entry: str, width: int,
            pkts: torch.Tensor) -> torch.Tensor:
     """Check ``pkts``; run ``plain`` for a CPU tensor, else launch C
@@ -91,16 +100,17 @@ def _parse(wrapper, plain, entry: str, width: int,
     if pkts.dtype != torch.uint8:
         raise TypeError(f"{wrapper.__name__}: expected uint8, got "
                         f"{pkts.dtype}")
-    if pkts.device.type == "cpu":
-        return plain(pkts)
-    _build.check_cuda(wrapper.__name__, pkts)
-    n = pkts.shape[0]
-    out = torch.empty((n, width), dtype=torch.int32, device=pkts.device)
-    if n:
-        _build.launch(entry, pkts.data_ptr(), out.data_ptr(), n,
-                      _build.stream_ptr(pkts.device))
-        wrapper.launches += 1
-    return out
+    with charge(wrapper.__name__, parse_cost, pkts, width):
+        if pkts.device.type == "cpu":
+            return plain(pkts)
+        _build.check_cuda(wrapper.__name__, pkts)
+        n = pkts.shape[0]
+        out = torch.empty((n, width), dtype=torch.int32, device=pkts.device)
+        if n:
+            _build.launch(entry, pkts.data_ptr(), out.data_ptr(), n,
+                          _build.stream_ptr(pkts.device))
+            wrapper.launches += 1
+        return out
 
 
 def parse_packets(pkts: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline.count import charge
 
 #: scale = amax * (1/127) as an EXPLICIT fp32 multiply by the fp32
 #: reciprocal — the reference's constant, passed to the CUDA kernel too,
@@ -42,6 +43,22 @@ def dequantize_stream_plain(q: torch.Tensor, scales: torch.Tensor,
     return (q.to(torch.float32) * scales).to(out_dtype)
 
 
+def quantize_stream_cost(x: torch.Tensor):
+    """(flops, bytes) of quantizing ``x`` (n, chunk): 4 flops a value
+    (abs, max, divide, round), x read, the int8 codes and f32 scales
+    written once."""
+    n, chunk = x.shape
+    return 4 * n * chunk, n * chunk * (x.element_size() + 1) + 4 * n
+
+
+def dequantize_stream_cost(q: torch.Tensor, scales: torch.Tensor,
+                           out_dtype=torch.float32):
+    """(flops, bytes) of dequantizing int8 ``q`` (n, chunk): one multiply
+    a value, codes and scales read, the output written once."""
+    n, chunk = q.shape
+    return n * chunk, n * chunk * (1 + out_dtype.itemsize) + 4 * n
+
+
 def quantize_stream(x: torch.Tensor, *, chunk: int = 1024):
     """x: (n, chunk) f32 or bf16 -> (int8 values (n, chunk), f32 scales
     (n, 1)). ``ops.compress`` handles padding/reshape of any tensor."""
@@ -49,19 +66,20 @@ def quantize_stream(x: torch.Tensor, *, chunk: int = 1024):
         raise ValueError(f"expected (n, {chunk}), got {tuple(x.shape)}")
     if x.dtype not in _IN_DTYPES:
         raise TypeError(f"quantize_stream: unsupported dtype {x.dtype}")
-    if x.device.type == "cpu":
-        return quantize_stream_plain(x)
-    _build.check_cuda("quantize_stream", x)
-    n = x.shape[0]
-    q = torch.empty((n, chunk), dtype=torch.int8, device=x.device)
-    s = torch.empty((n, 1), dtype=torch.float32, device=x.device)
-    if n:
-        _build.launch("reconic_quantize", x.data_ptr(),
-                      int(x.dtype == torch.bfloat16), q.data_ptr(),
-                      s.data_ptr(), n, chunk, ctypes.c_float(INV_QMAX),
-                      _build.stream_ptr(x.device))
-        quantize_stream.launches += 1
-    return q, s
+    with charge("quantize_stream", quantize_stream_cost, x):
+        if x.device.type == "cpu":
+            return quantize_stream_plain(x)
+        _build.check_cuda("quantize_stream", x)
+        n = x.shape[0]
+        q = torch.empty((n, chunk), dtype=torch.int8, device=x.device)
+        s = torch.empty((n, 1), dtype=torch.float32, device=x.device)
+        if n:
+            _build.launch("reconic_quantize", x.data_ptr(),
+                          int(x.dtype == torch.bfloat16), q.data_ptr(),
+                          s.data_ptr(), n, chunk, ctypes.c_float(INV_QMAX),
+                          _build.stream_ptr(x.device))
+            quantize_stream.launches += 1
+        return q, s
 
 
 quantize_stream.launches = 0
@@ -80,18 +98,20 @@ def dequantize_stream(q: torch.Tensor, scales: torch.Tensor, *,
                          f"{scales.dtype} {tuple(scales.shape)}")
     if out_dtype not in _IN_DTYPES:
         raise TypeError(f"dequantize_stream: unsupported {out_dtype}")
-    if q.device.type == "cpu":
-        return dequantize_stream_plain(q, scales, out_dtype)
-    _build.check_cuda("dequantize_stream", q, scales)
-    n, chunk = q.shape
-    out = torch.empty((n, chunk), dtype=out_dtype, device=q.device)
-    if q.numel():
-        _build.launch("reconic_dequantize", q.data_ptr(),
-                      scales.data_ptr(), out.data_ptr(),
-                      int(out_dtype == torch.bfloat16), n, chunk,
-                      _build.stream_ptr(q.device))
-        dequantize_stream.launches += 1
-    return out
+    with charge("dequantize_stream", dequantize_stream_cost, q, scales,
+                out_dtype):
+        if q.device.type == "cpu":
+            return dequantize_stream_plain(q, scales, out_dtype)
+        _build.check_cuda("dequantize_stream", q, scales)
+        n, chunk = q.shape
+        out = torch.empty((n, chunk), dtype=out_dtype, device=q.device)
+        if q.numel():
+            _build.launch("reconic_dequantize", q.data_ptr(),
+                          scales.data_ptr(), out.data_ptr(),
+                          int(out_dtype == torch.bfloat16), n, chunk,
+                          _build.stream_ptr(q.device))
+            dequantize_stream.launches += 1
+        return out
 
 
 dequantize_stream.launches = 0

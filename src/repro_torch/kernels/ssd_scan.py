@@ -12,16 +12,20 @@ replaces, it starts from an optional initial state and returns the final
 one, so the model's prefill (seeded from ``cache["ssm"]``) and its
 forward without caches both run through it.
 
-``ssd_scan`` runs the plain PyTorch version for tensors on the CPU and
+``ssd_scan`` runs the plain PyTorch version for tensors on the CPU,
 launches the CUDA kernel for tensors on the GPU, where it takes
-``n_groups == 1`` only and raises otherwise. The launcher itself refuses
+``n_groups == 1`` only and raises otherwise, and, for tensors on the
+``meta`` device (the dry-run's), returns outputs of the kernel's shapes
+and dtypes and launches nothing. The launcher itself refuses
 a head or state dim the kernel is not built for and a chunk longer than
 its largest (4096), and the wrapper raises on that refusal. The scratch
 the passes share is allocated here with ``torch.empty``.
 ``ssd_scan.launches`` counts the calls that launched the kernel (one per
-call, whatever the number of passes). On the GPU the outputs carry a
-``grad_fn`` whose backward recomputes the plain version and
-differentiates it (``_SSDScan``); the forward stays the kernel.
+call, whatever the number of passes). On every device the outputs carry
+a ``grad_fn`` whose backward recomputes the plain version and
+differentiates it (``_SSDScan``); the forward stays the kernel. An
+active ``roofline.count.OpCounter`` is charged ``ssd_scan_cost`` per
+call, whatever the device.
 """
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline.count import charge
 
 NEG_INF = -1e30
 
@@ -125,6 +130,29 @@ def work_floats(b: int, s: int, nh: int, hd: int, n: int,
         b, nh, s, hd, n, chunk))
 
 
+def ssd_scan_cost(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                  bm: torch.Tensor, cm: torch.Tensor, chunk: int,
+                  init_state: Optional[torch.Tensor] = None):
+    """(flops, bytes) of one call, the function's own work: per
+    (sequence, chunk) C.B^T over the chunk's lower triangle once per
+    group; per head w.x over that triangle, the state increment and C_i
+    . S_prev; xh, dt, a, bm, cm and init_state read once, y and the
+    final f32 state written once."""
+    b, s, nh, hd = xh.shape
+    g, n = bm.shape[2], bm.shape[3]
+    chunks = b * (s // chunk)
+    tri = chunk * (chunk + 1) // 2
+    flops = (2 * chunks * g * tri * n + 2 * chunks * nh * tri * hd
+             + 2 * 2 * chunks * nh * chunk * n * hd)
+    state = b * nh * hd * n
+    nbytes = (2 * xh.element_size() * xh.numel()
+              + dt.element_size() * dt.numel() + a.element_size() * nh
+              + bm.element_size() * (bm.numel() + cm.numel()) + 4 * state
+              + (0 if init_state is None
+                 else init_state.element_size() * state))
+    return flops, nbytes
+
+
 def _check_shapes(xh, dt, a, bm, cm, chunk, init_state):
     if xh.ndim != 4:
         raise ValueError(f"xh must be (B, S, nh, hd), got {tuple(xh.shape)}")
@@ -165,40 +193,44 @@ def ssd_scan(xh: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     _check_shapes(xh, dt, a, bm, cm, chunk, init_state)
     tensors = [xh, dt, a, bm, cm] + ([] if init_state is None
                                      else [init_state])
-    if all(t.device.type == "cpu" for t in tensors):
-        y, final = ssd_scan_plain(xh, dt, a, bm, cm, chunk, init_state)
-        return (y, final) if return_final_state else y
-
-    b, s, nh, hd = xh.shape
-    g, n = bm.shape[2], bm.shape[3]
-    if g != 1:
-        raise ValueError(f"ssd_scan: the CUDA kernel takes n_groups == 1, "
-                         f"got {g}")
-    if any(t.dtype != torch.float32 for t in tensors[1:]):
-        raise TypeError("ssd_scan: dt, a, bm, cm and init_state must be "
-                        "float32")
-    _build.check_cuda("ssd_scan", *tensors)
-    if xh.data_ptr() % 4:
-        raise ValueError("ssd_scan: xh is not 4-byte aligned (the kernel "
-                         "loads x rows by 4-byte cp.async)")
-    y, final = _SSDScan.apply(xh, dt, a, bm, cm, init_state, chunk)
+    if {t.device.type for t in tensors} not in ({"cpu"}, {"meta"}):
+        if bm.shape[2] != 1:
+            raise ValueError(f"ssd_scan: the CUDA kernel takes n_groups == "
+                             f"1, got {bm.shape[2]}")
+        if any(t.dtype != torch.float32 for t in tensors[1:]):
+            raise TypeError("ssd_scan: dt, a, bm, cm and init_state must "
+                            "be float32")
+        _build.check_cuda("ssd_scan", *tensors)
+        if xh.data_ptr() % 4:
+            raise ValueError("ssd_scan: xh is not 4-byte aligned (the "
+                             "kernel loads x rows by 4-byte cp.async)")
+    with charge("ssd_scan", ssd_scan_cost, xh, dt, a, bm, cm, chunk,
+                init_state):
+        y, final = _SSDScan.apply(xh, dt, a, bm, cm, init_state, chunk)
     return (y, final) if return_final_state else y
 
 
 class _SSDScan(torch.autograd.Function):
-    """K7 as an autograd op: the forward launches the CUDA kernel; the
+    """K7 as an autograd op: the forward launches the CUDA kernel (the
+    plain version on the CPU, shape-only outputs on ``meta``); the
     backward recomputes ``ssd_scan_plain`` on the saved inputs and
     returns its gradients for xh, dt, a, bm, cm and init_state (the JAX
     package trains through its plain ``_ssd_chunked``). Under ``no_grad``
-    it is the bare launch."""
+    it is the bare forward."""
 
     @staticmethod
     def forward(ctx, xh, dt, a, bm, cm, init_state, chunk):
+        ctx.save_for_backward(xh, dt, a, bm, cm, init_state)
+        ctx.chunk = chunk
+        if xh.device.type == "cpu":
+            return ssd_scan_plain(xh, dt, a, bm, cm, chunk, init_state)
         b, s, nh, hd = xh.shape
         n = bm.shape[3]
         y = torch.empty_like(xh)
         final = torch.empty((b, nh, hd, n), dtype=torch.float32,
                             device=xh.device)
+        if xh.device.type == "meta":
+            return y, final
         workspace = torch.empty(work_floats(b, s, nh, hd, n, chunk),
                                 dtype=torch.float32, device=xh.device)
         _build.launch("reconic_ssd_scan", xh.data_ptr(), dt.data_ptr(),
@@ -209,8 +241,6 @@ class _SSDScan(torch.autograd.Function):
                       int(xh.dtype == torch.bfloat16),
                       _build.stream_ptr(xh.device))
         ssd_scan.launches += 1
-        ctx.save_for_backward(xh, dt, a, bm, cm, init_state)
-        ctx.chunk = chunk
         return y, final
 
     @staticmethod

@@ -20,6 +20,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.roofline.count import charge
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -31,6 +32,17 @@ def systolic_mm_plain(x: torch.Tensor, y: torch.Tensor,
     out_dtype = out_dtype or x.dtype
     return torch.matmul(x.to(torch.float32), y.to(torch.float32)
                         ).to(out_dtype)
+
+
+def systolic_mm_cost(x: torch.Tensor, y: torch.Tensor,
+                     out_dtype: Optional[torch.dtype] = None):
+    """(flops, bytes) of (M, K) x (K, N): 2 M K N flops, x and y read and
+    the (M, N) output written once."""
+    (m, k), n = x.shape, y.shape[1]
+    out_size = (out_dtype or x.dtype).itemsize
+    return (2 * m * k * n,
+            x.element_size() * m * k + y.element_size() * k * n
+            + out_size * m * n)
 
 
 def systolic_mm(x: torch.Tensor, y: torch.Tensor, *,
@@ -45,20 +57,21 @@ def systolic_mm(x: torch.Tensor, y: torch.Tensor, *,
             out_dtype not in _DTYPES:
         raise TypeError(f"systolic_mm: unsupported dtypes {x.dtype} x "
                         f"{y.dtype} -> {out_dtype}")
-    if x.device.type == "cpu" and y.device.type == "cpu":
-        return systolic_mm_plain(x, y, out_dtype)
-    _build.check_cuda("systolic_mm", x, y)
-    m, k = x.shape
-    n = y.shape[1]
-    out = torch.empty((m, n), dtype=out_dtype, device=x.device)
-    if m and n:
-        _build.launch("reconic_systolic_mm", x.data_ptr(), y.data_ptr(),
-                      out.data_ptr(), m, n, k,
-                      int(x.dtype == torch.bfloat16),
-                      int(out_dtype == torch.bfloat16),
-                      _build.stream_ptr(x.device))
-        systolic_mm.launches += 1
-    return out
+    with charge("systolic_mm", systolic_mm_cost, x, y, out_dtype):
+        if x.device.type == "cpu" and y.device.type == "cpu":
+            return systolic_mm_plain(x, y, out_dtype)
+        _build.check_cuda("systolic_mm", x, y)
+        m, k = x.shape
+        n = y.shape[1]
+        out = torch.empty((m, n), dtype=out_dtype, device=x.device)
+        if m and n:
+            _build.launch("reconic_systolic_mm", x.data_ptr(), y.data_ptr(),
+                          out.data_ptr(), m, n, k,
+                          int(x.dtype == torch.bfloat16),
+                          int(out_dtype == torch.bfloat16),
+                          _build.stream_ptr(x.device))
+            systolic_mm.launches += 1
+        return out
 
 
 systolic_mm.launches = 0

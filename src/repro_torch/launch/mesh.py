@@ -9,6 +9,11 @@ ranks with named dimensions. The mesh names the group's topology only:
 its ``device_type`` is ``"cpu"`` because gloo carries the collectives,
 and a rank's tensors lie on its own device (``_device.rank_device``).
 
+``PlanMesh`` is a mesh with no process group behind it, for the
+dry-run: the steps take it where they take a ``DeviceMesh``, run as the
+rank at coordinate 0 of every axis, and each collective they would send
+is recorded (``PlanGroup``) instead of sent.
+
 ``run_peers`` is the counterpart of the reference tests'
 ``--xla_force_host_platform_device_count``: it spawns ``n`` gloo ranks,
 runs a function in each and returns what each returned, raising (with
@@ -60,6 +65,45 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> DeviceMesh:
     return init_device_mesh("cpu", shape, mesh_dim_names=axes)
 
 
+class PlanGroup:
+    """A group of ``size`` ranks of a ``PlanMesh``: a collective on it is
+    recorded in ``log`` as (op, operand bytes, group size), in the
+    reference's op names, and moves nothing (every rank of a plan holds
+    the same values)."""
+
+    def __init__(self, size: int, log: list):
+        self.size, self.log = size, log
+
+    def record(self, op: str, t: torch.Tensor) -> None:
+        self.log.append((op, t.numel() * t.element_size(), self.size))
+
+
+class PlanMesh:
+    """A mesh description, ``shape`` over named ``axes``, that the steps
+    take where they take a ``DeviceMesh`` (``make_train_step(mesh=)``,
+    ``make_bucketed_train_step``) with no process group: this process is
+    the rank at coordinate 0 of every axis, and the collectives the step
+    would send land in ``collectives`` as (op, operand bytes, group
+    size) instead of being sent."""
+
+    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+        self.shape = tuple(int(x) for x in shape)
+        self.mesh_dim_names = tuple(axes)
+        self.collectives: list = []
+
+    def size(self, dim: int) -> int:
+        return self.shape[dim]
+
+    def get_coordinate(self) -> list:
+        return [0] * len(self.shape)
+
+    def group(self, axes: Sequence[str]) -> PlanGroup:
+        n = 1
+        for a in axes:
+            n *= axis_size(self, a)
+        return PlanGroup(n, self.collectives)
+
+
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
     return mesh.size(mesh.mesh_dim_names.index(axis))
 
@@ -83,6 +127,8 @@ def axis_group(mesh: DeviceMesh, axes: Sequence[str]):
     ranks in row-major order of ``axes``, built once per mesh and axes by
     every rank together (``new_subgroups_by_enumeration``)."""
     axes = tuple(axes)
+    if isinstance(mesh, PlanMesh):
+        return mesh.group(axes)
     if len(axes) == 1:
         return mesh.get_group(axes[0])
     groups = mesh.__dict__.setdefault("_reconic_groups", {})

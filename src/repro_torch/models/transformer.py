@@ -69,12 +69,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     """Random parameters in the reference's layout and distributions
     (``init_dense``: N(0, 1) * sqrt(2 / (d_in + d_out)); norm scales 1,
     biases 0), drawn from a ``torch.Generator`` seeded with ``seed`` on
-    ``device`` (``None`` -> the GPU). The numbers differ from the JAX
+    ``device`` (``None`` -> the GPU; a CPU generator for ``meta``, which
+    has none and draws nothing). The numbers differ from the JAX
     package's for the same seed; ``convert.params_from_jax`` carries a
     JAX pytree over instead."""
     check_supported(cfg)
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     d, pv = cfg.d_model, cfg.padded_vocab()
     p = {"embed": init_dense(gen, pv, d, dtype, dev),

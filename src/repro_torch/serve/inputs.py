@@ -8,6 +8,8 @@ takes ``enc_embeds`` (B, S / encoder_seq_ratio, D) for an enc-dec model
 vision_patches_ratio, D) for a VLM (the vision tower is a stub:
 precomputed patch embeddings over the first positions); a decode step
 takes ``enc_embeds`` again and the step's ``mrope_positions`` (3, B, 1).
+``greedy_with_inputs`` is ``greedy_generate`` for such a model: its loop
+gives each step its share.
 
 The M-RoPE ids follow Qwen2-VL (arXiv:2409.12191, §2.1) for one image in
 front of the text: the patches are one frame (t = 0) on a ``gh x gw``
@@ -26,6 +28,8 @@ import torch
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import init_caches
+from repro_torch.serve.serve_step import decode_step, prefill_step
 
 
 def image_grid(n_patches: int) -> Tuple[int, int]:
@@ -90,3 +94,29 @@ def step_inputs(inputs: dict, start: int, stop: int) -> dict:
         if start == 0:
             out["patch_embeds"] = inputs["patch_embeds"]
     return out
+
+
+def greedy_with_inputs(params, cfg: ModelConfig, prompt: torch.Tensor,
+                       inputs: dict, max_new: int, max_seq: int,
+                       dtype=torch.float32, kv_client=None,
+                       kv_seq_id: int = 0, kv_tenant=None) -> torch.Tensor:
+    """``serve_step.greedy_generate`` for a model that takes ``inputs``
+    (``model_inputs``) beside the tokens: the prefill and each decode
+    step given their share (``step_inputs``), the prefill-filled caches
+    handed over through ``kv_client`` before decode as there. Returns
+    (B, max_new) token ids."""
+    b, s = prompt.shape
+    caches = init_caches(cfg, b, max_seq, dtype, device=prompt.device)
+    logits, caches = prefill_step(
+        params, cfg, {"tokens": prompt, **step_inputs(inputs, 0, s)},
+        caches)
+    if kv_client is not None:
+        caches = kv_client.roundtrip_caches(kv_seq_id, caches, kv_tenant)
+    tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+    outs = [tok]
+    for pos in range(s, s + max_new - 1):
+        logits, caches = decode_step(params, cfg, tok, caches, pos,
+                                     extra=step_inputs(inputs, pos, pos + 1))
+        tok = torch.argmax(logits[:, -1], dim=-1)[:, None]
+        outs.append(tok)
+    return torch.cat(outs, dim=1)

@@ -23,7 +23,7 @@ import torch.distributed as dist
 
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.configs.base import TrainConfig
-from repro_torch.launch.mesh import dp_axes, dp_rank, dp_size
+from repro_torch.launch.mesh import PlanGroup, dp_axes, dp_rank, dp_size
 from repro_torch.models.sharding import param_specs
 
 
@@ -151,19 +151,26 @@ def zero1_gather(tree, specs, dp_axes: tuple, group):
     """Whole leaves from each rank's cut: every cut is ``broadcast`` by
     its owner in ``group`` (rank order = cut order) and set in place.
     A broadcast is a byte copy (a summed zero padding would turn
-    ``-0.0`` into ``+0.0``) and gloo takes CUDA tensors for it."""
-    size = dist.get_world_size(group)
-    me = dist.get_rank(group)
-    ranks = [dist.get_global_rank(group, r) for r in range(size)]
+    ``-0.0`` into ``+0.0``) and gloo takes CUDA tensors for it. On a
+    ``PlanGroup`` (the dry-run's) this rank is its rank 0 and the
+    broadcasts of a leaf are recorded as one all-gather of its cut."""
+    plan = isinstance(group, PlanGroup)
+    size = group.size if plan else dist.get_world_size(group)
+    me = 0 if plan else dist.get_rank(group)
+    ranks = None if plan else [dist.get_global_rank(group, r)
+                               for r in range(size)]
 
     def gather(x, spec):
         d = _shard_dim(spec, dp_axes)
         if d is None or size == 1:
             return x
+        if plan:
+            group.record("all-gather", x)
         cuts = []
         for r in range(size):
             c = x if r == me else torch.empty_like(x)
-            dist.broadcast(c, src=ranks[r], group=group)
+            if not plan:
+                dist.broadcast(c, src=ranks[r], group=group)
             cuts.append(c)
         return torch.cat(cuts, dim=d)
     return tree_map(gather, tree, specs)

@@ -35,6 +35,8 @@ plain versions (``kernels.flash_attention._FlashAttention``,
 ``kernels.ssd_scan._SSDScan``). Each mesh step counts the collectives
 its last call issued in ``step.collectives`` (the port's stand-in for
 the reference's HLO all-reduce count). The model axis is replicated.
+Given a ``launch.mesh.PlanMesh`` (the dry-run's) the mesh steps run as
+its rank 0 and record their collectives there instead of sending them.
 """
 from __future__ import annotations
 
@@ -49,8 +51,8 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.core.rdma.doorbell import plan_buckets
 from repro_torch.core.rdma.engine import RDMAEngine
 from repro_torch.core.streaming.compress import compressed_all_reduce_group
-from repro_torch.launch.mesh import (axis_group, dp_axes, dp_group, dp_rank,
-                                     dp_size)
+from repro_torch.launch.mesh import (PlanGroup, axis_group, dp_axes,
+                                     dp_group, dp_rank, dp_size)
 from repro_torch.models.sharding import param_specs
 from repro_torch.models.transformer import loss_fn
 from repro_torch.train.collectives import RDMACollective
@@ -79,36 +81,45 @@ def _microbatch_grads(params, cfg: ModelConfig, batch: dict,
         loss, grads = value_and_grad(batch)
         return loss, tree_unflatten(params, grads)
 
-    def split(x, i):
-        m = x.shape[0] // n
-        return x[i * m:(i + 1) * m]
+    m = batch["tokens"].shape[0] // n
 
     loss_sum = torch.zeros((), dtype=torch.float32,
                            device=tree_leaves(params)[0].device)
     g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
              for p in tree_leaves(params)]
     for i in range(n):
-        loss, grads = value_and_grad({k: split(v, i)
-                                      for k, v in batch.items()})
+        loss, grads = value_and_grad(_batch_rows(batch, i * m,
+                                                 (i + 1) * m))
         loss_sum = loss_sum + loss
         g_sum = [a + g for a, g in zip(g_sum, grads)]
     inv = 1.0 / n
     return loss_sum * inv, tree_unflatten(params, [g * inv for g in g_sum])
 
 
+def _batch_rows(batch: dict, start: int, stop: int) -> dict:
+    """Rows ``start:stop`` of the batch: along dim 1 of the M-RoPE ids
+    (3, B, S), dim 0 of every other leaf."""
+    return {k: v[:, start:stop] if k == "mrope_positions" else v[start:stop]
+            for k, v in batch.items()}
+
+
 def _local_batch(batch: dict, index: int, size: int) -> dict:
     """Data-parallel rank ``index``'s rows of the global batch."""
-    rows = next(iter(batch.values())).shape[0]
+    rows = batch["tokens"].shape[0]
     if rows % size:
         raise ValueError(f"batch of {rows} does not split over {size} "
                          f"data-parallel ranks")
     m = rows // size
-    return {k: v[index * m:(index + 1) * m] for k, v in batch.items()}
+    return _batch_rows(batch, index * m, (index + 1) * m)
 
 
 def _all_reduce(t: torch.Tensor, group, issued: Counter) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place (gloo takes CUDA tensors here)."""
-    dist.all_reduce(t, group=group)
+    """Sum ``t`` over ``group`` in place (gloo takes CUDA tensors here);
+    on a ``PlanGroup`` (the dry-run's) record it instead."""
+    if isinstance(group, PlanGroup):
+        group.record("all-reduce", t)
+    else:
+        dist.all_reduce(t, group=group)
     issued["all_reduce"] += 1
     return t
 
@@ -347,7 +358,7 @@ def make_bucketed_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
         return coll
 
     def step(params, opt_state, batch, residuals=None):
-        rows = next(iter(batch.values())).shape[0]
+        rows = batch["tokens"].shape[0]
         if rows % n:
             raise ValueError(f"batch of {rows} does not split over {n} "
                              f"peers")
@@ -355,8 +366,7 @@ def make_bucketed_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh,
         losses, peer_leaves = [], []
         for p in range(n):
             loss_p, grads_p = _microbatch_grads(
-                params, cfg, {k: v[p * m:(p + 1) * m]
-                              for k, v in batch.items()}, tcfg)
+                params, cfg, _batch_rows(batch, p * m, (p + 1) * m), tcfg)
             losses.append(loss_p)
             leaves, buckets = _bucketize(grads_p, bucket_bytes)
             peer_leaves.append(leaves)

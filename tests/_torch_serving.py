@@ -3,10 +3,11 @@ of the families that take inputs beside the tokens
 (``test_torch_encdec.py``, ``test_torch_mrope.py``).
 
 ``pair`` builds the JAX package's weights and carries them over with
-``params_from_jax``; ``greedy`` runs one package's greedy loop over
-``prefill_step`` and ``decode_step(extra=)`` with each step's share of
-``serve.inputs.model_inputs`` (the reference's ``greedy_generate`` feeds
-tokens alone); ``step_fns`` gives each package's steps to it.
+``params_from_jax``; ``greedy_jax`` and ``greedy_port`` run each
+package's greedy loop over ``prefill_step`` and ``decode_step(extra=)``
+with each step's share of ``serve.inputs.model_inputs`` (the reference's
+``greedy_generate`` feeds tokens alone; the port's loop is
+``serve.greedy_with_inputs``).
 """
 import jax
 import jax.numpy as jnp
@@ -15,8 +16,8 @@ import torch
 
 import repro.models as JM
 import repro.serve as JS
-from repro_torch.models import init_caches, params_from_jax
-from repro_torch.serve import decode_step, prefill_step, step_inputs
+from repro_torch.models import params_from_jax
+from repro_torch.serve import greedy_with_inputs, step_inputs
 
 
 def pair(jc, seed=0):
@@ -41,41 +42,31 @@ def shapes(tree):
     return (tuple(tree.shape), str(tree.dtype).split(".")[-1])
 
 
-def step_fns(jc, tc, jp, tp):
-    """(JAX's, the port's) (init_caches, prefill, decode, argmax, array
-    from numpy) for ``greedy``."""
-    jax_fns = (lambda b, m: JM.init_caches(jc, b, m, jnp.float32),
-               lambda batch, c: JS.prefill_step(jp, jc, batch, c),
-               lambda tok, c, i, ex: JS.decode_step(
-                   jp, jc, tok, c, jnp.int32(i), extra=ex),
-               lambda lg: jnp.argmax(lg[:, -1], axis=-1)[:, None],
-               jnp.asarray)
-    torch_fns = (lambda b, m: init_caches(tc, b, m, torch.float32,
-                                          device="cpu"),
-                 lambda batch, c: prefill_step(tp, tc, batch, c),
-                 lambda tok, c, i, ex: decode_step(tp, tc, tok, c, i,
-                                                   extra=ex),
-                 lambda lg: torch.argmax(lg[:, -1], dim=-1)[:, None],
-                 torch.from_numpy)
-    return jax_fns, torch_fns
-
-
-def greedy(fns, prompt, inputs, max_new, max_seq):
-    """(B, max_new) greedy tokens of ``prompt`` (numpy) through one
-    package's ``fns``, each step given its share of ``inputs``."""
-    init, prefill, decode, argmax, conv = fns
-
+def greedy_jax(jc, jp, prompt, inputs, max_new, max_seq):
+    """(B, max_new) greedy tokens of ``prompt`` (numpy) through the JAX
+    package's ``prefill_step`` and ``decode_step(extra=)``, each step
+    given its share of ``inputs`` (its ``greedy_generate`` feeds tokens
+    alone, and it has no loop with inputs)."""
     def share(start, stop):
-        return {k: conv(v.numpy())
+        return {k: jnp.asarray(v.numpy())
                 for k, v in step_inputs(inputs, start, stop).items()}
 
     b, s = prompt.shape
-    lg, caches = prefill({"tokens": conv(prompt), **share(0, s)},
-                         init(b, max_seq))
-    tok = argmax(lg)
+    lg, caches = JS.prefill_step(
+        jp, jc, {"tokens": jnp.asarray(prompt), **share(0, s)},
+        JM.init_caches(jc, b, max_seq, jnp.float32))
+    tok = jnp.argmax(lg[:, -1], axis=-1)[:, None]
     out = [np.asarray(tok)]
     for i in range(s, s + max_new - 1):
-        lg, caches = decode(tok, caches, i, share(i, i + 1))
-        tok = argmax(lg)
+        lg, caches = JS.decode_step(jp, jc, tok, caches, jnp.int32(i),
+                                    extra=share(i, i + 1))
+        tok = jnp.argmax(lg[:, -1], axis=-1)[:, None]
         out.append(np.asarray(tok))
     return np.concatenate(out, axis=1)
+
+
+def greedy_port(tc, tp, prompt, inputs, max_new, max_seq, **kv):
+    """The same through the port's ``serve.greedy_with_inputs`` on the
+    CPU (``kv``: its cache handoff arguments), as numpy."""
+    return greedy_with_inputs(tp, tc, torch.from_numpy(prompt), inputs,
+                              max_new, max_seq, **kv).numpy()

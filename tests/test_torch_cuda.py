@@ -875,3 +875,31 @@ def test_cuda_two_ranks_share_the_card(cuda):
         assert np.array_equal(r["res"], r["lead_res"])
         assert r["launched"][0] > 0 and r["launched"][1] > 0
     assert np.array_equal(got[0]["est"], got[1]["est"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [0, 32])
+def test_cuda_counter_around_k6_equals_the_meta_count(cuda, window):
+    """The operation counter around a real K6 call on the card charges
+    what it charges around the same call on ``meta``: the kernel's own
+    formula, one call, and no op of the launch; the card's call
+    launches the kernel once, the meta call never."""
+    from repro_torch.roofline.count import OpCounter
+    q = torch.from_numpy(RNG.standard_normal((8, 512, 32, 64),
+                                             np.float32)).to(cuda)
+    k, v = (torch.from_numpy(RNG.standard_normal((8, 512, 4, 64),
+                                                 np.float32)).to(cuda)
+            for _ in range(2))
+    totals = []
+    for dev in (cuda, torch.device("meta")):
+        qd, kd, vd = q.to(dev), k.to(dev), v.to(dev)
+        n0 = flash_attention.launches
+        with OpCounter((qd, kd, vd)) as counter:
+            flash_attention(qd, kd, vd, window=window)
+        torch.cuda.synchronize()
+        totals.append((counter.flops, counter.bytes, counter.kernels,
+                       flash_attention.launches - n0))
+    (flops, nbytes, kernels, launched), meta = totals
+    assert (flops, nbytes, kernels) == meta[:3]
+    assert kernels["flash_attention"]["calls"] == 1
+    assert (launched, meta[3]) == (1, 0)

@@ -34,7 +34,7 @@ from repro_torch.serve import (PagedKVPool, RemoteKVClient, decode_step,
                                model_inputs, prefill_step, step_inputs)
 from repro_torch.serve.kv_cache import flatten_cache_leaves
 
-from _torch_serving import greedy, pair, step_fns
+from _torch_serving import greedy_jax, greedy_port, pair
 from _torch_serving import shapes as _shapes
 from _torch_serving import to_jnp as _jnp
 from _torch_serving import tokens as _tokens
@@ -244,9 +244,8 @@ def test_greedy_tokens_equal_jax():
     jc, tc, jp, tp = _pair()
     prompt = _tokens(tc, 2, 8, seed=2)
     inp = model_inputs(tc, 2, 8, 14, seed=3, device="cpu")
-    jax_fns, torch_fns = step_fns(jc, tc, jp, tp)
-    want = greedy(jax_fns, prompt, inp, 6, 24)
-    got = greedy(torch_fns, prompt, inp, 6, 24)
+    want = greedy_jax(jc, jp, prompt, inp, 6, 24)
+    got = greedy_port(tc, tp, prompt, inp, 6, 24)
     np.testing.assert_array_equal(got, want)
     with pytest.raises(KeyError, match="enc_embeds"):
         JS.greedy_generate(jp, jc, jnp.asarray(prompt), max_new=2,
@@ -368,17 +367,10 @@ def test_self_cache_handoff_round_trips_byte_exact():
         assert g.dtype == w.dtype and torch.equal(g, w), key
     pool.evict(3)
 
-    jax_fns, torch_fns = step_fns(jc, tc, jp, tp)
-    init, prefill, decode, argmax, conv = torch_fns
-
-    def via_pool(batch, c):
-        lg, c = prefill(batch, c)
-        return lg, client.roundtrip_caches(0, c, t)
-
-    remote = greedy((init, via_pool, decode, argmax, conv), prompt, inp,
-                     4, 24)
-    local = greedy(torch_fns, prompt, inp, 4, 24)
-    want = greedy(jax_fns, prompt, inp, 4, 24)
+    remote = greedy_port(tc, tp, prompt, inp, 4, 24, kv_client=client,
+                         kv_seq_id=0, kv_tenant=t)
+    local = greedy_port(tc, tp, prompt, inp, 4, 24)
+    want = greedy_jax(jc, jp, prompt, inp, 4, 24)
     np.testing.assert_array_equal(remote, local)
     np.testing.assert_array_equal(local, want)
     assert pool.allocated == 0

@@ -40,7 +40,7 @@ from repro_torch.serve import (decode_step, greedy_generate, model_inputs,
                                prefill_step, step_inputs)
 from repro_torch.serve.inputs import image_grid, mrope_ids
 
-from _torch_serving import greedy, shapes, step_fns, to_jnp, tokens
+from _torch_serving import greedy_jax, greedy_port, shapes, to_jnp, tokens
 
 ARCH = "qwen2-vl-7b-smoke"
 TOL = 5e-5
@@ -293,9 +293,9 @@ def test_greedy_tokens_equal_jax(which):
     jc, tc, jp, tp = _pair(which)
     prompt = tokens(tc, 2, 8, seed=2)
     inp = model_inputs(tc, 2, 8, 14, seed=3, device="cpu")
-    jax_fns, torch_fns = step_fns(jc, tc, jp, tp)
-    np.testing.assert_array_equal(greedy(torch_fns, prompt, inp, 6, 24),
-                                  greedy(jax_fns, prompt, inp, 6, 24))
+    np.testing.assert_array_equal(
+        greedy_port(tc, tp, prompt, inp, 6, 24),
+        greedy_jax(jc, jp, prompt, inp, 6, 24))
     want = JS.greedy_generate(jp, jc, jnp.asarray(prompt), max_new=6,
                               max_seq=24)
     got = greedy_generate(tp, tc, torch.from_numpy(prompt), max_new=6,
