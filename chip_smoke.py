@@ -21,7 +21,11 @@ reports them) and runs, on the card:
      v 128, at seamless-m4t's encoder (128 x 128, not causal), its
      cross-attention in prefill (512 x 128) and in decode (1 x 128), 16
      heads of 64, and at qwen2-vl's prefill, 28 q over 4 kv heads of
-     128) — with
+     128), and in bf16 at each shape phase 28 gives it (``K6_SERVED``:
+     2 x 32768 rows at every attention model's heads, MLA's 192/128,
+     hymba's window of 1024, seamless's 8192 frames), held over slices
+     of the query rows at their offset (the plain version's scores at
+     32768 rows would not fit) — with
      its time, the plain version's time, its bound (the function's own
      work, by the formula its wrapper charges to the operation counter
      (``*_cost`` beside each kernel), at its dtype's peak; for K6 and K7
@@ -36,6 +40,9 @@ reports them) and runs, on the card:
      version, outputs and final state, at hymba's prefill shape (8 x 512,
      50 heads, d_state 16), in bf16, and at mamba2's (8 x 512, 32 heads
      of 64, d_state 128, chunk 256, f32) from a zero and a given state,
+     and in f32 at each shape phase 28 gives it (``K7_SERVED``: 2 x 32768
+     tokens, 128 chunks a sequence, mamba2's and hymba's heads) as a
+     prefill passes it and with slow decays from a seeded state,
      with each of its five passes' traced time on a line of its own,
      and K7 in f32 at mamba2's shape within 2e-5 (relative to 1 +
      |value|) of its plain version run in float64, from three seeds,
@@ -190,11 +197,32 @@ reports them) and runs, on the card:
      (d) ``python -m repro_torch.launch.dryrun --all`` over the single
      and the multi-pod mesh on ``meta``, one process a mesh run
      together: ok, skipped and failed counts and the wall, 0 failed;
-  17. each kernel's launch count on the twelve paths (3-6, 7-10, 11-13,
-     14-15, 16, 20, 21, 22, 18, 19, 26, the last summed over its ranks,
-     and 27, two runs a cell on the card), each path run with the
-     counters at 0 and read right after: every kernel a path runs must
-     have launched on it, and each of the seven > 0.
+  28. the reference's bf16 cells: one device's share of the single-pod
+     mesh (16, 16) of the 18 ``prefill_32k``, ``decode_32k`` and
+     ``long_500k`` cells that fit the card (``BF16_CELLS``), each traced
+     on ``meta`` and run on the card from SEED in bf16 as phase 27 runs
+     its cells (``card_cell``: (a) and (b) checked, (c) printed), decode
+     cells stepping at their slot over caches of seeded values, with
+     (d) a traced run's device share and tokens/s;
+  29. bf16 serving against f32 on the same weights: the eight archs of
+     28 at full width and depth, 2 x 512 prompt tokens and 8 decode
+     steps, the bf16 prefill + decode within twice the gap between the
+     bf16 and the f32 forward, the f32 prefill + decode within 1e-4 of
+     the f32 forward's logits' scale (deepseek pinned to the bf16
+     forward's routing, every routing flip a near-tie, no expert over
+     its capacity), and tinyllama's bf16 caches through the uncompressed
+     handoff with greedy tokens equal;
+  30. decode at the cells' length: tinyllama-1.1b and hymba-1.5b, one
+     sequence of 32768 tokens, the last 8 (hymba: 256, one chunk)
+     decoded to slot 32767 after a prefill of the rest, against one
+     forward over all of them: bf16 within twice its gap to f32, f32
+     within 1e-4 of the logits' scale;
+  17. each kernel's launch count on the fifteen paths (3-6, 7-10, 11-13,
+     14-15, 16, 20, 21, 22, 18, 19, 26 summed over its ranks, 27 with
+     two runs a cell on the card, 28 with three, 29 and 30),
+     each path run with the counters at 0 and read right after: every
+     kernel a path runs must have launched on it, and each of the seven
+     > 0.
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -255,6 +283,36 @@ TRACE_TRIES = 4
 # phase 27: the dry-run's predicted peak live bytes against the card's
 # peak, relative (the tolerance PERF.md predicted)
 DRYRUN_MEM_TOL = 0.05
+# K6's bf16 shapes in the bf16 cells (phase 2 holds each): (where, B, Sq,
+# Skv, Hq, Hkv, d, dv, causal, window)
+K6_SERVED = (
+    ("tinyllama-1.1b", 2, 32768, 32768, 32, 4, 64, 64, True, 0),
+    ("qwen2.5-3b", 2, 32768, 32768, 16, 2, 128, 128, True, 0),
+    ("qwen3-4b", 2, 32768, 32768, 32, 8, 128, 128, True, 0),
+    ("qwen2-vl-7b", 2, 32768, 32768, 28, 4, 128, 128, True, 0),
+    ("deepseek-v2-lite-16b mla", 2, 32768, 32768, 16, 16, 192, 128, True,
+     0),
+    ("hymba-1.5b windowed", 2, 32768, 32768, 25, 5, 64, 64, True, 1024),
+    ("hymba-1.5b global", 2, 32768, 32768, 25, 5, 64, 64, True, 0),
+    ("seamless encoder", 2, 8192, 8192, 16, 16, 64, 64, False, 0),
+    ("seamless self", 2, 32768, 32768, 16, 16, 64, 64, True, 0),
+    ("seamless cross prefill", 2, 32768, 8192, 16, 16, 64, 64, False, 0),
+    ("seamless cross decode", 8, 1, 8192, 16, 16, 64, 64, False, 0),
+)
+# K7's shapes in the bf16 cells, f32 as models/ssm.py passes them (phase 2
+# holds each): (where, B, S, nh, hd, d_state, chunk), one group
+K7_SERVED = (
+    ("mamba2-370m", 2, 32768, 32, 64, 128, 256),
+    ("hymba-1.5b", 2, 32768, 50, 64, 16, 256),
+)
+# phases 11-16: requests, prompt tokens, greedy tokens; the caches' slots
+SERVE_TRAFFIC = (8, 512, 32)
+SERVE_MAX_SEQ = 552
+# phase 29: requests, prompt tokens, teacher-forced decode steps
+BF16_TRAFFIC = (2, 512, 8)
+# the f32 prefill + decode against the f32 forward (phases 11-22, 29 and
+# 30): max |difference| over the logits' largest |value|
+SERVE_TOL = 1e-4
 # read_batch_16k (phases 6 and 26): words a READ, READs a doorbell, stride
 READ16K = (4096, 50, 8192)
 
@@ -419,6 +477,21 @@ def roce_mix(rng, n, rdma_share=0.5):
     pkts[roce, 36:38] = [18, 183]
     pkts[roce, 42] = rng.integers(0, 20, size=int(roce.sum()))
     return pkts
+
+
+def counted_run(counted):
+    """``during(fn)``: run ``fn`` synchronised and return (its result, the
+    seconds it took, each of the ``counted`` wrappers' launches during
+    it)."""
+    def during(fn):
+        torch.cuda.synchronize()
+        n0 = {f.__name__: f.launches for f in counted}
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t, {
+            f.__name__: f.launches - n0[f.__name__] for f in counted}
+    return during
 
 
 def check(ok, what):
@@ -603,6 +676,40 @@ def train_phases(cfg, dev, k6, zero_counts, read_counts, ckpt_dir,
     return losses + [after], norm
 
 
+class RouteLog:
+    """``models.moe.route`` wrapped: each call's own top-k sets (sorted),
+    the margins between each token's k-th and (k+1)-th expert probability
+    and the probabilities are logged, and no expert may take more than
+    its capacity (nothing is dropped); with ``pins`` (a list of (T, k)
+    expert sets, one a call) the call takes the pinned set instead, its
+    gates renormalised from its own probabilities as ``route`` makes
+    them, so that two routes can be held on the same routing."""
+
+    def __init__(self, inner, k):
+        self.inner, self.k = inner, k
+        self.log, self.pins = [], None
+
+    def __call__(self, router_w, x2d, cfg):
+        from repro_torch.models.moe import _capacity
+
+        idx, gate, aux = self.inner(router_w, x2d, cfg)
+        with torch.no_grad():
+            probs = torch.softmax(x2d.float() @ router_w, -1)
+            top = torch.topk(probs, self.k + 1, dim=-1).values
+        self.log.append((torch.sort(idx, dim=-1).values,
+                         top[:, self.k - 1] - top[:, self.k], probs))
+        if self.pins is not None:
+            idx = self.pins.pop(0)
+            g = probs.gather(1, idx)
+            gate = g / torch.sum(g, dim=-1, keepdim=True)
+        load = int(torch.bincount(idx.reshape(-1),
+                                  minlength=cfg.moe.num_experts).max())
+        cap = _capacity(x2d.shape[0], cfg)
+        check(load <= cap, f"{cfg.name}: an expert took {load} "
+                           f"assignments, over its capacity {cap}")
+        return idx, gate, aux
+
+
 def moe_phases(dev, timed, during, counted, trace_share, handoff, ledger,
                traffic):
     """Phase 20: deepseek-v2-lite-16b (27 layers, d_model 2048, MLA with
@@ -654,34 +761,20 @@ def moe_phases(dev, timed, during, counted, trace_share, handoff, ledger,
           seconds=init_s)
 
     # ---- the invariant, with routing recorded
-    inner = moe_mod.route
-    calls = []
-
-    def recording(router_w, x2d, c):
-        out = inner(router_w, x2d, c)
-        with torch.no_grad():
-            top = torch.topk(torch.softmax(x2d.float() @ router_w, -1),
-                             k + 1, dim=-1).values
-            load = torch.bincount(out[0].reshape(-1),
-                                  minlength=c.moe.num_experts).max()
-        calls.append((torch.sort(out[0], dim=-1).values,
-                      top[:, k - 1] - top[:, k], load,
-                      moe_mod._capacity(x2d.shape[0], c)))
-        return out
-
+    routes = RouteLog(moe_mod.route, k)
     toks = torch.from_numpy(np.random.default_rng(SEED + 6).integers(
         0, cfg.vocab_size, (n_req, p_len + g_len))).to(dev)
     prompt = toks[:, :p_len]
-    moe_mod.route = recording
+    moe_mod.route = routes
     try:
         full, full_s, n_full = during(
             lambda: forward(params, inv_cfg, {"tokens": toks})[0])
-        full_routes, calls[:] = list(calls), []
+        full_routes, routes.log = routes.log, []
         full = full[:, p_len - 1:].clone()     # frees the other 1.7 GB
         caches = init_caches(inv_cfg, n_req, max_seq, torch.float32)
         (lg, caches), pre_s, n_pre = during(lambda: prefill_step(
             params, inv_cfg, {"tokens": prompt}, caches))
-        step_routes, calls[:] = [list(calls)], []
+        step_routes, routes.log = [routes.log], []
         errs = [(lg[:, 0] - full[:, 0]).abs().amax(-1)]
 
         def decode_all():
@@ -690,13 +783,13 @@ def moe_phases(dev, timed, during, counted, trace_share, handoff, ledger,
                 out, c = decode_step(params, inv_cfg, toks[:, i:i + 1], c, i)
                 errs.append((out[:, 0] - full[:, i - p_len + 1]).abs()
                             .amax(-1))
-                step_routes.append(list(calls))
-                calls[:] = []
+                step_routes.append(routes.log)
+                routes.log = []
             return c
 
         caches, dec_s, n_dec = during(decode_all)
     finally:
-        moe_mod.route = inner
+        moe_mod.route = routes.inner
     want = {f.__name__: cfg.num_layers if f is flash_attention else 0
             for f in counted}
     check(n_full == n_pre == want,
@@ -707,11 +800,6 @@ def moe_phases(dev, timed, during, counted, trace_share, handoff, ledger,
                                             for r in step_routes),
           f"{cfg.name}: routed {len(full_routes)} / "
           f"{[len(r) for r in step_routes]} times, want {n_moe}")
-    # no assignment dropped on either route
-    check(all(int(load) <= cap for _, _, load, cap in
-              full_routes + [c for r in step_routes for c in r]),
-          f"{cfg.name}: an expert took more than its capacity at "
-          "capacity_factor 8")
     # each layer's sets and margins as (B, S, k) / (B, S): the prefill's
     # 512 positions, then one per decode step
     n_tok = p_len + g_len
@@ -737,7 +825,7 @@ def moe_phases(dev, timed, during, counted, trace_share, handoff, ledger,
           f"not a near-tie (< {FLIP_MARGIN})")
     held = ~seq_flips.any(0)                           # (B,)
     scale = full.abs().max().item()
-    tol_s = 1e-4 * scale
+    tol_s = SERVE_TOL * scale
     err = torch.stack(errs, dim=1)                     # (B, 1 + g_len)
     held_err = err[held].max().item() if bool(held.any()) else float("nan")
     check(bool(held.any()), f"{cfg.name}: every sequence had a routing "
@@ -1462,17 +1550,169 @@ def multi_process_phase(dev, cfg, plain, seq=512, batch=4, microbatches=1):
             for name in r0["launches"]}
 
 
+def k6_served_phase(dev, measure):
+    """Phase 2's K6 in bf16 at the shapes the bf16 cells give it
+    (``K6_SERVED``, phase 28: one device's share of prefill_32k and
+    decode_32k), each held and timed by ``measure`` (main's) over 5
+    calls. The plain version cannot hold S x S scores at 32768 rows (137
+    GB at 32 heads), so it is held over slices of the query rows against
+    all keys, at their offset: a 512-row block in the middle and the last
+    512 rows; its time is that of the last slice. SDPA is the yardstick
+    on flash or memory-efficient attention alone (the math backend would
+    materialise the scores), with K and V repeated to the q heads
+    beforehand and hymba's window as a boolean mask."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost,
+                                                     flash_attention_plain)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 30)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16)
+
+    for what, b, sq, skv, hq, hkv, d, dv, causal, window in K6_SERVED:
+        q, k, v = randn(b, sq, hq, d), randn(b, skv, hkv, d), randn(
+            b, skv, hkv, dv)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        slices = ([(0, sq)] if sq <= 1024 else
+                  [(sq // 2 - 256, sq // 2 + 256), (sq - 512, sq)])
+        err = 0.0
+        for r0, r1 in slices:
+            want = flash_attention_plain(q[:, r0:r1], k, v, causal=causal,
+                                         window=window, q_offset=r0)
+            e = (got[:, r0:r1].float() - want.float()).abs()
+            check(bool((e <= 2e-4 + 2.0 ** -7 * want.float().abs()).all()),
+                  f"flash_attention bf16 {what} rows {r0}:{r1}: max err "
+                  f"{e.max().item()}")
+            err = max(err, e.max().item())
+        del got, want, e
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        mask = None
+        if window:
+            i = torch.arange(skv, device=dev)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                                 < window)
+
+        def library():
+            with sdpa_kernel(backends):
+                if mask is not None:
+                    return sdpa(qt, kt, vt, attn_mask=mask)
+                return sdpa(qt, kt, vt, is_causal=causal)
+
+        cost = flash_attention_cost(q, k, v, causal=causal, window=window)
+        r0 = slices[-1][0]
+        measure("flash_attention", "flash_attention.cu",
+                "src/repro/kernels/flash_attention.py:102",
+                f"{what} {b}x{sq}{f'/{skv}' if skv != sq else ''}x"
+                f"{hq}/{hkv}x{d}{f'/{dv}' if dv != d else ''} "
+                f"{'causal' if causal else 'noncausal'}"
+                f"{f' window{window}' if window else ''} bfloat16",
+                err, lambda: flash_attention(q, k, v, causal=causal,
+                                             window=window),
+                lambda: flash_attention_plain(
+                    q[:, r0:], k, v, causal=causal, window=window,
+                    q_offset=r0), cost, library=library,
+                peak_flops=PEAK_BF16_FLOPS, iters=5,
+                plain_rows=f"{r0}:{sq}",
+                route_bound_ms=bound(cost[1], 1.5 * cost[0],
+                                     PEAK_BF16_FLOPS)[0])
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+
+
+def k7_route(b, s, nh, hd, n, chunk, nbytes, bf16_x=False):
+    """``measure``'s route fields for K7 at (B, S, nh, hd, d_state,
+    chunk), one group: the products the kernel's route runs, w.x, the
+    state increment and C_i . S_prev as 3xTF32, three TF32 products each
+    (two for those with a bf16 x as an operand: x is exact in TF32) at
+    the TF32 peak, and C.B^T once per (sequence, chunk) on the FP64
+    tensor cores at theirs; bound by the larger of that and ``nbytes``
+    over the memory rate."""
+    tri = chunk * (chunk + 1) // 2
+    nc = b * (s // chunk)
+    f_cb = 2.0 * nc * tri * n
+    f_wx = 2.0 * nc * nh * tri * hd
+    f_state = f_cs = 2.0 * nc * nh * chunk * n * hd
+    kx = 2 if bf16_x else 3
+    route_flops = 3 * f_cs + kx * (f_wx + f_state)
+    ops_ms = (route_flops / PEAK_TF32_FLOPS
+              + f_cb / PEAK_FP64_TC_FLOPS) * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_S * 1e3
+    return {"route_work": ("3xTF32 tensor cores"
+                           + (", bf16 x" if bf16_x else "")
+                           + "; C.B^T on the FP64 tensor cores"),
+            "route_flops": route_flops, "route_fp64_flops": f_cb,
+            "route_bound_ms": max(ops_ms, bytes_ms),
+            "route_bound_by": ("operations" if ops_ms >= bytes_ms
+                               else "bytes")}
+
+
+def k7_served_phase(dev, measure):
+    """Phase 2's K7 at the shapes the bf16 cells give it (``K7_SERVED``,
+    phase 28's prefill_32k: 128 chunks a sequence), in f32 as
+    ``models/ssm.py`` passes it, against its plain version (chunked: its
+    largest scratch, the (B, chunks, 256, 256, nh) decays, fits) at phase
+    2's f32 tolerance, y and the final state, on two inputs: as a prefill
+    from fresh caches passes them (dt in (0.1, 0.9) over a = -linspace(1,
+    16, nh) as the model initialises it, a zero state), and with slow
+    decays (dt in (0.001, 0.01)) from a seeded state, so that the state
+    carried from chunk to chunk still counts several chunks later. The
+    first is timed by ``measure`` over 5 calls; no one PyTorch call
+    computes the scan, so there is no library time."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_cost,
+                                              ssd_scan_plain)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 31)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    for what, b, s, nh, hd, n, chunk in K7_SERVED:
+        x, bm, cm = rand(b, s, nh, hd), rand(b, s, 1, n), rand(b, s, 1, n)
+        a = -torch.linspace(1.0, 16.0, nh, device=dev)
+        errs, served = [], None
+        for lo, hi, seeded in ((0.1, 0.9, False), (0.001, 0.01, True)):
+            dt = torch.empty((b, s, nh), device=dev).uniform_(
+                lo, hi, generator=gen)
+            init = (rand(b, nh, hd, n) if seeded
+                    else torch.zeros((b, nh, hd, n), device=dev))
+            args = (x, dt, a, bm, cm)
+            got = ssd_scan(*args, chunk=chunk, init_state=init,
+                           return_final_state=True)
+            want = ssd_scan_plain(*args, chunk, init)
+            for g, w, part in zip(got, want, ("y", "final state")):
+                e = (g - w).abs()
+                check(bool((e <= 2e-5 + 2e-5 * w.abs()).all()),
+                      f"ssd_scan {what} {b}x{s} nh {nh} n {n} "
+                      f"{'slow, seeded' if seeded else 'zero state'}: "
+                      f"max err {part} {e.max().item()}")
+                errs.append(e.max().item())
+            del got, want, e
+            served = served or (args, init)
+        args, init = served
+        cost = ssd_scan_cost(*args, chunk, init)
+        measure("ssd_scan", "ssd_scan.cu",
+                "src/repro/kernels/ssd_scan.py:79",
+                f"{what} {b}x{s} nh{nh} hd{hd} n{n} chunk{chunk} float32 "
+                f"zero state", max(errs),
+                lambda: ssd_scan(*args, chunk=chunk, init_state=init,
+                                 return_final_state=True),
+                lambda: ssd_scan_plain(*args, chunk, init), cost, iters=5,
+                **k7_route(b, s, nh, hd, n, chunk, cost[1]))
+        del x, bm, cm, dt, args, init, served
+        torch.cuda.empty_cache()
+
+
 # ---- 27. the dry-run against the card -----------------------------------
-
-def _wall_ms(fn):
-    """ms of ``fn()`` between two synchronisations; its result is dropped
-    (a train step's is a second copy of the state)."""
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    fn()
-    torch.cuda.synchronize()
-    return (time.perf_counter() - t) * 1e3
-
 
 def dryrun_cells():
     """Phase 27's cells, each a step the smoke runs elsewhere: (arch,
@@ -1522,77 +1762,457 @@ def dryrun_sweep(meshes=("single", "multi"), timeout_s=900):
     return (*counts, wall)
 
 
-def dryrun_phase(dev, mem_tol=None):
-    """27. Each of ``dryrun_cells`` traced by ``roofline.count.OpCounter``
-    on ``meta`` (``launch.dryrun.build_cell``, as the dry-run traces it)
-    and then run on the card under the same counter, from SEED: (a) the
-    FLOPs, bytes and each kernel's charges equal; (b) the predicted peak
-    live bytes within ``mem_tol`` (relative) of the card's peak
-    allocated over the run, less what was allocated beside the inputs;
-    (c) the roofline's compute, memory and bound beside the step's wall,
-    one more run without the counter (printed only). Then (d) the
-    dry-run's sweep, ``--all`` over the single and multi-pod meshes on
-    ``meta``, with 0 failed. Returns the kernels charged on the card."""
-    from repro_torch.configs.base import MeshConfig
+def card_cell(dev, arch, shape, mesh, mesh_name, tcfg, mem_tol, label,
+              traced=False):
+    """One dry-run cell traced by ``roofline.count.OpCounter`` on ``meta``
+    (``launch.dryrun.build_cell``, as the dry-run traces it) and then run
+    on the card under the same counter, from SEED, in ``tcfg``'s dtype:
+    (a) the FLOPs, bytes and each kernel's charges equal; (b) the
+    predicted peak live bytes within ``mem_tol`` (relative) of the card's
+    peak allocated over the run, less what was allocated beside the
+    inputs; (c) one more run without the counter, its logits (a serving
+    step's) finite: its wall beside the roofline's compute, memory and
+    bound and, for a serving step, tokens/s; (d) with ``traced``, a
+    third run under the profiler for the card's busy share of that wall.
+    Prints a ``[<label>]`` line; returns (the kernels charged a run, the
+    card runs made)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.dryrun import build_cell, trace
+    from repro_torch.launch.specs import local_shape
     from repro_torch.roofline.analysis import analyze
+
+    cfg = get_config(arch)
+    fn, inputs, plan = build_cell(cfg, shape, mesh, tcfg)
+    meta = trace(fn, inputs)
+    del fn, inputs
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    fn, inputs, plan = build_cell(cfg, shape, mesh, tcfg, device=dev,
+                                  seed=SEED)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    card = trace(fn, inputs)
+    torch.cuda.synchronize()
+    # the peak less what lay on the card beside the inputs
+    peak = torch.cuda.max_memory_allocated() - (base - card["input_bytes"])
+    tag = f"{arch} {shape.name} {tcfg.param_dtype}"
+    for key in ("flops", "bytes", "kernels"):
+        check(meta[key] == card[key],
+              f"cell {tag}: {key} on meta {meta[key]}, on the card "
+              f"{card[key]}")
+    pred = meta["peak_bytes"]
+    mem_err = (pred - peak) / peak
+    check(abs(mem_err) <= mem_tol,
+          f"cell {tag}: predicted peak {pred} bytes, the card {peak} "
+          f"({mem_err:+.4f}, over {mem_tol})")
+    card_max = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t) * 1e3
+    if shape.kind != "train":
+        check(bool(torch.isfinite(out[0]).all()),
+              f"cell {tag}: non-finite logits")
+    del out
+    nums = {}
+    runs = 2
+    if traced:
+        _, dev_us = traced_device_us(fn)
+        runs += 1
+        nums = {"device_ms": dev_us / 1e3,
+                "device_share": dev_us / 1e3 / wall_ms}
+    del fn, inputs
+    roof = analyze(arch, shape.name, mesh_name, mesh.num_devices, meta,
+                   plan.collectives, cfg, shape, tcfg.param_dtype)
+    bound_ms = max(roof.compute_s, roof.memory_s) * 1e3
+    if shape.kind != "train":
+        share = local_shape(shape, mesh)
+        nums["tokens_per_s"] = (share.global_batch
+                                * (share.seq_len if shape.kind == "prefill"
+                                   else 1) / (wall_ms / 1e3))
+    phase(label, arch=arch, shape=shape.name, kind=shape.kind,
+          dtype=tcfg.param_dtype, mesh=mesh_name, flops=meta["flops"],
+          bytes=meta["bytes"],
+          kernels=json.dumps(meta["kernels"], sort_keys=True),
+          equal_on_meta_and_card=True, predicted_peak_gb=pred / 1e9,
+          card_peak_gb=peak / 1e9, card_max_allocated_gb=card_max / 1e9,
+          peak_err=mem_err, peak_tol=mem_tol,
+          compute_ms=roof.compute_s * 1e3, memory_ms=roof.memory_s * 1e3,
+          bound_ms=bound_ms, dominant=roof.dominant, wall_ms=wall_ms,
+          bound_over_wall=bound_ms / wall_ms, **nums,
+          hardware=json.dumps(roof.hardware))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    return {name: k["calls"] for name, k in card["kernels"].items()}, runs
+
+
+def dryrun_phase(dev, mem_tol=None):
+    """27. Each of ``dryrun_cells`` in f32 on one device through
+    ``card_cell`` (meta against the card, the peak, the wall against the
+    roofline); then the dry-run's sweep, ``--all`` over the single and
+    multi-pod meshes on ``meta``, with 0 failed. Returns each kernel's
+    launches the card runs should have made."""
+    from repro_torch.configs.base import MeshConfig
 
     mem_tol = DRYRUN_MEM_TOL if mem_tol is None else mem_tol
     mesh = MeshConfig((1,), ("data",))
     tcfg = _train_config(param_dtype="float32")
-    charged = {}
+    launched = {}
     for arch, shape in dryrun_cells():
-        cfg = get_config(arch)
-        fn, inputs, plan = build_cell(cfg, shape, mesh, tcfg)
-        meta = trace(fn, inputs)
-        del fn, inputs
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
-        fn, inputs, plan = build_cell(cfg, shape, mesh, tcfg, device=dev,
-                                      seed=SEED)
-        torch.cuda.synchronize()
-        base = torch.cuda.memory_allocated()
-        torch.cuda.reset_peak_memory_stats()
-        card = trace(fn, inputs)
-        torch.cuda.synchronize()
-        # the peak less what lay on the card beside the inputs
-        peak = (torch.cuda.max_memory_allocated()
-                - (base - card["input_bytes"]))
-        for key in ("flops", "bytes", "kernels"):
-            check(meta[key] == card[key],
-                  f"dry-run {arch} {shape.name}: {key} on meta "
-                  f"{meta[key]}, on the card {card[key]}")
-        pred = meta["peak_bytes"]
-        mem_err = (pred - peak) / peak
-        check(abs(mem_err) <= mem_tol,
-              f"dry-run {arch} {shape.name}: predicted peak {pred} bytes, "
-              f"the card {peak} ({mem_err:+.4f}, over {mem_tol})")
-        for name, k in card["kernels"].items():
-            charged[name] = charged.get(name, 0) + k["calls"]
-        wall_ms = _wall_ms(fn)
-        del fn, inputs
-        roof = analyze(arch, shape.name, "1:data", 1, meta, plan.collectives,
-                       cfg, shape, "float32")
-        bound_ms = max(roof.compute_s, roof.memory_s) * 1e3
-        phase("dryrun cell", arch=arch, shape=shape.name, kind=shape.kind,
-              flops=meta["flops"], bytes=meta["bytes"],
-              kernels=json.dumps(meta["kernels"], sort_keys=True),
-              equal_on_meta_and_card=True,
-              predicted_peak_gb=pred / 1e9, card_peak_gb=peak / 1e9,
-              card_max_allocated_gb=torch.cuda.max_memory_allocated() / 1e9,
-              peak_err=mem_err, peak_tol=mem_tol,
-              compute_ms=roof.compute_s * 1e3, memory_ms=roof.memory_s * 1e3,
-              bound_ms=bound_ms, dominant=roof.dominant, wall_ms=wall_ms,
-              bound_over_wall=bound_ms / wall_ms, hardware=json.dumps(
-                  roof.hardware))
-        torch.cuda.synchronize()
-        torch.cuda.empty_cache()
+        charged, runs = card_cell(dev, arch, shape, mesh, "1:data", tcfg,
+                                  mem_tol, "dryrun cell")
+        for name, n in charged.items():
+            launched[name] = launched.get(name, 0) + runs * n
     n_ok, n_skip, n_fail, wall = dryrun_sweep()
     phase("dryrun sweep", meshes="single,multi", processes=2, ok=n_ok,
           skipped=n_skip, failed=n_fail, wall_s=wall)
     check(n_fail == 0, f"the dry-run sweep failed {n_fail} cells")
-    return charged
+    return launched
+
+
+# ---- 28. the reference's bf16 cells ---------------------------------------
+
+#: one device's share of the single-pod mesh (16, 16) of every serving
+#: cell the card holds: the 8 archs whose weights fit, at prefill_32k (2
+#: sequences of 32768 tokens) and decode_32k (8 sequences, the step at
+#: slot 32767), and the SSM and hybrid archs at long_500k (1 sequence,
+#: slot 524287). qwen1.5-32b and phi3.5-moe-42b need more than the card
+#: (the meta trace: 176.90 / 424.81 and 103.84 / 120.33 GB).
+BF16_ARCHS = ("tinyllama-1.1b", "qwen2.5-3b", "qwen3-4b", "qwen2-vl-7b",
+              "mamba2-370m", "hymba-1.5b", "deepseek-v2-lite-16b",
+              "seamless-m4t-large-v2")
+BF16_CELLS = tuple((a, s) for s in ("prefill_32k", "decode_32k")
+                   for a in BF16_ARCHS) + (("mamba2-370m", "long_500k"),
+                                           ("hymba-1.5b", "long_500k"))
+
+
+def bf16_cells_phase(dev):
+    """28. Each of ``BF16_CELLS`` (arch, shape name in ``SHAPES``) as one
+    device's share of the single-pod mesh, in bf16 (the dtype in which
+    the reference's dry-run sizes it), through ``card_cell`` with the
+    traced run: meta against the card, the peak, the wall against the
+    roofline, tokens/s and the device share. Decode cells step at their
+    slot over caches of seeded values. Returns each kernel's launches
+    the card runs should have made."""
+    from repro_torch.configs.base import SHAPES, SINGLE_POD_MESH
+
+    tcfg = _train_config(param_dtype="bfloat16")
+    launched = {}
+    t = time.perf_counter()
+    for arch, shape_name in BF16_CELLS:
+        charged, runs = card_cell(dev, arch, SHAPES[shape_name],
+                                  SINGLE_POD_MESH, "single", tcfg,
+                                  DRYRUN_MEM_TOL, "bf16 cell", traced=True)
+        for name, n in charged.items():
+            launched[name] = launched.get(name, 0) + runs * n
+    phase("bf16 cells", cells=len(BF16_CELLS),
+          seconds=time.perf_counter() - t)
+    return launched
+
+
+# ---- 29. bf16 serving against f32 on the same weights -------------------
+
+def _f32_of_bf16_draw(cfg, dev):
+    """``init_params(cfg, SEED, bf16)``'s values in f32: drawn in f32 from
+    the same seed (``init_dense`` draws f32 and casts, so the bf16 draw is
+    this one rounded) and each leaf the bf16 draw holds in bf16 rounded
+    through bf16 in place, 2^26 elements at a time (the router and the
+    SSM's f32 leaves stay as drawn). No second copy of the weights is
+    made: deepseek's are 63 GB in f32."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.models import init_params
+
+    like = tree_leaves(init_params(cfg, SEED, torch.bfloat16,
+                                   device="meta"))
+    params = init_params(cfg, SEED, torch.float32, device=dev)
+    for t, kind in zip(tree_leaves(params), like):
+        if kind.dtype == torch.bfloat16:
+            for part in t.view(-1).split(1 << 26):
+                part.copy_(part.to(torch.bfloat16))
+    return params
+
+
+def _route_flips(fwd, f32, steps, pinned, calls, n_req, n_tok):
+    """deepseek's routing under phase 29's pins: ``fwd``, ``f32`` and
+    ``steps`` are the ``RouteLog`` logs of the bf16 forward, of the f32
+    forward and of the prefill and decode steps (one entry a MoE layer a
+    call), ``pinned`` the bf16 forward's (B, S, k) sets a layer and
+    ``calls`` each step's token span. Every decision of the steps whose
+    own top-k set differs from the pinned one must have a margin, on the
+    steps and on the forward, under twice the largest gap between the
+    bf16 and the f32 forward's router probabilities. Returns the counts
+    for the phase's line."""
+    gp = max((a[2] - b[2]).abs().max().item() for a, b in zip(fwd, f32))
+    n_moe, k = len(fwd), pinned[0].shape[-1]
+    # the steps' decisions, layer by layer, each call's in token order
+    by_layer = [c for i in range(n_moe) for c in steps[i::n_moe]]
+    flipped = (torch.cat([c[0] for c in by_layer]) != torch.cat([
+        torch.sort(p[:, a:b].reshape(-1, k), -1).values
+        for p in pinned for a, b in calls])).any(-1)
+    margin = torch.maximum(
+        torch.cat([c[1] for c in by_layer]),
+        torch.cat([m.view(n_req, n_tok)[:, a:b].reshape(-1)
+                   for _, m, _ in fwd for a, b in calls]))
+    worst = margin[flipped].max().item() if bool(flipped.any()) else 0.0
+    check(worst < 2 * gp, f"a routing flip has margin {worst}, not under "
+                          f"twice bf16's probability gap {gp}")
+    return {"decisions": int(flipped.numel()), "flips": int(flipped.sum()),
+            "worst_flip_margin": worst, "margin_bound": 2 * gp}
+
+
+def bf16_serve_phase(dev, during, kernels, handoff, ledger):
+    """29. bf16 serving against the same weights in f32, for each of
+    ``BF16_ARCHS`` at full width and depth: ``BF16_TRAFFIC`` (requests,
+    prompt, decode steps). The weights are drawn in bf16 from SEED and
+    copied to f32 after the bf16 runs (``_f32_of_bf16_draw``: a leading
+    slice of every leaf checked equal to the bf16 draw's); frames,
+    patches and token ids are the same bf16 values on both. ``g``, the
+    bf16 forward against the f32 forward at the prefill's last position
+    and the decode steps' (a forward over whole chunks where the model
+    scans), is what bf16 costs; the bf16 prefill and teacher-forced
+    decode on bf16 caches must lie within ``2 g`` of the bf16 forward,
+    and the f32 prefill and decode on f32 caches within ``SERVE_TOL`` of
+    the logits' scale of the f32 forward (phases 11-22's limit, which a
+    stale cache or state would break whatever ``g``). K6 and K7 launch
+    once a layer in the prefills and the forwards (seamless's decode
+    steps K6 too). deepseek runs at capacity factor 8 (no drops), every
+    step and the f32 forward pinned to the bf16 forward's routing, every
+    flip of the bf16 steps' own routing a near-tie (``_route_flips``).
+    Then tinyllama's bf16 caches take the uncompressed handoff (bf16
+    widens exactly into the f32 pool) with greedy tokens equal to local
+    ones (``handoff`` and ``ledger`` main's; the caches have main's
+    ``SERVE_MAX_SEQ`` slots, as its greedy loop makes them; ``handoff``
+    None skips it). ``kernels`` is (flash_attention, ssd_scan)."""
+    import dataclasses
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.serve import (decode_step, model_inputs, prefill_step,
+                                   step_inputs)
+
+    k6, k7 = kernels
+    n_req, p_len, g_len = BF16_TRAFFIC
+    max_seq = p_len + g_len
+    # each step's token span: the prefill's, then one a decode step
+    calls = [(0, p_len)] + [(i, i + 1) for i in range(p_len, max_seq)]
+    bf16 = torch.bfloat16
+    for arch in BF16_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        scans = cfg.family == "ssm" or cfg.hybrid_parallel_heads
+        if cfg.moe.enabled:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=8.0))
+        # a forward over whole chunks where the model scans
+        n_tok = (-(-max_seq // cfg.ssm.chunk_size) * cfg.ssm.chunk_size
+                 if scans else max_seq)
+        attn = 0 if cfg.family == "ssm" else (
+            cfg.encoder_layers + 2 * cfg.num_layers if cfg.enc_dec
+            else cfg.num_layers)
+        want = {k6.__name__: attn, k7.__name__: cfg.num_layers if scans
+                else 0}
+        want_dec = {k6.__name__: (cfg.encoder_layers + cfg.num_layers
+                                  if cfg.enc_dec else 0), k7.__name__: 0}
+        toks = torch.from_numpy(np.random.default_rng(SEED + 20).integers(
+            0, cfg.vocab_size, (n_req, n_tok))).to(dev)
+        # frames and patches as bf16 values, so both dtypes read the same
+        inp = {k: v.to(bf16).float() if v.is_floating_point() else v
+               for k, v in model_inputs(cfg, n_req, p_len, n_tok,
+                                        seed=SEED + 21, device=dev).items()}
+        batch = {"tokens": toks, **step_inputs(inp, 0, n_tok)}
+        pos = slice(p_len - 1, max_seq)       # the compared positions
+        routes = pinned = None
+
+        def pin(start, stop):
+            if routes:
+                routes.pins = [p[:, start:stop].reshape(-1, p.shape[-1])
+                               for p in pinned]
+
+        def serve(params, dtype):
+            """Prefill and teacher-forced decode on caches of ``dtype``,
+            pinned: (the logits (B, 1 + steps, V) f32, the caches)."""
+            caches = init_caches(cfg, n_req, SERVE_MAX_SEQ, dtype)
+            pin(0, p_len)
+            (lg, caches), _, n_pre = during(lambda: prefill_step(
+                params, cfg, {"tokens": toks[:, :p_len],
+                              **step_inputs(inp, 0, p_len)}, caches))
+            steps = [lg[:, 0].float()]
+
+            def decode_all():
+                c = caches
+                for i in range(p_len, max_seq):
+                    pin(i, i + 1)
+                    out, c = decode_step(params, cfg, toks[:, i:i + 1], c,
+                                         i, extra=step_inputs(inp, i, i + 1))
+                    steps.append(out[:, 0].float())
+                return c
+
+            caches, _, n_dec = during(decode_all)
+            check(n_pre == {**{f: 0 for f in n_pre}, **want},
+                  f"{arch} {dtype}: launches per prefill {n_pre}, want "
+                  f"{want}")
+            check(n_dec == {**{f: 0 for f in n_dec},
+                            **{f: g_len * n for f, n in want_dec.items()}},
+                  f"{arch} {dtype}: decode launched {n_dec}, want "
+                  f"{want_dec} a step")
+            return torch.stack(steps, dim=1), caches, n_pre, n_dec
+
+        if cfg.moe.enabled:
+            routes = RouteLog(moe_mod.route, cfg.moe.top_k)
+            moe_mod.route = routes
+        try:
+            params = init_params(cfg, SEED, bf16)
+            heads = [t.reshape(-1)[:4096].float().clone()
+                     for t in tree_leaves(params)]
+            full, _, n_full = during(
+                lambda: forward(params, cfg, batch)[0][:, pos].float())
+            check(n_full == {**{f: 0 for f in n_full}, **want},
+                  f"{arch} bf16: launches per forward {n_full}, want {want}")
+            fwd_log = []
+            if routes:
+                fwd_log, routes.log = routes.log, []
+                pinned = [torch.topk(p, cfg.moe.top_k, dim=-1).indices.view(
+                    n_req, n_tok, -1) for _, _, p in fwd_log]
+            steps, caches, n_pre, n_dec = serve(params, bf16)
+            step_log = routes.log if routes else []
+            if handoff and arch == "tinyllama-1.1b":
+                s_eng, n_pages, n_fetches = handoff(
+                    cfg, params, toks[:, :p_len], caches, POOL, dtype=bf16)
+                ledger(s_eng, n_pages, n_fetches)
+                del s_eng
+            del caches, params
+            # the same weights in f32
+            torch.cuda.empty_cache()
+            params = _f32_of_bf16_draw(cfg, dev)
+            check(all(torch.equal(t.reshape(-1)[:4096], h)
+                      for t, h in zip(tree_leaves(params), heads)),
+                  f"{arch}: the f32 weights are not the bf16 draw's values")
+            if routes:
+                routes.log, routes.pins = [], [
+                    p.reshape(-1, p.shape[-1]) for p in pinned]
+            full32 = forward(params, cfg, batch)[0][:, pos]
+            f32_log = routes.log if routes else []
+            steps32, caches, _, _ = serve(params, torch.float32)
+        finally:
+            if routes:
+                moe_mod.route = routes.inner
+        del params, caches
+        torch.cuda.synchronize()
+        gap = (full - full32).abs().max().item()
+        err = (steps - full).abs().max().item()
+        scale = full32.abs().max().item()
+        err32 = (steps32 - full32).abs().max().item()
+        nums = (_route_flips(fwd_log, f32_log, step_log, pinned, calls,
+                             n_req, n_tok) if routes else {})
+        check(np.isfinite(gap) and gap > 0 and np.isfinite(err),
+              f"{arch} bf16: gap {gap}, err {err}")
+        check(err <= 2 * gap,
+              f"{arch} bf16 prefill/decode vs the bf16 forward: max err "
+              f"{err} over 2 g = {2 * gap}")
+        check(np.isfinite(err32) and err32 <= SERVE_TOL * scale,
+              f"{arch} f32 prefill/decode vs the f32 forward: max err "
+              f"{err32} over {SERVE_TOL * scale} (logit scale {scale})")
+        phase("bf16 invariant", arch=arch, requests=n_req, prompt=p_len,
+              decode_steps=g_len, forward_tokens=n_tok, max_abs_err=err,
+              bf16_vs_f32_gap=gap, tolerance=2 * gap, logit_scale=scale,
+              gap_over_scale=gap / scale, f32_max_abs_err=err32,
+              f32_tolerance=SERVE_TOL * scale,
+              per_prefill=json.dumps({k: v for k, v in n_pre.items() if v}),
+              per_decode_step=json.dumps({k: v // g_len for k, v in
+                                          n_dec.items() if v}),
+              seconds=time.perf_counter() - t0, **nums)
+        del full, full32, steps, steps32, fwd_log, f32_log, step_log, pinned
+        torch.cuda.empty_cache()
+
+
+# ---- 30. decode at the cells' length against a prefill ----------------
+
+#: one attention arch and the hybrid, whose windowed heads mask a cache
+#: of the cell's length
+LONG_ARCHS = ("tinyllama-1.1b", "hymba-1.5b")
+LONG_SEQ = 32768
+
+
+def long_decode_phase(dev, during, kernels):
+    """30. Decode at the bf16 cells' length held against the forward, for
+    each of ``LONG_ARCHS`` at full width and depth, one sequence of
+    ``LONG_SEQ`` seeded tokens: prefill all but the last ``tail`` (8, or
+    one chunk where the model scans, whose prefill takes whole chunks),
+    then ``tail`` teacher-forced decode steps up to slot ``LONG_SEQ`` - 1,
+    against one forward over all the tokens at the prefill's last
+    position and the steps'. In bf16 within twice ``g``, the bf16 forward
+    against the f32 forward there; in f32 (the same weights,
+    ``_f32_of_bf16_draw``) within ``SERVE_TOL`` of the f32 forward's
+    logits' scale. K6 and K7 launch once a layer in the prefills and the
+    forwards, never in decode. ``kernels`` is (flash_attention,
+    ssd_scan)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import forward, init_caches, init_params
+    from repro_torch.serve import decode_step, prefill_step
+
+    k6, k7 = kernels
+    for arch in LONG_ARCHS:
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        scans = cfg.hybrid_parallel_heads
+        tail = cfg.ssm.chunk_size if scans else 8
+        head = LONG_SEQ - tail
+        want = {k6.__name__: cfg.num_layers,
+                k7.__name__: cfg.num_layers if scans else 0}
+        toks = torch.from_numpy(np.random.default_rng(SEED + 40).integers(
+            0, cfg.vocab_size, (1, LONG_SEQ))).to(dev)
+        out = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            params = (init_params(cfg, SEED, dtype) if dtype == torch.bfloat16
+                      else _f32_of_bf16_draw(cfg, dev))
+            full, _, n_full = during(lambda: forward(
+                params, cfg, {"tokens": toks})[0][:, head - 1:].float())
+            caches = init_caches(cfg, 1, LONG_SEQ, dtype)
+            (lg, caches), _, n_pre = during(lambda: prefill_step(
+                params, cfg, {"tokens": toks[:, :head]}, caches))
+            steps = [lg[:, 0].float()]
+
+            def decode_all():
+                c = caches
+                for i in range(head, LONG_SEQ):
+                    lg_, c = decode_step(params, cfg, toks[:, i:i + 1], c, i)
+                    steps.append(lg_[:, 0].float())
+                return c
+
+            _, dec_s, n_dec = during(decode_all)
+            check(n_full == n_pre == {**{f: 0 for f in n_full}, **want}
+                  and not any(n_dec.values()),
+                  f"{arch} {dtype} at {LONG_SEQ}: launches per forward "
+                  f"{n_full}, per prefill {n_pre}, in decode {n_dec}, "
+                  f"want {want}")
+            out[dtype] = (full, torch.stack(steps, dim=1),
+                          dec_s * 1e3 / tail)
+            del params, caches, lg, steps
+            torch.cuda.empty_cache()
+        (full, steps, dec16), (full32, steps32, dec32) = out.values()
+        gap = (full - full32).abs().max().item()
+        err = (steps - full).abs().max().item()
+        scale = full32.abs().max().item()
+        err32 = (steps32 - full32).abs().max().item()
+        check(np.isfinite(gap) and gap > 0 and np.isfinite(err)
+              and err <= 2 * gap,
+              f"{arch} bf16 decode at {LONG_SEQ} vs the forward: max err "
+              f"{err} over 2 g = {2 * gap}")
+        check(np.isfinite(err32) and err32 <= SERVE_TOL * scale,
+              f"{arch} f32 decode at {LONG_SEQ} vs the forward: max err "
+              f"{err32} over {SERVE_TOL * scale} (logit scale {scale})")
+        phase("long decode", arch=arch, tokens=LONG_SEQ, prefill=head,
+              decode_steps=tail, last_slot=LONG_SEQ - 1, max_abs_err=err,
+              bf16_vs_f32_gap=gap, tolerance=2 * gap, logit_scale=scale,
+              f32_max_abs_err=err32, f32_tolerance=SERVE_TOL * scale,
+              decode_ms_per_step_bf16=dec16, decode_ms_per_step_f32=dec32,
+              seconds=time.perf_counter() - t0)
+        del out, full, full32, steps, steps32
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -1661,22 +2281,24 @@ def main():
         dequantize_stream, flash_attention, ssd_scan)}
 
     def measure(name, src, replaces, shape, err, fn, plain, cost,
-                library=None, peak_flops=PEAK_F32_FLOPS, **extra):
-        """Time kernel, plain version and library call; print and record
-        (the last shape measured per kernel is the one recorded). ``cost``
-        is the kernel's (flops, bytes), by the formula its wrapper charges
-        to ``roofline.count.OpCounter``."""
+                library=None, peak_flops=PEAK_F32_FLOPS, iters=20,
+                **extra):
+        """Time kernel, plain version and library call, ``iters`` calls
+        each; print and record (the last shape measured per kernel is the
+        one recorded). ``cost`` is the kernel's (flops, bytes), by the
+        formula its wrapper charges to ``roofline.count.OpCounter``."""
         flops, nbytes = cost
         b = bound(nbytes, flops, peak_flops)
-        ms, ms_summed, passes = device_ms(fn, wrapper=wrappers[name])
-        plain_ms, plain_ms_summed, _ = device_ms(plain)
-        lib_ms, lib_ms_summed, _ = (device_ms(library) if library
+        ms, ms_summed, passes = device_ms(fn, iters, wrapper=wrappers[name])
+        plain_ms, plain_ms_summed, _ = device_ms(plain, iters)
+        lib_ms, lib_ms_summed, _ = (device_ms(library, iters) if library
                                     else (None, None, None))
         r = {"name": name, "route": "cuda", "source": csrc + src,
              "replaces": replaces, "shape": shape, "max_abs_err": err,
              "ms": ms, "plain_ms": plain_ms,
              "bound_ms": b[0], "bound_by": b[1], "library_ms": lib_ms,
-             "call_ms": cuda_ms(fn), "plain_call_ms": cuda_ms(plain),
+             "call_ms": cuda_ms(fn, iters),
+             "plain_call_ms": cuda_ms(plain, iters),
              "ms_summed": ms_summed, "plain_ms_summed": plain_ms_summed,
              "library_ms_summed": lib_ms_summed, **extra}
         if len(passes) > 1:
@@ -1764,6 +2386,8 @@ def main():
                 dequantize_stream_cost(q, s))
     del x, y, q, s, pq, ps
 
+    k6_served_phase(dev, measure)
+
     # K6 at the tinyllama prefill shape (8 sequences x 32 q heads over 4 kv
     # heads, S = 512, d = 64, causal, f32; recorded last), with window 32,
     # in bf16, at hymba's prefill shape (25 q heads over 5 kv heads, a GQA
@@ -1846,6 +2470,8 @@ def main():
                 route_bound_ms=rb[0], route_bound_by=rb[1])
     del qa, ka, va, qt, kt, vt, got, want, err
 
+    k7_served_phase(dev, measure)
+
     # K7 at hymba's prefill shape (8 x 512, 50 heads of 64, d_state 16), in
     # bf16 at mamba2's, then at mamba2-370m's prefill shape (8 x 512, 32
     # heads of 64, d_state 128, chunk 256, f32) from a zero and from a
@@ -1880,27 +2506,7 @@ def main():
                   for e, w in zip(errs7, (py7, pf7))),
               f"ssd_scan nh {snh} n {sn} {dtype} seeded={seeded}: max err "
               f"y {errs7[0].max().item()}, final {errs7[1].max().item()}")
-        # the function's work: C.B^T over each chunk's lower triangle
-        # once per (sequence, chunk); per head w.x over that triangle, the
-        # state increment and C_i . S_prev. The route bound counts the
-        # products the kernel's route runs: w.x, the state increment and
-        # C_i . S_prev as 3xTF32, three TF32 products each (two for those
-        # with a bf16 x as an operand: x is exact in TF32) at the TF32
-        # peak, and C.B^T once on the FP64 tensor cores at theirs
-        tri = schunk * (schunk + 1) // 2
-        nc7 = sb * (ss // schunk)
-        f_cb = 2.0 * nc7 * tri * sn
-        f_wx = 2.0 * nc7 * snh * tri * shd
-        f_state = f_cs = 2.0 * nc7 * snh * schunk * sn * shd
-        kx = 2 if dtype == torch.bfloat16 else 3
-        route_flops = 3 * f_cs + kx * (f_wx + f_state)
         cost = ssd_scan_cost(*args, schunk, sinit)
-        nbytes = cost[1]
-        route_ops_ms = (route_flops / PEAK_TF32_FLOPS
-                        + f_cb / PEAK_FP64_TC_FLOPS) * 1e3
-        bytes_ms = nbytes / PEAK_BYTES_S * 1e3
-        rb = ((route_ops_ms, "operations") if route_ops_ms >= bytes_ms
-              else (bytes_ms, "bytes"))
         measure("ssd_scan", "ssd_scan.cu",
                 "src/repro/kernels/ssd_scan.py:79",
                 f"{sb}x{ss} nh{snh} hd{shd} n{sn} chunk{schunk} "
@@ -1912,11 +2518,8 @@ def main():
                 lambda: ssd_scan_plain(*args, schunk, sinit), cost,
                 peak_flops=(PEAK_BF16_FLOPS if dtype == torch.bfloat16
                             else PEAK_F32_FLOPS),
-                route_work=("3xTF32 tensor cores"
-                            + (", bf16 x" if kx == 2 else "")
-                            + "; C.B^T on the FP64 tensor cores"),
-                route_flops=route_flops, route_fp64_flops=f_cb,
-                route_bound_ms=rb[0], route_bound_by=rb[1])
+                **k7_route(sb, ss, snh, shd, sn, schunk, cost[1],
+                           dtype == torch.bfloat16))
     del sx, sdt, sa, sbm, scm, sinit, args, y7, f7, py7, pf7, errs7
 
     # K7 and its plain f32 version against the float64 oracle (the plain
@@ -2436,19 +3039,10 @@ def main():
                                    prefill_step, step_inputs)
     from repro_torch.serve.kv_cache import flatten_cache_leaves
 
-    n_req, p_len, g_len = 8, 512, 32
-    max_seq, page = p_len + g_len + 8, 1 << 16
+    n_req, p_len, g_len = SERVE_TRAFFIC
+    max_seq, page = SERVE_MAX_SEQ, 1 << 16
 
-    def during(fn):
-        """Run ``fn`` synchronised; return (its result, the seconds it
-        took, each counted kernel's launches during it)."""
-        torch.cuda.synchronize()
-        n0 = {f.__name__: f.launches for f in counted}
-        t = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t, {
-            f.__name__: f.launches - n0[f.__name__] for f in counted}
+    during = counted_run(counted)
 
     def invariant(arch, per_layer, n_tokens, seed, per_step=None):
         """Prefill 512 + 32 teacher-forced decode steps against one forward
@@ -2504,7 +3098,7 @@ def main():
         caches, dec_s, n_dec = during(decode_all)
         check(n_dec == {k: g_len * v for k, v in want_dec.items()},
               f"{arch}: decode launched {n_dec}, want {want_dec} a step")
-        tol_s = 1e-4 * scale
+        tol_s = SERVE_TOL * scale
         check(all(np.isfinite(errs)) and max(errs) <= tol_s,
               f"{arch} prefill/decode vs full forward: max err {max(errs)} "
               f"over {tol_s} (logit scale {scale})")
@@ -2556,12 +3150,14 @@ def main():
               wall_ms=wall * 1e3, device_ms=dev_us / 1e3,
               device_share=dev_us / 1e3 / (wall * 1e3))
 
-    def handoff(cfg, params, prompt, caches, pool_size, inp=None):
+    def handoff(cfg, params, prompt, caches, pool_size, inp=None,
+                dtype=torch.float32):
         """The cache handoff over the RDMA engine, uncompressed, on an
         engine of its own: publish and fetch the caches byte for byte
         (every leaf, dtypes included), then greedy tokens through the
         remote pool equal those with local caches (``greedy_with_inputs``
-        the inputs ``inp`` where the model takes any). Returns (the engine,
+        the inputs ``inp`` where the model takes any; caches of
+        ``dtype``). Returns (the engine,
         its pool's pages, the fetches made)."""
         eng_ = RDMAEngine(n_peers=2, pool_size=pool_size)
         n_pages = -(-flatten_cache_leaves(caches).numel() // page)
@@ -2607,20 +3203,21 @@ def main():
         kv_pool.evict(1)
         if inp:
             local, gen_s = timed(lambda: greedy_with_inputs(
-                params, cfg, prompt, inp, g_len, max_seq))
+                params, cfg, prompt, inp, g_len, max_seq, dtype))
             remote, rgen_s = timed(lambda: greedy_with_inputs(
-                params, cfg, prompt, inp, g_len, max_seq, kv_client=client,
-                kv_tenant=tenant))
+                params, cfg, prompt, inp, g_len, max_seq, dtype,
+                kv_client=client, kv_tenant=tenant))
         else:
             local, gen_s = timed(lambda: greedy_generate(
-                params, cfg, prompt, g_len, max_seq))
+                params, cfg, prompt, g_len, max_seq, dtype))
             remote, rgen_s = timed(lambda: greedy_generate(
-                params, cfg, prompt, g_len, max_seq, kv_client=client,
-                kv_seq_id=0, kv_tenant=tenant))
+                params, cfg, prompt, g_len, max_seq, dtype,
+                kv_client=client, kv_seq_id=0, kv_tenant=tenant))
         check(torch.equal(local, remote),
               "greedy tokens through the remote pool differ from local")
         check(kv_pool.allocated == 0, "the handoff left pages in the pool")
-        phase("serve handoff", arch=cfg.name, pages=n_pages,
+        phase("serve handoff", arch=cfg.name, dtype=str(dtype)[6:],
+              pages=n_pages,
               page_words=page, mib=n_pages * page * 4 / 2 ** 20,
               publish_ms=pub_s * 1e3, fetch_ms=json.dumps(fetch_ms),
               fetch_device_ms=fetch_dev_ms,
@@ -2796,12 +3393,36 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     zero_counts()
-    charged = dryrun_phase(dev)
+    want = dryrun_phase(dev)
     read_counts("dryrun", (flash_attention, ssd_scan))
     # each cell ran twice on the card: counted, then timed
-    check({k: launches["dryrun"][k] for k in charged}
-          == {k: 2 * n for k, n in charged.items()},
-          f"dry-run launches {launches['dryrun']}, charged {charged} a run")
+    check({k: launches["dryrun"][k] for k in want} == want,
+          f"dry-run launches {launches['dryrun']}, want {want}")
+
+    # ---- 28. the reference's bf16 cells --------------------------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_counts()
+    want = bf16_cells_phase(dev)
+    read_counts("bf16 cells", (flash_attention, ssd_scan))
+    # each cell ran three times on the card: counted, timed, traced
+    check({k: launches["bf16 cells"][k] for k in want} == want,
+          f"bf16 cell launches {launches['bf16 cells']}, want {want}")
+
+    # ---- 29. bf16 serving against f32 on the same weights -------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_counts()
+    bf16_serve_phase(dev, during, (flash_attention, ssd_scan), handoff,
+                     ledger)
+    read_counts("bf16 serve", (flash_attention, ssd_scan))
+
+    # ---- 30. decode at the cells' length against a prefill -----------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_counts()
+    long_decode_phase(dev, during, (flash_attention, ssd_scan))
+    read_counts("bf16 long", (flash_attention, ssd_scan))
 
     # ---- 17. launches on the main path -------------------------------------
     counts = {fn.__name__: sum(c[fn.__name__] for c in launches.values())

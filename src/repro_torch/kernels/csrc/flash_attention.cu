@@ -58,6 +58,13 @@
 //   permuted (logical k, k + 4 -> physical 2k, 2k + 1) on both operands,
 //   which leaves the sum unchanged and lets a K fragment come in as one
 //   8-byte load and the S accumulator serve as PV's A operand as it is.
+//   Each tile's PV goes into fresh accumulators that are then added to
+//   O in f32: the tensor cores truncate as they add into C, so an O
+//   accumulated there across all tiles drifts with the key count (on an
+//   H100, 2e-4 of the output at 32768 keys against float64, where the
+//   plain f32 sum stays under 1e-5; 2e-6 with the fresh accumulators,
+//   ``tools/k6_drift.py``). The bf16 route keeps O in C: its drift stays
+//   under its output's rounding.
 #include <type_traits>
 
 #include "common.cuh"
@@ -441,6 +448,13 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
     } else {
+      // the tile's PV in fresh accumulators, added to O in f32 (see the
+      // f32 route above)
+      float pv[kDT][4];
+#pragma unroll
+      for (int n = 0; n < kDT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
 #pragma unroll
       for (int j = 0; j < kNT; ++j) {
         // A of k-step j in the permuted layout: keys 2t (elements 0, 1)
@@ -456,11 +470,15 @@ __global__ void __launch_bounds__(kThreads)
           uint32_t bh0, bl0, bh1, bl1;
           split_tf32(v0[n * 8], bh0, bl0);
           split_tf32(v0[C::kVStride + n * 8], bh1, bl1);
-          mma_tf32(acc[n], pl, bh0, bh1);
-          mma_tf32(acc[n], ph, bl0, bl1);
-          mma_tf32(acc[n], ph, bh0, bh1);
+          mma_tf32(pv[n], pl, bh0, bh1);
+          mma_tf32(pv[n], ph, bl0, bl1);
+          mma_tf32(pv[n], ph, bh0, bh1);
         }
       }
+#pragma unroll
+      for (int n = 0; n < kDT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n][e] += pv[n][e];
     }
     __syncthreads();                      // the tile is consumed
   }

@@ -56,13 +56,16 @@ def _as_bshd(x: torch.Tensor) -> torch.Tensor:
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
                           window: int = 0,
-                          scale: Optional[float] = None) -> torch.Tensor:
+                          scale: Optional[float] = None,
+                          q_offset: int = 0) -> torch.Tensor:
     """q: (B, Sq, Hq, d), k: (B, Skv, Hkv, d), v: (B, Skv, Hkv, dv) ->
     (B, Sq, Hq, dv), the reference oracle's arithmetic
     (``kernels/ref.py:ref_attention``): f32 scores of ``q * scale``
     against k, ``-1e30`` where masked, softmax, zeros for a row with no
     visible key, cast to q's dtype. GQA groups q heads onto kv heads by
-    a reshape, not a repeat."""
+    a reshape, not a repeat. ``q_offset``: the position of q's first row,
+    so that a slice of the rows of a longer call (whose scores would not
+    fit) is computed as that call computes it."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     dv = v.shape[-1]
@@ -70,7 +73,7 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     scale = scale if scale is not None else d ** -0.5
     qg = q.reshape(b, sq, hkv, group, d).to(torch.float32) * scale
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.to(torch.float32))
-    q_pos = torch.arange(sq, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(sq, device=q.device)[:, None]
     k_pos = torch.arange(skv, device=q.device)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool, device=q.device)
     if causal:

@@ -124,6 +124,22 @@ def _fill(specs: dict, cfg: ModelConfig, seed: int) -> dict:
     return out
 
 
+def _fill_caches(caches: dict, seed: int) -> dict:
+    """A decode cell's caches with seeded N(0, 1) values in every float
+    leaf (K/V, MLA's latent and rope key, SSM conv and state), drawn in
+    place on their device by a ``torch.Generator``: a 32k cache is tens
+    of GB, too much to draw on the host. Integer leaves (``pos``) and
+    ``meta`` caches are left as they are."""
+    leaves = [t for t in tree_leaves(caches) if t.is_floating_point()]
+    if not leaves or leaves[0].device.type == "meta":
+        return caches
+    gen = torch.Generator(device=leaves[0].device)
+    gen.manual_seed(seed)
+    for t in leaves:
+        t.normal_(generator=gen)
+    return caches
+
+
 def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshConfig,
                tcfg: TrainConfig, bucketed: bool = False, device="meta",
                seed: int = 0):
@@ -159,6 +175,7 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshConfig,
             with torch.no_grad():
                 return prefill_step(params, cfg, batch, caches)
     else:
+        _fill_caches(caches, seed + 2)
         extra = {k: v for k, v in batch.items() if k != "tokens"}
 
         def fn():

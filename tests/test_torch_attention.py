@@ -165,3 +165,57 @@ def test_ragged_non_causal_keys_are_masked_unlike_reference_padding():
     ref_ops = np.asarray(jops.attention(*map(jnp.asarray, (q, k, v)),
                                         causal=False))
     assert np.abs(ref_ops - oracle).max() > 0.1
+
+
+def _bf16_close(got, want):
+    """bf16 results within 2e-4 plus one bf16 step of the result."""
+    got32 = got.to(torch.float32).numpy()
+    want32 = np.asarray(want.astype(jnp.float32))
+    assert np.isfinite(got32).all()
+    np.testing.assert_allclose(got32, want32, rtol=2.0 ** -7, atol=TOL)
+
+
+@pytest.mark.parametrize("hq,hkv", [(8, 2), (7, 1), (16, 2)])
+def test_plain_bf16_at_head_dim_128_matches_jax_ops(hq, hkv):
+    """K6's plain version in bf16 at the served head dim 128 with GQA 4
+    (qwen3-4b), 7 (qwen2-vl-7b) and 8 (qwen2.5-3b) against the JAX
+    Pallas kernel in interpret mode, causal, with a ragged length."""
+    q = _randn(30, (1, 100, hq, 128))
+    k, v = _randn(31, (1, 100, hkv, 128)), _randn(32, (1, 100, hkv, 128))
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    want = jops.attention(*jb, causal=True, block_q=32, block_k=32)
+    got = flash_attention_plain(*(_t(x).to(torch.bfloat16)
+                                  for x in (q, k, v)), causal=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (1, 100, hq, 128)
+    _bf16_close(got, want)
+
+
+def test_plain_bf16_at_mla_heads_matches_jax_attention():
+    """K6's plain version in bf16 at MLA's q and k 192 wide, v 128, 16
+    heads, causal, against the reference's attention (its model's
+    ``attention_core``: ``ops.attention`` takes one head dim for q, k
+    and v)."""
+    from repro.models.layers import attention_core as jax_attention
+    q, k = _randn(33, (2, 40, 16, 192)), _randn(34, (2, 40, 16, 192))
+    v = _randn(35, (2, 40, 16, 128))
+    jb = [jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)]
+    want = jax_attention(*jb, causal=True)
+    got = flash_attention_plain(*(_t(x).to(torch.bfloat16)
+                                  for x in (q, k, v)), causal=True)
+    assert got.dtype == torch.bfloat16 and got.shape == (2, 40, 16, 128)
+    _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 6),
+                                           (False, 0)])
+def test_plain_row_slice_at_its_offset_is_the_whole_call(causal, window):
+    """``q_offset``: the plain version over a slice of the query rows,
+    given their offset, equals those rows of the whole call (how the
+    card's checks hold K6 at 32k rows, whose scores would not fit)."""
+    q, k, v = (_t(_randn(s, (2, 50, 4, 16))).to(torch.bfloat16)
+               for s in (36, 37, 38))
+    whole = flash_attention_plain(q, k, v, causal=causal, window=window)
+    for r0, r1 in ((0, 7), (20, 33), (42, 50)):
+        part = flash_attention_plain(q[:, r0:r1], k, v, causal=causal,
+                                     window=window, q_offset=r0)
+        assert torch.equal(part, whole[:, r0:r1])

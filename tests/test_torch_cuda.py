@@ -1,8 +1,9 @@
 """The port's CUDA kernels on the card, each against its plain version.
 
 These need an NVIDIA GPU (the kernels have no CPU mode) and skip without
-one. The file imports only torch, numpy and ``repro_torch``, so it also
-runs where JAX is not installed:
+one. The file imports only torch, numpy, ``repro_torch`` and the served
+shapes ``chip_smoke.py`` holds its kernels at, so it also runs where JAX
+is not installed:
 
     PYTHONPATH=src python -m pytest -q --noconftest tests/test_torch_cuda.py
 
@@ -12,8 +13,10 @@ library product (no TF32 on either side), bf16 within ``3e-2``. K6
 attention is within 2e-4 of its plain version in f32 (the reference's
 tolerance; sums in another order), and in bf16 within 2e-4 plus one
 bf16 step of the result (2^-7 relative: bf16 keeps 8 significant
-bits). K7 ``ssd_scan`` is within 2e-5 of its plain version in f32 and
-6e-2 in bf16 (the reference's ``tests/test_kernels.py`` tolerances); its
+bits); in f32 over 4096 and 32768 keys its error against float64 is
+within twice the plain f32 version's own. K7 ``ssd_scan`` is within 2e-5
+of its plain version in f32 and 6e-2 in bf16 (the reference's
+``tests/test_kernels.py`` tolerances); its
 final state, f32 in both dtypes, within 2e-5. Under autograd, K6's and
 K7's gradients are within the same 2e-4 and 2e-5 of autograd's through
 the plain versions, and one ``tiny`` train step on the card is within
@@ -24,10 +27,15 @@ within 1e-4 of their largest |value| of the CPU's. A knob sweep of a
 CUDA engine gives a CPU engine's surface and choice exactly (its scores
 are functions of counts).
 """
+import pathlib
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+from chip_smoke import K6_SERVED, K7_SERVED  # noqa: E402
 from repro_torch.core.lookaside import ControlMsg, LookasideBlock
 from repro_torch.core.rdma import RDMAEngine
 from repro_torch.core.streaming import (Drop, Forward, Handler, MatchTable,
@@ -288,6 +296,39 @@ def test_cuda_flash_attention_matches_plain(cuda, d, sq, skv, causal,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,causal,window",
+                         [row[1:] for row in K6_SERVED],
+                         ids=[row[0] for row in K6_SERVED])
+def test_cuda_flash_attention_bf16_at_served_shapes(cuda, b, sq, skv, hq, hkv,
+                                                    d, dv, causal, window):
+    """K6 in bf16 at the shapes the bf16 cells give it
+    (``chip_smoke.K6_SERVED``), against its plain
+    version over slices of the query rows at their offset (the plain
+    version's S x S scores at 32768 rows would not fit): the first, a
+    middle and the last 256 rows, within 2e-4 plus one bf16 step."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(sq + hq + d)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    q, k, v = rand(b, sq, hq, d), rand(b, skv, hkv, d), rand(b, skv, hkv, dv)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == (b, sq, hq, dv)
+    rows = {(0, min(sq, 256)), (max(sq // 2 - 128, 0), min(sq // 2 + 128, sq)),
+            (max(sq - 256, 0), sq)}
+    for r0, r1 in sorted(rows):
+        want = flash_attention_plain(q[:, r0:r1], k, v, causal=causal,
+                                     window=window, q_offset=r0)
+        torch.testing.assert_close(got[:, r0:r1].float(), want.float(),
+                                   rtol=2.0 ** -7, atol=2e-4)
+
+
+@pytest.mark.cuda
 def test_cuda_flash_attention_f32_is_not_tf32(cuda):
     """K6 in f32 at the tinyllama prefill shape (8 x 512, 32 q heads over
     4 kv heads of 64, causal) against a float64 oracle, within 1e-5: a
@@ -308,6 +349,35 @@ def test_cuda_flash_attention_f32_is_not_tf32(cuda):
                         v.double()).reshape(b, s, hq, d)
     err = (got - want).abs().max().item()
     assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", [4096, 32768])
+def test_cuda_flash_attention_f32_does_not_drift_with_key_count(cuda, keys):
+    """K6 in f32 over one sequence of ``keys`` tokens at tinyllama's heads
+    (32 q over 4 kv heads of 64, causal): the last 64 rows' error against
+    float64, over the output's largest |value|, within twice the plain
+    f32 version's own. O accumulated in the tensor cores' C across every
+    KV tile drifts with the key count (3e-5 at 4096 keys, 2e-4 at 32768,
+    against the plain version's 3e-6 and 6e-6)."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(keys)
+    q, k, v = (torch.randn((1, keys, h, 64), generator=gen, device=cuda)
+               for h in (32, 4, 4))
+    r0 = keys - 64
+    qg = q[:, r0:].double().reshape(1, 64, 4, 8, 64) * 64 ** -0.5
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double())
+    pos = torch.arange(keys, device=cuda)
+    sc = sc.masked_fill(pos[r0:, None] < pos[None, :], float("-inf"))
+    want = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(sc, dim=-1),
+                        v.double()).reshape(1, 64, 32, 64)
+    scale = want.abs().max().item()
+    got = flash_attention(q, k, v, causal=True)[:, r0:].double()
+    plain = flash_attention_plain(q[:, r0:], k, v, causal=True,
+                                  q_offset=r0).double()
+    err = (got - want).abs().max().item() / scale
+    plain_err = (plain - want).abs().max().item() / scale
+    assert err <= 2 * plain_err, (err, plain_err)
 
 
 @pytest.mark.cuda
@@ -400,6 +470,41 @@ def test_cuda_ssd_scan_matches_plain(cuda, hd, n, chunk, s, nh, seeded,
     tol = 6e-2 if dtype == torch.bfloat16 else 2e-5
     torch.testing.assert_close(y.float(), want_y.float(), rtol=tol,
                                atol=tol)
+    torch.testing.assert_close(final, want_f, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("slow", [False, True],
+                         ids=["zero-state", "slow-seeded"])
+@pytest.mark.parametrize("b,s,nh,hd,n,chunk",
+                         [row[1:] for row in K7_SERVED],
+                         ids=[row[0] for row in K7_SERVED])
+def test_cuda_ssd_scan_at_served_shapes(cuda, b, s, nh, hd, n, chunk, slow):
+    """K7 in f32 at the shapes the bf16 cells give it
+    (``chip_smoke.K7_SERVED``: 128 chunks a sequence) against its plain
+    version, y and the final state within 2e-5: as a prefill from fresh
+    caches passes it (dt in (0.1, 0.9), a zero state), and with slow
+    decays (dt in (0.001, 0.01)) from a seeded state, so that the state
+    carried from chunk to chunk counts several chunks later."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(nh + n + slow)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda)
+
+    x, bm, cm = rand(b, s, nh, hd), rand(b, s, 1, n), rand(b, s, 1, n)
+    lo, hi = (0.001, 0.01) if slow else (0.1, 0.9)
+    dt = torch.empty((b, s, nh), device=cuda).uniform_(lo, hi, generator=gen)
+    a = -torch.linspace(1.0, 16.0, nh, device=cuda)
+    init = (rand(b, nh, hd, n) if slow
+            else torch.zeros((b, nh, hd, n), device=cuda))
+    before = ssd_scan.launches
+    y, final = ssd_scan(x, dt, a, bm, cm, chunk=chunk, init_state=init,
+                        return_final_state=True)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == before + 1
+    want_y, want_f = ssd_scan_plain(x, dt, a, bm, cm, chunk, init)
+    torch.testing.assert_close(y, want_y, rtol=2e-5, atol=2e-5)
     torch.testing.assert_close(final, want_f, rtol=2e-5, atol=2e-5)
 
 

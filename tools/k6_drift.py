@@ -1,0 +1,110 @@
+"""K6's error against float64 as the key count grows, and its f32 time.
+
+For one sequence at tinyllama-1.1b's heads (32 q heads over 4 kv heads of
+64, causal) and 512, 4096 and 32768 keys, the last 64 query rows of K6
+(``flash_attention``) and of its plain f32 version are held against the
+same attention computed in float64, in f32 and on bf16 inputs: the largest
+|error| over the largest |value| of the float64 output. Then K6 in f32 is
+timed between CUDA events at the f32 shapes ``chip_smoke.py`` phase 2
+times, and at 32768 keys.
+
+The tree whose kernels are built and run is the one given as the first
+argument (default: this checkout), so that two trees can be compared in
+one call on the same card, each in a process of its own:
+
+    python3 tools/k6_drift.py                 # this checkout
+    python3 tools/k6_drift.py path/to/other   # another checkout
+
+Needs one CUDA card and nvcc; the kernels are built into the tree's
+``src/repro_torch/kernels/build/`` (ignored by git).
+"""
+from __future__ import annotations
+
+import os
+import sys
+
+import torch
+
+ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
+                       os.path.join(os.path.dirname(__file__), ".."))
+sys.path.insert(0, os.path.join(ROOT, "src"))
+
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, flash_attention_plain)
+
+# phase 2's f32 shapes: (B, Sq, Skv, Hq, Hkv, d, dv, causal, window)
+F32_SHAPES = ((8, 512, 512, 32, 4, 64, 64, True, 0),
+              (8, 512, 512, 32, 4, 64, 64, True, 32),
+              (8, 512, 512, 25, 5, 64, 64, True, 1024),
+              (8, 512, 512, 32, 4, 128, 128, True, 0),
+              (8, 512, 512, 16, 16, 192, 128, True, 0),
+              (8, 128, 128, 16, 16, 64, 64, False, 0),
+              (8, 512, 128, 16, 16, 64, 64, False, 0),
+              (8, 1, 128, 16, 16, 64, 64, False, 0),
+              (8, 512, 512, 28, 4, 128, 128, True, 0),
+              (1, 32768, 32768, 32, 4, 64, 64, True, 0))
+
+
+def exact(q, k, v, r0):
+    """Causal attention of q's rows (at offset ``r0``) in float64."""
+    b, sq, hq, d = q.shape
+    hkv = k.shape[2]
+    qg = q.double().reshape(b, sq, hkv, hq // hkv, d) * d ** -0.5
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double())
+    seen = (r0 + torch.arange(sq, device=q.device)[:, None]
+            >= torch.arange(k.shape[1], device=q.device)[None])
+    s = torch.where(seen, s, torch.full_like(s, -1e300))
+    out = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(s, -1), v.double())
+    return out.reshape(b, sq, hq, -1)
+
+
+def event_ms(fn, iters):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0.record()
+    for _ in range(iters):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / iters
+
+
+def main():
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    _build.build(force=True)
+    _build.library()
+    print("tree", ROOT, flush=True)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (512, 4096, 32768):
+            q, k, v = (torch.randn((1, s, h, 64), generator=gen, device=dev)
+                       .to(dtype) for h in (32, 4, 4))
+            r0 = s - 64
+            want = exact(q[:, r0:], k, v, r0)
+            scale = want.abs().max().item()
+            got = flash_attention(q, k, v, causal=True)[:, r0:]
+            plain = flash_attention_plain(q[:, r0:], k, v, causal=True,
+                                          q_offset=r0)
+            print(f"[k6 drift] dtype={str(dtype)[6:]} keys={s} "
+                  f"k6_rel={(got.double() - want).abs().max().item() / scale} "
+                  f"plain_rel="
+                  f"{(plain.double() - want).abs().max().item() / scale}",
+                  flush=True)
+    for b, sq, skv, hq, hkv, d, dv, causal, window in F32_SHAPES:
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev)
+        k = torch.randn((b, skv, hkv, d), generator=gen, device=dev)
+        v = torch.randn((b, skv, hkv, dv), generator=gen, device=dev)
+        ms = event_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                              window=window),
+                      20 if sq < 32768 else 3)
+        print(f"[k6 f32 time] shape={b}x{sq}/{skv}x{hq}/{hkv}x{d}/{dv} "
+              f"causal={causal} window={window} ms={ms}", flush=True)
+
+
+if __name__ == "__main__":
+    main()
