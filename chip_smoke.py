@@ -13,8 +13,11 @@ reports them) and runs, on the card:
      and 65536), within
      ``1e-5 * k / 128`` for the f32 matmul (K5 on the CUDA cores, no
      TF32; at 512x16x512 and 2048^3), within 2e-4 (plus one bf16 step
-     in bf16) for K6 attention on the tensor cores (3xTF32 in f32, bf16
-     with P split in two halves) at the tinyllama prefill shape (256 x
+     in bf16) for K6 attention on the tensor cores (3xTF32 in f32 on
+     ``mma.sync``; bf16 with P split in two halves, on ``wgmma`` over
+     more than 64 rows at head dims 64, 128 and 192/128, each row
+     printing the route it took, TFLOP/s of the function's flops and
+     SDPA's time beside) at the tinyllama prefill shape (256 x
      512 x 64, causal, GQA 8, f32; also with window 32, in bf16, at d =
      128, at hymba's 25 q over 5 kv heads with window 1024, at
      deepseek-v2-lite's MLA prefill, 16 heads with q and k 192 wide and
@@ -222,7 +225,11 @@ reports them) and runs, on the card:
      two runs a cell on the card, 28 with three, 29 and 30),
      each path run with the counters at 0 and read right after: every
      kernel a path runs must have launched on it, and each of the seven
-     > 0.
+     > 0, K6 also per route (``flash_attention.wgmma``, the Hopper kernel
+     that bf16 prefills over 64 rows at the served head dims take, and
+     ``flash_attention.mma_sync``), each > 0; the kernels line records
+     K6's two kernels apart (``flash_attention`` and
+     ``flash_attention_sm90``).
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -299,6 +306,10 @@ K6_SERVED = (
     ("seamless cross prefill", 2, 32768, 8192, 16, 16, 64, 64, False, 0),
     ("seamless cross decode", 8, 1, 8192, 16, 16, 64, 64, False, 0),
 )
+# K6's two kernels: each route's source and its key in the kernels line
+K6_SOURCE = {"mma_sync": "flash_attention.cu",
+             "wgmma": "flash_attention_sm90.cu"}
+K6_KEY = {"mma_sync": "flash_attention", "wgmma": "flash_attention_sm90"}
 # K7's shapes in the bf16 cells, f32 as models/ssm.py passes them (phase 2
 # holds each): (where, B, S, nh, hd, d_state, chunk), one group
 K7_SERVED = (
@@ -382,9 +393,13 @@ def traced_device_us(fn, tries=1):
 
 
 # the __global__ functions one call of each counted wrapper launches, once
-# each: K7 runs five passes per call, each named ssd_scan_<pass>
+# each: K7 runs five passes per call, each named ssd_scan_<pass>; a K6 call
+# runs one of its routes' kernels (ROUTE_SYMBOL)
+ROUTE_SYMBOL = {"flash_attention": {"mma_sync": "flash_attention_kernel",
+                                    "wgmma": "flash_attention_sm90_kernel"}}
 KERNEL_SYMBOL = {"systolic_mm": ("systolic_mm_kernel",),
-                 "flash_attention": ("flash_attention_kernel",),
+                 "flash_attention": tuple(
+                     ROUTE_SYMBOL["flash_attention"].values()),
                  "parse_packets": ("parse_packets_kernel",),
                  "parse_packet_fields": ("parse_packet_fields_kernel",),
                  "quantize_stream": ("quantize_kernel",),
@@ -428,7 +443,12 @@ def _traced_ms(fn, iters, wrapper=None):
 
     for _ in range(TRACE_TRIES):
         n0 = wrapper.launches if wrapper is not None else 0
+        r0 = dict(getattr(wrapper, "route_launches", {}))
         _, rows = _trace(run)
+        if r0:
+            # the kernels of the routes these calls took
+            names = {ROUTE_SYMBOL[wrapper.__name__][r]
+                     for r, n in wrapper.route_launches.items() if n > r0[r]}
         rows = [e for e in rows if e.count]
         if not any(e.self_device_time_total > 0 for e in rows):
             continue
@@ -1190,14 +1210,31 @@ def _rank_setup(rank, device):
     counted = (systolic_mm, parse_packets, parse_packet_fields,
                quantize_stream, dequantize_stream, flash_attention,
                ssd_scan)
+    zero_launches(counted)
+    return rank_device(rank, device), counted
+
+
+def zero_launches(counted):
+    """Set every counted wrapper's launches to 0, and K6's per route."""
+    from repro_torch.kernels.flash_attention import reset_launches
     for fn in counted:
         fn.launches = 0
-    return rank_device(rank, device), counted
+    reset_launches()
+
+
+def launch_counts(counted):
+    """Each counted wrapper's launches by its name, and K6's per route as
+    ``flash_attention.<route>``."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    out = {fn.__name__: fn.launches for fn in counted}
+    out.update({f"flash_attention.{r}": n
+                for r, n in flash_attention.route_launches.items()})
+    return out
 
 
 def _launches(dev, counted):
     _sync(dev)
-    return {fn.__name__: fn.launches for fn in counted}
+    return launch_counts(counted)
 
 
 def _peak_reset(dev):
@@ -1565,7 +1602,8 @@ def k6_served_phase(dev, measure):
 
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_cost,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_attention_route)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
@@ -1609,7 +1647,9 @@ def k6_served_phase(dev, measure):
 
         cost = flash_attention_cost(q, k, v, causal=causal, window=window)
         r0 = slices[-1][0]
-        measure("flash_attention", "flash_attention.cu",
+        route = flash_attention_route(q.dtype, d, dv, sq)
+        # the wgmma kernel's record in the kernels line is tinyllama's row
+        measure("flash_attention", K6_SOURCE[route],
                 "src/repro/kernels/flash_attention.py:102",
                 f"{what} {b}x{sq}{f'/{skv}' if skv != sq else ''}x"
                 f"{hq}/{hkv}x{d}{f'/{dv}' if dv != d else ''} "
@@ -1621,7 +1661,9 @@ def k6_served_phase(dev, measure):
                     q[:, r0:], k, v, causal=causal, window=window,
                     q_offset=r0), cost, library=library,
                 peak_flops=PEAK_BF16_FLOPS, iters=5,
-                plain_rows=f"{r0}:{sq}",
+                key=K6_KEY[route],
+                record=route == "wgmma" and what == "tinyllama-1.1b",
+                plain_rows=f"{r0}:{sq}", k6_route=route,
                 route_bound_ms=bound(cost[1], 1.5 * cost[0],
                                      PEAK_BF16_FLOPS)[0])
         del q, k, v, qt, kt, vt, mask
@@ -2243,7 +2285,8 @@ def main():
                                                  systolic_mm_plain)
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_cost,
-                                                     flash_attention_plain)
+                                                     flash_attention_plain,
+                                                     flash_attention_route)
     from repro_torch.kernels.ssd_scan import (ssd_scan, ssd_scan_cost,
                                               ssd_scan_plain)
     from repro_torch._tree import tree_leaves
@@ -2282,10 +2325,11 @@ def main():
 
     def measure(name, src, replaces, shape, err, fn, plain, cost,
                 library=None, peak_flops=PEAK_F32_FLOPS, iters=20,
-                **extra):
+                key=None, record=True, **extra):
         """Time kernel, plain version and library call, ``iters`` calls
-        each; print and record (the last shape measured per kernel is the
-        one recorded). ``cost`` is the kernel's (flops, bytes), by the
+        each; print and, with ``record``, record under ``key`` (default
+        ``name``; the last shape recorded per key is the one in the
+        kernels line). ``cost`` is the kernel's (flops, bytes), by the
         formula its wrapper charges to ``roofline.count.OpCounter``."""
         flops, nbytes = cost
         b = bound(nbytes, flops, peak_flops)
@@ -2293,6 +2337,8 @@ def main():
         plain_ms, plain_ms_summed, _ = device_ms(plain, iters)
         lib_ms, lib_ms_summed, _ = (device_ms(library, iters) if library
                                     else (None, None, None))
+        if flops:
+            extra["tflops"] = flops / ms / 1e9     # the cost's, at ms
         r = {"name": name, "route": "cuda", "source": csrc + src,
              "replaces": replaces, "shape": shape, "max_abs_err": err,
              "ms": ms, "plain_ms": plain_ms,
@@ -2306,10 +2352,11 @@ def main():
             r["passes_ms_sum"] = sum(passes.values())
             phase("kernel " + name + " passes", shape=shape,
                   **{k: v for k, v in sorted(passes.items())})
-        phase("kernel " + name, **{k: v for k, v in r.items()
-                                   if k not in ("name", "route", "source",
-                                                "replaces")})
-        rec[name] = r
+        phase("kernel " + (key or name), **{
+            k: v for k, v in r.items()
+            if k not in ("name", "route", "source", "replaces")})
+        if record:
+            rec[key or name] = dict(r, name=key or name)
 
     for m, k, n in ((512, 16, 512), (2048, 2048, 2048)):
         x = torch.from_numpy(rng.standard_normal((m, k), np.float32)).to(dev)
@@ -2445,15 +2492,17 @@ def main():
                 return sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True)
         cost = flash_attention_cost(qa, ka, va, causal=causal,
                                     window=window)
+        route = flash_attention_route(dtype, ad, adv, asq)
         nbytes, flops = cost[1], float(cost[0])
         if dtype == torch.bfloat16:
-            peak, route = PEAK_BF16_FLOPS, "bf16 tensor cores, P split"
+            peak, work = PEAK_BF16_FLOPS, "bf16 tensor cores, P split"
             route_flops, route_peak = 1.5 * flops, PEAK_BF16_FLOPS
         else:
-            peak, route = PEAK_F32_FLOPS, "3xTF32 tensor cores"
+            peak, work = PEAK_F32_FLOPS, "3xTF32 tensor cores"
             route_flops, route_peak = 3.0 * flops, PEAK_TF32_FLOPS
         rb = bound(nbytes, route_flops, route_peak)
-        measure("flash_attention", "flash_attention.cu",
+        # recorded last: the f32 tinyllama row (the mma.sync kernel)
+        measure("flash_attention", K6_SOURCE[route],
                 "src/repro/kernels/flash_attention.py:102",
                 f"{ab * ahq}x{asq}{f'/{askv}' if askv != asq else ''}"
                 f"x{ad}{f'/{adv}' if adv != ad else ''} "
@@ -2465,8 +2514,9 @@ def main():
                                         window=window),
                 lambda: flash_attention_plain(qa, ka, va, causal=causal,
                                               window=window),
-                cost, library=library, peak_flops=peak,
-                route_work=route, route_flops=route_flops,
+                cost, library=library, peak_flops=peak, key=K6_KEY[route],
+                record=route == "mma_sync", k6_route=route,
+                route_work=work, route_flops=route_flops,
                 route_bound_ms=rb[0], route_bound_by=rb[1])
     del qa, ka, va, qt, kt, vt, got, want, err
 
@@ -2566,12 +2616,11 @@ def main():
 
     def zero_counts():
         torch.cuda.synchronize()
-        for fn in counted:
-            fn.launches = 0
+        zero_launches(counted)
 
     def read_counts(path, needed):
         torch.cuda.synchronize()
-        launches[path] = {fn.__name__: fn.launches for fn in counted}
+        launches[path] = launch_counts(counted)
         phase("launches " + path, **launches[path])
         for fn in needed:
             check(fn.launches > 0,
@@ -3425,14 +3474,21 @@ def main():
     read_counts("bf16 long", (flash_attention, ssd_scan))
 
     # ---- 17. launches on the main path -------------------------------------
-    counts = {fn.__name__: sum(c[fn.__name__] for c in launches.values())
-              for fn in counted}
+    # K6's two kernels are recorded apart: flash_attention (mma.sync) and
+    # flash_attention_sm90 (wgmma), each with its route's launches
+    counts = {name: sum(c[name] for c in launches.values())
+              for name in launches["datapath"]}
     phase("kernels", **counts)
     for name, c in counts.items():
         check(c > 0, f"{name} never launched on the main path")
-        rec[name]["launches"] = c
+    for name, key in (*((fn.__name__, fn.__name__) for fn in counted
+                        if fn is not flash_attention),
+                      ("flash_attention", "flash_attention.mma_sync"),
+                      ("flash_attention_sm90", "flash_attention.wgmma")):
+        rec[name]["launches"] = counts[key]
         rec[name]["launches_by_path"] = {
-            path: per[name] for path, per in launches.items()}
+            path: per[key] for path, per in launches.items()}
+    rec["flash_attention"]["launches_all_routes"] = counts["flash_attention"]
     phase("engine", flushes=eng.stats["flushes"], wqes=eng.stats["wqes"],
           qdma_writes=eng.stats["transport"]["qdma_writes"],
           lc_wqes=eng.stats["lc_wqes"])

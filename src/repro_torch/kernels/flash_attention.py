@@ -3,23 +3,32 @@
 
 Online-softmax attention with causal and sliding-window masks, GQA (q
 head ``h`` reads kv head ``h // group``) and a zero output for a row that
-sees no key. On the H100 the CUDA kernel (``csrc/flash_attention.cu``)
-gives each 4-warp thread block one (sequence, q head, 64-row q tile) and
-walks the 64-key K/V tiles it can see, double-buffered in shared memory,
-with QK^T and PV on the tensor cores (``mma.sync``: bf16 with P split
-into two bf16 halves, f32 as 3xTF32, both within the reference's f32
-tolerance) and the online softmax in the accumulator registers. It masks
-ragged edges itself: any ``Sq``, ``Skv`` runs without padding, and K/V
-are never repeated per q head. It takes 16-byte aligned tensors. V and
-the output may be narrower than q and k for a listed pair of head dims
-(MLA's 192 for q and k, 128 for v).
+sees no key. On the H100 a CUDA call takes one of two hand-written
+kernels, as ``flash_attention_route`` says:
+
+* ``"wgmma"`` (``csrc/flash_attention_sm90.cu``), bf16 at the served head
+  dims with more than 64 query rows: FlashAttention-3's shape, a block of
+  one producer and two consumer warpgroups per (sequence, q head, 128-row
+  q tile), K/V streamed by TMA through a ring of 64-key stages (96 at
+  head dim 64), QK^T and PV by ``wgmma`` (P split into two bf16 halves)
+  and the online softmax in the accumulator registers;
+* ``"mma_sync"`` (``csrc/flash_attention.cu``), f32 (3xTF32) and every
+  other bf16 call: a 4-warp block per 64-row q tile, 64-key K/V tiles
+  double-buffered by ``cp.async``, ``mma.sync`` products.
+
+Both stay within the reference's f32 tolerance (plus one bf16 step in
+bf16), mask ragged edges themselves (any ``Sq``, ``Skv`` runs without
+padding) and never repeat K/V per q head. They take 16-byte aligned
+tensors. V and the output may be narrower than q and k for a listed pair
+of head dims (MLA's 192 for q and k, 128 for v).
 
 ``flash_attention`` runs the plain PyTorch version for tensors on the
-CPU, launches the CUDA kernel for tensors on the GPU and, for tensors on
+CPU, launches a CUDA kernel for tensors on the GPU and, for tensors on
 the ``meta`` device (the dry-run's), returns an output of the kernel's
 shape and dtype and launches nothing; ``flash_attention.launches``
-counts the launches. On every device the result carries a ``grad_fn``
-whose backward recomputes the plain version and differentiates it
+counts the launches and ``flash_attention.route_launches`` the launches
+of each route. On every device the result carries a ``grad_fn`` whose
+backward recomputes the plain version and differentiates it
 (``_FlashAttention``); the forward stays the kernel. An active
 ``roofline.count.OpCounter`` is charged ``flash_attention_cost`` per
 call, whatever the device.
@@ -36,9 +45,12 @@ from repro_torch.roofline.count import charge
 
 NEG_INF = -1e30
 
-#: (q and k head dim, v and output head dim) pairs the CUDA kernel is
+#: (q and k head dim, v and output head dim) pairs the mma.sync kernel is
 #: instantiated for: the square dims, and MLA's nope + rope / v
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
+#: the pairs the wgmma kernel is instantiated for: the served ones
+SM90_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
+ROUTES = ("wgmma", "mma_sync")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -112,6 +124,26 @@ def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return flops, nbytes
 
 
+def flash_attention_route(dtype: torch.dtype, d: int, dv: int,
+                          sq: int) -> str:
+    """The kernel a CUDA call of this dtype, (q/k, v) head dims and query
+    rows goes to: ``"wgmma"`` or ``"mma_sync"``.
+
+    * f32 goes to ``mma_sync``: its 3xTF32 products keep the reference's
+      f32 tolerance, where ``wgmma`` in TF32 gives a single TF32 product.
+    * bf16 at ``SM90_HEAD_DIMS`` with more than 64 rows goes to ``wgmma``:
+      TMA boxes and swizzle atoms of 64 columns, and 128-row tiles.
+    * bf16 at 64 rows or fewer (seamless's cross-attention decode step,
+      one row over the encoder's frames) goes to ``mma_sync``, whose one
+      64-row tile covers the call where a 128-row tile would be half
+      empty at best.
+    * bf16 at (16, 16) and (32, 32) goes to ``mma_sync``: under one
+      64-column atom."""
+    if dtype == torch.bfloat16 and (d, dv) in SM90_HEAD_DIMS and sq > 64:
+        return "wgmma"
+    return "mma_sync"
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     scale: Optional[float] = None) -> torch.Tensor:
@@ -140,7 +172,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         if (d, dv) not in HEAD_DIMS:
             raise ValueError(f"flash_attention: head_dim {d} with v "
                              f"head_dim {dv} not in {HEAD_DIMS}")
-        if b * hq > 65535:
+        # grid.y takes at most 65535 blocks: mma_sync's (sequence, q head)
+        # pairs, wgmma's 128-row q tiles
+        if flash_attention_route(q.dtype, d, dv, sq) == "wgmma":
+            if -(-sq // 128) > 65535:
+                raise ValueError(f"flash_attention: Sq = {sq} is over 65535 "
+                                 f"tiles of 128 rows")
+        elif b * hq > 65535:
             raise ValueError(f"flash_attention: B * Hq = {b * hq} > 65535")
         _build.check_cuda("flash_attention", q4, k4, v4)
         for name, t in (("q", q4), ("k", k4), ("v", v4)):
@@ -174,13 +212,8 @@ class _FlashAttention(torch.autograd.Function):
                                          scale=scale).contiguous()
         out = q.new_empty((b, sq, hq, dv))
         if out.numel() and q.device.type == "cuda":
-            _build.launch("reconic_flash_attention", q.data_ptr(),
-                          k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq,
-                          hkv, sq, skv, d, dv, int(causal), int(window),
-                          float(np.float32(scale)),
-                          int(q.dtype == torch.bfloat16),
-                          _build.stream_ptr(q.device))
-            flash_attention.launches += 1
+            _launch(flash_attention_route(q.dtype, d, dv, sq), q, k, v, out,
+                    causal, window, scale)
         return out
 
     @staticmethod
@@ -194,4 +227,31 @@ class _FlashAttention(torch.autograd.Function):
         return (*grads, None, None, None)
 
 
-flash_attention.launches = 0
+def _launch(route, q, k, v, out, causal, window, scale):
+    """Launch ``route``'s kernel on (B, S, H, d) CUDA tensors that
+    ``flash_attention`` checked, and count it."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, dv = v.shape
+    if route == "wgmma":
+        _build.launch("reconic_flash_attention_sm90", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
+                      sq, skv, d, dv, int(causal), int(window),
+                      float(np.float32(scale)), _build.stream_ptr(q.device))
+    else:
+        _build.launch("reconic_flash_attention", q.data_ptr(), k.data_ptr(),
+                      v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,
+                      dv, int(causal), int(window), float(np.float32(scale)),
+                      int(q.dtype == torch.bfloat16),
+                      _build.stream_ptr(q.device))
+    flash_attention.launches += 1
+    flash_attention.route_launches[route] += 1
+
+
+def reset_launches() -> None:
+    """Set ``flash_attention``'s launch counts, the total and each
+    route's, to 0."""
+    flash_attention.launches = 0
+    flash_attention.route_launches = dict.fromkeys(ROUTES, 0)
+
+
+reset_launches()

@@ -20,8 +20,10 @@ from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention as jax_fa
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, flash_attention,
-                                                 flash_attention_plain)
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, SM90_HEAD_DIMS,
+                                                 flash_attention,
+                                                 flash_attention_plain,
+                                                 flash_attention_route)
 
 TOL = 2e-4
 
@@ -134,6 +136,33 @@ def test_plain_version_is_the_wrapper_on_cpu():
     assert flash_attention.launches == before      # no kernel on the CPU
     want = flash_attention_plain(q, k[:, :, :2], v[:, :, :2], window=7)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,d,dv,sq,route", [
+    (torch.bfloat16, 64, 64, 32768, "wgmma"),
+    (torch.bfloat16, 128, 128, 65, "wgmma"),
+    (torch.bfloat16, 192, 128, 8192, "wgmma"),
+    (torch.bfloat16, 64, 64, 64, "mma_sync"),
+    (torch.bfloat16, 64, 64, 1, "mma_sync"),
+    (torch.bfloat16, 16, 16, 4096, "mma_sync"),
+    (torch.bfloat16, 32, 32, 4096, "mma_sync"),
+    (torch.float32, 64, 64, 32768, "mma_sync"),
+    (torch.float32, 128, 128, 512, "mma_sync"),
+    (torch.float32, 192, 128, 512, "mma_sync"),
+])
+def test_route_of_each_call_class(dtype, d, dv, sq, route):
+    """Which kernel a CUDA call goes to: bf16 at the served head dims with
+    more than 64 rows to the wgmma kernel, the rest to mma.sync."""
+    assert flash_attention_route(dtype, d, dv, sq) == route
+
+
+def test_f32_never_takes_the_wgmma_route():
+    """f32 keeps its 3xTF32 kernel at every head-dim pair and length."""
+    for d, dv in HEAD_DIMS:
+        for sq in (1, 64, 65, 128, 32768):
+            assert flash_attention_route(torch.float32, d, dv,
+                                         sq) == "mma_sync"
+    assert set(SM90_HEAD_DIMS) <= set(HEAD_DIMS)
 
 
 def test_bad_arguments_raise():

@@ -14,7 +14,11 @@ attention is within 2e-4 of its plain version in f32 (the reference's
 tolerance; sums in another order), and in bf16 within 2e-4 plus one
 bf16 step of the result (2^-7 relative: bf16 keeps 8 significant
 bits); in f32 over 4096 and 32768 keys its error against float64 is
-within twice the plain f32 version's own. K7 ``ssd_scan`` is within 2e-5
+within twice the plain f32 version's own, and in bf16 (the wgmma kernel)
+over 512 to 32768 keys within twice the plain bf16 version's own. The
+wgmma kernel is held to the bf16 tolerance at GQA groups 1 to 8, ragged
+lengths, windows, rows without keys and B * Hq at and past 65535, each
+call counted on its route. K7 ``ssd_scan`` is within 2e-5
 of its plain version in f32 and 6e-2 in bf16 (the reference's
 ``tests/test_kernels.py`` tolerances); its
 final state, f32 in both dtypes, within 2e-5. Under autograd, K6's and
@@ -399,6 +403,171 @@ def test_cuda_flash_attention_flat_heads_and_bad_head_dim(cuda):
     with pytest.raises(ValueError, match="q is not 16-byte aligned"):
         flash_attention(off, off, off)
     assert flash_attention.launches == before
+
+
+def _route_counts():
+    return dict(flash_attention.route_launches)
+
+
+def _wgmma_case(cuda, seed, b, sq, skv, hq, hkv, d, dv):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device=cuda).to(
+            torch.bfloat16)
+
+    return rand(b, sq, hq, d), rand(b, skv, hkv, d), rand(b, skv, hkv, dv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv,sq,skv,hq,hkv,causal,window", [
+    (64, 64, 1000, 1000, 8, 2, True, 0),
+    (64, 64, 129, 129, 5, 1, True, 0),
+    (64, 64, 1000, 1000, 7, 1, False, 0),
+    (64, 64, 129, 1000, 8, 1, False, 0),
+    (64, 64, 1000, 63, 4, 4, False, 0),
+    (64, 64, 2048, 2048, 4, 1, True, 1024),
+    (64, 64, 1000, 1000, 5, 5, True, 100),
+    (64, 64, 1, 129, 4, 1, False, 0),
+    (64, 64, 63, 63, 4, 4, True, 0),
+    (128, 128, 1000, 1000, 8, 2, True, 0),
+    (128, 128, 129, 129, 7, 1, True, 0),
+    (128, 128, 1000, 1, 4, 1, False, 0),
+    (128, 128, 300, 1000, 5, 1, False, 0),
+    (128, 128, 1500, 1500, 8, 1, True, 1024),
+    (128, 128, 63, 200, 4, 4, False, 0),
+    (128, 128, 1, 1, 4, 4, True, 0),
+    (192, 128, 1000, 1000, 4, 4, True, 0),
+    (192, 128, 129, 129, 8, 1, True, 0),
+    (192, 128, 1000, 700, 4, 1, False, 0),
+    (192, 128, 1200, 1200, 4, 4, True, 1024),
+    (192, 128, 1, 63, 4, 4, False, 0),
+])
+def test_cuda_flash_attention_wgmma_matches_plain(cuda, d, dv, sq, skv, hq,
+                                                  hkv, causal, window):
+    """The wgmma kernel (``csrc/flash_attention_sm90.cu``) against the
+    plain version at each of its head-dim pairs, causal, not causal and
+    with a window, GQA groups 1, 4, 5, 7 and 8, Sq and Skv that no tile
+    divides and Skv < Sq, within 2e-4 plus one bf16 step. A call with
+    more than 64 rows goes to it through ``flash_attention``; one with
+    fewer is launched on it directly (the routing sends those to the
+    mma.sync kernel)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _wgmma_case(cuda, sq + skv + d + hq, 2, sq, skv, hq, hkv, d,
+                          dv)
+    before, routes = flash_attention.launches, _route_counts()
+    if fa.flash_attention_route(q.dtype, d, dv, sq) == "wgmma":
+        got = flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        got = q.new_empty((2, sq, hq, dv))
+        fa._launch("wgmma", q, k, v, got, causal, window, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert _route_counts() == {**routes, "wgmma": routes["wgmma"] + 1}
+    assert got.dtype == torch.bfloat16 and got.shape == (2, sq, hq, dv)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,window", [(700, 0, 0), (1000, 300, 64)])
+def test_cuda_flash_attention_wgmma_rows_without_keys_write_zero(cuda, sq,
+                                                                 skv,
+                                                                 window):
+    """Rows that see no key write 0 on the wgmma route: every row when
+    there are no keys, and, causal with a window of 64 over 300 keys,
+    every row from 363 on."""
+    q, k, v = _wgmma_case(cuda, 3, 2, sq, skv, 8, 2, 64, 64)
+    routes = _route_counts()
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert _route_counts()["wgmma"] == routes["wgmma"] + 1
+    first_blind = skv + window - 1 if skv else 0
+    assert bool((got[:, first_blind:] == 0).all())
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=2.0 ** -7,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,sq", [(4369, 15, 129), (4369, 15, 64),
+                                     (4096, 16, 129)])
+def test_cuda_flash_attention_many_heads(cuda, b, hq, sq):
+    """B * Hq at and past 65535: the wgmma route puts (sequence, head)
+    pairs on grid.x and takes 65536; the mma.sync route (64 rows) takes
+    65535 on its grid.y. Checked on the first and last sequences."""
+    from repro_torch.kernels.flash_attention import flash_attention_route
+    q, k, v = _wgmma_case(cuda, b + sq, b, sq, 64, hq, 1, 64, 64)
+    route = flash_attention_route(q.dtype, 64, 64, sq)
+    assert route == ("wgmma" if sq > 64 else "mma_sync")
+    routes = _route_counts()
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _route_counts()[route] == routes[route] + 1
+    for i in (0, b - 1):
+        want = flash_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                     causal=True)
+        torch.testing.assert_close(got[i:i + 1].float(), want.float(),
+                                   rtol=2.0 ** -7, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_routes_and_misaligned_input(cuda):
+    """Each route's launch count moves with the calls routed to it (f32,
+    bf16 at (32, 32) and a bf16 call of 64 rows to mma.sync, bf16 at the
+    served dims over 64 rows to wgmma), and a misaligned bf16 input on
+    the wgmma route raises with no launch on either."""
+    before, routes = flash_attention.launches, _route_counts()
+    q, k, v = _wgmma_case(cuda, 9, 1, 200, 200, 4, 2, 128, 128)
+    flash_attention(q, k, v)
+    flash_attention(q[:, :64].contiguous(), k, v)
+    flash_attention(q.float(), k.float(), v.float())
+    s = torch.randn((1, 100, 2, 32), device=cuda).bfloat16()
+    flash_attention(s, s, s)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 4
+    assert _route_counts() == {"wgmma": routes["wgmma"] + 1,
+                               "mma_sync": routes["mma_sync"] + 3}
+    n = 1 * 200 * 4 * 128
+    off = torch.randn(n + 1, device=cuda).bfloat16()[1:].view(1, 200, 4, 128)
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        flash_attention(off, k, v)
+    assert flash_attention.launches == before + 4
+    assert _route_counts()["wgmma"] == routes["wgmma"] + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("keys", [512, 4096, 32768])
+def test_cuda_flash_attention_bf16_does_not_drift_with_key_count(cuda,
+                                                                 keys):
+    """K6 in bf16 (the wgmma route) over one sequence of ``keys`` tokens
+    at tinyllama's heads (32 q over 4 kv heads of 64, causal): the last
+    64 rows' error against float64, over the output's largest |value|,
+    within twice the plain version's own, which is its output's bf16
+    rounding (1.9-2.6e-3 of the scale on the mma.sync route). O stays in
+    the wgmma accumulators across every KV tile."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(keys + 1)
+    q, k, v = (torch.randn((1, keys, h, 64), generator=gen, device=cuda)
+               .bfloat16() for h in (32, 4, 4))
+    r0 = keys - 64
+    qg = q[:, r0:].double().reshape(1, 64, 4, 8, 64) * 64 ** -0.5
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double())
+    pos = torch.arange(keys, device=cuda)
+    sc = sc.masked_fill(pos[r0:, None] < pos[None, :], float("-inf"))
+    want = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(sc, dim=-1),
+                        v.double()).reshape(1, 64, 32, 64)
+    scale = want.abs().max().item()
+    routes = _route_counts()
+    got = flash_attention(q, k, v, causal=True)[:, r0:].double()
+    assert _route_counts()["wgmma"] == routes["wgmma"] + 1
+    plain = flash_attention_plain(q[:, r0:], k, v, causal=True,
+                                  q_offset=r0).double()
+    err = (got - want).abs().max().item() / scale
+    plain_err = (plain - want).abs().max().item() / scale
+    assert err <= 2 * plain_err, (err, plain_err)
 
 
 @pytest.mark.cuda

@@ -7,7 +7,10 @@ K6 runs QK^T and PV on the tensor cores (``csrc/flash_attention.cu``):
   (``cvt.rna.tf32.f32``: 10 mantissa bits, nearest, ties away from zero)
   and ``a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi``;
 * bf16 with exact bf16 x bf16 products and P split into
-  ``P_hi = bf16(p)`` and ``P_lo = bf16(p - P_hi)``, two PV products.
+  ``P_hi = bf16(p)`` and ``P_lo = bf16(p - P_hi)``, two PV products: the
+  route of both the mma.sync kernel and the wgmma kernel
+  (``csrc/flash_attention_sm90.cu``), which chose the split over a single
+  bf16 P on ``test_bf16_routes_against_the_bf16_contract``.
 
 The emulation runs each product as the kernel's chain of ``mma`` calls:
 k in chunks of the mma depth (8 for TF32, 16 for bf16), each chunk's
@@ -135,7 +138,8 @@ def _inputs(seed, b, sq, skv, hq, hkv, d, bf16):
 
 
 # (b, sq, skv, hq, hkv, d, causal, window): the flash-attention cases of
-# tests/test_kernels.py, then 2 x 512 x (8 q heads over 1) x 64 causal
+# tests/test_kernels.py, then 2 x 512 x (8 q heads over 1) x 64 causal and
+# the served head dims 128 and 192 (with a window)
 CASES = [
     (3, 128, 128, 1, 1, 16, True, 0),
     (3, 128, 128, 1, 1, 16, False, 0),
@@ -147,6 +151,8 @@ CASES = [
     (2, 64, 64, 4, 2, 16, True, 0),
     (2, 64, 64, 8, 1, 16, True, 0),
     (2, 512, 512, 8, 1, 64, True, 0),
+    (1, 256, 256, 4, 1, 128, True, 0),
+    (1, 200, 200, 4, 4, 192, True, 64),
 ]
 
 
@@ -205,6 +211,40 @@ def test_p_split_beats_a_single_bf16_p():
                                causal=True).double()
             - want).abs().max().item()
     assert err2 <= ORACLE_TOL < err1, (err2, err1)
+
+
+# (b, sq, skv, hq, hkv, d, dv, causal, window): the head-dim pairs of the
+# wgmma kernel, causal over GQA groups, and MLA's not causal
+SERVED_DIMS = [
+    (1, 512, 512, 8, 1, 64, 64, True, 0),
+    (1, 512, 512, 4, 1, 128, 128, True, 0),
+    (1, 256, 256, 4, 4, 192, 128, True, 0),
+    (1, 128, 320, 4, 1, 192, 128, False, 0),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,causal,window", SERVED_DIMS)
+def test_bf16_routes_against_the_bf16_contract(b, sq, skv, hq, hkv, d, dv,
+                                               causal, window):
+    """The ground for the wgmma kernel's split P, at its head-dim pairs:
+    each bf16 route's output, rounded to bf16 as the kernel stores it,
+    against ``ref_attention`` on the same bf16 inputs rounded the same
+    way (what the GPU tests hold the kernel to): the split P within 2e-4
+    plus one bf16 step (2^-7 of |want|) everywhere, a single bf16 P over
+    it on some outputs."""
+    q, k, v = _inputs(sq + d + dv + hq, b, sq, skv, hq, hkv, d, True)
+    v = v[..., :dv].contiguous()
+    want = torch.from_numpy(np.array(ref.ref_attention(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+        jnp.asarray(v.numpy()), causal=causal, window=window))
+    ).bfloat16().float()
+    limit = TOL + 2.0 ** -7 * want.abs()
+    over = {}
+    for route in ("bf16", "bf16_single_p"):
+        got = attention_emulated(q, k, v, route, causal=causal,
+                                 window=window).bfloat16().float()
+        over[route] = ((got - want).abs() / limit).max().item()
+    assert over["bf16"] <= 1.0 < over["bf16_single_p"], over
 
 
 @pytest.mark.parametrize("m,k,n", [(512, 16, 512), (64, 1024, 64)])

@@ -1,12 +1,16 @@
-"""K6's error against float64 as the key count grows, and its f32 time.
+"""K6's error against float64 as the key count grows, and its times.
 
 For one sequence at tinyllama-1.1b's heads (32 q heads over 4 kv heads of
 64, causal) and 512, 4096 and 32768 keys, the last 64 query rows of K6
 (``flash_attention``) and of its plain f32 version are held against the
 same attention computed in float64, in f32 and on bf16 inputs: the largest
-|error| over the largest |value| of the float64 output. Then K6 in f32 is
-timed between CUDA events at the f32 shapes ``chip_smoke.py`` phase 2
-times, and at 32768 keys.
+|error| over the largest |value| of the float64 output (bf16 takes the
+wgmma route where the tree has one). Then K6 in f32 is timed between CUDA
+events at the f32 shapes ``chip_smoke.py`` phase 2 times, and at 32768
+keys, and K6 in bf16 at the ``K6_SERVED`` shapes of this checkout's
+``chip_smoke.py``, each beside ``scaled_dot_product_attention`` on its
+flash or efficient backend (K and V repeated to the q heads, a window as a
+boolean mask), with the route each call took.
 
 The tree whose kernels are built and run is the one given as the first
 argument (default: this checkout), so that two trees can be compared in
@@ -25,9 +29,12 @@ import sys
 
 import torch
 
-ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else
-                       os.path.join(os.path.dirname(__file__), ".."))
+HERE = os.path.abspath(os.path.join(os.path.dirname(__file__), ".."))
+ROOT = os.path.abspath(sys.argv[1] if len(sys.argv) > 1 else HERE)
 sys.path.insert(0, os.path.join(ROOT, "src"))
+sys.path.insert(1, HERE)
+
+from chip_smoke import K6_SERVED  # noqa: E402
 
 from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -72,6 +79,57 @@ def event_ms(fn, iters):
     return t0.elapsed_time(t1) / iters
 
 
+def reset_routes():
+    for r in getattr(flash_attention, "route_launches", {}):
+        flash_attention.route_launches[r] = 0
+
+
+def route_of(fn):
+    """The route the calls of ``fn`` since ``reset_routes`` took
+    ("mma_sync" on a tree that has no other)."""
+    routes = getattr(fn, "route_launches", None)
+    if routes is None:
+        return "mma_sync"
+    return max(routes, key=routes.get)
+
+
+def served_bf16(dev, gen):
+    """K6 and SDPA in bf16 at each ``K6_SERVED`` shape, 3 calls each."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    for what, b, sq, skv, hq, hkv, d, dv, causal, window in K6_SERVED:
+        q = torch.randn((b, sq, hq, d), generator=gen, device=dev).bfloat16()
+        k = torch.randn((b, skv, hkv, d), generator=gen,
+                        device=dev).bfloat16()
+        v = torch.randn((b, skv, hkv, dv), generator=gen,
+                        device=dev).bfloat16()
+        reset_routes()
+        ms = event_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                              window=window), 3)
+        route = route_of(flash_attention)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        mask = None
+        if window:
+            i = torch.arange(skv, device=dev)
+            mask = (i[:, None] >= i[None, :]) & (i[:, None] - i[None, :]
+                                                 < window)
+
+        def library():
+            with sdpa_kernel([SDPBackend.FLASH_ATTENTION,
+                              SDPBackend.EFFICIENT_ATTENTION]):
+                if mask is not None:
+                    return sdpa(qt, kt, vt, attn_mask=mask)
+                return sdpa(qt, kt, vt, is_causal=causal)
+
+        sdpa_ms = event_ms(library, 3)
+        print(f"[k6 bf16 time] what={what!r} route={route} ms={ms} "
+              f"sdpa_ms={sdpa_ms}", flush=True)
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+
+
 def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
@@ -87,10 +145,12 @@ def main():
             r0 = s - 64
             want = exact(q[:, r0:], k, v, r0)
             scale = want.abs().max().item()
+            reset_routes()
             got = flash_attention(q, k, v, causal=True)[:, r0:]
             plain = flash_attention_plain(q[:, r0:], k, v, causal=True,
                                           q_offset=r0)
             print(f"[k6 drift] dtype={str(dtype)[6:]} keys={s} "
+                  f"route={route_of(flash_attention)} "
                   f"k6_rel={(got.double() - want).abs().max().item() / scale} "
                   f"plain_rel="
                   f"{(plain.double() - want).abs().max().item() / scale}",
@@ -104,6 +164,7 @@ def main():
                       20 if sq < 32768 else 3)
         print(f"[k6 f32 time] shape={b}x{sq}/{skv}x{hq}/{hkv}x{d}/{dv} "
               f"causal={causal} window={window} ms={ms}", flush=True)
+    served_bf16(dev, gen)
 
 
 if __name__ == "__main__":
