@@ -4,7 +4,9 @@
 
 Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``
 (printing each kernel's registers, shared memory and spills as ptxas
-reports them) and runs, on the card:
+reports them, and the TF32 wgmma kernel's ``HGMMA``, ``UTMALDG`` and
+``STL`` counts in its SASS, each instantiation needing the first two)
+and runs, on the card:
 
   1. the card's name and power limit (``nvidia-smi``);
   2. each kernel against its plain PyTorch version at the shapes the main
@@ -13,11 +15,15 @@ reports them) and runs, on the card:
      and 65536), within
      ``1e-5 * k / 128`` for the f32 matmul (K5 on the CUDA cores, no
      TF32; at 512x16x512 and 2048^3), within 2e-4 (plus one bf16 step
-     in bf16) for K6 attention on the tensor cores (3xTF32 in f32 on
-     ``mma.sync``; bf16 with P split in two halves, on ``wgmma`` over
-     more than 64 rows at head dims 64, 128 and 192/128, each row
-     printing the route it took, TFLOP/s of the function's flops and
-     SDPA's time beside) at the tinyllama prefill shape (256 x
+     in bf16) for K6 attention on the tensor cores (3xTF32 in f32, on
+     ``wgmma`` over more than 64 rows at head dims 64, 128 and 192/128
+     and on ``mma.sync`` elsewhere; bf16 with P split in two halves, on
+     ``wgmma`` over more than 64 rows at those dims, each row printing
+     the route it
+     took, TFLOP/s of the function's flops and SDPA's time beside, and
+     the TF32 route's pre-pass and attention kernel each on a
+     ``[kernel flash_attention passes]`` line) at the tinyllama prefill
+     shape (256 x
      512 x 64, causal, GQA 8, f32; also with window 32, in bf16, at d =
      128, at hymba's 25 q over 5 kv heads with window 1024, at
      deepseek-v2-lite's MLA prefill, 16 heads with q and k 192 wide and
@@ -31,8 +37,10 @@ reports them) and runs, on the card:
      32768 rows would not fit) — with
      its time, the plain version's time, its bound (the function's own
      work, by the formula its wrapper charges to the operation counter
-     (``*_cost`` beside each kernel), at its dtype's peak; for K6 and K7
-     also the bound of the products their routes run) and, for the
+     (``*_cost`` beside each kernel), at its dtype's peak, K6 in f32 as
+     three TF32 products at the TF32 peak since it runs on the tensor
+     cores; for K6 and K7 also the bound of the products their routes
+     run) and, for the
      matmul and attention, the
      time of
      ``torch.matmul`` and of ``scaled_dot_product_attention``
@@ -225,11 +233,12 @@ reports them) and runs, on the card:
      two runs a cell on the card, 28 with three, 29 and 30),
      each path run with the counters at 0 and read right after: every
      kernel a path runs must have launched on it, and each of the seven
-     > 0, K6 also per route (``flash_attention.wgmma``, the Hopper kernel
-     that bf16 prefills over 64 rows at the served head dims take, and
+     > 0, K6 also per route (``flash_attention.wgmma`` and
+     ``flash_attention.wgmma_tf32``, the Hopper kernels that bf16 and
+     f32 calls over 64 rows at the served head dims take, and
      ``flash_attention.mma_sync``), each > 0; the kernels line records
-     K6's two kernels apart (``flash_attention`` and
-     ``flash_attention_sm90``).
+     K6's three kernels apart (``flash_attention``,
+     ``flash_attention_sm90`` and ``flash_attention_sm90_tf32``).
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -306,10 +315,29 @@ K6_SERVED = (
     ("seamless cross prefill", 2, 32768, 8192, 16, 16, 64, 64, False, 0),
     ("seamless cross decode", 8, 1, 8192, 16, 16, 64, 64, False, 0),
 )
-# K6's two kernels: each route's source and its key in the kernels line
+# K6 at phase 2's shapes, f32 but for one bf16 row (the f32 tinyllama row
+# recorded last): (where, dtype, B, Sq, Skv, Hq, Hkv, d, dv, causal, window)
+K6_PHASE2 = (
+    ("tinyllama-1.1b window 32", "float32", 8, 512, 512, 32, 4, 64, 64, True,
+     32),
+    ("tinyllama-1.1b", "bfloat16", 8, 512, 512, 32, 4, 64, 64, True, 0),
+    ("hymba-1.5b", "float32", 8, 512, 512, 25, 5, 64, 64, True, 1024),
+    ("d 128", "float32", 8, 512, 512, 32, 4, 128, 128, True, 0),
+    ("deepseek-v2-lite-16b mla", "float32", 8, 512, 512, 16, 16, 192, 128,
+     True, 0),
+    ("seamless encoder", "float32", 8, 128, 128, 16, 16, 64, 64, False, 0),
+    ("seamless cross prefill", "float32", 8, 512, 128, 16, 16, 64, 64, False,
+     0),
+    ("seamless cross decode", "float32", 8, 1, 128, 16, 16, 64, 64, False, 0),
+    ("qwen2-vl-7b", "float32", 8, 512, 512, 28, 4, 128, 128, True, 0),
+    ("tinyllama-1.1b", "float32", 8, 512, 512, 32, 4, 64, 64, True, 0),
+)
+# K6's three kernels: each route's source and its key in the kernels line
 K6_SOURCE = {"mma_sync": "flash_attention.cu",
-             "wgmma": "flash_attention_sm90.cu"}
-K6_KEY = {"mma_sync": "flash_attention", "wgmma": "flash_attention_sm90"}
+             "wgmma": "flash_attention_sm90.cu",
+             "wgmma_tf32": "flash_attention_sm90_tf32.cu"}
+K6_KEY = {"mma_sync": "flash_attention", "wgmma": "flash_attention_sm90",
+          "wgmma_tf32": "flash_attention_sm90_tf32"}
 # K7's shapes in the bf16 cells, f32 as models/ssm.py passes them (phase 2
 # holds each): (where, B, S, nh, hd, d_state, chunk), one group
 K7_SERVED = (
@@ -394,12 +422,17 @@ def traced_device_us(fn, tries=1):
 
 # the __global__ functions one call of each counted wrapper launches, once
 # each: K7 runs five passes per call, each named ssd_scan_<pass>; a K6 call
-# runs one of its routes' kernels (ROUTE_SYMBOL)
-ROUTE_SYMBOL = {"flash_attention": {"mma_sync": "flash_attention_kernel",
-                                    "wgmma": "flash_attention_sm90_kernel"}}
+# runs its route's kernels (ROUTE_SYMBOL: the TF32 route a pre-pass, then
+# the attention)
+ROUTE_SYMBOL = {"flash_attention": {
+    "mma_sync": ("flash_attention_kernel",),
+    "wgmma": ("flash_attention_sm90_kernel",),
+    "wgmma_tf32": ("flash_attention_tf32_split",
+                   "flash_attention_sm90_tf32_kernel")}}
 KERNEL_SYMBOL = {"systolic_mm": ("systolic_mm_kernel",),
                  "flash_attention": tuple(
-                     ROUTE_SYMBOL["flash_attention"].values()),
+                     sym for syms in ROUTE_SYMBOL["flash_attention"].values()
+                     for sym in syms),
                  "parse_packets": ("parse_packets_kernel",),
                  "parse_packet_fields": ("parse_packet_fields_kernel",),
                  "quantize_stream": ("quantize_kernel",),
@@ -447,8 +480,9 @@ def _traced_ms(fn, iters, wrapper=None):
         _, rows = _trace(run)
         if r0:
             # the kernels of the routes these calls took
-            names = {ROUTE_SYMBOL[wrapper.__name__][r]
-                     for r, n in wrapper.route_launches.items() if n > r0[r]}
+            names = {sym for r, n in wrapper.route_launches.items()
+                     if n > r0[r]
+                     for sym in ROUTE_SYMBOL[wrapper.__name__][r]}
         rows = [e for e in rows if e.count]
         if not any(e.self_device_time_total > 0 for e in rows):
             continue
@@ -2283,7 +2317,8 @@ def main():
     from repro_torch.kernels.systolic_mm import (systolic_mm,
                                                  systolic_mm_cost,
                                                  systolic_mm_plain)
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (SM90_HEAD_DIMS,
+                                                     flash_attention,
                                                      flash_attention_cost,
                                                      flash_attention_plain,
                                                      flash_attention_route)
@@ -2314,6 +2349,28 @@ def main():
         if ("entry function" in line or "registers" in line
                 or re.search(r"[1-9][0-9]* bytes spill", line)):
             print("  " + line.strip())
+    # the TF32 wgmma kernel's SASS, per instantiation (d, dv, keys a stage,
+    # K stages, V stages, consumer warpgroups): its wgmmas (HGMMA), TMA
+    # loads (UTMALDG) and spill stores (STL)
+    sass = subprocess.run(
+        [os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump"),
+         "--dump-sass", str(built.path)], capture_output=True, text=True,
+        check=True, timeout=300).stdout
+    n_tf32 = 0
+    for fn_sass in sass.split("Function : ")[1:]:
+        name = fn_sass.split("\n", 1)[0]
+        if "flash_attention_sm90_tf32_kernel" not in name:
+            continue
+        n_tf32 += 1
+        n_op = {op: fn_sass.count(op) for op in ("HGMMA", "UTMALDG", "STL")}
+        args = re.search(r"kernelI((?:Li\d+E)+)E", name)
+        phase("sass flash_attention_sm90_tf32",
+              instance="/".join(re.findall(r"\d+", args.group(1)))
+              if args else name, **n_op)
+        check(n_op["HGMMA"] > 0 and n_op["UTMALDG"] > 0,
+              f"flash_attention_sm90_tf32 {name}: no HGMMA or UTMALDG")
+    check(n_tf32 == len(SM90_HEAD_DIMS),
+          f"{n_tf32} flash_attention_sm90_tf32 instantiations in the SASS")
 
     # ---- 2. each kernel against its plain version ------------------------
     rec = {}
@@ -2446,23 +2503,19 @@ def main():
     # step, 1 row) and at qwen2-vl-7b's prefill (28 q heads over 4 kv heads
     # of 128, a GQA group of 7, causal); SDPA on the same inputs is the
     # yardstick (the port never calls it). The bound is the function's own
-    # work (2 (d + dv) flops per visible q-k pair) at the peak of its
-    # dtype; route_bound_ms counts the products the kernel's route runs: in
+    # work (2 (d + dv) flops per visible q-k pair) at the least cost its
+    # dtype's contract allows: bf16 at the bf16 peak; f32, which every
+    # route runs as 3xTF32 on the tensor cores, as three TF32 products at
+    # the TF32 peak (a third of 495 TFLOP/s: the 67 TFLOP/s of the CUDA
+    # cores is no floor there, since one TF32 product alone runs under
+    # it). route_bound_ms counts the products the kernel's route runs: in
     # bf16 two PV products (P split in a high and a low bf16 half) at the
-    # bf16 peak, in f32 three TF32 products each (3xTF32) at the TF32 peak.
+    # bf16 peak, in f32 three TF32 products each (3xTF32) at the TF32 peak,
+    # the f32 bound itself.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    ab = 8
-    for window, dtype, ahq, ahkv, ad, adv, asq, askv, causal in (
-            (32, torch.float32, 32, 4, 64, 64, 512, 512, True),
-            (0, torch.bfloat16, 32, 4, 64, 64, 512, 512, True),
-            (1024, torch.float32, 25, 5, 64, 64, 512, 512, True),
-            (0, torch.float32, 32, 4, 128, 128, 512, 512, True),
-            (0, torch.float32, 16, 16, 192, 128, 512, 512, True),
-            (0, torch.float32, 16, 16, 64, 64, 128, 128, False),
-            (0, torch.float32, 16, 16, 64, 64, 512, 128, False),
-            (0, torch.float32, 16, 16, 64, 64, 1, 128, False),
-            (0, torch.float32, 28, 4, 128, 128, 512, 512, True),
-            (0, torch.float32, 32, 4, 64, 64, 512, 512, True)):
+    for (_, dname, ab, asq, askv, ahq, ahkv, ad, adv, causal,
+         window) in K6_PHASE2:
+        dtype = getattr(torch, dname)
         qa = torch.from_numpy(rng.standard_normal(
             (ab, asq, ahq, ad), np.float32)).to(dev, dtype)
         ka, va = (torch.from_numpy(rng.standard_normal(
@@ -2498,10 +2551,11 @@ def main():
             peak, work = PEAK_BF16_FLOPS, "bf16 tensor cores, P split"
             route_flops, route_peak = 1.5 * flops, PEAK_BF16_FLOPS
         else:
-            peak, work = PEAK_F32_FLOPS, "3xTF32 tensor cores"
+            peak, work = PEAK_TF32_FLOPS / 3, "3xTF32 tensor cores"
             route_flops, route_peak = 3.0 * flops, PEAK_TF32_FLOPS
         rb = bound(nbytes, route_flops, route_peak)
-        # recorded last: the f32 tinyllama row (the mma.sync kernel)
+        # recorded last per f32 kernel: the f32 tinyllama row (the TF32
+        # wgmma kernel) and seamless's cross decode row (mma.sync)
         measure("flash_attention", K6_SOURCE[route],
                 "src/repro/kernels/flash_attention.py:102",
                 f"{ab * ahq}x{asq}{f'/{askv}' if askv != asq else ''}"
@@ -2515,7 +2569,7 @@ def main():
                 lambda: flash_attention_plain(qa, ka, va, causal=causal,
                                               window=window),
                 cost, library=library, peak_flops=peak, key=K6_KEY[route],
-                record=route == "mma_sync", k6_route=route,
+                record=route != "wgmma", k6_route=route,
                 route_work=work, route_flops=route_flops,
                 route_bound_ms=rb[0], route_bound_by=rb[1])
     del qa, ka, va, qt, kt, vt, got, want, err
@@ -3474,8 +3528,9 @@ def main():
     read_counts("bf16 long", (flash_attention, ssd_scan))
 
     # ---- 17. launches on the main path -------------------------------------
-    # K6's two kernels are recorded apart: flash_attention (mma.sync) and
-    # flash_attention_sm90 (wgmma), each with its route's launches
+    # K6's three kernels are recorded apart: flash_attention (mma.sync),
+    # flash_attention_sm90 (wgmma, bf16) and flash_attention_sm90_tf32
+    # (wgmma, f32), each with its route's launches
     counts = {name: sum(c[name] for c in launches.values())
               for name in launches["datapath"]}
     phase("kernels", **counts)
@@ -3484,7 +3539,9 @@ def main():
     for name, key in (*((fn.__name__, fn.__name__) for fn in counted
                         if fn is not flash_attention),
                       ("flash_attention", "flash_attention.mma_sync"),
-                      ("flash_attention_sm90", "flash_attention.wgmma")):
+                      ("flash_attention_sm90", "flash_attention.wgmma"),
+                      ("flash_attention_sm90_tf32",
+                       "flash_attention.wgmma_tf32")):
         rec[name]["launches"] = counts[key]
         rec[name]["launches_by_path"] = {
             path: per[key] for path, per in launches.items()}

@@ -1,9 +1,10 @@
 // K6 flash_attention: online-softmax attention, the serving path's prefill.
 //
-// The mma.sync route. It takes f32 (3xTF32) and every bf16 call that the
-// wgmma kernel (flash_attention_sm90.cu) does not: head dims 16 and 32, and
-// calls of 64 query rows or fewer, which one 64-row tile here covers
-// (kernels/flash_attention.py:flash_attention_route).
+// The mma.sync route. It takes the calls that the wgmma kernels
+// (flash_attention_sm90.cu in bf16, flash_attention_sm90_tf32.cu in f32)
+// do not: head dims 16 and 32, and calls of 64 query rows or fewer, which
+// one 64-row tile here covers (kernels/flash_attention.py:
+// flash_attention_route).
 //
 // Replaces src/repro/kernels/flash_attention.py:flash_attention
 // (_attn_kernel): the TPU version walks a (batch*heads, Sq/bq, Skv/bk)

@@ -3,12 +3,13 @@
 //
 // Replaces src/repro/kernels/flash_attention.py:_attn_kernel for bf16
 // inputs at the served head dims (64, 64), (128, 128) and MLA's (192,
-// 128) with more than 64 query rows; flash_attention.cu's mma.sync kernel
-// keeps f32 (3xTF32) and every other bf16 call (kernels/flash_attention.py
-// :flash_attention_route says which call goes where, and why). The TPU
-// version walks a (batch*heads, Sq/bq, Skv/bk) grid with the KV sweep
-// innermost and sequential, carrying the running max, denominator and f32
-// accumulator in VMEM scratch from one grid step to the next.
+// 128) with more than 64 query rows; flash_attention_sm90_tf32.cu takes
+// f32 at those dims over 64 rows and flash_attention.cu's mma.sync kernel
+// every other call (kernels/flash_attention.py:flash_attention_route says which
+// call goes where, and why). The TPU version walks a (batch*heads, Sq/bq,
+// Skv/bk) grid with the KV sweep innermost and sequential, carrying the
+// running max, denominator and f32 accumulator in VMEM scratch from one
+// grid step to the next.
 //
 // What bounds it on the H100: operations. At tinyllama's prefill_32k share
 // (2 sequences x 32768 rows, 32 q heads over 4 kv heads of 64, causal) QK^T
@@ -79,13 +80,11 @@
 // split stays. O stays in the accumulators across tiles, as the mma.sync
 // route's bf16 O does: its drift against float64 stays under the
 // output's rounding up to 32768 keys (tools/k6_drift.py).
-#include <cuda.h>
-
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
-using reconic::smem_u32;
+using namespace reconic;
 
 constexpr int kBM = 128;              // q rows per block
 constexpr int kConsumers = 2;         // warpgroups of 64 q rows
@@ -114,97 +113,13 @@ struct Sm90Cfg {
   static_assert(kSmem <= 232448, "over the 227 KB a block may have");
 };
 
-// ---- mbarriers and TMA ---------------------------------------------------
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-// Wait for the completion of the barrier's phase of this parity. A wait
-// of over 2^35 clocks (~20 s; a real one takes microseconds) is a broken
-// pipeline: trap, so that the launch fails instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  const long long t0 = clock64();
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (!done && clock64() - t0 > (1ll << 35)) __trap();
-  } while (!done);
-}
-// One box of a 4-D tensor map into shared memory, completing on bar.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2,
-                                         int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::
-          "r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // ---- wgmma ---------------------------------------------------------------
 
-// A shared-memory matrix descriptor with 128-byte swizzle: the start
-// address, the leading and stride byte offsets (16-byte units).
-__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-// K-major (Q, K): rows of 64 columns, 8-row groups 1024 bytes apart.
-__device__ __forceinline__ uint64_t desc_k_major(uint32_t addr) {
-  return smem_desc(addr, 16, 1024);
-}
 // MN-major (V as PV's B): 8-key groups 1024 bytes apart, 64-column atoms
 // BN rows apart.
 template <int BN>
 __device__ __forceinline__ uint64_t desc_mn_major(uint32_t addr) {
   return smem_desc(addr, BN * kAtomBytes, 1024);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-// Keeps the compiler from moving accesses of these registers across the
-// asynchronous wgmma that reads or writes them.
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N][4]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(r[i][e])::"memory");
 }
 
 #define F8(i)                                                              \
@@ -653,31 +568,6 @@ __global__ void __launch_bounds__(kThreads, 1)
 }
 
 // ---- host: tensor maps and the launch ------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (e == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
 
 // A 4-D map over a contiguous bf16 (B, S, H, W) tensor whose boxes are 64
 // columns of one head by `rows` rows, 128-byte swizzled; rows past S read 0.

@@ -3,7 +3,7 @@
 
 Online-softmax attention with causal and sliding-window masks, GQA (q
 head ``h`` reads kv head ``h // group``) and a zero output for a row that
-sees no key. On the H100 a CUDA call takes one of two hand-written
+sees no key. On the H100 a CUDA call takes one of three hand-written
 kernels, as ``flash_attention_route`` says:
 
 * ``"wgmma"`` (``csrc/flash_attention_sm90.cu``), bf16 at the served head
@@ -12,12 +12,17 @@ kernels, as ``flash_attention_route`` says:
   q tile), K/V streamed by TMA through a ring of 64-key stages (96 at
   head dim 64), QK^T and PV by ``wgmma`` (P split into two bf16 halves)
   and the online softmax in the accumulator registers;
-* ``"mma_sync"`` (``csrc/flash_attention.cu``), f32 (3xTF32) and every
-  other bf16 call: a 4-warp block per 64-row q tile, 64-key K/V tiles
-  double-buffered by ``cp.async``, ``mma.sync`` products.
+* ``"wgmma_tf32"`` (``csrc/flash_attention_sm90_tf32.cu``), f32 at the
+  served head dims with more than 64 query rows: the same shape in
+  3xTF32, every operand K-major (a pre-pass writes K's TF32 lo part
+  and V transposed, hi and lo, into scratch that ``_launch``
+  allocates), one consumer warpgroup per 64-row q tile, 32-key stages;
+* ``"mma_sync"`` (``csrc/flash_attention.cu``), every other call: a
+  4-warp block per 64-row q tile, 64-key K/V tiles double-buffered by
+  ``cp.async``, ``mma.sync`` products (3xTF32 in f32).
 
-Both stay within the reference's f32 tolerance (plus one bf16 step in
-bf16), mask ragged edges themselves (any ``Sq``, ``Skv`` runs without
+All three stay within the reference's f32 tolerance (plus one bf16 step
+in bf16), mask ragged edges themselves (any ``Sq``, ``Skv`` runs without
 padding) and never repeat K/V per q head. They take 16-byte aligned
 tensors. V and the output may be narrower than q and k for a listed pair
 of head dims (MLA's 192 for q and k, 128 for v).
@@ -48,9 +53,9 @@ NEG_INF = -1e30
 #: (q and k head dim, v and output head dim) pairs the mma.sync kernel is
 #: instantiated for: the square dims, and MLA's nope + rope / v
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
-#: the pairs the wgmma kernel is instantiated for: the served ones
+#: the pairs the wgmma kernels are instantiated for: the served ones
 SM90_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
-ROUTES = ("wgmma", "mma_sync")
+ROUTES = ("wgmma", "wgmma_tf32", "mma_sync")
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -127,21 +132,38 @@ def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_route(dtype: torch.dtype, d: int, dv: int,
                           sq: int) -> str:
     """The kernel a CUDA call of this dtype, (q/k, v) head dims and query
-    rows goes to: ``"wgmma"`` or ``"mma_sync"``.
+    rows goes to: ``"wgmma"``, ``"wgmma_tf32"`` or ``"mma_sync"``.
 
-    * f32 goes to ``mma_sync``: its 3xTF32 products keep the reference's
-      f32 tolerance, where ``wgmma`` in TF32 gives a single TF32 product.
-    * bf16 at ``SM90_HEAD_DIMS`` with more than 64 rows goes to ``wgmma``:
-      TMA boxes and swizzle atoms of 64 columns, and 128-row tiles.
-    * bf16 at 64 rows or fewer (seamless's cross-attention decode step,
-      one row over the encoder's frames) goes to ``mma_sync``, whose one
-      64-row tile covers the call where a 128-row tile would be half
-      empty at best.
-    * bf16 at (16, 16) and (32, 32) goes to ``mma_sync``: under one
-      64-column atom."""
-    if dtype == torch.bfloat16 and (d, dv) in SM90_HEAD_DIMS and sq > 64:
-        return "wgmma"
+    * At ``SM90_HEAD_DIMS`` with more than 64 rows, bf16 goes to
+      ``wgmma`` (TMA boxes and swizzle atoms of 64 columns, 128-row
+      tiles) and f32 to ``wgmma_tf32``: 3xTF32 is three products, and
+      each is a TF32 ``wgmma`` (the lo parts and V's transpose come from
+      a pre-pass, since TF32 ``wgmma`` reads K-major operands only). At
+      65-128 f32 rows the TF32 route's device time is at or under
+      ``mma_sync``'s: seamless's encoder (8 x 128 rows over 128 frames,
+      16 heads of 64, not causal) 0.0178 ms against 0.0180-0.0190, 8 x
+      128 causal rows at 128/128 GQA 7 0.054 against 0.095 (``PERF.md``
+      §6, ``tools/k6_drift.py``).
+    * Either dtype at 64 rows or fewer (seamless's cross-attention decode
+      step, one row over the encoder's frames) goes to ``mma_sync``,
+      whose one 64-row tile covers the call where bf16's wgmma tile of
+      128 rows would be half empty at best.
+    * Either dtype at (16, 16) and (32, 32) goes to ``mma_sync``: under
+      one swizzle atom of 128 bytes."""
+    if (d, dv) in SM90_HEAD_DIMS and sq > 64:
+        return "wgmma" if dtype == torch.bfloat16 else "wgmma_tf32"
     return "mma_sync"
+
+
+def tf32_scratch_words(b: int, skv: int, hkv: int, d: int, dv: int) -> int:
+    """f32 words of the ``wgmma_tf32`` route's scratch, the launcher's own
+    count (``reconic_flash_attention_sm90_tf32_scratch_words``): K's TF32
+    lo part in K's layout (K itself is the hi part the tensor cores read),
+    and V transposed to (B, Hkv, dv, Skv8), hi and lo, with Skv rounded up
+    to a multiple of 8; 0 for head dims the kernel is not built for."""
+    return int(_build.library()
+               .reconic_flash_attention_sm90_tf32_scratch_words(
+                   b, hkv, skv, d, dv))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -173,11 +195,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             raise ValueError(f"flash_attention: head_dim {d} with v "
                              f"head_dim {dv} not in {HEAD_DIMS}")
         # grid.y takes at most 65535 blocks: mma_sync's (sequence, q head)
-        # pairs, wgmma's 128-row q tiles
-        if flash_attention_route(q.dtype, d, dv, sq) == "wgmma":
+        # pairs, wgmma's 128-row q tiles; wgmma_tf32's one grid dimension
+        # takes 2^31 - 1 blocks of 64 rows
+        route = flash_attention_route(q.dtype, d, dv, sq)
+        if route == "wgmma":
             if -(-sq // 128) > 65535:
                 raise ValueError(f"flash_attention: Sq = {sq} is over 65535 "
                                  f"tiles of 128 rows")
+        elif route == "wgmma_tf32":
+            if b * hq * -(-sq // 64) > 2 ** 31 - 1:
+                raise ValueError(f"flash_attention: B * Hq * ceil(Sq / 64) "
+                                 f"= {b * hq * -(-sq // 64)} >= 2^31")
         elif b * hq > 65535:
             raise ValueError(f"flash_attention: B * Hq = {b * hq} > 65535")
         _build.check_cuda("flash_attention", q4, k4, v4)
@@ -237,6 +265,14 @@ def _launch(route, q, k, v, out, causal, window, scale):
                       k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
                       sq, skv, d, dv, int(causal), int(window),
                       float(np.float32(scale)), _build.stream_ptr(q.device))
+    elif route == "wgmma_tf32":
+        words = tf32_scratch_words(b, skv, hkv, d, dv)
+        scratch = torch.empty(words, dtype=torch.float32, device=q.device)
+        _build.launch("reconic_flash_attention_sm90_tf32", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr(), words, b, hq, hkv, sq, skv, d, dv,
+                      int(causal), int(window), float(np.float32(scale)),
+                      _build.stream_ptr(q.device))
     else:
         _build.launch("reconic_flash_attention", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,

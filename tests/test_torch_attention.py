@@ -20,7 +20,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro.kernels.flash_attention import flash_attention as jax_fa
 from repro_torch.kernels import ops as tops
-from repro_torch.kernels.flash_attention import (HEAD_DIMS, SM90_HEAD_DIMS,
+from repro_torch.kernels.flash_attention import (HEAD_DIMS, ROUTES,
+                                                 SM90_HEAD_DIMS,
                                                  flash_attention,
                                                  flash_attention_plain,
                                                  flash_attention_route)
@@ -146,23 +147,76 @@ def test_plain_version_is_the_wrapper_on_cpu():
     (torch.bfloat16, 64, 64, 1, "mma_sync"),
     (torch.bfloat16, 16, 16, 4096, "mma_sync"),
     (torch.bfloat16, 32, 32, 4096, "mma_sync"),
-    (torch.float32, 64, 64, 32768, "mma_sync"),
-    (torch.float32, 128, 128, 512, "mma_sync"),
-    (torch.float32, 192, 128, 512, "mma_sync"),
+    (torch.float32, 64, 64, 32768, "wgmma_tf32"),
+    (torch.float32, 128, 128, 512, "wgmma_tf32"),
+    (torch.float32, 192, 128, 512, "wgmma_tf32"),
+    (torch.float32, 64, 64, 128, "wgmma_tf32"),
+    (torch.float32, 64, 64, 65, "wgmma_tf32"),
+    (torch.float32, 128, 128, 64, "mma_sync"),
 ])
 def test_route_of_each_call_class(dtype, d, dv, sq, route):
     """Which kernel a CUDA call goes to: bf16 at the served head dims with
-    more than 64 rows to the wgmma kernel, the rest to mma.sync."""
+    more than 64 rows to the wgmma kernel, f32 there with more than 64
+    rows to the TF32 wgmma kernel, the rest to mma.sync."""
     assert flash_attention_route(dtype, d, dv, sq) == route
 
 
-def test_f32_never_takes_the_wgmma_route():
-    """f32 keeps its 3xTF32 kernel at every head-dim pair and length."""
-    for d, dv in HEAD_DIMS:
-        for sq in (1, 64, 65, 128, 32768):
-            assert flash_attention_route(torch.float32, d, dv,
-                                         sq) == "mma_sync"
+@pytest.mark.parametrize("sq", [1, 64, 65, 128, 129, 32768])
+@pytest.mark.parametrize("d,dv", HEAD_DIMS)
+def test_f32_routing_table(d, dv, sq):
+    """f32 takes the TF32 wgmma kernel at the served head dims over 64
+    rows and mma.sync's 3xTF32 everywhere else (one 64-row tile); bf16
+    takes the bf16 wgmma kernel at those dims over 64 rows."""
+    served = (d, dv) in SM90_HEAD_DIMS
+    assert flash_attention_route(torch.float32, d, dv, sq) == (
+        "wgmma_tf32" if served and sq > 64 else "mma_sync")
+    assert flash_attention_route(torch.bfloat16, d, dv, sq) == (
+        "wgmma" if served and sq > 64 else "mma_sync")
     assert set(SM90_HEAD_DIMS) <= set(HEAD_DIMS)
+    assert ROUTES == ("wgmma", "wgmma_tf32", "mma_sync")
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv", [
+    (8, 512, 512, 16, 16, 192, 128),
+    (2, 200, 65, 8, 4, 64, 64),
+    (1, 129, 0, 2, 1, 128, 128),
+])
+def test_tf32_launch_passes_the_scratch_it_allocates(monkeypatch, b, sq,
+                                                     skv, hq, hkv, d, dv):
+    """The TF32 route's scratch has one account, the kernel library's:
+    ``_launch`` asks it for the words (``tf32_scratch_words``), allocates
+    that many and passes the count to the entry point, which refuses a
+    smaller one. Run on CPU tensors with the library and the launch
+    stood in for, so that only the wrapper's side is held here (the
+    card's tests hold the count and the refusal)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    words = 7 * b * hkv * (skv + d + dv) + 3
+    asked, launched = [], []
+
+    class Library:
+        def reconic_flash_attention_sm90_tf32_scratch_words(self, *args):
+            asked.append(args)
+            return words
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *args: launched.append((name, args)))
+    q, k, v = (torch.zeros(shape) for shape in ((b, sq, hq, d),
+                                               (b, skv, hkv, d),
+                                               (b, skv, hkv, dv)))
+    out = torch.empty((b, sq, hq, dv))
+    before = dict(flash_attention.route_launches)
+    fa._launch("wgmma_tf32", q, k, v, out, True, 0, d ** -0.5)
+    assert asked == [(b, hkv, skv, d, dv)]
+    [(name, args)] = launched
+    assert name == "reconic_flash_attention_sm90_tf32"
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr())
+    assert args[5:12] == (words, b, hq, hkv, sq, skv, d) and args[12] == dv
+    assert flash_attention.route_launches == {
+        **before, "wgmma_tf32": before["wgmma_tf32"] + 1}
 
 
 def test_bad_arguments_raise():

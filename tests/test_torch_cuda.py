@@ -16,10 +16,10 @@ bf16 step of the result (2^-7 relative: bf16 keeps 8 significant
 bits); in f32 over 4096 and 32768 keys its error against float64 is
 within twice the plain f32 version's own, and in bf16 (the wgmma kernel)
 over 512 to 32768 keys within twice the plain bf16 version's own. The
-wgmma kernel is held to the bf16 tolerance at GQA groups 1 to 8, ragged
-lengths, windows, rows without keys and B * Hq at and past 65535, each
-call counted on its route. K7 ``ssd_scan`` is within 2e-5
-of its plain version in f32 and 6e-2 in bf16 (the reference's
+wgmma kernel is held to the bf16 tolerance, the TF32 wgmma kernel (f32)
+to 2e-4, at GQA groups 1 to 8, ragged lengths, windows, rows without
+keys and B * Hq at and past 65535, each call counted on its route.
+K7 ``ssd_scan`` is within 2e-5 of its plain version in f32 and 6e-2 in bf16 (the reference's
 ``tests/test_kernels.py`` tolerances); its
 final state, f32 in both dtypes, within 2e-5. Under autograd, K6's and
 K7's gradients are within the same 2e-4 and 2e-5 of autograd's through
@@ -288,10 +288,11 @@ def test_cuda_flash_attention_matches_plain(cuda, d, sq, skv, causal,
             np.float32)).to(cuda).to(dtype)
 
     q, k, v = rand(2, sq, hq, d), rand(2, skv, hkv, d), rand(2, skv, hkv, d)
-    before = flash_attention.launches
+    before, routes = flash_attention.launches, _route_counts()
     got = flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    _assert_routed(routes, dtype, d, d, sq)
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-4
@@ -337,14 +338,16 @@ def test_cuda_flash_attention_f32_is_not_tf32(cuda):
     """K6 in f32 at the tinyllama prefill shape (8 x 512, 32 q heads over
     4 kv heads of 64, causal) against a float64 oracle, within 1e-5: a
     3xTF32 or f32 route passes, a single TF32 product (~1e-3 here) does
-    not."""
+    not. The call goes to the TF32 wgmma kernel."""
     def rand(*shape):
         return torch.from_numpy(RNG.standard_normal(shape).astype(
             np.float32)).to(cuda)
 
     b, s, hq, hkv, d = 8, 512, 32, 4, 64
     q, k, v = rand(b, s, hq, d), rand(b, s, hkv, d), rand(b, s, hkv, d)
+    routes = _route_counts()
     got = flash_attention(q, k, v, causal=True).double()
+    assert _assert_routed(routes, q.dtype, d, d, s) == "wgmma_tf32"
     qg = q.double().reshape(b, s, hkv, hq // hkv, d) * d ** -0.5
     sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double())
     pos = torch.arange(s, device=cuda)
@@ -363,7 +366,8 @@ def test_cuda_flash_attention_f32_does_not_drift_with_key_count(cuda, keys):
     float64, over the output's largest |value|, within twice the plain
     f32 version's own. O accumulated in the tensor cores' C across every
     KV tile drifts with the key count (3e-5 at 4096 keys, 2e-4 at 32768,
-    against the plain version's 3e-6 and 6e-6)."""
+    against the plain version's 3e-6 and 6e-6), so the TF32 wgmma kernel,
+    which takes the call, adds each tile's PV to O in f32."""
     gen = torch.Generator(device=cuda)
     gen.manual_seed(keys)
     q, k, v = (torch.randn((1, keys, h, 64), generator=gen, device=cuda)
@@ -376,7 +380,9 @@ def test_cuda_flash_attention_f32_does_not_drift_with_key_count(cuda, keys):
     want = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(sc, dim=-1),
                         v.double()).reshape(1, 64, 32, 64)
     scale = want.abs().max().item()
+    routes = _route_counts()
     got = flash_attention(q, k, v, causal=True)[:, r0:].double()
+    assert _assert_routed(routes, q.dtype, 64, 64, keys) == "wgmma_tf32"
     plain = flash_attention_plain(q[:, r0:], k, v, causal=True,
                                   q_offset=r0).double()
     err = (got - want).abs().max().item() / scale
@@ -407,6 +413,16 @@ def test_cuda_flash_attention_flat_heads_and_bad_head_dim(cuda):
 
 def _route_counts():
     return dict(flash_attention.route_launches)
+
+
+def _assert_routed(routes, dtype, d, dv, sq, n=1):
+    """The ``n`` calls since ``routes`` was read went to the route that
+    ``flash_attention_route`` gives their class, and no other; return
+    it."""
+    from repro_torch.kernels.flash_attention import flash_attention_route
+    route = flash_attention_route(dtype, d, dv, sq)
+    assert _route_counts() == {**routes, route: routes[route] + n}
+    return route
 
 
 def _wgmma_case(cuda, seed, b, sq, skv, hq, hkv, d, dv):
@@ -515,27 +531,34 @@ def test_cuda_flash_attention_many_heads(cuda, b, hq, sq):
 
 @pytest.mark.cuda
 def test_cuda_flash_attention_routes_and_misaligned_input(cuda):
-    """Each route's launch count moves with the calls routed to it (f32,
-    bf16 at (32, 32) and a bf16 call of 64 rows to mma.sync, bf16 at the
-    served dims over 64 rows to wgmma), and a misaligned bf16 input on
-    the wgmma route raises with no launch on either."""
+    """Each route's launch count moves with the calls routed to it (bf16
+    at (32, 32), a bf16 call of 64 rows and an f32 one to mma.sync, bf16
+    at the served dims over 64 rows to wgmma, f32 there over 64 rows to
+    wgmma_tf32),
+    and a misaligned input on either wgmma route raises with no launch
+    on any."""
     before, routes = flash_attention.launches, _route_counts()
     q, k, v = _wgmma_case(cuda, 9, 1, 200, 200, 4, 2, 128, 128)
     flash_attention(q, k, v)
     flash_attention(q[:, :64].contiguous(), k, v)
     flash_attention(q.float(), k.float(), v.float())
+    flash_attention(q[:, :64].float(), k.float(), v.float())
     s = torch.randn((1, 100, 2, 32), device=cuda).bfloat16()
     flash_attention(s, s, s)
     torch.cuda.synchronize()
-    assert flash_attention.launches == before + 4
+    assert flash_attention.launches == before + 5
     assert _route_counts() == {"wgmma": routes["wgmma"] + 1,
+                               "wgmma_tf32": routes["wgmma_tf32"] + 1,
                                "mma_sync": routes["mma_sync"] + 3}
     n = 1 * 200 * 4 * 128
-    off = torch.randn(n + 1, device=cuda).bfloat16()[1:].view(1, 200, 4, 128)
-    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
-        flash_attention(off, k, v)
-    assert flash_attention.launches == before + 4
+    for dtype in (torch.bfloat16, torch.float32):
+        off = torch.randn(n + 1, device=cuda).to(dtype)[1:].view(
+            1, 200, 4, 128)
+        with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+            flash_attention(off, k.to(dtype), v.to(dtype))
+    assert flash_attention.launches == before + 5
     assert _route_counts()["wgmma"] == routes["wgmma"] + 1
+    assert _route_counts()["wgmma_tf32"] == routes["wgmma_tf32"] + 1
 
 
 @pytest.mark.cuda
@@ -568,6 +591,170 @@ def test_cuda_flash_attention_bf16_does_not_drift_with_key_count(cuda,
     err = (got - want).abs().max().item() / scale
     plain_err = (plain - want).abs().max().item() / scale
     assert err <= 2 * plain_err, (err, plain_err)
+
+
+def _tf32_case(cuda, seed, b, sq, skv, hq, hkv, d, dv):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=cuda)
+                 for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                               (b, skv, hkv, dv)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv,sq,skv,hq,hkv,causal,window", [
+    (64, 64, 1000, 1000, 8, 2, True, 0),
+    (64, 64, 129, 129, 5, 1, True, 0),
+    (64, 64, 1000, 1000, 7, 1, False, 0),
+    (64, 64, 129, 1000, 8, 1, False, 0),
+    (64, 64, 1000, 65, 4, 4, False, 0),
+    (64, 64, 2048, 2048, 4, 1, True, 1024),
+    (64, 64, 65, 65, 8, 8, True, 0),
+    (64, 64, 1, 129, 4, 1, False, 0),
+    (128, 128, 1000, 1000, 8, 2, True, 0),
+    (128, 128, 129, 129, 7, 1, True, 0),
+    (128, 128, 1000, 1, 4, 1, False, 0),
+    (128, 128, 300, 1000, 5, 1, False, 0),
+    (128, 128, 1500, 1500, 8, 1, True, 1024),
+    (128, 128, 1000, 129, 4, 4, False, 0),
+    (128, 128, 63, 200, 4, 4, False, 0),
+    (192, 128, 1000, 1000, 4, 4, True, 0),
+    (192, 128, 129, 129, 8, 1, True, 0),
+    (192, 128, 1000, 700, 4, 1, False, 0),
+    (192, 128, 1200, 1200, 4, 4, True, 1024),
+    (192, 128, 65, 65, 7, 7, False, 0),
+    (192, 128, 1, 63, 4, 4, False, 0),
+])
+def test_cuda_flash_attention_wgmma_tf32_matches_plain(cuda, d, dv, sq, skv,
+                                                       hq, hkv, causal,
+                                                       window):
+    """The TF32 wgmma kernel (``csrc/flash_attention_sm90_tf32.cu``)
+    against the plain version at each of its head-dim pairs, causal, not
+    causal and with a window of 1024, GQA groups 1, 4, 5, 7 and 8, Sq and
+    Skv of 65, 129 and 1000 and Skv < Sq, within 2e-4. An f32 call of
+    more than 64 rows goes to it through ``flash_attention``; one with
+    fewer is launched on it directly (the routing sends those to the
+    mma.sync kernel)."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _tf32_case(cuda, sq + skv + d + hq, 2, sq, skv, hq, hkv, d, dv)
+    before, routes = flash_attention.launches, _route_counts()
+    if fa.flash_attention_route(q.dtype, d, dv, sq) == "wgmma_tf32":
+        got = flash_attention(q, k, v, causal=causal, window=window)
+    else:
+        got = q.new_empty((2, sq, hq, dv))
+        fa._launch("wgmma_tf32", q, k, v, got, causal, window, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert _route_counts() == {**routes,
+                               "wgmma_tf32": routes["wgmma_tf32"] + 1}
+    assert got.dtype == torch.float32 and got.shape == (2, sq, hq, dv)
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq,skv,window,d,dv", [
+    (700, 0, 0, 64, 64), (1000, 300, 64, 64, 64), (1000, 300, 64, 192, 128)])
+def test_cuda_flash_attention_wgmma_tf32_rows_without_keys_write_zero(
+        cuda, sq, skv, window, d, dv):
+    """Rows that see no key write 0 on the TF32 wgmma route: every row
+    when there are no keys, and, causal with a window of 64 over 300
+    keys, every row from 363 on."""
+    q, k, v = _tf32_case(cuda, 4, 2, sq, skv, 8, 2, d, dv)
+    routes = _route_counts()
+    got = flash_attention(q, k, v, causal=True, window=window)
+    torch.cuda.synchronize()
+    assert _route_counts()["wgmma_tf32"] == routes["wgmma_tf32"] + 1
+    first_blind = skv + window - 1 if skv else 0
+    assert bool((got[:, first_blind:] == 0).all())
+    want = flash_attention_plain(q, k, v, causal=True, window=window)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,hq,sq", [(4369, 15, 65), (4096, 16, 129),
+                                     (4369, 15, 64)])
+def test_cuda_flash_attention_wgmma_tf32_many_heads(cuda, b, hq, sq):
+    """f32 at B * Hq at and past 65535: the TF32 wgmma route's one grid
+    dimension (B * Hq * ceil(Sq / 64) blocks) takes 65536 pairs; the
+    mma.sync route (64 rows) takes 65535 on its grid.y. Checked on the
+    first and last sequences."""
+    from repro_torch.kernels.flash_attention import flash_attention_route
+    q, k, v = _tf32_case(cuda, b + sq, b, sq, 64, hq, 1, 64, 64)
+    route = flash_attention_route(q.dtype, 64, 64, sq)
+    assert route == ("wgmma_tf32" if sq > 64 else "mma_sync")
+    routes = _route_counts()
+    got = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _route_counts() == {**routes, route: routes[route] + 1}
+    for i in (0, b - 1):
+        want = flash_attention_plain(q[i:i + 1], k[i:i + 1], v[i:i + 1],
+                                     causal=True)
+        torch.testing.assert_close(got[i:i + 1], want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_wgmma_tf32_refusal_raises(cuda):
+    """A call the TF32 wgmma kernel refuses raises and runs nothing in its
+    place: head dims it is not built for (32, 32), launched on it
+    directly, and a call whose q is not 16-byte aligned."""
+    from repro_torch.kernels import flash_attention as fa
+    q, k, v = _tf32_case(cuda, 6, 1, 200, 200, 4, 2, 32, 32)
+    out = q.new_empty((1, 200, 4, 32))
+    before, routes = flash_attention.launches, _route_counts()
+    with pytest.raises(RuntimeError, match="reconic_flash_attention_sm90_tf32"):
+        fa._launch("wgmma_tf32", q, k, v, out, True, 0, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before
+    assert _route_counts() == routes
+    q, k, v = _tf32_case(cuda, 7, 1, 200, 200, 4, 2, 64, 64)
+    off = torch.randn(q.numel() + 1, device=cuda)[1:].view(q.shape)
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        flash_attention(off, k, v)
+    assert flash_attention.launches == before
+    assert _route_counts() == routes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,skv,hkv,d,dv,words", [
+    (8, 512, 16, 192, 128, 8 * 512 * 16 * (192 + 2 * 128)),
+    (2, 65, 4, 64, 64, 2 * 65 * 4 * 64 + 2 * 2 * 4 * 64 * 72),
+    (1, 0, 1, 128, 128, 0),
+])
+def test_tf32_scratch_words(cuda, b, skv, hkv, d, dv, words):
+    """The TF32 route's scratch, as the kernel library counts it: K's lo
+    part, and V transposed with its keys rounded up to a multiple of 8,
+    hi and lo; none for head dims it is not built for."""
+    from repro_torch.kernels.flash_attention import tf32_scratch_words
+    assert tf32_scratch_words(b, skv, hkv, d, dv) == words
+    assert tf32_scratch_words(b, skv, hkv, 32, 32) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,dv", [(64, 64), (192, 128)])
+def test_cuda_flash_attention_wgmma_tf32_refuses_short_scratch(cuda, d, dv):
+    """The TF32 entry point refuses a scratch one word short of its own
+    count (and writes nothing), and takes one of exactly that count."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import tf32_scratch_words
+    q, k, v = _tf32_case(cuda, 8, 2, 300, 300, 4, 2, d, dv)
+    words = tf32_scratch_words(2, 300, 2, d, dv)
+    scratch = torch.zeros(words, device=cuda)
+    out = torch.zeros((2, 300, 4, dv), device=cuda)
+
+    def launch(n):
+        _build.launch("reconic_flash_attention_sm90_tf32", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr(), n, 2, 4, 2, 300, 300, d, dv, 1, 0,
+                      float(d ** -0.5), _build.stream_ptr(cuda))
+        torch.cuda.synchronize()
+
+    with pytest.raises(RuntimeError, match="reconic_flash_attention_sm90_tf32"):
+        launch(words - 1)
+    assert not scratch.any() and not out.any()
+    launch(words)
+    torch.testing.assert_close(out, flash_attention_plain(q, k, v),
+                               rtol=2e-4, atol=2e-4)
 
 
 @pytest.mark.cuda
@@ -835,9 +1022,10 @@ def test_cuda_flash_attention_grads_match_plain(cuda, d, s, hq, hkv,
     q, k, v = rand(2, s, hq, d), rand(2, s, hkv, d), rand(2, s, hkv, d)
     w = torch.from_numpy(RNG.standard_normal((2, s, hq, d)).astype(
         np.float32)).to(cuda).to(dtype)
-    before = flash_attention.launches
+    before, routes = flash_attention.launches, _route_counts()
     out = flash_attention(q, k, v, causal=True, window=window)
     assert flash_attention.launches == before + 1
+    _assert_routed(routes, dtype, d, d, s)
     assert out.grad_fn is not None
     got = torch.autograd.grad((out.float() * w.float()).sum(), (q, k, v))
     assert flash_attention.launches == before + 1       # plain backward
@@ -942,10 +1130,11 @@ def test_cuda_flash_attention_mla_heads_match_plain(cuda, sq, skv, causal,
 
     q, k, v = rand(2, sq, hq, 192), rand(2, skv, hkv, 192), rand(
         2, skv, hkv, 128)
-    before = flash_attention.launches
+    before, routes = flash_attention.launches, _route_counts()
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    _assert_routed(routes, dtype, 192, 128, sq)
     assert got.dtype == dtype and got.shape == (2, sq, hq, 128)
     want = flash_attention_plain(q, k, v, causal=causal)
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-4
@@ -968,10 +1157,11 @@ def test_cuda_flash_attention_mla_heads_grads_match_plain(cuda, dtype):
     q, k, v = rand(2, 96, 4, 192), rand(2, 96, 4, 192), rand(2, 96, 4, 128)
     w = torch.from_numpy(RNG.standard_normal((2, 96, 4, 128)).astype(
         np.float32)).to(cuda).to(dtype)
-    before = flash_attention.launches
+    before, routes = flash_attention.launches, _route_counts()
     out = flash_attention(q, k, v, causal=True)
     got = torch.autograd.grad((out.float() * w.float()).sum(), (q, k, v))
     assert flash_attention.launches == before + 1
+    _assert_routed(routes, dtype, 192, 128, 96)
     ref = flash_attention_plain(q, k, v, causal=True)
     want = torch.autograd.grad((ref.float() * w.float()).sum(), (q, k, v))
     rtol = 2.0 ** -7 if dtype == torch.bfloat16 else 2e-4
@@ -1031,10 +1221,11 @@ def test_cuda_flash_attention_encdec_and_vlm_shapes(cuda, sq, skv, causal,
             np.float32)).to(cuda)
 
     q, k, v = rand(8, sq, hq, d), rand(8, skv, hkv, d), rand(8, skv, hkv, d)
-    before = flash_attention.launches
+    before, routes = flash_attention.launches, _route_counts()
     got = flash_attention(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
+    _assert_routed(routes, q.dtype, d, d, sq)
     assert got.shape == q.shape
     want = flash_attention_plain(q, k, v, causal=causal)
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)

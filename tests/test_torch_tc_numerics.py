@@ -5,7 +5,16 @@ K6 runs QK^T and PV on the tensor cores (``csrc/flash_attention.cu``):
 
 * f32 as 3xTF32: ``x_hi = tf32_rna(x)``, ``x_lo = tf32_rna(x - x_hi)``
   (``cvt.rna.tf32.f32``: 10 mantissa bits, nearest, ties away from zero)
-  and ``a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi``;
+  and ``a.b ~ a_lo.b_hi + a_hi.b_lo + a_hi.b_hi``: the mma.sync route
+  (``csrc/flash_attention.cu``) and the TF32 wgmma route
+  (``csrc/flash_attention_sm90_tf32.cu``), whose split is the same but
+  for K's: Q * scale split on chip, V's hi and lo by a pre-pass, P's
+  from the raw S accumulators, while K's hi part is K itself, which the
+  tensor cores read as TF32 by dropping its low 13 bits (truncation,
+  measured on an H100), and K's lo part ``tf32_rna(K - trunc(K))``. Its
+  PV goes into fresh accumulators every 32 keys, added to O in f32 with
+  the online softmax's rescale (``"wgmma_tf32"`` below models that tile
+  by tile);
 * bf16 with exact bf16 x bf16 products and P split into
   ``P_hi = bf16(p)`` and ``P_lo = bf16(p - P_hi)``, two PV products: the
   route of both the mma.sync kernel and the wgmma kernel
@@ -47,6 +56,12 @@ def tf32_rna(x: torch.Tensor) -> torch.Tensor:
     return ((bits + 0x1000) & -0x2000).view(torch.float32)
 
 
+def tf32_trunc(x: torch.Tensor) -> torch.Tensor:
+    """An f32 tensor as the tensor cores read it for a TF32 product: its
+    low 13 bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
 def _mma_chain(pairs, kc):
     """Sum of ``a @ b`` over ``pairs``, as a chain of mma calls: for each
     k chunk of ``kc``, each pair's chunk product in turn is summed exactly
@@ -81,11 +96,51 @@ def _mask(sq, skv, causal, window):
     return mask
 
 
+def _attention_wgmma_tf32(q, k, v, *, causal, window, bn=32):
+    """The TF32 wgmma kernel's arithmetic: S in 3xTF32 (one rounding per
+    8-deep k step and product; K's hi part truncated, its lo part the
+    rounded rest), then per ``bn``-key tile the online softmax, P split
+    into TF32 hi and lo, PV in 3xTF32 into fresh accumulators, and ``O =
+    (O + PV_prev) * alpha`` in f32."""
+    scale = q.shape[-1] ** -0.5
+    qs = q * scale
+    q_hi, kt = tf32_rna(qs), k.transpose(-1, -2)
+    k_hi = tf32_trunc(kt)
+    s_all = _mma_chain([(tf32_rna(qs - q_hi), k_hi),
+                        (q_hi, tf32_rna(kt - k_hi)), (q_hi, k_hi)], 8)
+    mask = _mask(q.shape[1], k.shape[1], causal, window)
+    s_all = torch.where(mask, s_all, torch.full_like(s_all, -1e30))
+    m = torch.full(s_all.shape[:-1] + (1,), -1e30)
+    den = torch.zeros_like(m)
+    o = torch.zeros(q.shape[:-1] + v.shape[-1:])
+    pv = None
+    for k0 in range(0, k.shape[1], bn):
+        s = s_all[..., k0:k0 + bn]
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        alpha = torch.exp(m - m_new)
+        p = torch.where(mask[:, k0:k0 + bn], torch.exp(s - m_new),
+                        torch.zeros_like(s))
+        den = den * alpha + p.sum(-1, keepdim=True)
+        m = m_new
+        if pv is not None:
+            o = (o + pv) * alpha
+        p_hi, vt = tf32_rna(p), v[:, k0:k0 + bn]
+        v_hi = tf32_rna(vt)
+        pv = _mma_chain([(tf32_rna(p - p_hi), v_hi),
+                         (p_hi, tf32_rna(vt - v_hi)), (p_hi, v_hi)], 8)
+    if pv is not None:
+        o = o + pv
+    return torch.where(den > 0, o / den, torch.zeros_like(o))
+
+
 def attention_emulated(q, k, v, route, *, causal, window=0):
     """q: (BH, Sq, d), k/v: (BH, Skv, d), f32 (bf16 values widened for
-    the bf16 routes) -> (BH, Sq, d) f32, by ``route``: "3xtf32" and
-    "bf16" as the kernel computes, "tf32" (one TF32 product) and
-    "bf16_single_p" (P rounded to bf16 once) as it does not."""
+    the bf16 routes) -> (BH, Sq, d) f32, by ``route``: "3xtf32" (the
+    mma.sync route), "wgmma_tf32" and "bf16" as the kernels compute,
+    "tf32" (one TF32 product) and "bf16_single_p" (P rounded to bf16
+    once) as they do not."""
+    if route == "wgmma_tf32":
+        return _attention_wgmma_tf32(q, k, v, causal=causal, window=window)
     d = q.shape[-1]
     scale = d ** -0.5
     kt = k.transpose(-1, -2)
@@ -156,6 +211,21 @@ CASES = [
 ]
 
 
+def test_tf32_trunc_split_is_within_twice_the_rounded_split():
+    """K's split on the TF32 wgmma route: hi = K with its low 13 bits
+    dropped, lo = tf32_rna(K - hi). hi + lo is K to 2^-21 of |K| (the
+    rounded split's 2^-22, doubled)."""
+    y = torch.from_numpy(np.random.default_rng(6).standard_normal(
+        4096).astype(np.float32))
+    hi = tf32_trunc(y)
+    lo = tf32_rna(y - hi)
+    assert torch.equal(hi.view(torch.int32) & 0x1FFF,
+                       torch.zeros_like(hi, dtype=torch.int32))
+    assert bool((hi.abs() <= y.abs()).all())
+    assert bool(((hi.double() + lo.double() - y.double()).abs()
+                 <= 2.0 ** -21 * y.double().abs()).all())
+
+
 def test_tf32_rna_rounds_to_nearest_ties_away():
     x = torch.tensor([1 + 2.0 ** -11, -(1 + 2.0 ** -11), 1 + 2.0 ** -12,
                       1 + 3 * 2.0 ** -12, 3.0, -0.0], dtype=torch.float32)
@@ -174,7 +244,7 @@ def test_tf32_rna_rounds_to_nearest_ties_away():
                  <= 2.0 ** -22 * y.double().abs()).all())
 
 
-@pytest.mark.parametrize("route", ["3xtf32", "bf16"])
+@pytest.mark.parametrize("route", ["3xtf32", "bf16", "wgmma_tf32"])
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal,window", CASES)
 def test_emulated_route_matches_reference(route, b, sq, skv, hq, hkv, d,
                                           causal, window):
@@ -197,6 +267,41 @@ def test_f64_oracle_tells_3xtf32_from_single_tf32():
     err1 = (attention_emulated(q, k, v, "tf32", causal=True).double()
             - want).abs().max().item()
     assert err3 <= ORACLE_TOL < err1, (err3, err1)
+
+
+# (b, sq, skv, hq, hkv, d, dv, causal, window): the TF32 wgmma kernel's
+# head-dim pairs, causal over GQA groups and MLA's with a window
+WGMMA_TF32_DIMS = [
+    (1, 512, 512, 8, 1, 64, 64, True, 0),
+    (1, 300, 300, 4, 1, 128, 128, True, 0),
+    (1, 256, 200, 4, 4, 192, 128, False, 0),
+    (1, 256, 256, 4, 4, 192, 128, True, 100),
+]
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,causal,window",
+                         WGMMA_TF32_DIMS)
+def test_wgmma_tf32_within_the_f64_oracle(b, sq, skv, hq, hkv, d, dv,
+                                          causal, window):
+    """The TF32 wgmma kernel's tile-by-tile arithmetic at its head-dim
+    pairs: within the float64 oracle's 1e-5 (what
+    ``test_cuda_flash_attention_f32_is_not_tf32`` holds the kernel to)
+    where a single TF32 product misses it, and within
+    ``ref_attention``'s 2e-4."""
+    q, k, v = _inputs(sq + d + dv + hq, b, sq, skv, hq, hkv, d, False)
+    v = v[..., :dv].contiguous()
+    got = attention_emulated(q, k, v, "wgmma_tf32", causal=causal,
+                             window=window)
+    want = attention_f64(q, k, v, causal=causal, window=window)
+    err = (got.double() - want).abs().max().item()
+    err1 = (attention_emulated(q, k, v, "tf32", causal=causal,
+                               window=window).double()
+            - want).abs().max().item()
+    assert err <= ORACLE_TOL < err1, (err, err1)
+    ref_out = np.asarray(ref.ref_attention(
+        jnp.asarray(q.numpy()), jnp.asarray(k.numpy()),
+        jnp.asarray(v.numpy()), causal=causal, window=window))
+    assert np.abs(got.numpy() - ref_out).max() < TOL
 
 
 def test_p_split_beats_a_single_bf16_p():

@@ -1,11 +1,18 @@
 """Where one plain train step of the port spends its time on the GPU.
 
     python3 tools/train_breakdown.py [--arch tinyllama-1.1b] [--batch 4]
-                                     [--seq 512]
+                                     [--seq 512] [--steps 5] [--tree PATH]
 
-Builds the kernels, makes random f32 weights (seed 0) and one
-``SyntheticPipeline`` batch, runs two warm-up steps of the plain train
-step (``make_train_step``, remat on), then times the stages of one step
+Builds the kernels of the tree at ``--tree`` (default: this checkout; two
+trees are compared in one call on the same card by one process each),
+makes random f32 weights (seed 0) and one ``SyntheticPipeline`` batch
+(phase 18's shape by default), runs two warm-up steps of the plain train
+step (``make_train_step``, remat on), then times ``--steps`` whole steps,
+each synchronised, with the host time spent inside K6's launches
+(``flash_attention._launch``: the kernels' launches, the TF32 route's
+scratch allocation and tensor maps) and their count, and traces one whole
+step: its device time, K6's kernels' part of it and their records. Then
+it times the stages of one step
 the way the step runs them, each synchronised: the forward with the loss
 (``loss_fn``, remat), the backward (``torch.autograd.grad``: the remat
 recompute, K6's backward as its plain version, the GEMMs' backward), the
@@ -16,6 +23,7 @@ card's name and power limit first. Needs a CUDA device.
 """
 import argparse
 import os
+import re
 import subprocess
 import sys
 import time
@@ -23,13 +31,12 @@ import time
 import torch
 from torch.autograd import DeviceType
 
-sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__))), "src"))
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def family(name: str) -> str:
     low = name.lower()
-    if "flash_attention_kernel" in low:
+    if "flash_attention" in low:        # every route's kernels
         return "K6"
     if "gemm" in low or "cutlass" in low or "cublas" in low:
         return "GEMM"
@@ -43,7 +50,10 @@ def main():
     ap.add_argument("--arch", default="tinyllama-1.1b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--seq", type=int, default=512)
+    ap.add_argument("--steps", type=int, default=5)
+    ap.add_argument("--tree", default=HERE)
     args = ap.parse_args()
+    sys.path.insert(0, os.path.join(os.path.abspath(args.tree), "src"))
     if not torch.cuda.is_available():
         print("train_breakdown: no CUDA device is available", file=sys.stderr)
         return 1
@@ -55,12 +65,13 @@ def main():
     from repro_torch.configs.registry import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
     from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.models import init_params, loss_fn
     from repro_torch.train import init_adam, make_train_step
     from repro_torch.train.optimizer import adamw_update, clip_by_global_norm
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    _build.build(force=True)
+    _build.build()
     dev = torch.device("cuda")
     cfg = get_config(args.arch)
     tcfg = TrainConfig(learning_rate=3e-4, warmup_steps=1, total_steps=10,
@@ -74,10 +85,46 @@ def main():
     for _ in range(2):
         _, params, opt = step(params, opt, batch)
     torch.cuda.synchronize()
-    t = time.perf_counter()
-    _, params, opt = step(params, opt, batch)
-    torch.cuda.synchronize()
-    whole_ms = (time.perf_counter() - t) * 1e3
+    print(f"tree {os.path.abspath(args.tree)}", flush=True)
+
+    # host time inside K6's launches, summed over a step
+    launch, k6_host = fa._launch, [0.0, 0]
+
+    def timed_launch(*a):
+        t0 = time.perf_counter()
+        launch(*a)
+        k6_host[0] += time.perf_counter() - t0
+        k6_host[1] += 1
+
+    fa._launch = timed_launch
+    for i in range(args.steps):
+        k6_host[:] = [0.0, 0]
+        routes = dict(getattr(fa.flash_attention, "route_launches", {}))
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        _, params, opt = step(params, opt, batch)
+        torch.cuda.synchronize()
+        whole_ms = (time.perf_counter() - t) * 1e3
+        print(f"[train step wall] step={i} wall_ms={whole_ms} "
+              f"k6_launch_host_ms={k6_host[0] * 1e3} k6_calls={k6_host[1]} "
+              + " ".join(f"{r}={n - routes[r]}" for r, n in
+                         getattr(fa.flash_attention, "route_launches",
+                                 {}).items()), flush=True)
+    fa._launch = launch
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        _, params, opt = step(params, opt, batch)
+        torch.cuda.synchronize()
+    rows = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count]
+    k6 = [e for e in rows if family(e.key) == "K6"]
+    print(f"[train step trace] device_ms="
+          f"{sum(e.self_device_time_total for e in rows) / 1e3} "
+          f"k6_device_ms={sum(e.self_device_time_total for e in k6) / 1e3} "
+          f"k6_records={sum(e.count for e in k6)} "
+          + " ".join(f"{re.search(r'flash_attention\w*', e.key).group(0)}"
+                     f"_ms={e.self_device_time_total / 1e3}"
+                     for e in k6), flush=True)
 
     def stage(fn):
         torch.cuda.synchronize()
