@@ -30,9 +30,10 @@ and runs, on the card:
      v 128, at seamless-m4t's encoder (128 x 128, not causal), its
      cross-attention in prefill (512 x 128) and in decode (1 x 128), 16
      heads of 64, and at qwen2-vl's prefill, 28 q over 4 kv heads of
-     128), and in bf16 at each shape phase 28 gives it (``K6_SERVED``:
-     2 x 32768 rows at every attention model's heads, MLA's 192/128,
-     hymba's window of 1024, seamless's 8192 frames), held over slices
+     128), and in bf16 at each shape phases 28 and 31 give it
+     (``K6_SERVED``: 2 x 32768 rows at every attention model's heads,
+     MLA's 192/128, hymba's window of 1024, seamless's 8192 frames; 16 x
+     4096 rows at tinyllama's and hymba's heads), held over slices
      of the query rows at their offset (the plain version's scores at
      32768 rows would not fit) — with
      its time, the plain version's time, its bound (the function's own
@@ -51,9 +52,10 @@ and runs, on the card:
      version, outputs and final state, at hymba's prefill shape (8 x 512,
      50 heads, d_state 16), in bf16, and at mamba2's (8 x 512, 32 heads
      of 64, d_state 128, chunk 256, f32) from a zero and a given state,
-     and in f32 at each shape phase 28 gives it (``K7_SERVED``: 2 x 32768
-     tokens, 128 chunks a sequence, mamba2's and hymba's heads) as a
-     prefill passes it and with slow decays from a seeded state,
+     and in f32 at each shape phases 28 and 31 give it (``K7_SERVED``: 2
+     x 32768 tokens, 128 chunks a sequence, and 16 x 4096, 16 chunks, at
+     mamba2's and hymba's heads) as a prefill passes it and with slow
+     decays from a seeded state,
      with each of its five passes' traced time on a line of its own,
      and K7 in f32 at mamba2's shape within 2e-5 (relative to 1 +
      |value|) of its plain version run in float64, from three seeds,
@@ -228,9 +230,28 @@ and runs, on the card:
      decoded to slot 32767 after a prefill of the rest, against one
      forward over all of them: bf16 within twice its gap to f32, f32
      within 1e-4 of the logits' scale;
-  17. each kernel's launch count on the fifteen paths (3-6, 7-10, 11-13,
-     14-15, 16, 20, 21, 22, 18, 19, 26 summed over its ranks, 27 with
-     two runs a cell on the card, 28 with three, 29 and 30),
+  31. the reference's ``train_4k`` cells the card trains: one device's
+     share of the single-pod mesh (16, 16), 16 x 4096 tokens, of
+     mamba2-370m, hymba-1.5b and tinyllama-1.1b at full width and depth,
+     bf16, from SEED, the dry-run's ``TrainConfig`` (remat, ZeRO-1 over
+     the plan's 16 data ranks), under ``set_attention_impl("blockwise",
+     1024)``: K6's backward recomputes the online softmax over chunks of
+     1024 keys (the reference's 2048 leaves tinyllama's share at 92.18 GB
+     on ``meta``). Each cell through ``card_cell`` as 28 runs its cells
+     (the traced run for mamba2 and tinyllama only), its loss and global
+     gradient norm finite and some parameter moved, K6 at 44 and 64
+     calls a step (tinyllama, hymba) and K7 at 96 and 64 (mamba2,
+     hymba), each traced cell's K6 and K7 device ms a step printed.
+     Before them, the blockwise backward against the plain one at a
+     depth where both fit: tinyllama cut to 2 layers, 2 x 4096, remat,
+     the loss and its gradients under ``"naive"`` and under
+     ``"blockwise"`` at 1024 keys: f32 within 1e-5 (loss, relative) and
+     2e-5 of each gradient leaf's largest |value|, bf16 within one bf16
+     step of it or the naive bf16 leaf's distance from f32's;
+  17. each kernel's launch count on the seventeen paths (3-6, 7-10,
+     11-13, 14-15, 16, 20, 21, 22, 18, 19, 26 summed over its ranks, 27
+     with two runs a cell on the card, 28 with three, 31's cells with
+     two or three, 29, 30 and 31's check),
      each path run with the counters at 0 and read right after: every
      kernel a path runs must have launched on it, and each of the seven
      > 0, K6 also per route (``flash_attention.wgmma`` and
@@ -299,8 +320,8 @@ TRACE_TRIES = 4
 # phase 27: the dry-run's predicted peak live bytes against the card's
 # peak, relative (the tolerance PERF.md predicted)
 DRYRUN_MEM_TOL = 0.05
-# K6's bf16 shapes in the bf16 cells (phase 2 holds each): (where, B, Sq,
-# Skv, Hq, Hkv, d, dv, causal, window)
+# K6's bf16 shapes in the bf16 cells and the train_4k cells (phase 2 holds
+# each): (where, B, Sq, Skv, Hq, Hkv, d, dv, causal, window)
 K6_SERVED = (
     ("tinyllama-1.1b", 2, 32768, 32768, 32, 4, 64, 64, True, 0),
     ("qwen2.5-3b", 2, 32768, 32768, 16, 2, 128, 128, True, 0),
@@ -314,6 +335,10 @@ K6_SERVED = (
     ("seamless self", 2, 32768, 32768, 16, 16, 64, 64, True, 0),
     ("seamless cross prefill", 2, 32768, 8192, 16, 16, 64, 64, False, 0),
     ("seamless cross decode", 8, 1, 8192, 16, 16, 64, 64, False, 0),
+    ("tinyllama-1.1b train_4k", 16, 4096, 4096, 32, 4, 64, 64, True, 0),
+    ("hymba-1.5b train_4k windowed", 16, 4096, 4096, 25, 5, 64, 64, True,
+     1024),
+    ("hymba-1.5b train_4k global", 16, 4096, 4096, 25, 5, 64, 64, True, 0),
 )
 # K6 at phase 2's shapes, f32 but for one bf16 row (the f32 tinyllama row
 # recorded last): (where, dtype, B, Sq, Skv, Hq, Hkv, d, dv, causal, window)
@@ -338,11 +363,14 @@ K6_SOURCE = {"mma_sync": "flash_attention.cu",
              "wgmma_tf32": "flash_attention_sm90_tf32.cu"}
 K6_KEY = {"mma_sync": "flash_attention", "wgmma": "flash_attention_sm90",
           "wgmma_tf32": "flash_attention_sm90_tf32"}
-# K7's shapes in the bf16 cells, f32 as models/ssm.py passes them (phase 2
-# holds each): (where, B, S, nh, hd, d_state, chunk), one group
+# K7's shapes in the bf16 cells and the train_4k cells, f32 as models/ssm.py
+# passes them (phase 2 holds each): (where, B, S, nh, hd, d_state, chunk),
+# one group
 K7_SERVED = (
     ("mamba2-370m", 2, 32768, 32, 64, 128, 256),
     ("hymba-1.5b", 2, 32768, 50, 64, 16, 256),
+    ("mamba2-370m train_4k", 16, 4096, 32, 64, 128, 256),
+    ("hymba-1.5b train_4k", 16, 4096, 50, 64, 16, 256),
 )
 # phases 11-16: requests, prompt tokens, greedy tokens; the caches' slots
 SERVE_TRAFFIC = (8, 512, 32)
@@ -406,15 +434,24 @@ def _trace(fn):
                  if e.device_type == DeviceType.CUDA]
 
 
-def traced_device_us(fn, tries=1):
+def traced_device_us(fn, tries=1, per_kernel=None):
     """``_trace``, failing on a trace that holds no device time. CUPTI now
     and then hands back an empty trace of work that is copies alone (seen
     on 64 MiB executor copies and on a cache fetch), so a pure call, run
-    only for its device time, may be traced up to ``tries`` times."""
+    only for its device time, may be traced up to ``tries`` times. With
+    a dict ``per_kernel``, each counted wrapper whose kernels ran is set
+    in it to their device ms in the trace (``KERNEL_SYMBOL``)."""
     for _ in range(tries):
         out, rows = _trace(fn)
         total_us = sum(e.self_device_time_total for e in rows)
         if total_us > 0:
+            if per_kernel is not None:
+                for name, syms in KERNEL_SYMBOL.items():
+                    sym = re.compile(r"\b(" + "|".join(syms) + r")\b")
+                    us = sum(e.self_device_time_total for e in rows
+                             if sym.search(e.key))
+                    if us:
+                        per_kernel[name] = us / 1e3
             return out, total_us
     raise AssertionError(f"the profiler traced no device time in {tries} "
                          f"traces")
@@ -1622,11 +1659,12 @@ def multi_process_phase(dev, cfg, plain, seq=512, batch=4, microbatches=1):
 
 
 def k6_served_phase(dev, measure):
-    """Phase 2's K6 in bf16 at the shapes the bf16 cells give it
-    (``K6_SERVED``, phase 28: one device's share of prefill_32k and
-    decode_32k), each held and timed by ``measure`` (main's) over 5
-    calls. The plain version cannot hold S x S scores at 32768 rows (137
-    GB at 32 heads), so it is held over slices of the query rows against
+    """Phase 2's K6 in bf16 at the shapes the bf16 and train_4k cells
+    give it (``K6_SERVED``, phase 28: one device's share of prefill_32k
+    and decode_32k; phase 31: of train_4k's forward), each held and timed
+    by ``measure`` (main's) over 5 calls. The plain version cannot hold S
+    x S scores at 32768 rows (137 GB at 32 heads), so it is held over
+    slices of the query rows against
     all keys, at their offset: a 512-row block in the middle and the last
     512 rows; its time is that of the last slice. SDPA is the yardstick
     on flash or memory-efficient attention alone (the math backend would
@@ -1732,8 +1770,9 @@ def k7_route(b, s, nh, hd, n, chunk, nbytes, bf16_x=False):
 
 
 def k7_served_phase(dev, measure):
-    """Phase 2's K7 at the shapes the bf16 cells give it (``K7_SERVED``,
-    phase 28's prefill_32k: 128 chunks a sequence), in f32 as
+    """Phase 2's K7 at the shapes the bf16 and train_4k cells give it
+    (``K7_SERVED``, phase 28's prefill_32k: 128 chunks a sequence; phase
+    31's train_4k: 16), in f32 as
     ``models/ssm.py`` passes it, against its plain version (chunked: its
     largest scratch, the (B, chunks, 256, 256, nh) decays, fits) at phase
     2's f32 tolerance, y and the final state, on two inputs: as a prefill
@@ -1847,9 +1886,11 @@ def card_cell(dev, arch, shape, mesh, mesh_name, tcfg, mem_tol, label,
     predicted peak live bytes within ``mem_tol`` (relative) of the card's
     peak allocated over the run, less what was allocated beside the
     inputs; (c) one more run without the counter, its logits (a serving
-    step's) finite: its wall beside the roofline's compute, memory and
-    bound and, for a serving step, tokens/s; (d) with ``traced``, a
-    third run under the profiler for the card's busy share of that wall.
+    step's) finite, or a train step's ``train_step_checks``: its wall
+    beside the roofline's compute, memory and bound and, for a serving
+    step, tokens/s; (d) with ``traced``, a third run under the profiler
+    for the card's busy share of that wall and each hand kernel's device
+    ms in it.
     Prints a ``[<label>]`` line; returns (the kernels charged a run, the
     card runs made)."""
     from repro_torch.configs.registry import get_config
@@ -1883,6 +1924,8 @@ def card_cell(dev, arch, shape, mesh, mesh_name, tcfg, mem_tol, label,
           f"cell {tag}: predicted peak {pred} bytes, the card {peak} "
           f"({mem_err:+.4f}, over {mem_tol})")
     card_max = torch.cuda.max_memory_allocated()
+    if shape.kind == "train":
+        fn.step.keep_grads = True
     torch.cuda.synchronize()
     t = time.perf_counter()
     out = fn()
@@ -1891,14 +1934,19 @@ def card_cell(dev, arch, shape, mesh, mesh_name, tcfg, mem_tol, label,
     if shape.kind != "train":
         check(bool(torch.isfinite(out[0]).all()),
               f"cell {tag}: non-finite logits")
+        nums = {}
+    else:
+        nums = train_step_checks(tag, out, inputs[0], fn.step, tcfg)
+        fn.step.keep_grads, fn.step.last_grads = False, None
     del out
-    nums = {}
     runs = 2
     if traced:
-        _, dev_us = traced_device_us(fn)
+        kernel_ms = {}
+        _, dev_us = traced_device_us(fn, per_kernel=kernel_ms)
         runs += 1
-        nums = {"device_ms": dev_us / 1e3,
-                "device_share": dev_us / 1e3 / wall_ms}
+        nums.update(device_ms=dev_us / 1e3,
+                    device_share=dev_us / 1e3 / wall_ms,
+                    kernel_device_ms=json.dumps(kernel_ms, sort_keys=True))
     del fn, inputs
     roof = analyze(arch, shape.name, mesh_name, mesh.num_devices, meta,
                    plan.collectives, cfg, shape, tcfg.param_dtype)
@@ -1922,6 +1970,78 @@ def card_cell(dev, arch, shape, mesh, mesh_name, tcfg, mem_tol, label,
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     return {name: k["calls"] for name, k in card["kernels"].items()}, runs
+
+
+def train_step_checks(tag, out, params, step, tcfg):
+    """A train cell's first step ``out`` = (loss, params, opt) from
+    ``params`` and zero moments, run with ``step.keep_grads``: the loss
+    and ``step.grad_norm`` finite, the norm that of ``step.last_grads``
+    (the synced gradients before clipping) within 1e-4 (relative, here
+    in float64), and the step against a plain AdamW step on those
+    gradients, clipped to ``tcfg.grad_clip``: m and v within 1e-6 of
+    (1 - beta) g and g^2 (of their largest |value|), and each parameter
+    within one step of its dtype (plus 1e-6 of its update) of ``p - lr
+    (g / (|g| + eps) + wd p)``, the first step's ``m^ / (sqrt(v^) +
+    eps)`` (decay on matrices only), with some parameter moved. Under ZeRO-1 on a plan
+    only this rank's cut of a leaf is updated (the first ``m.shape[d]``
+    along the dim its moment ``m`` is cut on); the rest stands for what
+    the broadcasts would have sent, so only that cut is compared.
+    Returns the loss, the norm, the leaves moved and the share of
+    elements moved beside the plain step's."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.train.optimizer import lr_schedule
+    loss, new_params, new_opt = out
+    norm = float(step.grad_norm)
+    check(math.isfinite(float(loss)), f"cell {tag}: loss {float(loss)}")
+    check(math.isfinite(norm), f"cell {tag}: gradient norm {norm}")
+    check(int(new_opt.step) == 1, f"cell {tag}: step {int(new_opt.step)}")
+    grads = tree_leaves(step.last_grads)
+    plain_norm = math.sqrt(sum(float(g.double().square().sum())
+                               for g in grads))
+    check(abs(norm - plain_norm) <= 1e-4 * plain_norm,
+          f"cell {tag}: gradient norm {norm}, plain {plain_norm}")
+    # the clip's factor as the step computes it, in f32 on the card
+    scale = torch.clamp(tcfg.grad_clip / (step.grad_norm + 1e-9), max=1.0)
+    lr = float(lr_schedule(tcfg)(torch.ones((), dtype=torch.int32)))
+    b1, b2 = tcfg.beta1, tcfg.beta2
+    moved = n_el = n_moved = n_plain_moved = 0
+    leaves = tree_leaves(params)
+    for p0, p1, m, v, g in zip(leaves, tree_leaves(new_params),
+                               tree_leaves(new_opt.m),
+                               tree_leaves(new_opt.v), grads):
+        if p0.numel() == 0:     # an SSM arch's empty MLP, as the reference's
+            continue
+        for d, (n, cut) in enumerate(zip(p0.shape, m.shape)):
+            if n != cut:
+                p0, p1, g = (t.narrow(d, 0, cut) for t in (p0, p1, g))
+        g = (g * scale).to(g.dtype).float()
+        for got, want, what in ((m, (1 - b1) * g, "m"),
+                                (v, (1 - b2) * g.square(), "v")):
+            e = float((got - want).abs().max())
+            check(e <= 1e-6 * float(want.abs().max()),
+                  f"cell {tag}: {what} {e} off the plain step's")
+        w = p0.float()
+        upd = g / (g.abs() + tcfg.eps)
+        if p0.ndim >= 2:
+            upd = upd + tcfg.weight_decay * w
+        plain = (w - lr * upd).to(p0.dtype)
+        # one step of the dtype at the value, and 1e-6 of the update
+        # for the step's other f32 rounding of m^ and sqrt(v^)
+        e = (p1.float() - plain.float()).abs()
+        tol = torch.finfo(p0.dtype).eps * torch.maximum(
+            plain.float().abs(), p1.float().abs()) + 1e-6 * lr * upd.abs()
+        check(bool((e <= tol).all()),
+              f"cell {tag}: a parameter {float(e.max())} off the plain "
+              f"AdamW step's")
+        moved += not torch.equal(p0, p1)
+        n_el += p0.numel()
+        n_moved += int((p0 != p1).sum())
+        n_plain_moved += int((p0 != plain).sum())
+    check(moved > 0, f"cell {tag}: no parameter moved")
+    return {"loss": float(loss), "grad_norm": norm, "lr": lr,
+            "leaves_moved": f"{moved}/{len(leaves)}",
+            "elements_moved": n_moved / n_el,
+            "plain_elements_moved": n_plain_moved / n_el}
 
 
 def dryrun_phase(dev, mem_tol=None):
@@ -1985,6 +2105,155 @@ def bf16_cells_phase(dev):
             launched[name] = launched.get(name, 0) + runs * n
     phase("bf16 cells", cells=len(BF16_CELLS),
           seconds=time.perf_counter() - t)
+    return launched
+
+
+# ---- 31. the reference's train_4k cells, under the blockwise backward ----
+
+#: the train_4k cells one card trains, smallest step first: one device's
+#: share of the single-pod mesh (16 x 4096 tokens) peaks at 60.93, 47.01
+#: and 54.55 GB on meta under the blockwise backward at TRAIN_4K_CHUNK
+#: (naive: 60.93, 96.22 and 117.53). The other seven archs' shares are
+#: held by their loss head, MoE and weights, not attention.
+TRAIN_4K_ARCHS = ("mamba2-370m", "hymba-1.5b", "tinyllama-1.1b")
+#: keys a chunk of K6's blockwise backward: the reference's 2048 leaves
+#: tinyllama's share at 92.18 GB on meta, over the card's 80 GB
+TRAIN_4K_CHUNK = 1024
+#: K6 and K7 calls a step: the forward and the remat recompute, each
+#: once per attention or SSM layer
+TRAIN_4K_LAUNCHES = {"mamba2-370m": {"ssd_scan": 96},
+                     "hymba-1.5b": {"flash_attention": 64, "ssd_scan": 64},
+                     "tinyllama-1.1b": {"flash_attention": 44}}
+#: the cells whose step runs a third time under the profiler: not
+#: hymba's, the slowest (34 s a step), to keep the smoke in its limit
+TRAIN_4K_TRACED = frozenset({"mamba2-370m", "tinyllama-1.1b"})
+#: the blockwise backward against the plain one: tinyllama's layers, and
+#: the batch and length of the check
+BLOCKWISE_CHECK = (2, 2, 4096)
+
+
+def _leaf_names(tree, prefix=""):
+    """The '/'-joined key path of each leaf of a dict pytree, in
+    ``tree_leaves``' order (sorted keys)."""
+    if isinstance(tree, dict):
+        return [n for k in sorted(tree)
+                for n in _leaf_names(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def blockwise_check_phase(dev, layers=BLOCKWISE_CHECK[0],
+                          batch=BLOCKWISE_CHECK[1], seq=BLOCKWISE_CHECK[2],
+                          chunk=TRAIN_4K_CHUNK):
+    """31 (a). tinyllama-1.1b cut to ``layers`` layers, ``batch`` x
+    ``seq`` tokens of phase 18's pipeline, remat, one bf16 draw from SEED
+    and its values in f32: the loss and its gradients under ``"naive"``
+    (K6's backward over whole scores) and under ``"blockwise"`` at
+    ``chunk`` keys. f32: the loss within 1e-5 (relative) and each
+    gradient leaf within 2e-5 of its largest |value|
+    (``tests/test_torch_train.py``'s). bf16: the loss as f32's, each leaf
+    within one bf16 step of its largest |value| or, where more, the
+    naive bf16 leaf's own distance from the f32 one (the whole step runs
+    in bf16, and the scan rounds P to bf16 before PV as the reference
+    does: on the H100 the attention and embedding leaves sit up to 1.5
+    steps off, inside the naive leaves' 1.8-4.1 steps from f32's, so one
+    step alone does not hold at this depth); each leaf's error over one
+    bf16 step and the naive bf16 leaf's distance from f32's over it are
+    printed by leaf. Prints each
+    run's wall (loss and gradients, synchronised; the first also takes
+    the warm-up of a cold process)."""
+    import dataclasses
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import init_params
+    from repro_torch.models import layers as L
+    from repro_torch.models.transformer import loss_fn
+
+    cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                              num_layers=layers)
+    data = _train_data(cfg, dev, batch, seq)
+    p16 = init_params(cfg, SEED, torch.bfloat16, dev)
+    p32 = tree_map(lambda t: t.float(), p16)
+    names = _leaf_names(p16)
+    got, ms = {}, {}
+    for name, params in (("f32", p32), ("bf16", p16)):
+        leaves = [t.requires_grad_() for t in tree_leaves(params)]
+        for impl in ("naive", "blockwise"):
+            with L.attention_impl(impl, chunk):
+                _sync(dev)
+                t = time.perf_counter()
+                loss = loss_fn(params, cfg, data, remat=True)
+                grads = torch.autograd.grad(loss, leaves)
+                _sync(dev)
+            ms[name, impl] = (time.perf_counter() - t) * 1e3
+            got[name, impl] = (float(loss.detach()), grads)
+    del p16, p32
+    for name in ("f32", "bf16"):
+        (l0, g0), (l1, g1) = got[name, "naive"], got[name, "blockwise"]
+        check(math.isfinite(l0) and abs(l1 - l0) <= 1e-5 * abs(l0),
+              f"blockwise check {name}: loss {l1} against {l0}")
+        worst, by_step, drift_by_step = 0.0, {}, {}
+        for leaf, a, b, f in zip(names, g1, g0, got["f32", "naive"][1]):
+            top = float(b.abs().max())
+            tol = 2e-5 * top
+            err = float((a.float() - b.float()).abs().max())
+            if name == "bf16":
+                step = 2.0 ** (math.floor(math.log2(top)) - 7)
+                drift = float((b.float() - f).abs().max())
+                tol = max(step, drift)
+                by_step[leaf] = err / step
+                drift_by_step[leaf] = drift / step
+            check(math.isfinite(err) and err <= tol,
+                  f"blockwise check {name}: {leaf}'s gradient {err} off, "
+                  f"over {tol}")
+            worst = max(worst, err / tol)
+        nums = {}
+        if name == "bf16":
+            nums = dict(worst_grad_err_over_step=max(by_step.values()),
+                        grad_err_over_step=json.dumps(by_step),
+                        naive_drift_over_step=json.dumps(drift_by_step))
+        phase("train 4k blockwise check", dtype=name, layers=layers,
+              batch=batch, seq=seq, chunk=chunk, loss=l0,
+              loss_blockwise=l1, worst_grad_err_over_tol=worst,
+              leaves=len(g0), naive_ms=ms[name, "naive"],
+              blockwise_ms=ms[name, "blockwise"], **nums)
+    del got
+    torch.cuda.empty_cache()
+
+
+def train_4k_phase(dev):
+    """31 (b). Each of ``TRAIN_4K_ARCHS`` at ``train_4k`` as one device's
+    share of the single-pod mesh, in bf16 with the dry-run's
+    ``TrainConfig``, under ``set_attention_impl("blockwise",
+    TRAIN_4K_CHUNK)`` (restored after), through ``card_cell``: meta
+    against the card, the peak, the wall against the roofline, the
+    device share, and the step's loss, gradient norm and moved
+    parameters; each kernel's calls a step as ``TRAIN_4K_LAUNCHES``
+    says. Returns each kernel's launches the card runs should have
+    made."""
+    from repro_torch.configs.base import SHAPES, SINGLE_POD_MESH
+    from repro_torch.launch.dryrun import train_config
+    from repro_torch.models import layers as L
+
+    tcfg = train_config()
+    launched = {}
+    t = time.perf_counter()
+    with L.attention_impl("blockwise", TRAIN_4K_CHUNK):
+        for arch in TRAIN_4K_ARCHS:
+            charged, runs = card_cell(
+                dev, arch, SHAPES["train_4k"], SINGLE_POD_MESH, "single",
+                tcfg, DRYRUN_MEM_TOL, "train 4k cell",
+                traced=arch in TRAIN_4K_TRACED)
+            want = {k: TRAIN_4K_LAUNCHES[arch].get(k, 0)
+                    for k in ("flash_attention", "ssd_scan")}
+            got = {k: charged.get(k, 0) for k in want}
+            check(got == want, f"train_4k {arch}: kernel calls a step "
+                               f"{got}, want {want}")
+            for name, n in charged.items():
+                launched[name] = launched.get(name, 0) + runs * n
+    phase("train 4k cells", cells=len(TRAIN_4K_ARCHS),
+          attn=f"blockwise/{TRAIN_4K_CHUNK}",
+          chunk_cut="2048->1024 (tinyllama's share 92.18 GB on meta at "
+                    "2048)", seconds=time.perf_counter() - t)
     return launched
 
 
@@ -3526,6 +3795,21 @@ def main():
     zero_counts()
     long_decode_phase(dev, during, (flash_attention, ssd_scan))
     read_counts("bf16 long", (flash_attention, ssd_scan))
+
+    # ---- 31. the reference's train_4k cells, under the blockwise backward --
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_counts()
+    blockwise_check_phase(dev)
+    read_counts("train 4k check", (flash_attention,))
+    torch.cuda.empty_cache()
+    zero_counts()
+    want = train_4k_phase(dev)
+    read_counts("train 4k cells", (flash_attention, ssd_scan))
+    # each cell ran two or three times on the card: counted, timed and
+    # (TRAIN_4K_TRACED) traced
+    check({k: launches["train 4k cells"][k] for k in want} == want,
+          f"train_4k launches {launches['train 4k cells']}, want {want}")
 
     # ---- 17. launches on the main path -------------------------------------
     # K6's three kernels are recorded apart: flash_attention (mma.sync),

@@ -33,14 +33,15 @@ the ``meta`` device (the dry-run's), returns an output of the kernel's
 shape and dtype and launches nothing; ``flash_attention.launches``
 counts the launches and ``flash_attention.route_launches`` the launches
 of each route. On every device the result carries a ``grad_fn`` whose
-backward recomputes the plain version and differentiates it
+backward recomputes the plain version, or the function its caller hands
+down as ``backward`` (the models' blockwise scan), and differentiates it
 (``_FlashAttention``); the forward stays the kernel. An active
 ``roofline.count.OpCounter`` is charged ``flash_attention_cost`` per
 call, whatever the device.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -168,13 +169,20 @@ def tf32_scratch_words(b: int, skv: int, hkv: int, d: int, dv: int) -> int:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None) -> torch.Tensor:
+                    scale: Optional[float] = None,
+                    backward: Optional[Callable] = None) -> torch.Tensor:
     """q: (BH, Sq, d), k: (BH, Skv, d), v: (BH, Skv, dv) -> (BH, Sq, dv);
     or, with GQA, q: (B, Sq, Hq, d), k: (B, Skv, Hkv, d), v: (B, Skv,
     Hkv, dv) -> (B, Sq, Hq, dv) with ``Hq % Hkv == 0``. On the GPU ``(d,
     dv)`` is one of ``HEAD_DIMS``. f32 or bf16 inputs of one dtype,
     computed in f32, output in the input dtype. ``window`` 0 means no
-    window; ``scale`` defaults to ``d ** -0.5``."""
+    window; ``scale`` defaults to ``d ** -0.5``.
+
+    ``backward``: None (the plain version), or a function ``f(q, k, v, *,
+    causal, window)`` of (B, S, H, d) tensors that computes the same
+    attention at the default scale; the autograd backward recomputes
+    through it and differentiates it. It takes no ``scale``, so it
+    cannot be given with one."""
     squeeze = q.ndim == 3
     q4, k4, v4 = _as_bshd(q), _as_bshd(k), _as_bshd(v)
     b, sq, hq, d = q4.shape
@@ -189,6 +197,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                         f"{k.dtype}, {v.dtype}")
     if window < 0:
         raise ValueError(f"window must be >= 0, got {window}")
+    if backward is not None and scale is not None:
+        raise ValueError("flash_attention: a backward function computes "
+                         "the default scale; give no scale with it")
     scale = scale if scale is not None else d ** -0.5
     if {t.device.type for t in (q, k, v)} not in ({"cpu"}, {"meta"}):
         if (d, dv) not in HEAD_DIMS:
@@ -215,23 +226,25 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                                  f"aligned (the kernel loads 16-byte rows)")
     with charge("flash_attention", flash_attention_cost, q4, k4, v4,
                 causal=causal, window=window):
-        out = _FlashAttention.apply(q4, k4, v4, causal, window, scale)
+        out = _FlashAttention.apply(q4, k4, v4, causal, window, scale,
+                                    backward)
     return out[:, :, 0] if squeeze else out
 
 
 class _FlashAttention(torch.autograd.Function):
     """K6 as an autograd op: the forward launches the CUDA kernel (the
     plain version on the CPU, a shape-only output on ``meta``); the
-    backward recomputes ``flash_attention_plain`` on the saved inputs and
-    returns its gradients (the JAX package trains through plain
-    attention too). Under ``no_grad`` it is the bare forward."""
+    backward recomputes ``flash_attention_plain`` (or the caller's
+    ``backward`` function) on the saved inputs and returns its gradients
+    (the JAX package trains through plain attention too). Under
+    ``no_grad`` it is the bare forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale):
+    def forward(ctx, q, k, v, causal, window, scale, backward):
         b, sq, hq, d = q.shape
         _, skv, hkv, dv = v.shape
         ctx.save_for_backward(q, k, v)
-        ctx.opts = (causal, window, scale)
+        ctx.opts = (causal, window, scale, backward)
         if q.device.type == "cpu":
             # laid out as the kernel writes it, so that later ops see the
             # same strides on every device
@@ -246,13 +259,16 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, grad_out):
-        causal, window, scale = ctx.opts
+        causal, window, scale, recompute = ctx.opts
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            out = flash_attention_plain(*inputs, causal=causal,
-                                        window=window, scale=scale)
+            if recompute is None:
+                out = flash_attention_plain(*inputs, causal=causal,
+                                            window=window, scale=scale)
+            else:
+                out = recompute(*inputs, causal=causal, window=window)
             grads = torch.autograd.grad(out, inputs, grad_out)
-        return (*grads, None, None, None)
+        return (*grads, None, None, None, None)
 
 
 def _launch(route, q, k, v, out, causal, window, scale):

@@ -7,7 +7,7 @@ the CPU, the hand-written kernel on the GPU.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -23,14 +23,18 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0) -> torch.Tensor:
+              causal: bool = True, window: int = 0,
+              backward: Optional[Callable] = None) -> torch.Tensor:
     """q: (B, Sq, Hq, d), k: (B, Skv, Hkv, d), v: (B, Skv, Hkv, dv) ->
     (B, Sq, Hq, dv).
 
     GQA: q heads grouped onto kv heads (Hq % Hkv == 0). The kernel maps
     q head h to kv head h // group itself, so K and V are never repeated
-    or transposed, and no length is padded."""
-    return _fa.flash_attention(q, k, v, causal=causal, window=window)
+    or transposed, and no length is padded. ``backward``: what the
+    autograd backward recomputes and differentiates (``flash_attention``'s
+    argument; the plain version when None)."""
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               backward=backward)
 
 
 def compress(x: torch.Tensor, *, chunk: int = 1024

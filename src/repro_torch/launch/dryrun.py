@@ -29,15 +29,20 @@ port's serving sends no collective.
 This is the one entry point of the port that takes no device: ``meta``
 computes nothing, so no CUDA device is needed. ``build_cell`` builds the
 same step on a real device with seeded inputs, so a trace there can be
-set against this one (``chip_smoke.py`` phase 27). The flags that only
-steer XLA's lowering in the reference are refused, and there is no
-``XLA_FLAGS`` or ``DRYRUN_DEVICES``.
+set against this one (``chip_smoke.py`` phase 27). ``--attn blockwise
+--attn-chunk N`` sets ``models.layers.set_attention_impl`` for the
+cells, as the reference does: K6's backward, and attention over a cache,
+then run the online softmax over chunks of N keys, and each record names
+the two. The flags that only steer XLA's lowering in the reference are
+refused, and there is no ``XLA_FLAGS`` or ``DRYRUN_DEVICES``.
 
 Usage::
 
   python -m repro_torch.launch.dryrun --arch qwen3-4b --shape train_4k \\
       --mesh single
   python -m repro_torch.launch.dryrun --all --mesh both
+  python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
+      --shape train_4k --mesh single --attn blockwise --attn-chunk 1024
 """
 from __future__ import annotations
 
@@ -62,6 +67,7 @@ from repro_torch.launch.mesh import PlanMesh, dp_size
 from repro_torch.launch.specs import (local_shape, serve_input_specs,
                                       train_input_specs)
 from repro_torch.models import init_params
+from repro_torch.models import layers
 from repro_torch.roofline.analysis import analyze
 from repro_torch.roofline.count import OpCounter
 from repro_torch.serve.serve_step import decode_step, prefill_step
@@ -75,8 +81,6 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 #: the reference's flags that only steer XLA's lowering, and why the port
 #: has none of them
 XLA_ONLY = {
-    "attn": "--attn blockwise selects an XLA lowering of attention; the "
-            "port's attention from an empty cache is always K6",
     "remat_policy": "--remat-policy dots is an XLA checkpoint policy; the "
                     "port checkpoints whole blocks (full) or none",
     "no_qkv_shard": "--no-qkv-shard drops XLA sharding hints the port "
@@ -85,6 +89,14 @@ XLA_ONLY = {
                        "port does not have (the model axis is replicated)",
     "save_hlo": "--save-hlo writes XLA's HLO; the port lowers no HLO",
 }
+
+
+def train_config(microbatches: int = 1, remat: bool = True,
+                 zero1: bool = True, bucket_mb: float = 16.0) -> TrainConfig:
+    """The ``TrainConfig`` of the dry-run's train cells (bf16, as the
+    reference's dry-run); its defaults are the CLI's."""
+    return TrainConfig(microbatches=microbatches, remat=remat, zero1=zero1,
+                       grad_bucket_mb=bucket_mb, param_dtype="bfloat16")
 
 
 def mesh_config(mesh_kind: str) -> MeshConfig:
@@ -146,7 +158,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshConfig,
     """One device's share of a cell: (fn, inputs, plan) where ``fn()``
     runs the step once on ``inputs`` (params, optimizer state or caches,
     the batch), all on ``device`` in ``tcfg.param_dtype``, and ``plan``
-    is the ``PlanMesh`` whose ``collectives`` the step records. On
+    is the ``PlanMesh`` whose ``collectives`` the step records; a train
+    cell's ``fn.step`` is its step (``grad_norm`` after a run). On
     ``meta`` nothing is drawn; elsewhere params and inputs come from
     ``seed``."""
     dtype = getattr(torch, tcfg.param_dtype)
@@ -164,7 +177,11 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshConfig,
                 opt = zero1_init(opt, plan)
         else:
             step = make_train_step(cfg, tcfg)
-        return (lambda: step(params, opt, batch)), (params, opt, batch), plan
+
+        def fn():
+            return step(params, opt, batch)
+        fn.step = step
+        return fn, (params, opt, batch), plan
     share = local_shape(shape, mesh)
     specs = serve_input_specs(cfg, share, shape.kind, dtype, device)
     caches = specs.pop("caches")
@@ -228,7 +245,9 @@ def lower_cell(arch: str, shape: Union[str, ShapeConfig], mesh_kind: str,
 
 
 def run_cell(arch, shape_name, mesh_kind, tcfg, out_dir, bucketed=False,
-             name_tag=""):
+             name_tag="", attn=None):
+    """Trace one cell and write its record; ``attn`` ({"attn",
+    "attn_chunk"} under the blockwise impl) is added to it."""
     ok, why = cell_is_applicable(arch, shape_name)
     tag = f"{arch}|{shape_name}|{mesh_kind}"
     if not ok:
@@ -247,6 +266,7 @@ def run_cell(arch, shape_name, mesh_kind, tcfg, out_dir, bucketed=False,
                "ok": False, "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc()[-2000:]}
         print(f"FAIL {tag}: {type(e).__name__}: {e}")
+    rec.update(attn or {})
     os.makedirs(out_dir, exist_ok=True)
     fname = f"{arch}_{shape_name}_{mesh_kind}".replace(".", "_")
     if bucketed:
@@ -278,7 +298,9 @@ def main(argv=None):
     ap.add_argument("--bucket-mb", type=float, default=16.0)
     ap.add_argument("--save-hlo", default="")
     ap.add_argument("--attn", default="naive",
-                    choices=["naive", "blockwise"])
+                    choices=["naive", "blockwise"],
+                    help="blockwise: K6's backward over key chunks")
+    ap.add_argument("--attn-chunk", type=int, default=2048)
     ap.add_argument("--remat-policy", default="full",
                     choices=["full", "dots", "none"],
                     help="full checkpoints each block, none nothing")
@@ -287,8 +309,7 @@ def main(argv=None):
                     help="suffix for result filenames")
     args = ap.parse_args(argv)
 
-    refused = {"attn": args.attn == "blockwise",
-               "remat_policy": args.remat_policy == "dots",
+    refused = {"remat_policy": args.remat_policy == "dots",
                "no_qkv_shard": args.no_qkv_shard,
                "no_seq_parallel": args.no_seq_parallel,
                "save_hlo": bool(args.save_hlo)}
@@ -296,11 +317,10 @@ def main(argv=None):
         if refused[flag]:
             ap.error(f"not supported by the PyTorch port: {why}")
 
-    tcfg = TrainConfig(
+    tcfg = train_config(
         microbatches=args.microbatches,
         remat=not args.no_remat and args.remat_policy == "full",
-        zero1=not args.no_zero1, grad_bucket_mb=args.bucket_mb,
-        param_dtype="bfloat16")
+        zero1=not args.no_zero1, bucket_mb=args.bucket_mb)
 
     meshes = (["single", "multi"] if args.mesh == "both" else [args.mesh])
     if args.all:
@@ -310,12 +330,17 @@ def main(argv=None):
     else:
         cells = [(args.arch, args.shape)]
 
+    attn = None
+    if args.attn == "blockwise":
+        attn = {"attn": args.attn, "attn_chunk": args.attn_chunk}
     results = []
     t0 = time.time()
-    for arch, shape_name in cells:
-        for mk in meshes:
-            results.append(run_cell(arch, shape_name, mk, tcfg, args.out,
-                                    args.bucketed, args.tag))
+    # callers in one process (tests) see their own setting again after
+    with layers.attention_impl(args.attn, args.attn_chunk):
+        for arch, shape_name in cells:
+            for mk in meshes:
+                results.append(run_cell(arch, shape_name, mk, tcfg, args.out,
+                                        args.bucketed, args.tag, attn))
     n_ok = sum(1 for r in results if r.get("ok"))
     n_skip = sum(1 for r in results if "skipped" in r)
     n_fail = len(results) - n_ok - n_skip

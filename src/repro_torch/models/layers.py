@@ -11,21 +11,70 @@ there, ``repro/models/layers.py:_attention_naive``). Projections are
 ``torch.matmul``, as the reference leaves them to XLA. There is one
 device, so the reference's sharding annotations have no counterpart.
 
+``set_attention_impl("blockwise", chunk)`` is the reference's lowering
+knob (``attention_impl(impl, chunk)`` sets it for a ``with`` block and
+restores what it found): attention over more than ``chunk`` keys and more than one query
+row then runs ``_attention_blockwise``, an online softmax over key
+chunks whose every chunk is checkpointed, so that no (B, H, Sq, Skv)
+score tensor lives at once. From an empty cache the forward stays K6 and
+only its autograd backward recomputes through ``_attention_blockwise``
+(in place of the plain version over whole scores); over a cache the
+blockwise function is the forward itself.
+
 The caches are updated in place (the reference returns new ones): a
 tinyllama cache at 8 x 552 tokens is ~200 MB, and copying it per layer
 and step would dominate decode.
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Optional
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
 
 NEG_INF = -1e30
+
+# Attention lowering (the reference's knob, ``repro/models/layers.py``):
+#   naive     -- K6 from an empty cache with a backward over whole scores,
+#                plain masked attention over a cache
+#   blockwise -- the same K6 forward, its backward recomputed by an online
+#                softmax over KV chunks; over a cache that scan itself
+_ATTN_IMPL = "naive"
+_ATTN_CHUNK = 2048
+
+
+def set_attention_impl(impl: str, chunk: int = 2048) -> None:
+    global _ATTN_IMPL, _ATTN_CHUNK
+    assert impl in ("naive", "blockwise"), impl
+    _ATTN_IMPL = impl
+    _ATTN_CHUNK = chunk
+
+
+def get_attention_impl() -> str:
+    return _ATTN_IMPL
+
+
+def get_attention_chunk() -> int:
+    return _ATTN_CHUNK
+
+
+@contextlib.contextmanager
+def attention_impl(impl: str, chunk: int = 2048):
+    """``set_attention_impl(impl, chunk)`` inside the ``with`` block; the
+    impl and chunk found on entry are restored on exit, also when the
+    block raises."""
+    before = (_ATTN_IMPL, _ATTN_CHUNK)
+    set_attention_impl(impl, chunk)
+    try:
+        yield
+    finally:
+        set_attention_impl(*before)
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -143,9 +192,22 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B,Sq,Hq,dv). ``kv_len``: optional (B,) valid length (decode caches).
 
     Attention from an empty cache (no offset, no ``kv_len``) is K6;
-    attention over a cache is plain masked attention."""
+    attention over a cache is plain masked attention. Under
+    ``"blockwise"``, over more than the chunk's keys and more than one
+    query row (the reference's rule), K6's backward recomputes through
+    ``_attention_blockwise`` and attention over a cache is that scan."""
+    blockwise = (_ATTN_IMPL == "blockwise" and k.shape[1] > _ATTN_CHUNK
+                 and q.shape[1] > 1)
     if q_offset == 0 and kv_len is None:
-        return ops.attention(q, k, v, causal=causal, window=window)
+        backward = (functools.partial(_attention_blockwise, q_offset=0,
+                                      kv_len=None, chunk=_ATTN_CHUNK)
+                    if blockwise else None)
+        return ops.attention(q, k, v, causal=causal, window=window,
+                             backward=backward)
+    if blockwise:
+        return _attention_blockwise(q, k, v, causal=causal, window=window,
+                                    q_offset=q_offset, kv_len=kv_len,
+                                    chunk=_ATTN_CHUNK)
     return _attention_naive(q, k, v, causal=causal, window=window,
                             q_offset=q_offset, kv_len=kv_len)
 
@@ -172,6 +234,89 @@ def _attention_naive(q, k, v, *, causal, window, q_offset, kv_len):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgqk,bkhd->bqhgd", p, v.to(torch.float32))
     return out.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def _attention_blockwise(q, k, v, *, causal, window, q_offset, kv_len,
+                         chunk):
+    """Online-softmax scan over KV chunks, the reference's
+    ``_attention_blockwise``: one (B, Hkv, group, Sq, chunk) score block
+    at a time instead of the whole S^2 tensor, each chunk's body
+    checkpointed (recomputed in the backward, as ``jax.checkpoint(body)``
+    under the reference's scan), so its scores live only while that
+    chunk is worked on. Shapes as ``attention_core``; ``window`` 0 is
+    off; keys at or past ``kv_len`` (or past Skv, the padding of the last
+    chunk) are masked.
+
+    The reference's dots take the inputs' own dtype with an f32 product
+    (``preferred_element_type``). PyTorch has no such product of bf16
+    operands on the CPU, so both dots take operands upcast to f32 on
+    every device (q once, each chunk's K and V in its body): the same
+    ops on the CPU, the card and ``meta``. P is rounded to q's dtype
+    before PV, as the reference casts it. The reference's sharding pins
+    have no counterpart: the ``model`` axis is replicated."""
+    b, sq, hq, d = q.shape
+    _, skv, hkv, _ = k.shape
+    dv = v.shape[-1]
+    group = hq // hkv
+    nc = -(-skv // chunk)
+    pad = nc * chunk - skv
+    if pad:
+        k = F.pad(k, (0, 0, 0, 0, 0, pad))
+        v = F.pad(v, (0, 0, 0, 0, 0, pad))
+    # q turned once to (b, hkv, g * sq, d), so that each chunk's dot
+    # writes (b, hkv, g, sq, chunk) scores with no transpose in the loop
+    qt = (q.reshape(b, sq, hkv, group, d).permute(0, 2, 3, 1, 4)
+          .to(torch.float32).reshape(b, hkv, group * sq, d))
+    q_pos = q_offset + torch.arange(sq, device=q.device)
+    valid_len = (kv_len.to(torch.int32) if kv_len is not None else
+                 torch.full((b,), skv, dtype=torch.int32, device=q.device))
+    m = torch.full((b, hkv, group, sq, 1), NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros((b, hkv, group, sq, 1), dtype=torch.float32,
+                    device=q.device)
+    acc = torch.zeros((b, hkv, group, sq, dv), dtype=torch.float32,
+                      device=q.device)
+    for ci in range(nc):
+        k_blk = k[:, ci * chunk:(ci + 1) * chunk]
+        v_blk = v[:, ci * chunk:(ci + 1) * chunk]
+        m, l, acc = torch.utils.checkpoint.checkpoint(
+            _blockwise_chunk, qt, k_blk, v_blk, m, l, acc, q_pos, valid_len,
+            ci * chunk, causal=causal, window=window, p_dtype=q.dtype,
+            use_reentrant=False)
+    safe = torch.where(l == 0.0, 1.0, l)
+    out = (acc / safe).permute(0, 3, 1, 2, 4)           # (b,sq,hkv,g,dv)
+    return out.reshape(b, sq, hq, dv).to(q.dtype)
+
+
+def _blockwise_chunk(qt, k_blk, v_blk, m, l, acc, q_pos, valid_len, k0, *,
+                     causal, window, p_dtype):
+    """One chunk of ``_attention_blockwise``: the carries (m, l, acc)
+    after the keys ``k0 ..`` of ``k_blk`` (b, chunk, hkv, d) and
+    ``v_blk`` (b, chunk, hkv, dv), for q turned to (b, hkv, g * sq, d)
+    in f32."""
+    b, hkv, group, sq, dv = acc.shape
+    ck, d = k_blk.shape[1], k_blk.shape[-1]
+    s = torch.matmul(qt, k_blk.permute(0, 2, 3, 1).to(torch.float32))
+    s = s.view(b, hkv, group, sq, ck) * (d ** -0.5)
+    k_pos = k0 + torch.arange(ck, device=qt.device)
+    mask = (k_pos[None, None, :] < valid_len[:, None, None]).expand(
+        b, sq, ck)
+    if causal:
+        mask = mask & (q_pos[None, :, None] >= k_pos[None, None, :])
+    if window > 0:
+        mask = mask & ((q_pos[None, :, None] - k_pos[None, None, :])
+                       < window)
+    mask = mask[:, None, None]                          # (b,1,1,sq,chunk)
+    s = torch.where(mask, s, NEG_INF)
+    m_new = torch.maximum(m, torch.amax(s, dim=-1, keepdim=True))
+    # masked slots zeroed explicitly: a fully masked chunk would add
+    # exp(NEG_INF - NEG_INF) = 1 otherwise
+    p = torch.exp(s - m_new) * mask
+    alpha = torch.exp(m - m_new)
+    l_new = l * alpha + torch.sum(p, dim=-1, keepdim=True)
+    pv = torch.matmul(p.to(p_dtype).to(torch.float32).view(
+        b, hkv, group * sq, ck), v_blk.permute(0, 2, 1, 3).to(torch.float32))
+    return m_new, l_new, acc * alpha + pv.view(b, hkv, group, sq, dv)
 
 
 def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor,

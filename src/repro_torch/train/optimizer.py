@@ -136,6 +136,18 @@ def zero1_shard(tree, specs, dp_axes: tuple, index: int, size: int):
     return tree_map(cut, tree, specs)
 
 
+def zero1_cut_shapes(tree, specs, dp_axes: tuple, size: int):
+    """The shape of each leaf's cut that ``zero1_shard`` gives (a tuple a
+    leaf), from the leaves' shapes alone."""
+    def cut(x, spec):
+        shape = list(x.shape)
+        d = _shard_dim(spec, dp_axes)
+        if d is not None and size > 1:
+            shape[d] //= size
+        return tuple(shape)
+    return tree_map(cut, tree, specs)
+
+
 def zero1_init(opt: AdamState, mesh) -> AdamState:
     """This rank's ZeRO-1 cut of whole optimizer state (``init_adam``'s,
     or a step's without ZeRO-1): ``m`` and ``v`` cut as ``zero1_specs``

@@ -58,7 +58,8 @@ from repro_torch.models.transformer import loss_fn
 from repro_torch.train.collectives import RDMACollective
 from repro_torch.train.optimizer import (AdamState, adamw_update,
                                          clip_by_global_norm, zero1_gather,
-                                         zero1_shard, zero1_specs)
+                                         zero1_cut_shapes, zero1_shard,
+                                         zero1_specs)
 
 
 def _microbatch_grads(params, cfg: ModelConfig, batch: dict,
@@ -154,10 +155,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
         issued = Counter()
         if zero1:
             ospecs = zero1_specs(params, param_specs(params), axes, size)
-            shapes = zero1_shard(tree_map(lambda p: p.to("meta"), params),
-                                 ospecs, axes, index, size)
-            if [a.shape for a in tree_leaves(opt_state.m)] != [
-                    p.shape for p in tree_leaves(shapes)]:
+            # from the shapes alone: no op runs, so an OpCounter counts
+            # the same on every device
+            if [tuple(a.shape) for a in tree_leaves(opt_state.m)] != \
+                    tree_leaves(zero1_cut_shapes(params, ospecs, axes, size)):
                 raise ValueError(
                     "the ZeRO-1 step takes this rank's cut of m and v; "
                     "cut whole state once with "

@@ -23,7 +23,9 @@ K7 ``ssd_scan`` is within 2e-5 of its plain version in f32 and 6e-2 in bf16 (the
 ``tests/test_kernels.py`` tolerances); its
 final state, f32 in both dtypes, within 2e-5. Under autograd, K6's and
 K7's gradients are within the same 2e-4 and 2e-5 of autograd's through
-the plain versions, and one ``tiny`` train step on the card is within
+the plain versions (K6's with the blockwise backward of ``train_4k``:
+f32 within 2e-4, bf16 within one bf16 step of each gradient's largest
+|value|), and one ``tiny`` train step on the card is within
 1e-5 (loss, relative) and 1e-4 of each gradient leaf's largest |value|
 of the same step on the CPU. M-RoPE on the card is within 1e-5 of the
 CPU's, and a full-width seamless-m4t layer's encoder output and logits
@@ -31,6 +33,7 @@ within 1e-4 of their largest |value| of the CPU's. A knob sweep of a
 CUDA engine gives a CPU engine's surface and choice exactly (its scores
 are functions of counts).
 """
+import functools
 import pathlib
 import sys
 
@@ -60,6 +63,7 @@ from repro_torch.kernels.quantize_stream import (dequantize_stream,
                                                  quantize_stream,
                                                  quantize_stream_plain)
 from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_plain
+from repro_torch.models.layers import _attention_blockwise
 from repro_torch.kernels.systolic_mm import systolic_mm, systolic_mm_plain
 
 RNG = np.random.default_rng(77)
@@ -306,7 +310,7 @@ def test_cuda_flash_attention_matches_plain(cuda, d, sq, skv, causal,
                          ids=[row[0] for row in K6_SERVED])
 def test_cuda_flash_attention_bf16_at_served_shapes(cuda, b, sq, skv, hq, hkv,
                                                     d, dv, causal, window):
-    """K6 in bf16 at the shapes the bf16 cells give it
+    """K6 in bf16 at the shapes the bf16 and train_4k cells give it
     (``chip_smoke.K6_SERVED``), against its plain
     version over slices of the query rows at their offset (the plain
     version's S x S scores at 32768 rows would not fit): the first, a
@@ -836,8 +840,8 @@ def test_cuda_ssd_scan_matches_plain(cuda, hd, n, chunk, s, nh, seeded,
                          [row[1:] for row in K7_SERVED],
                          ids=[row[0] for row in K7_SERVED])
 def test_cuda_ssd_scan_at_served_shapes(cuda, b, s, nh, hd, n, chunk, slow):
-    """K7 in f32 at the shapes the bf16 cells give it
-    (``chip_smoke.K7_SERVED``: 128 chunks a sequence) against its plain
+    """K7 in f32 at the shapes the bf16 and train_4k cells give it
+    (``chip_smoke.K7_SERVED``: 128 and 16 chunks a sequence) against its plain
     version, y and the final state within 2e-5: as a prefill from fresh
     caches passes it (dt in (0.1, 0.9), a zero state), and with slow
     decays (dt in (0.001, 0.01)) from a seeded state, so that the state
@@ -1066,6 +1070,52 @@ def test_cuda_ssd_scan_grads_match_plain(cuda, seeded):
         loss(*ssd_scan_plain(x, dt, a, bm, cm, 32, init)), inputs)
     for g, e in zip(got, want):
         torch.testing.assert_close(g, e, rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,dv,window", [
+    (32, 4, 64, 64, 0),             # tinyllama-1.1b
+    (25, 5, 64, 64, 1024),          # hymba-1.5b's windowed layers
+    (16, 16, 192, 128, 0),          # MLA (deepseek-v2-lite-16b)
+])
+def test_cuda_flash_attention_blockwise_backward_matches_plain(
+        cuda, hq, hkv, d, dv, window, dtype):
+    """K6 at 2 x 4096 with the blockwise backward of ``train_4k``
+    (``models.layers._attention_blockwise``, chunks of 1024 keys): one
+    launch on the route its class takes, the forward and nothing in the
+    backward, and the gradients for q, k and v equal autograd's through
+    the plain version: f32 within 2e-4, bf16 within one bf16 step of
+    each gradient's largest |value| (the scan rounds P to bf16 before PV,
+    as the reference does; ``tools/blockwise_bf16_steps.py`` prints each
+    gradient's error in steps)."""
+    def rand(*shape):
+        return torch.from_numpy(RNG.standard_normal(shape).astype(
+            np.float32)).to(cuda).to(dtype).requires_grad_()
+
+    q, k, v = rand(2, 4096, hq, d), rand(2, 4096, hkv, d), rand(2, 4096,
+                                                               hkv, dv)
+    w = torch.from_numpy(RNG.standard_normal((2, 4096, hq, dv)).astype(
+        np.float32)).to(cuda).to(dtype)
+    backward = functools.partial(_attention_blockwise, q_offset=0,
+                                 kv_len=None, chunk=1024)
+    before, routes = flash_attention.launches, _route_counts()
+    out = flash_attention(q, k, v, causal=True, window=window,
+                          backward=backward)
+    got = torch.autograd.grad((out.float() * w.float()).sum(), (q, k, v))
+    assert flash_attention.launches == before + 1
+    _assert_routed(routes, dtype, d, dv, 4096)
+    ref = flash_attention_plain(q, k, v, causal=True, window=window)
+    want = torch.autograd.grad((ref.float() * w.float()).sum(), (q, k, v))
+    if dtype == torch.float32:
+        for g, e in zip(got, want):
+            torch.testing.assert_close(g, e, rtol=2e-4, atol=2e-4)
+        return
+    for g, e in zip(got, want):
+        assert g.dtype == dtype and g.shape == e.shape
+        step = 2.0 ** (np.floor(np.log2(float(e.float().abs().max()))) - 7)
+        err = float((g.float() - e.float()).abs().max())
+        assert err <= step, (err, step)
 
 
 @pytest.mark.cuda

@@ -7,8 +7,10 @@ sync must plan collectives); ``--all`` enumerating exactly
 ``all_cells()`` times the meshes with the reference's skip reasons; the
 flags that only steer XLA refused; ``model_flops_total`` equal to the
 reference's record for one cell (the reference in a forced 8-device
-subprocess, hence ``slow``); and the mesh step's batch cut, which keeps
-the M-RoPE ids' batch along their dim 1.
+subprocess, hence ``slow``); the mesh step's batch cut, which keeps
+the M-RoPE ids' batch along their dim 1; and ``--attn blockwise``
+(``--attn-chunk``): a record naming them, a peak below the naive one's,
+the caller's impl restored.
 """
 import json
 import os
@@ -25,6 +27,8 @@ from repro_torch.configs.registry import (ARCHS, all_cells,
                                           cell_is_applicable, get_config)
 from repro_torch.launch import dryrun
 from repro_torch.models import init_params
+from repro_torch.models.layers import (get_attention_chunk, get_attention_impl,
+                                       set_attention_impl)
 from repro_torch.roofline.analysis import Roofline
 from repro_torch.train.train_step import _local_batch
 
@@ -112,7 +116,6 @@ def test_all_enumerates_the_cells_with_the_reference_reasons(
 
 
 @pytest.mark.parametrize("flags", [
-    ["--attn", "blockwise"],
     ["--remat-policy", "dots"],
     ["--no-qkv-shard"],
     ["--no-seq-parallel"],
@@ -124,6 +127,57 @@ def test_xla_only_flags_exit_non_zero(flags, tmp_path, capsys):
     assert e.value.code != 0
     assert "not supported by the PyTorch port" in capsys.readouterr().err
     assert not list(tmp_path.glob("*.json"))
+
+
+@pytest.mark.parametrize("chunk", [1024, 2048])
+def test_blockwise_attn_writes_a_record_naming_it(chunk, tmp_path):
+    """``--attn blockwise --attn-chunk N`` traces the cell under the
+    blockwise impl and names the two in its record; the impl is
+    ``"naive"`` again once ``main`` returns."""
+    assert dryrun.main(["--arch", "tiny", "--shape", "train_4k", "--attn",
+                        "blockwise", "--attn-chunk", str(chunk), "--out",
+                        str(tmp_path)]) == 0
+    rec = _record(tmp_path)
+    assert rec["ok"], rec.get("error")
+    assert (rec["attn"], rec["attn_chunk"]) == ("blockwise", chunk)
+    assert get_attention_impl() == "naive"
+
+
+def test_naive_record_names_no_attn(tmp_path):
+    assert dryrun.main(["--arch", "tiny", "--shape", "train_4k", "--out",
+                        str(tmp_path)]) == 0
+    rec = _record(tmp_path)
+    assert rec["ok"] and "attn" not in rec and "attn_chunk" not in rec
+
+
+def test_blockwise_peak_is_below_the_naive_peak(tmp_path):
+    """tiny at ``train_4k`` (16 x 4096 a device): the blockwise backward
+    holds one chunk's scores where the plain one holds all 4096 keys'."""
+    peaks = {}
+    for attn in ("naive", "blockwise"):
+        out = tmp_path / attn
+        assert dryrun.main(["--arch", "tiny", "--shape", "train_4k",
+                            "--attn", attn, "--out", str(out)]) == 0
+        peaks[attn] = _record(out)["memory"]["peak_live_bytes"]
+    assert peaks["blockwise"] < peaks["naive"]
+
+
+def test_main_restores_the_callers_impl(tmp_path, monkeypatch):
+    """``main`` restores the impl and chunk it found, also when a cell
+    raises past ``run_cell``."""
+    def boom(*a, **kw):
+        assert get_attention_impl() == "blockwise"
+        raise KeyboardInterrupt
+
+    monkeypatch.setattr(dryrun, "run_cell", boom)
+    set_attention_impl("naive", 512)
+    try:
+        with pytest.raises(KeyboardInterrupt):
+            dryrun.main(["--arch", "tiny", "--attn", "blockwise",
+                         "--out", str(tmp_path)])
+        assert (get_attention_impl(), get_attention_chunk()) == ("naive", 512)
+    finally:
+        set_attention_impl("naive")
 
 
 @pytest.mark.parametrize("policy,remat", [("full", True), ("none", False)])
