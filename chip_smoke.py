@@ -35,7 +35,11 @@ and runs, on the card:
      MLA's 192/128, hymba's window of 1024, seamless's 8192 frames; 16 x
      4096 rows at tinyllama's and hymba's heads), held over slices
      of the query rows at their offset (the plain version's scores at
-     32768 rows would not fit) — with
+     32768 rows would not fit), and on each of its three routes at query
+     offsets (``K6_OFFSETS``: 16 x 256 rows of a sequence-parallel rank
+     at offsets 37 and 3840 over 4096 keys, 16 q heads over 2 KV heads
+     of 128, causal and with a window of 1024, printed, not recorded,
+     beside SDPA on the same rows) — with
      its time, the plain version's time, its bound (the function's own
      work, by the formula its wrapper charges to the operation counter
      (``*_cost`` beside each kernel), at its dtype's peak, K6 in f32 as
@@ -208,17 +212,22 @@ and runs, on the card:
      memory terms on the H100 profile and the bound beside the step's
      wall, timed once more without the counter (printed, not checked);
      (d) ``python -m repro_torch.launch.dryrun --all`` over the single
-     and the multi-pod mesh on ``meta``, one process a mesh run
-     together: ok, skipped and failed counts and the wall, 0 failed;
+     and the multi-pod mesh on ``meta``, one process a mesh, started
+     with the meta traces of 28 and 31's cells before phase 18, at the
+     lowest CPU priority (``CpuWork``), so that phases 18, 19, 26 and 27
+     run beside them: ok, skipped and failed counts, 0 failed;
   28. the reference's bf16 cells: one device's share of the single-pod
-     mesh (16, 16) of the 18 ``prefill_32k``, ``decode_32k`` and
-     ``long_500k`` cells that fit the card (``BF16_CELLS``), each traced
+     mesh (16, 16) of the 20 ``prefill_32k``, ``decode_32k`` and
+     ``long_500k`` cells that fit the card (``BF16_CELLS``; the dense
+     and VLM archs' shares cut over the model axis, each the share of
+     its last model rank, which sequence-parallel attention loads
+     most), each traced
      on ``meta`` and run on the card from SEED in bf16 as phase 27 runs
      its cells (``card_cell``: (a) and (b) checked, (c) printed), decode
      cells stepping at their slot over caches of seeded values, with
      (d) a traced run's device share and tokens/s;
   29. bf16 serving against f32 on the same weights: the eight archs of
-     28 at full width and depth, 2 x 512 prompt tokens and 8 decode
+     28 other than qwen1.5-32b at full width and depth, 2 x 512 prompt tokens and 8 decode
      steps, the bf16 prefill + decode within twice the gap between the
      bf16 and the f32 forward, the f32 prefill + decode within 1e-4 of
      the f32 forward's logits' scale (deepseek pinned to the bf16
@@ -232,26 +241,38 @@ and runs, on the card:
      within 1e-4 of the logits' scale;
   31. the reference's ``train_4k`` cells the card trains: one device's
      share of the single-pod mesh (16, 16), 16 x 4096 tokens, of
-     mamba2-370m, hymba-1.5b and tinyllama-1.1b at full width and depth,
-     bf16, from SEED, the dry-run's ``TrainConfig`` (remat, ZeRO-1 over
-     the plan's 16 data ranks), under ``set_attention_impl("blockwise",
-     1024)``: K6's backward recomputes the online softmax over chunks of
-     1024 keys (the reference's 2048 leaves tinyllama's share at 92.18 GB
-     on ``meta``). Each cell through ``card_cell`` as 28 runs its cells
-     (the traced run for mamba2 and tinyllama only), its loss and global
-     gradient norm finite and some parameter moved, K6 at 44 and 64
-     calls a step (tinyllama, hymba) and K7 at 96 and 64 (mamba2,
-     hymba), each traced cell's K6 and K7 device ms a step printed.
+     mamba2-370m, hymba-1.5b, tinyllama-1.1b, qwen2.5-3b, qwen3-4b,
+     qwen2-vl-7b and qwen1.5-32b at full width and depth, bf16, from
+     SEED, the dry-run's ``TrainConfig`` (remat, ZeRO-1 over the plan's
+     16 data ranks, the dense and VLM archs cut over its 16 model ranks
+     under sequence parallelism), under ``set_attention_impl(
+     "blockwise", 1024)``: K6's backward recomputes the online softmax
+     over chunks of 1024 keys. Each cell through ``card_cell`` as 28
+     runs its cells (the traced run for mamba2 and tinyllama), its loss and
+     global gradient norm finite and some parameter moved, K6 at two
+     calls a layer a step and K7 at 96 and 64 (mamba2, hymba), each
+     traced cell's K6 and K7 device ms a step printed.
      Before them, the blockwise backward against the plain one at a
      depth where both fit: tinyllama cut to 2 layers, 2 x 4096, remat,
      the loss and its gradients under ``"naive"`` and under
      ``"blockwise"`` at 1024 keys: f32 within 1e-5 (loss, relative) and
      2e-5 of each gradient leaf's largest |value|, bf16 within one bf16
      step of it or the naive bf16 leaf's distance from f32's;
-  17. each kernel's launch count on the seventeen paths (3-6, 7-10,
+  32. the ``model`` axis: a two-layer qwen2.5-3b (its 16 q heads over 2
+     KV heads of 128; FFN and vocab narrowed) in f32 on 2 x 400 tokens,
+     unsharded in this process (the logits and one plain train step's
+     loss, norm and gradients), then four gloo ranks of a (1, 4) data x
+     model mesh sharing the card (``tp_phase``): each rank's cut of the
+     weights, its forward's vocab-cut logits within 1e-4 of their
+     scale, and one ``make_train_step(mesh)`` step under sequence
+     parallelism, its loss within 1e-5, norm within GRAD_SYNC_TOL and
+     every gradient within 2e-5 of the unsharded run's; attention is
+     sequence-parallel, so rank r launches K6 (``wgmma_tf32``) at query
+     offset 100 r, and no other offset;
+  17. each kernel's launch count on the eighteen paths (3-6, 7-10,
      11-13, 14-15, 16, 20, 21, 22, 18, 19, 26 summed over its ranks, 27
      with two runs a cell on the card, 28 with three, 31's cells with
-     two or three, 29, 30 and 31's check),
+     two or three, 29, 30, 31's check and 32 summed over its ranks),
      each path run with the counters at 0 and read right after: every
      kernel a path runs must have launched on it, and each of the seven
      > 0, K6 also per route (``flash_attention.wgmma`` and
@@ -265,6 +286,7 @@ Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
 Without a CUDA device it exits with an error before printing a result.
 """
+import atexit
 import hashlib
 import json
 import math
@@ -357,6 +379,16 @@ K6_PHASE2 = (
     ("qwen2-vl-7b", "float32", 8, 512, 512, 28, 4, 128, 128, True, 0),
     ("tinyllama-1.1b", "float32", 8, 512, 512, 32, 4, 64, 64, True, 0),
 )
+# K6 at query offsets (phase 2): 256 rows of a sequence-parallel rank,
+# qwen2.5-3b's train_4k share at a model axis of 16 (16 sequences, 16 q
+# heads over 2 KV heads of 128) over 4096 keys, causal, on each route, at
+# an offset no tile divides and at rank 15's 3840, there also with a
+# window: (dtype, route, window, q_offset)
+K6_OFFSETS = tuple((dtype, route, window, off)
+                   for dtype, route in (("bfloat16", "wgmma"),
+                                        ("float32", "wgmma_tf32"),
+                                        ("float32", "mma_sync"))
+                   for window, off in ((0, 37), (0, 3840), (1024, 3840)))
 # K6's three kernels: each route's source and its key in the kernels line
 K6_SOURCE = {"mma_sync": "flash_attention.cu",
              "wgmma": "flash_attention_sm90.cu",
@@ -1742,6 +1774,86 @@ def k6_served_phase(dev, measure):
         torch.cuda.empty_cache()
 
 
+def k6_offset_phase(dev, measure):
+    """Phase 2's K6 at query offsets (``K6_OFFSETS``): each route's
+    output against ``flash_attention_plain(q_offset=)`` within phase 2's
+    tolerances (2e-4, and one bf16 step in bf16), then timed by
+    ``measure`` (main's) and printed, not recorded. The wgmma routes take
+    the call through ``flash_attention``; ``mma_sync``, which the
+    routing gives calls of 64 rows or fewer, is launched directly. The
+    library time is SDPA on flash or memory-efficient attention alone,
+    with K and V repeated to the q heads beforehand, as in
+    ``k6_served_phase``: the last rows of the keys (offset Skv - Sq, no
+    window) as ``causal_lower_right``, any other offset or a window as a
+    boolean mask built beside it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 40)
+    b, sq, skv, hq, hkv, d = 16, 256, 4096, 16, 2, 128
+    for dname, route, window, off in K6_OFFSETS:
+        dtype = getattr(torch, dname)
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+                   for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                                 (b, skv, hkv, d)))
+        out = q.new_empty(q.shape)
+
+        def kernel():
+            if route == "mma_sync":
+                fa._launch(route, q, k, v, out, True, window, d ** -0.5,
+                           off)
+                return out
+            return fa.flash_attention(q, k, v, causal=True, window=window,
+                                      q_offset=off)
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, causal=True,
+                                            window=window, q_offset=off)
+
+        check(route == "mma_sync" or fa.flash_attention_route(
+            dtype, d, d, sq) == route, f"K6 offset row routed off {route}")
+        before = fa.flash_attention.route_launches[route]
+        got, want = kernel(), plain()
+        check(fa.flash_attention.route_launches[route] == before + 1,
+              f"K6 at offset {off} did not launch {route}")
+        err = (got.float() - want.float()).abs()
+        rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+        check(bool((err <= 2e-4 + rel * want.float().abs()).all()),
+              f"flash_attention {route} q_offset {off} window {window}: "
+              f"max err {err.max().item()}")
+        cost = fa.flash_attention_cost(q, k, v, causal=True, window=window,
+                                       q_offset=off)
+        peak = (PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                else PEAK_TF32_FLOPS / 3)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        if window == 0 and off == skv - sq:
+            mask = causal_lower_right(sq, skv)
+        else:
+            i = off + torch.arange(sq, device=dev)[:, None]
+            j = torch.arange(skv, device=dev)[None, :]
+            mask = (i >= j) & ((i - j < window) if window else True)
+
+        def library():
+            with sdpa_kernel(backends):
+                return sdpa(qt, kt, vt, attn_mask=mask)
+        measure("flash_attention", K6_SOURCE[route],
+                "src/repro/kernels/flash_attention.py:102",
+                f"train_4k share {b}x{sq}/{skv}x{hq}/{hkv}x{d} causal"
+                f"{f' window{window}' if window else ''} q_offset{off} "
+                f"{dname}", err.max().item(), kernel, plain, cost,
+                library=library, peak_flops=peak, key=K6_KEY[route],
+                record=False, k6_route=route, q_offset=off)
+        del q, k, v, out, got, want, err, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+
+
 def k7_route(b, s, nh, hd, n, chunk, nbytes, bf16_x=False):
     """``measure``'s route fields for K7 at (B, S, nh, hd, d_state,
     chunk), one group: the products the kernel's route runs, w.x, the
@@ -1842,29 +1954,100 @@ def dryrun_cells():
                                         "prefill")))
 
 
-def dryrun_sweep(meshes=("single", "multi"), timeout_s=900):
-    """``launch.dryrun --all`` on ``meta`` over ``meshes``, one process a
-    mesh, all started together: (ok, skipped, failed, wall seconds)."""
-    env = {**os.environ, "PYTHONPATH": os.path.join(
-        os.path.dirname(os.path.abspath(__file__)), "src")}
-    out_dir = tempfile.mkdtemp(prefix="chip_smoke_dryrun_")
-    procs = []
-    t = time.perf_counter()
-    try:
-        for mesh in meshes:
-            procs.append(subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
-                 "--mesh", mesh, "--out", os.path.join(out_dir, mesh)],
-                env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                text=True))
-        logs = [p.communicate(timeout=timeout_s)[0] for p in procs]
-    finally:
-        for p in procs:
+HERE = os.path.dirname(os.path.abspath(__file__))
+
+
+def _cpu_env():
+    # one thread each: a meta trace computes nothing
+    return {**os.environ, "PYTHONPATH": os.path.join(HERE, "src"),
+            "OMP_NUM_THREADS": "1"}
+
+
+def _lowest_priority():
+    os.nice(19)
+
+
+class CpuWork:
+    """The smoke's work that needs no card, started beside the card
+    phases (each in a process of its own, all together, at the lowest
+    CPU priority and one thread each, so that the phases timed on the
+    host's clock beside them, 18, 19, 26 and 27, keep the cores they
+    had) and read where a phase needs it: the dry-run's ``--all`` sweep
+    over ``meshes`` on ``meta`` (27d), and the ``meta`` traces of phase
+    28's and 31's cells (``meta_traces``). Every process it started is
+    killed, and its directory removed, by ``close`` (registered at
+    exit)."""
+
+    def __init__(self, meshes=("single", "multi")):
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_cpu_")
+        self.meshes, self.t = meshes, time.perf_counter()
+        low = dict(env=_cpu_env(), stdout=subprocess.PIPE,
+                   stderr=subprocess.STDOUT, text=True,
+                   preexec_fn=_lowest_priority)
+        self.sweep = [subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--all",
+             "--mesh", mesh, "--out", os.path.join(self.dir, mesh)], **low)
+            for mesh in meshes]
+        self.meta_path = os.path.join(self.dir, "meta.json")
+        self.meta = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as c; "
+             f"c.meta_traces({self.meta_path!r})"], cwd=HERE, **low)
+        atexit.register(self.close)
+
+    def sweep_counts(self, timeout_s=900):
+        """The sweep's (ok, skipped, failed, seconds since the start)."""
+        logs = [p.communicate(timeout=timeout_s)[0] for p in self.sweep]
+        return _sweep_counts(self.meshes, self.sweep, logs,
+                             time.perf_counter() - self.t)
+
+    def traces(self, timeout_s=900):
+        """{cell key: its ``meta`` trace} (``meta_traces``)."""
+        log = self.meta.communicate(timeout=timeout_s)[0]
+        check(self.meta.returncode == 0,
+              f"the meta traces failed:\n{log[-3000:]}")
+        with open(self.meta_path) as f:
+            return json.load(f)
+
+    def close(self):
+        for p in (*self.sweep, self.meta):
             if p.poll() is None:
                 p.kill()
                 p.wait()
-        shutil.rmtree(out_dir, ignore_errors=True)
-    wall = time.perf_counter() - t
+        shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def cell_key(arch, shape_name, tcfg, attn="naive"):
+    return f"{arch}|{shape_name}|{tcfg.param_dtype}|{attn}"
+
+
+def meta_traces(path):
+    """Trace each cell of phases 28 (``BF16_CELLS``) and 31
+    (``TRAIN_4K_ARCHS``, under the blockwise backward) on ``meta`` as
+    ``card_cell`` does, and write {``cell_key``: the trace} to ``path``
+    as JSON."""
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.configs.base import SHAPES, SINGLE_POD_MESH
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import build_cell, trace, train_config
+    from repro_torch.models import layers as L
+
+    cells = [(a, s, _train_config(param_dtype="bfloat16"), "naive")
+             for a, s in BF16_CELLS]
+    cells += [(a, "train_4k", train_config(), "blockwise")
+              for a in TRAIN_4K_ARCHS]
+    out = {}
+    for arch, shape_name, tcfg, attn in cells:
+        with L.attention_impl(attn, TRAIN_4K_CHUNK):
+            fn, inputs, _ = build_cell(get_config(arch), SHAPES[shape_name],
+                                       SINGLE_POD_MESH, tcfg)
+            out[cell_key(arch, shape_name, tcfg, attn)] = trace(fn, inputs)
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def _sweep_counts(meshes, procs, logs, wall):
+    """(ok, skipped, failed, ``wall``) summed over the sweep's logs, each
+    FAIL line printed."""
     counts = [0, 0, 0]
     for mesh, p, log in zip(meshes, procs, logs):
         m = re.search(r"done: (\d+) ok, (\d+) skipped, (\d+) failed", log)
@@ -1878,7 +2061,7 @@ def dryrun_sweep(meshes=("single", "multi"), timeout_s=900):
 
 
 def card_cell(dev, arch, shape, mesh, mesh_name, tcfg, mem_tol, label,
-              traced=False):
+              traced=False, meta=None):
     """One dry-run cell traced by ``roofline.count.OpCounter`` on ``meta``
     (``launch.dryrun.build_cell``, as the dry-run traces it) and then run
     on the card under the same counter, from SEED, in ``tcfg``'s dtype:
@@ -1890,7 +2073,8 @@ def card_cell(dev, arch, shape, mesh, mesh_name, tcfg, mem_tol, label,
     beside the roofline's compute, memory and bound and, for a serving
     step, tokens/s; (d) with ``traced``, a third run under the profiler
     for the card's busy share of that wall and each hand kernel's device
-    ms in it.
+    ms in it. ``meta``: the ``meta`` trace, where it was taken beside
+    (``CpuWork``).
     Prints a ``[<label>]`` line; returns (the kernels charged a run, the
     card runs made)."""
     from repro_torch.configs.registry import get_config
@@ -1899,9 +2083,10 @@ def card_cell(dev, arch, shape, mesh, mesh_name, tcfg, mem_tol, label,
     from repro_torch.roofline.analysis import analyze
 
     cfg = get_config(arch)
-    fn, inputs, plan = build_cell(cfg, shape, mesh, tcfg)
-    meta = trace(fn, inputs)
-    del fn, inputs
+    if meta is None:
+        fn, inputs, plan = build_cell(cfg, shape, mesh, tcfg)
+        meta = trace(fn, inputs)
+        del fn, inputs
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     fn, inputs, plan = build_cell(cfg, shape, mesh, tcfg, device=dev,
@@ -2044,12 +2229,13 @@ def train_step_checks(tag, out, params, step, tcfg):
             "plain_elements_moved": n_plain_moved / n_el}
 
 
-def dryrun_phase(dev, mem_tol=None):
+def dryrun_phase(dev, cpu, mem_tol=None):
     """27. Each of ``dryrun_cells`` in f32 on one device through
     ``card_cell`` (meta against the card, the peak, the wall against the
     roofline); then the dry-run's sweep, ``--all`` over the single and
-    multi-pod meshes on ``meta``, with 0 failed. Returns each kernel's
-    launches the card runs should have made."""
+    multi-pod meshes on ``meta``, with 0 failed (``cpu``'s, the
+    ``CpuWork`` started beside the earlier phases). Returns each
+    kernel's launches the card runs should have made."""
     from repro_torch.configs.base import MeshConfig
 
     mem_tol = DRYRUN_MEM_TOL if mem_tol is None else mem_tol
@@ -2061,7 +2247,7 @@ def dryrun_phase(dev, mem_tol=None):
                                   mem_tol, "dryrun cell")
         for name, n in charged.items():
             launched[name] = launched.get(name, 0) + runs * n
-    n_ok, n_skip, n_fail, wall = dryrun_sweep()
+    n_ok, n_skip, n_fail, wall = cpu.sweep_counts()
     phase("dryrun sweep", meshes="single,multi", processes=2, ok=n_ok,
           skipped=n_skip, failed=n_fail, wall_s=wall)
     check(n_fail == 0, f"the dry-run sweep failed {n_fail} cells")
@@ -2071,36 +2257,43 @@ def dryrun_phase(dev, mem_tol=None):
 # ---- 28. the reference's bf16 cells ---------------------------------------
 
 #: one device's share of the single-pod mesh (16, 16) of every serving
-#: cell the card holds: the 8 archs whose weights fit, at prefill_32k (2
+#: cell the card holds: the 9 archs whose share fits, at prefill_32k (2
 #: sequences of 32768 tokens) and decode_32k (8 sequences, the step at
 #: slot 32767), and the SSM and hybrid archs at long_500k (1 sequence,
-#: slot 524287). qwen1.5-32b and phi3.5-moe-42b need more than the card
-#: (the meta trace: 176.90 / 424.81 and 103.84 / 120.33 GB).
+#: slot 524287). The dense and VLM archs' shares are cut over the model
+#: axis as the reference cuts them (qwen1.5-32b's 17.24 and 26.63 GB on
+#: meta, 176.90 and 424.81 with the axis replicated); phi3.5-moe-42b, its
+#: model axis replicated, needs more than the card (103.84 / 120.33 GB).
 BF16_ARCHS = ("tinyllama-1.1b", "qwen2.5-3b", "qwen3-4b", "qwen2-vl-7b",
-              "mamba2-370m", "hymba-1.5b", "deepseek-v2-lite-16b",
-              "seamless-m4t-large-v2")
+              "qwen1.5-32b", "mamba2-370m", "hymba-1.5b",
+              "deepseek-v2-lite-16b", "seamless-m4t-large-v2")
+#: phase 29's archs, each whole on the card in f32 beside bf16: not
+#: qwen1.5-32b, whose f32 weights alone are 130 GB
+BF16_SERVE_ARCHS = tuple(a for a in BF16_ARCHS if a != "qwen1.5-32b")
 BF16_CELLS = tuple((a, s) for s in ("prefill_32k", "decode_32k")
                    for a in BF16_ARCHS) + (("mamba2-370m", "long_500k"),
                                            ("hymba-1.5b", "long_500k"))
 
 
-def bf16_cells_phase(dev):
+def bf16_cells_phase(dev, traces=None):
     """28. Each of ``BF16_CELLS`` (arch, shape name in ``SHAPES``) as one
     device's share of the single-pod mesh, in bf16 (the dtype in which
     the reference's dry-run sizes it), through ``card_cell`` with the
     traced run: meta against the card, the peak, the wall against the
     roofline, tokens/s and the device share. Decode cells step at their
-    slot over caches of seeded values. Returns each kernel's launches
-    the card runs should have made."""
+    slot over caches of seeded values. ``traces``: the cells' ``meta``
+    traces by ``cell_key`` (``CpuWork.traces``). Returns each kernel's
+    launches the card runs should have made."""
     from repro_torch.configs.base import SHAPES, SINGLE_POD_MESH
 
     tcfg = _train_config(param_dtype="bfloat16")
     launched = {}
     t = time.perf_counter()
     for arch, shape_name in BF16_CELLS:
-        charged, runs = card_cell(dev, arch, SHAPES[shape_name],
-                                  SINGLE_POD_MESH, "single", tcfg,
-                                  DRYRUN_MEM_TOL, "bf16 cell", traced=True)
+        charged, runs = card_cell(
+            dev, arch, SHAPES[shape_name], SINGLE_POD_MESH, "single", tcfg,
+            DRYRUN_MEM_TOL, "bf16 cell", traced=True,
+            meta=(traces or {}).get(cell_key(arch, shape_name, tcfg)))
         for name, n in charged.items():
             launched[name] = launched.get(name, 0) + runs * n
     phase("bf16 cells", cells=len(BF16_CELLS),
@@ -2110,12 +2303,14 @@ def bf16_cells_phase(dev):
 
 # ---- 31. the reference's train_4k cells, under the blockwise backward ----
 
-#: the train_4k cells one card trains, smallest step first: one device's
-#: share of the single-pod mesh (16 x 4096 tokens) peaks at 60.93, 47.01
-#: and 54.55 GB on meta under the blockwise backward at TRAIN_4K_CHUNK
-#: (naive: 60.93, 96.22 and 117.53). The other seven archs' shares are
-#: held by their loss head, MoE and weights, not attention.
-TRAIN_4K_ARCHS = ("mamba2-370m", "hymba-1.5b", "tinyllama-1.1b")
+#: the train_4k cells one card trains: one device's share of the
+#: single-pod mesh (16 x 4096 tokens), under the blockwise backward at
+#: TRAIN_4K_CHUNK; the dense and VLM archs' shares cut over the model
+#: axis (PERF.md gives each meta peak). deepseek-v2-lite-16b,
+#: seamless-m4t-large-v2 and phi3.5-moe-42b keep the axis replicated and
+#: need more than the card (157.23, 281.00 and 321.57 GB on meta).
+TRAIN_4K_ARCHS = ("mamba2-370m", "hymba-1.5b", "tinyllama-1.1b",
+                  "qwen2.5-3b", "qwen3-4b", "qwen2-vl-7b", "qwen1.5-32b")
 #: keys a chunk of K6's blockwise backward: the reference's 2048 leaves
 #: tinyllama's share at 92.18 GB on meta, over the card's 80 GB
 TRAIN_4K_CHUNK = 1024
@@ -2123,9 +2318,13 @@ TRAIN_4K_CHUNK = 1024
 #: once per attention or SSM layer
 TRAIN_4K_LAUNCHES = {"mamba2-370m": {"ssd_scan": 96},
                      "hymba-1.5b": {"flash_attention": 64, "ssd_scan": 64},
-                     "tinyllama-1.1b": {"flash_attention": 44}}
-#: the cells whose step runs a third time under the profiler: not
-#: hymba's, the slowest (34 s a step), to keep the smoke in its limit
+                     "tinyllama-1.1b": {"flash_attention": 44},
+                     "qwen2.5-3b": {"flash_attention": 72},
+                     "qwen3-4b": {"flash_attention": 72},
+                     "qwen2-vl-7b": {"flash_attention": 56},
+                     "qwen1.5-32b": {"flash_attention": 128}}
+#: the cells whose step runs a third time under the profiler, to keep the
+#: smoke in its limit: one replicated and one cut share
 TRAIN_4K_TRACED = frozenset({"mamba2-370m", "tinyllama-1.1b"})
 #: the blockwise backward against the plain one: tinyllama's layers, and
 #: the batch and length of the check
@@ -2220,7 +2419,7 @@ def blockwise_check_phase(dev, layers=BLOCKWISE_CHECK[0],
     torch.cuda.empty_cache()
 
 
-def train_4k_phase(dev):
+def train_4k_phase(dev, traces=None):
     """31 (b). Each of ``TRAIN_4K_ARCHS`` at ``train_4k`` as one device's
     share of the single-pod mesh, in bf16 with the dry-run's
     ``TrainConfig``, under ``set_attention_impl("blockwise",
@@ -2228,8 +2427,8 @@ def train_4k_phase(dev):
     against the card, the peak, the wall against the roofline, the
     device share, and the step's loss, gradient norm and moved
     parameters; each kernel's calls a step as ``TRAIN_4K_LAUNCHES``
-    says. Returns each kernel's launches the card runs should have
-    made."""
+    says; ``traces`` as ``bf16_cells_phase`` takes them. Returns each
+    kernel's launches the card runs should have made."""
     from repro_torch.configs.base import SHAPES, SINGLE_POD_MESH
     from repro_torch.launch.dryrun import train_config
     from repro_torch.models import layers as L
@@ -2242,7 +2441,9 @@ def train_4k_phase(dev):
             charged, runs = card_cell(
                 dev, arch, SHAPES["train_4k"], SINGLE_POD_MESH, "single",
                 tcfg, DRYRUN_MEM_TOL, "train 4k cell",
-                traced=arch in TRAIN_4K_TRACED)
+                traced=arch in TRAIN_4K_TRACED,
+                meta=(traces or {}).get(cell_key(arch, "train_4k", tcfg,
+                                                 "blockwise")))
             want = {k: TRAIN_4K_LAUNCHES[arch].get(k, 0)
                     for k in ("flash_attention", "ssd_scan")}
             got = {k: charged.get(k, 0) for k in want}
@@ -2255,6 +2456,169 @@ def train_4k_phase(dev):
           chunk_cut="2048->1024 (tinyllama's share 92.18 GB on meta at "
                     "2048)", seconds=time.perf_counter() - t)
     return launched
+
+
+# ---- 32. the model axis: four gloo ranks of a (1, 4) mesh ----------------
+
+TP_RANKS = 4
+#: phase 32's model: qwen2.5-3b's attention (16 q heads over 2 KV heads
+#: of 128, d_model 2048: sequence-parallel at a model axis of 4) at two
+#: layers, its FFN and vocab narrowed
+TP_MODEL = dict(num_layers=2, d_ff=2048, vocab_size=4096)
+#: sequences and tokens: 100 q rows a rank, at offsets 0, 100, 200, 300
+TP_BATCH, TP_SEQ = 2, 400
+
+
+def _tp_cfg():
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    return dataclasses.replace(get_config("qwen2.5-3b"),
+                               name="qwen2.5-3b-narrow", **TP_MODEL)
+
+
+def _tp_rank(rank, device, ref_path):
+    """32 in one rank of a (1, TP_RANKS) ("data", "model") mesh: the
+    narrow model's f32 weights from SEED, this rank's cut, phase 18's
+    batch of TP_BATCH x TP_SEQ; the forward's logits (its vocab cut) and
+    one ``make_train_step(mesh)`` step under sequence parallelism with
+    ``step.keep_grads``, each against the cut of the unsharded run saved
+    at ``ref_path``: the logits within SERVE_TOL of their largest
+    |value|, the loss within 1e-5 (relative), the gradient norm within
+    GRAD_SYNC_TOL, each gradient leaf within 2e-5 of the whole leaf's
+    largest |value|. Every K6 launch is logged with its route and
+    query offset."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params, sharding
+    from repro_torch.models.transformer import forward
+    from repro_torch.train import init_adam
+    from repro_torch.train.train_step import make_train_step
+    dev, counted = _rank_setup(rank, device)
+    ref = torch.load(ref_path)
+    cfg = _tp_cfg()
+    mesh = make_mesh((1, TP_RANKS), ("data", "model"))
+    _, specs = sharding.whole_specs(cfg, TP_RANKS)
+    cut = sharding.shard_tree(init_params(cfg, SEED, device=dev), specs,
+                              rank, TP_RANKS)
+    data = _train_data(cfg, dev, TP_BATCH, TP_SEQ)
+    launch, offsets = fa._launch, []
+
+    def logged(route, *args):
+        offsets.append((route, int(args[7]) if len(args) > 7 else 0))
+        return launch(route, *args)
+
+    fa._launch = logged
+    out = {}
+    try:
+        tp = sharding.tensor_parallel(cfg, mesh, True)
+        _sync(dev)
+        t = time.perf_counter()
+        with torch.no_grad():
+            logits, _, _ = forward(cut, cfg, data, tp=tp)
+        _sync(dev)
+        out["forward_ms"] = (time.perf_counter() - t) * 1e3
+        want = tp.cut(ref["logits"], 2)
+        out["logits_err"] = float((logits.cpu() - want).abs().max()
+                                  / ref["logits"].abs().max())
+        del logits
+        step = make_train_step(cfg, _train_config(sequence_parallel=True),
+                               mesh)
+        step.keep_grads = True
+        _peak_reset(dev)
+        _sync(dev)
+        t = time.perf_counter()
+        loss, _, _ = step(cut, init_adam(cut), data)
+        _sync(dev)
+        out["step_ms"] = (time.perf_counter() - t) * 1e3
+        out["peak_gb"] = _peak_gb(dev)
+        out["loss"], out["grad_norm"] = float(loss), float(step.grad_norm)
+        errs = {}
+        for (path, g), (_, w), (_, whole) in zip(
+                sharding._leaf_paths(step.last_grads, ""),
+                sharding._leaf_paths(sharding.shard_tree(
+                    ref["grads"], specs, rank, TP_RANKS), ""),
+                sharding._leaf_paths(ref["grads"], "")):
+            errs[path] = float((g.cpu() - w).abs().max()
+                               / whole.abs().max())
+        out["grad_errs"] = errs
+        out["model_collectives"] = dict(step.model_collectives)
+    finally:
+        fa._launch = launch
+    out["k6"] = sorted(set(offsets))
+    out["launches"] = _launches(dev, counted)
+    return out
+
+
+def tp_phase(dev):
+    """32. The model axis on the card: the narrow model (``_tp_cfg``)
+    unsharded in this process, its f32 logits and one plain train step's
+    loss, gradients and norm (``_train_config(sequence_parallel=True)``)
+    saved for the ranks; then TP_RANKS gloo ranks of a (1, TP_RANKS)
+    ("data", "model") mesh on the card (``_tp_rank``), each holding its
+    share against them. The heads do not divide the axis, so attention
+    is sequence-parallel: rank r's K6 launches take q rows at offset r x
+    TP_SEQ / TP_RANKS. Returns the ranks' launches summed."""
+    from repro_torch._tree import tree_map
+    from repro_torch.launch.mesh import run_peers
+    from repro_torch.models import init_params
+    from repro_torch.models.transformer import forward
+    from repro_torch.train import init_adam
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = _tp_cfg()
+    params = init_params(cfg, SEED, device=dev)
+    data = _train_data(cfg, dev, TP_BATCH, TP_SEQ)
+    with torch.no_grad():
+        logits = forward(params, cfg, data)[0].cpu()
+    step = make_train_step(cfg, _train_config(sequence_parallel=True))
+    step.keep_grads = True
+    loss, _, _ = step(params, init_adam(params), data)
+    ref = {"logits": logits, "loss": float(loss),
+           "norm": float(step.grad_norm),
+           "grads": tree_map(lambda g: g.detach().cpu(), step.last_grads)}
+    del params, step, loss
+    cuda = dev.type == "cuda"
+    kind, rank_dev = ("cuda", None) if cuda else ("cpu", "cpu")
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
+    try:
+        path = os.path.join(tmp, "ref.pt")
+        torch.save(ref, path)
+        _sync(dev)
+        if cuda:
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        got = run_peers(_tp_rank, TP_RANKS, device=kind,
+                        timeout_s=MP_TIMEOUT_S, args=(rank_dev, path))
+        wall = time.perf_counter() - t
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    rows = TP_SEQ // TP_RANKS
+    for r, out in enumerate(got):
+        check(out["logits_err"] <= SERVE_TOL,
+              f"model axis rank {r}: logits {out['logits_err']} off")
+        _near(out["loss"], ref["loss"], f"model axis rank {r} loss")
+        _near(out["grad_norm"], ref["norm"],
+              f"model axis rank {r} gradient norm", GRAD_SYNC_TOL)
+        worst = max(out["grad_errs"].values())
+        check(worst <= 2e-5, f"model axis rank {r}: a gradient {worst} "
+                             f"off ({out['grad_errs']})")
+        want = {("wgmma_tf32", r * rows)}
+        check(set(map(tuple, out["k6"])) == want,
+              f"model axis rank {r}: K6 launches {out['k6']}, want {want}")
+        phase("model axis rank", rank=r, ranks=TP_RANKS, arch=cfg.name,
+              batch=f"{TP_BATCH}x{TP_SEQ}", attention="rows",
+              k6=json.dumps(out["k6"]), logits_err=out["logits_err"],
+              loss=out["loss"], plain_loss=ref["loss"],
+              grad_norm=out["grad_norm"], plain_grad_norm=ref["norm"],
+              worst_grad_err=worst, forward_ms=out["forward_ms"],
+              step_ms=out["step_ms"], peak_gb=out["peak_gb"],
+              model_collectives=json.dumps(out["model_collectives"],
+                                           sort_keys=True),
+              wire="gloo through host")
+    phase("model axis", ranks=TP_RANKS, mesh="data 1 x model 4",
+          spawn_and_run_s=wall)
+    return {name: sum(out["launches"][name] for out in got)
+            for name in got[0]["launches"]}
 
 
 # ---- 29. bf16 serving against f32 on the same weights -------------------
@@ -2309,7 +2673,7 @@ def _route_flips(fwd, f32, steps, pinned, calls, n_req, n_tok):
 
 def bf16_serve_phase(dev, during, kernels, handoff, ledger):
     """29. bf16 serving against the same weights in f32, for each of
-    ``BF16_ARCHS`` at full width and depth: ``BF16_TRAFFIC`` (requests,
+    ``BF16_SERVE_ARCHS`` at full width and depth: ``BF16_TRAFFIC`` (requests,
     prompt, decode steps). The weights are drawn in bf16 from SEED and
     copied to f32 after the bf16 runs (``_f32_of_bf16_draw``: a leading
     slice of every leaf checked equal to the bf16 draw's); frames,
@@ -2345,7 +2709,7 @@ def bf16_serve_phase(dev, during, kernels, handoff, ledger):
     # each step's token span: the prefill's, then one a decode step
     calls = [(0, p_len)] + [(i, i + 1) for i in range(p_len, max_seq)]
     bf16 = torch.bfloat16
-    for arch in BF16_ARCHS:
+    for arch in BF16_SERVE_ARCHS:
         t0 = time.perf_counter()
         cfg = get_config(arch)
         scans = cfg.family == "ssm" or cfg.hybrid_parallel_heads
@@ -2760,6 +3124,7 @@ def main():
     del x, y, q, s, pq, ps
 
     k6_served_phase(dev, measure)
+    k6_offset_phase(dev, measure)
 
     # K6 at the tinyllama prefill shape (8 sequences x 32 q heads over 4 kv
     # heads, S = 512, d = 64, causal, f32; recorded last), with window 32,
@@ -3737,6 +4102,10 @@ def main():
     del params, caches, inp
     torch.cuda.empty_cache()
 
+    # the dry-run sweep (27) and phases 28 and 31's meta traces need no
+    # card: they run on the host's other cores from here on
+    cpu = CpuWork()
+
     # ---- 18-19. training -------------------------------------------------
     # tinyllama-1.1b at full width and depth, f32, batch 4 x 512; the
     # checkpoint goes to a temporary directory, removed after
@@ -3765,7 +4134,7 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     zero_counts()
-    want = dryrun_phase(dev)
+    want = dryrun_phase(dev, cpu)
     read_counts("dryrun", (flash_attention, ssd_scan))
     # each cell ran twice on the card: counted, then timed
     check({k: launches["dryrun"][k] for k in want} == want,
@@ -3775,7 +4144,8 @@ def main():
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     zero_counts()
-    want = bf16_cells_phase(dev)
+    traces = cpu.traces()
+    want = bf16_cells_phase(dev, traces)
     read_counts("bf16 cells", (flash_attention, ssd_scan))
     # each cell ran three times on the card: counted, timed, traced
     check({k: launches["bf16 cells"][k] for k in want} == want,
@@ -3804,12 +4174,23 @@ def main():
     read_counts("train 4k check", (flash_attention,))
     torch.cuda.empty_cache()
     zero_counts()
-    want = train_4k_phase(dev)
+    want = train_4k_phase(dev, traces)
     read_counts("train 4k cells", (flash_attention, ssd_scan))
     # each cell ran two or three times on the card: counted, timed and
     # (TRAIN_4K_TRACED) traced
     check({k: launches["train 4k cells"][k] for k in want} == want,
           f"train_4k launches {launches['train 4k cells']}, want {want}")
+
+    # ---- 32. the model axis: four gloo ranks of a (1, 4) mesh on the card --
+    # every rank counts its own launches from 0 and returns them; ranks 1-3
+    # launch K6 at query offsets above 0
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    path = "model axis"
+    launches[path] = tp_phase(dev)
+    phase("launches " + path, **launches[path])
+    check(launches[path]["flash_attention.wgmma_tf32"] > 0,
+          f"K6 never launched on the {path} path")
 
     # ---- 17. launches on the main path -------------------------------------
     # K6's three kernels are recorded apart: flash_attention (mma.sync),

@@ -40,11 +40,12 @@ SIGNATURES = {
     "reconic_quantize": [_P, _I, _P, _P, _I, _I, ctypes.c_float, _P],
     "reconic_dequantize": [_P, _P, _P, _I, _I, _I, _P],
     "reconic_flash_attention": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                                _I, _I, _I, ctypes.c_float, _I, _P],
+                                _I, _I, _I, _I, ctypes.c_float, _I, _P],
     "reconic_flash_attention_sm90": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
-                                     _I, _I, _I, _I, ctypes.c_float, _P],
+                                     _I, _I, _I, _I, _I, ctypes.c_float,
+                                     _P],
     "reconic_flash_attention_sm90_tf32": [_P, _P, _P, _P, _P, _L, _I, _I,
-                                          _I, _I, _I, _I, _I, _I, _I,
+                                          _I, _I, _I, _I, _I, _I, _I, _I,
                                           ctypes.c_float, _P],
     "reconic_flash_attention_sm90_tf32_scratch_words": [_I, _I, _I, _I, _I],
     "reconic_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,

@@ -243,7 +243,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
                            const T* __restrict__ v, T* __restrict__ o,
                            int hq, int hkv, int sq, int skv, int causal,
-                           int window, float scale) {
+                           int window, int qoff, float scale) {
   using C = Cfg<T, DQK, DV>;
   constexpr bool kBF16 = C::kBF16;
   constexpr int kDT = DV / 8;             // 8-wide n-tiles of the output
@@ -272,10 +272,12 @@ __global__ void __launch_bounds__(kThreads)
   const bool live0 = r0 < sq;
   const bool live1 = r0 + 8 < sq;
 
-  // KV range any query of this block can see (tile-aligned start)
-  const int last_q = min(q0 + kBQ, sq) - 1;
+  // KV range any query of this block can see (tile-aligned start); row
+  // r sits at position qoff + r among the keys
+  const int p0 = qoff + q0;
+  const int last_q = qoff + min(q0 + kBQ, sq) - 1;
   const int k_end = causal ? min(skv, last_q + 1) : skv;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / kBK * kBK : 0;
+  const int k_begin = window > 0 ? max(0, p0 - window + 1) / kBK * kBK : 0;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + kBK - 1) / kBK
                                       : 0;
   if (n_tiles > 0)
@@ -413,15 +415,15 @@ __global__ void __launch_bounds__(kThreads)
     }
 
     // ---- online softmax on the fragments; only edge tiles are masked
-    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > q0) ||
-                      (window > 0 && q0 + kBQ - 1 - k0 >= window);
+    const bool edge = k0 + kBK > skv || (causal && k0 + kBK - 1 > p0) ||
+                      (window > 0 && p0 + kBQ - 1 - k0 >= window);
     float alpha[2];
     if (edge)
-      softmax_tile<true>(s, m, l, alpha, s_scale, r0, k0 + 2 * t, skv,
+      softmax_tile<true>(s, m, l, alpha, s_scale, qoff + r0, k0 + 2 * t, skv,
                          causal, window);
     else
-      softmax_tile<false>(s, m, l, alpha, s_scale, r0, k0 + 2 * t, skv,
-                          causal, window);
+      softmax_tile<false>(s, m, l, alpha, s_scale, qoff + r0, k0 + 2 * t,
+                          skv, causal, window);
 #pragma unroll
     for (int n = 0; n < kDT; ++n) {
       acc[n][0] *= alpha[0];
@@ -519,7 +521,7 @@ __global__ void __launch_bounds__(kThreads)
 template <typename T, int DQK, int DV>
 int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
              int hq, int hkv, int sq, int skv, int causal, int window,
-             float scale, cudaStream_t stream) {
+             int qoff, float scale, cudaStream_t stream) {
   using C = Cfg<T, DQK, DV>;
   auto kern = flash_attention_kernel<T, DQK, DV>;
   if (C::kSmem > 48 * 1024) {
@@ -531,18 +533,18 @@ int launch_d(const void* q, const void* k, const void* v, void* o, int batch,
   kern<<<grid, kThreads, C::kSmem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), hq, hkv, sq, skv, causal,
-      window, scale);
+      window, qoff, scale);
   return reconic::launch_status();
 }
 
 template <typename T>
 int launch(const void* q, const void* k, const void* v, void* o, int batch,
            int hq, int hkv, int sq, int skv, int d, int dv, int causal,
-           int window, float scale, cudaStream_t stream) {
+           int window, int qoff, float scale, cudaStream_t stream) {
 #define RECONIC_FA_CASE(DQK, DV)                                           \
   if (d == DQK && dv == DV)                                                \
     return launch_d<T, DQK, DV>(q, k, v, o, batch, hq, hkv, sq, skv, causal, \
-                                window, scale, stream);
+                                window, qoff, scale, stream);
   RECONIC_FA_CASE(16, 16)
   RECONIC_FA_CASE(32, 32)
   RECONIC_FA_CASE(64, 64)
@@ -558,13 +560,14 @@ int launch(const void* q, const void* k, const void* v, void* o, int batch,
 // Sq, Hq, dv), all contiguous, 16-byte aligned and of one dtype (f32, or
 // bf16 when is_bf16); Hq % Hkv == 0, (d, dv) one of (16, 16), (32, 32),
 // (64, 64), (128, 128), (192, 128); B * Hq <= 65535. window 0 means no
-// window.
+// window; q_offset (>= 0) is the position of q's first row among the keys.
 RECONIC_API int reconic_flash_attention(const void* q, const void* k,
                                         const void* v, void* out, int batch,
                                         int hq, int hkv, int sq, int skv,
                                         int d, int dv, int causal, int window,
-                                        float scale, int is_bf16,
-                                        void* stream) {
+                                        int q_offset, float scale,
+                                        int is_bf16, void* stream) {
+  if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
       16)
@@ -572,7 +575,7 @@ RECONIC_API int reconic_flash_attention(const void* q, const void* k,
   auto s = static_cast<cudaStream_t>(stream);
   if (is_bf16)
     return launch<__nv_bfloat16>(q, k, v, out, batch, hq, hkv, sq, skv, d,
-                                 dv, causal, window, scale, s);
+                                 dv, causal, window, q_offset, scale, s);
   return launch<float>(q, k, v, out, batch, hq, hkv, sq, skv, d, dv, causal,
-                       window, scale, s);
+                       window, q_offset, scale, s);
 }

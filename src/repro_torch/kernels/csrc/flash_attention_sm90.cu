@@ -392,7 +392,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                 const __grid_constant__ CUtensorMap tv,
                                 __nv_bfloat16* __restrict__ o, int hq,
                                 int hkv, int sq, int skv, int causal,
-                                int window, float c) {
+                                int window, int qoff, float c) {
   using C = Sm90Cfg<DQK, DV, BN, ST>;
   constexpr bool kTurns = kPingpong && DQK <= 128;
   extern __shared__ unsigned char smem_raw[];
@@ -412,10 +412,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int hk = h / (hq / hkv);
   const int n_qt = (sq + kBM - 1) / kBM;
   const int q0 = (n_qt - 1 - static_cast<int>(blockIdx.y)) * kBM;
-  // KV range any query of this block can see (tile-aligned start)
-  const int last_q = min(q0 + kBM, sq) - 1;
+  // KV range any query of this block can see (tile-aligned start); row
+  // r sits at position qoff + r among the keys
+  const int last_q = qoff + min(q0 + kBM, sq) - 1;
   const int k_end = causal ? min(skv, last_q + 1) : skv;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BN * BN : 0;
+  const int k_begin =
+      window > 0 ? max(0, qoff + q0 - window + 1) / BN * BN : 0;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
 
   if (threadIdx.x == 0) {
@@ -466,6 +468,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int t = lane & 3;
     const int q0w = q0 + 64 * wg;
     const int r0 = q0w + warp * 16 + g;   // this lane's rows r0, r0 + 8
+    const int p0w = qoff + q0w;           // the position of row q0w
     const uint32_t q_wg = s_q + wg * 64 * kAtomBytes;
 
     float acc[DV / 2];
@@ -481,14 +484,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       // only tiles that cross the causal diagonal, the window edge or Skv
       // (for this warpgroup's rows) are masked element by element
       auto softmax = [&](int k0) {
-        const bool edge = k0 + BN > skv || (causal && k0 + BN - 1 > q0w) ||
-                          (window > 0 && q0w + 63 - k0 >= window);
+        const bool edge = k0 + BN > skv || (causal && k0 + BN - 1 > p0w) ||
+                          (window > 0 && p0w + 63 - k0 >= window);
         if (edge)
-          softmax_tile<true, BN>(s, m, l, alpha, c, r0, k0 + 2 * t, skv,
-                                 causal, window);
+          softmax_tile<true, BN>(s, m, l, alpha, c, qoff + r0, k0 + 2 * t,
+                                 skv, causal, window);
         else
-          softmax_tile<false, BN>(s, m, l, alpha, c, r0, k0 + 2 * t, skv,
-                                  causal, window);
+          softmax_tile<false, BN>(s, m, l, alpha, c, qoff + r0, k0 + 2 * t,
+                                  skv, causal, window);
       };
 
       // warpgroup 0 has the first turn; the last group's pass is only 0's,
@@ -593,7 +596,7 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int s, int heads,
 template <int DQK, int DV, int BN, int ST>
 int launch_sm90(const void* q, const void* k, const void* v, void* o,
                 int batch, int hq, int hkv, int sq, int skv, int causal,
-                int window, float scale, cudaStream_t stream) {
+                int window, int qoff, float scale, cudaStream_t stream) {
   using C = Sm90Cfg<DQK, DV, BN, ST>;
   auto kern = flash_attention_sm90_kernel<DQK, DV, BN, ST>;
   CUtensorMap tq, tk, tv;
@@ -611,7 +614,7 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o,
   const dim3 grid(batch * hq, (sq + kBM - 1) / kBM);
   kern<<<grid, kThreads, C::kSmem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), hq, hkv, sq, skv, causal,
-      window, static_cast<float>(scale * 1.4426950408889634));
+      window, qoff, static_cast<float>(scale * 1.4426950408889634));
   return reconic::launch_status();
 }
 
@@ -620,13 +623,16 @@ int launch_sm90(const void* q, const void* k, const void* v, void* o,
 // q: (B, Sq, Hq, d), k: (B, Skv, Hkv, d), v: (B, Skv, Hkv, dv), out: (B,
 // Sq, Hq, dv), all bf16, contiguous and 16-byte aligned; Hq % Hkv == 0,
 // (d, dv) one of (64, 64), (128, 128), (192, 128); ceil(Sq / 128) <= 65535.
-// window 0 means no window.
+// window 0 means no window; q_offset (>= 0) is the position of q's first
+// row among the keys.
 RECONIC_API int reconic_flash_attention_sm90(const void* q, const void* k,
                                              const void* v, void* out,
                                              int batch, int hq, int hkv,
                                              int sq, int skv, int d, int dv,
                                              int causal, int window,
-                                             float scale, void* stream) {
+                                             int q_offset, float scale,
+                                             void* stream) {
+  if (q_offset < 0) return static_cast<int>(cudaErrorInvalidValue);
   if ((reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
        reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out)) %
       16)
@@ -636,7 +642,7 @@ RECONIC_API int reconic_flash_attention_sm90(const void* q, const void* k,
 #define RECONIC_SM90_CASE(D, DV, BN, ST)                                   \
   if (d == D && dv == DV)                                                   \
     return launch_sm90<D, DV, BN, ST>(q, k, v, out, batch, hq, hkv, sq, skv, \
-                                      causal, window, scale, s);
+                                      causal, window, q_offset, scale, s);
   RECONIC_SM90_CASE(64, 64, 96, 2)
   RECONIC_SM90_CASE(128, 128, 64, 2)
   RECONIC_SM90_CASE(192, 128, 64, 2)

@@ -418,7 +418,7 @@ __global__ void __launch_bounds__(kThreads,
                                      const __grid_constant__ CUtensorMap tvl,
                                      float* __restrict__ o, int hq, int hkv,
                                      int sq, int skv, int causal, int window,
-                                     float scale) {
+                                     int qoff, float scale) {
   using C = Tf32Cfg<DQK, DV, BN, SK, SV>;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
@@ -451,10 +451,12 @@ __global__ void __launch_bounds__(kThreads,
   const int h = bh % hq;
   const int hk = h / group;
   const int q0 = (n_qt - 1 - tile) * kRows;
-  // KV range any query of this block can see (tile-aligned start)
-  const int last_q = min(q0 + kRows, sq) - 1;
+  // KV range any query of this block can see (tile-aligned start); row
+  // r sits at position qoff + r among the keys
+  const int p0 = qoff + q0;
+  const int last_q = qoff + min(q0 + kRows, sq) - 1;
   const int k_end = causal ? min(skv, last_q + 1) : skv;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) / BN * BN : 0;
+  const int k_begin = window > 0 ? max(0, p0 - window + 1) / BN * BN : 0;
   const int n_tiles = k_end > k_begin ? (k_end - k_begin + BN - 1) / BN : 0;
 
   if (threadIdx.x == 0) {
@@ -562,14 +564,14 @@ __global__ void __launch_bounds__(kThreads,
     // only tiles that cross the causal diagonal, the window edge or Skv
     // are masked element by element
     auto softmax = [&](int k0) {
-      const bool edge = k0 + BN > skv || (causal && k0 + BN - 1 > q0) ||
-                        (window > 0 && q0 + kRows - 1 - k0 >= window);
+      const bool edge = k0 + BN > skv || (causal && k0 + BN - 1 > p0) ||
+                        (window > 0 && p0 + kRows - 1 - k0 >= window);
       if (edge)
-        softmax_tile<true, BN>(s, m, l, alpha, r0, k0 + 2 * t, skv, causal,
-                               window);
+        softmax_tile<true, BN>(s, m, l, alpha, qoff + r0, k0 + 2 * t, skv,
+                               causal, window);
       else
-        softmax_tile<false, BN>(s, m, l, alpha, r0, k0 + 2 * t, skv, causal,
-                                window);
+        softmax_tile<false, BN>(s, m, l, alpha, qoff + r0, k0 + 2 * t, skv,
+                                causal, window);
     };
     auto k_hi = [&](int st) { return s_k + st * 2 * C::kKHalf; };
     auto v_hi = [&](int st) { return s_v + st * 2 * C::kVHalf; };
@@ -686,7 +688,8 @@ struct Scratch {
 template <int DQK, int DV, int BN, int SK, int SV>
 int launch_tf32(const float* q, const float* k, const float* v, float* o,
                 float* scratch, int batch, int hq, int hkv, int sq, int skv,
-                int causal, int window, float scale, cudaStream_t stream) {
+                int causal, int window, int qoff, float scale,
+                cudaStream_t stream) {
   using C = Tf32Cfg<DQK, DV, BN, SK, SV>;
   const int skv8 = (skv + 7) / 8 * 8;
   const Scratch sc(batch, hkv, skv, DQK, DV);
@@ -719,7 +722,8 @@ int launch_tf32(const float* q, const float* k, const float* v, float* o,
       static_cast<long long>(batch) * hq * ((sq + kRows - 1) / kRows);
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   kern<<<static_cast<unsigned>(blocks), kThreads, C::kSmem, stream>>>(
-      tq, tkh, tkl, tvh, tvl, o, hq, hkv, sq, skv, causal, window, scale);
+      tq, tkh, tkl, tvh, tvl, o, hq, hkv, sq, skv, causal, window, qoff,
+      scale);
   return reconic::launch_status();
 }
 
@@ -736,12 +740,15 @@ bool built_for(int d, int dv) {
 // (d, dv) one of (64, 64), (128, 128), (192, 128); B Hq ceil(Sq / 64) <
 // 2^31 (blocks of 64 q rows). scratch: 16-byte aligned, scratch_words
 // f32 words, at least reconic_flash_attention_sm90_tf32_scratch_words.
-// window 0 means no window.
+// window 0 means no window; q_offset (>= 0) is the position of q's first
+// row among the keys.
 RECONIC_API int reconic_flash_attention_sm90_tf32(
     const void* q, const void* k, const void* v, void* out, void* scratch,
     long long scratch_words, int batch, int hq, int hkv, int sq, int skv,
-    int d, int dv, int causal, int window, float scale, void* stream) {
+    int d, int dv, int causal, int window, int q_offset, float scale,
+    void* stream) {
   if (!built_for(d, dv) || batch < 0 || hkv <= 0 || skv < 0 ||
+      q_offset < 0 ||
       scratch_words < 0 ||
       static_cast<size_t>(scratch_words) <
           Scratch(batch, hkv, skv, d, dv).words())
@@ -761,7 +768,8 @@ RECONIC_API int reconic_flash_attention_sm90_tf32(
 #define RECONIC_TF32_CASE(D, DV, BN, SK, SV)                                \
   if (d == D && dv == DV)                                                   \
     return launch_tf32<D, DV, BN, SK, SV>(qf, kf, vf, of, sf, batch, hq, hkv, \
-                                          sq, skv, causal, window, scale, s);
+                                          sq, skv, causal, window, q_offset, \
+                                          scale, s);
   RECONIC_TF32_CASE(64, 64, 32, 2, 2)
   RECONIC_TF32_CASE(128, 128, 32, 2, 2)
   RECONIC_TF32_CASE(192, 128, 32, 2, 1)

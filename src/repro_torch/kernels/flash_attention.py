@@ -23,7 +23,10 @@ kernels, as ``flash_attention_route`` says:
 
 All three stay within the reference's f32 tolerance (plus one bf16 step
 in bf16), mask ragged edges themselves (any ``Sq``, ``Skv`` runs without
-padding) and never repeat K/V per q head. They take 16-byte aligned
+padding) and never repeat K/V per q head. Each takes ``q_offset``, the
+position of q's first row among the keys (a rank's rows of a
+sequence-parallel attention): it shifts the causal and window masks and
+the key tiles a q tile skips. They take 16-byte aligned
 tensors. V and the output may be narrower than q and k for a listed pair
 of head dims (MLA's 192 for q and k, 128 for v).
 
@@ -106,18 +109,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, sq, hq, dv).to(q.dtype)
 
 
-def visible_pairs(sq: int, skv: int, causal: bool, window: int) -> int:
+def visible_pairs(sq: int, skv: int, causal: bool, window: int,
+                  q_offset: int = 0) -> int:
     """(q, k) pairs of one head that the mask lets through: query ``i``
-    sees key ``j`` when ``j <= i`` (causal) and ``i - j < window``
-    (a window), as ``flash_attention_plain`` masks."""
-    i = np.arange(sq, dtype=np.int64)
+    (at position ``q_offset + i``) sees key ``j`` when ``j <=`` its
+    position (causal) and its position ``- j < window`` (a window), as
+    ``flash_attention_plain`` masks."""
+    i = q_offset + np.arange(sq, dtype=np.int64)
     hi = np.minimum(i, skv - 1) if causal else np.full(sq, skv - 1)
     lo = np.maximum(i - window + 1, 0) if window > 0 else 0
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
 def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         *, causal: bool = True, window: int = 0):
+                         *, causal: bool = True, window: int = 0,
+                         q_offset: int = 0):
     """(flops, bytes) of one call, the function's own work: 2 (d + dv)
     flops per visible (q, k) pair and q head, and q, k and v read and
     the output written once each. Any of the layouts ``flash_attention``
@@ -125,7 +131,8 @@ def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q4, k4, v4 = _as_bshd(q), _as_bshd(k), _as_bshd(v)
     b, sq, hq, d = q4.shape
     skv, hkv, dv = k4.shape[1], k4.shape[2], v4.shape[-1]
-    flops = 2 * (d + dv) * visible_pairs(sq, skv, causal, window) * b * hq
+    flops = 2 * (d + dv) * visible_pairs(sq, skv, causal, window,
+                                         q_offset) * b * hq
     nbytes = q.element_size() * b * (d + dv) * (sq * hq + skv * hkv)
     return flops, nbytes
 
@@ -169,20 +176,22 @@ def tf32_scratch_words(b: int, skv: int, hkv: int, d: int, dv: int) -> int:
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
-                    scale: Optional[float] = None,
+                    scale: Optional[float] = None, q_offset: int = 0,
                     backward: Optional[Callable] = None) -> torch.Tensor:
     """q: (BH, Sq, d), k: (BH, Skv, d), v: (BH, Skv, dv) -> (BH, Sq, dv);
     or, with GQA, q: (B, Sq, Hq, d), k: (B, Skv, Hkv, d), v: (B, Skv,
     Hkv, dv) -> (B, Sq, Hq, dv) with ``Hq % Hkv == 0``. On the GPU ``(d,
     dv)`` is one of ``HEAD_DIMS``. f32 or bf16 inputs of one dtype,
     computed in f32, output in the input dtype. ``window`` 0 means no
-    window; ``scale`` defaults to ``d ** -0.5``.
+    window; ``scale`` defaults to ``d ** -0.5``. ``q_offset`` (>= 0) is
+    the position of q's first row among the keys.
 
     ``backward``: None (the plain version), or a function ``f(q, k, v, *,
     causal, window)`` of (B, S, H, d) tensors that computes the same
-    attention at the default scale; the autograd backward recomputes
-    through it and differentiates it. It takes no ``scale``, so it
-    cannot be given with one."""
+    attention at the default scale (and takes ``q_offset=`` too, where
+    the call has one); the autograd backward recomputes through it and
+    differentiates it. It takes no ``scale``, so it cannot be given with
+    one."""
     squeeze = q.ndim == 3
     q4, k4, v4 = _as_bshd(q), _as_bshd(k), _as_bshd(v)
     b, sq, hq, d = q4.shape
@@ -195,8 +204,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"flash_attention: unsupported dtypes {q.dtype}, "
                         f"{k.dtype}, {v.dtype}")
-    if window < 0:
-        raise ValueError(f"window must be >= 0, got {window}")
+    if window < 0 or q_offset < 0:
+        raise ValueError(f"window and q_offset must be >= 0, got {window}, "
+                         f"{q_offset}")
     if backward is not None and scale is not None:
         raise ValueError("flash_attention: a backward function computes "
                          "the default scale; give no scale with it")
@@ -225,9 +235,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                 raise ValueError(f"flash_attention: {name} is not 16-byte "
                                  f"aligned (the kernel loads 16-byte rows)")
     with charge("flash_attention", flash_attention_cost, q4, k4, v4,
-                causal=causal, window=window):
+                causal=causal, window=window, q_offset=q_offset):
         out = _FlashAttention.apply(q4, k4, v4, causal, window, scale,
-                                    backward)
+                                    q_offset, backward)
     return out[:, :, 0] if squeeze else out
 
 
@@ -240,38 +250,42 @@ class _FlashAttention(torch.autograd.Function):
     ``no_grad`` it is the bare forward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, scale, backward):
+    def forward(ctx, q, k, v, causal, window, scale, q_offset, backward):
         b, sq, hq, d = q.shape
         _, skv, hkv, dv = v.shape
         ctx.save_for_backward(q, k, v)
-        ctx.opts = (causal, window, scale, backward)
+        ctx.opts = (causal, window, scale, q_offset, backward)
         if q.device.type == "cpu":
             # laid out as the kernel writes it, so that later ops see the
             # same strides on every device
             return flash_attention_plain(q, k, v, causal=causal,
-                                         window=window,
-                                         scale=scale).contiguous()
+                                         window=window, scale=scale,
+                                         q_offset=q_offset).contiguous()
         out = q.new_empty((b, sq, hq, dv))
         if out.numel() and q.device.type == "cuda":
             _launch(flash_attention_route(q.dtype, d, dv, sq), q, k, v, out,
-                    causal, window, scale)
+                    causal, window, scale, q_offset)
         return out
 
     @staticmethod
     def backward(ctx, grad_out):
-        causal, window, scale, recompute = ctx.opts
+        causal, window, scale, q_offset, recompute = ctx.opts
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
             if recompute is None:
                 out = flash_attention_plain(*inputs, causal=causal,
-                                            window=window, scale=scale)
+                                            window=window, scale=scale,
+                                            q_offset=q_offset)
             else:
-                out = recompute(*inputs, causal=causal, window=window)
+                # q_offset only where there is one: a function written
+                # for attention from the first row may not take it
+                kw = {"q_offset": q_offset} if q_offset else {}
+                out = recompute(*inputs, causal=causal, window=window, **kw)
             grads = torch.autograd.grad(out, inputs, grad_out)
-        return (*grads, None, None, None, None)
+        return (*grads, None, None, None, None, None)
 
 
-def _launch(route, q, k, v, out, causal, window, scale):
+def _launch(route, q, k, v, out, causal, window, scale, q_offset=0):
     """Launch ``route``'s kernel on (B, S, H, d) CUDA tensors that
     ``flash_attention`` checked, and count it."""
     b, sq, hq, d = q.shape
@@ -280,19 +294,21 @@ def _launch(route, q, k, v, out, causal, window, scale):
         _build.launch("reconic_flash_attention_sm90", q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(), b, hq, hkv,
                       sq, skv, d, dv, int(causal), int(window),
-                      float(np.float32(scale)), _build.stream_ptr(q.device))
+                      int(q_offset), float(np.float32(scale)),
+                      _build.stream_ptr(q.device))
     elif route == "wgmma_tf32":
         words = tf32_scratch_words(b, skv, hkv, d, dv)
         scratch = torch.empty(words, dtype=torch.float32, device=q.device)
         _build.launch("reconic_flash_attention_sm90_tf32", q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(),
                       scratch.data_ptr(), words, b, hq, hkv, sq, skv, d, dv,
-                      int(causal), int(window), float(np.float32(scale)),
-                      _build.stream_ptr(q.device))
+                      int(causal), int(window), int(q_offset),
+                      float(np.float32(scale)), _build.stream_ptr(q.device))
     else:
         _build.launch("reconic_flash_attention", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,
-                      dv, int(causal), int(window), float(np.float32(scale)),
+                      dv, int(causal), int(window), int(q_offset),
+                      float(np.float32(scale)),
                       int(q.dtype == torch.bfloat16),
                       _build.stream_ptr(q.device))
     flash_attention.launches += 1

@@ -23,18 +23,19 @@ def matmul(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
 
 
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-              causal: bool = True, window: int = 0,
+              causal: bool = True, window: int = 0, q_offset: int = 0,
               backward: Optional[Callable] = None) -> torch.Tensor:
     """q: (B, Sq, Hq, d), k: (B, Skv, Hkv, d), v: (B, Skv, Hkv, dv) ->
     (B, Sq, Hq, dv).
 
     GQA: q heads grouped onto kv heads (Hq % Hkv == 0). The kernel maps
     q head h to kv head h // group itself, so K and V are never repeated
-    or transposed, and no length is padded. ``backward``: what the
-    autograd backward recomputes and differentiates (``flash_attention``'s
+    or transposed, and no length is padded. ``q_offset``: the position of
+    q's first row among the keys. ``backward``: what the autograd
+    backward recomputes and differentiates (``flash_attention``'s
     argument; the plain version when None)."""
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
-                               backward=backward)
+                               q_offset=q_offset, backward=backward)
 
 
 def compress(x: torch.Tensor, *, chunk: int = 1024

@@ -13,18 +13,31 @@ have shapes and dtypes but no memory and no op computes a number, under
 A device's share follows what the port's steps do. The batch is split
 over the ``pod`` x ``data`` axes where ``launch.specs.batch_partition``
 allows (a ``long_500k`` cell's batch of 1 keeps its whole sequence on
-every device). The ``model`` axis is replicated: every rank holds whole
-parameters, as the port's mesh steps do, so no tensor-parallel shard is
-counted. A train cell runs ``make_train_step`` (forward, backward with
-``remat`` as the config says, clip, AdamW; ZeRO-1 cuts ``m`` and ``v``
-over the data-parallel ranks) or, with ``bucketed``, the psum step of
-``make_bucketed_train_step``, on a ``launch.mesh.PlanMesh`` whose groups
-record each collective the step would send (a gradient leaf's or
-bucket's all-reduce, the loss's, ZeRO-1's parameter all-gather) with no
-process group; on one data-parallel rank it is the plain step with no
-mesh. Prefill and decode cells run ``serve/serve_step.py``'s
-``prefill_step`` and ``decode_step`` (at the last cache slot); the
-port's serving sends no collective.
+every device). For the dense and VLM families
+(``models.sharding.model_axis_sharded``) the ``model`` axis is the
+reference's: the share is the last rank of the axis, the one that
+sequence-parallel attention loads most (``share_rank``), and holds its
+cut of every parameter (``init_params(tp_rank=, tp_size=)``, the cut of
+``sanitize_specs(param_specs(...))``), of the optimizer state and of
+the caches (K and V cut on the head dim, as ``cache_partition_specs``
+cuts them), and its step runs over the plan's ``model`` group with the
+explicit collectives of ``models/sharding.py`` (sequence parallelism as
+the CLI says); each record's ``model_axis`` says ``"sharded"`` and its
+``model_rank`` which rank the share is. The other families keep the
+axis replicated (whole parameters on every rank, ``"replicated"``). A
+train cell runs ``make_train_step`` (forward, backward with ``remat``
+as the config says, clip, AdamW; ZeRO-1 cuts ``m`` and ``v`` over the
+data-parallel ranks, within the model cut) or, with ``bucketed``, the
+psum step of ``make_bucketed_train_step``, on a ``launch.mesh.PlanMesh``
+whose groups record each collective the step would send (a gradient
+leaf's or bucket's all-reduce, the loss's, ZeRO-1's parameter
+all-gather, the model axis's all-reduces, all-gathers, reduce-scatters
+and all-to-alls; shape-correct, so the share allocates their results)
+with no process group; on one rank of a mesh with neither axis over 1
+it is the plain step with no mesh. Prefill and decode cells run
+``serve/serve_step.py``'s ``prefill_step`` and ``decode_step`` (at the
+last cache slot), over the model group where the axis is sharded. Each
+record holds its collectives by op (count and operand bytes).
 
 This is the one entry point of the port that takes no device: ``meta``
 computes nothing, so no CUDA device is needed. ``build_cell`` builds the
@@ -33,8 +46,10 @@ set against this one (``chip_smoke.py`` phase 27). ``--attn blockwise
 --attn-chunk N`` sets ``models.layers.set_attention_impl`` for the
 cells, as the reference does: K6's backward, and attention over a cache,
 then run the online softmax over chunks of N keys, and each record names
-the two. The flags that only steer XLA's lowering in the reference are
-refused, and there is no ``XLA_FLAGS`` or ``DRYRUN_DEVICES``.
+the two. ``--no-seq-parallel`` runs the train cells' residual whole on
+every rank of the model group. The flags that only steer XLA's lowering
+in the reference are refused, and there is no ``XLA_FLAGS`` or
+``DRYRUN_DEVICES``.
 
 Usage::
 
@@ -52,7 +67,7 @@ import json
 import os
 import time
 import traceback
-from typing import Union
+from typing import Optional, Union
 
 import numpy as np
 import torch
@@ -63,11 +78,11 @@ from repro_torch.configs.base import (MULTI_POD_MESH, SHAPES, SINGLE_POD_MESH,
                                       TrainConfig)
 from repro_torch.configs.registry import (ARCHS, cell_is_applicable,
                                           get_config)
-from repro_torch.launch.mesh import PlanMesh, dp_size
+from repro_torch.launch.mesh import PlanMesh, dp_size, model_size
 from repro_torch.launch.specs import (local_shape, serve_input_specs,
                                       train_input_specs)
 from repro_torch.models import init_params
-from repro_torch.models import layers
+from repro_torch.models import layers, sharding
 from repro_torch.roofline.analysis import analyze
 from repro_torch.roofline.count import OpCounter
 from repro_torch.serve.serve_step import decode_step, prefill_step
@@ -83,20 +98,37 @@ OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
 XLA_ONLY = {
     "remat_policy": "--remat-policy dots is an XLA checkpoint policy; the "
                     "port checkpoints whole blocks (full) or none",
-    "no_qkv_shard": "--no-qkv-shard drops XLA sharding hints the port "
-                    "does not have (the model axis is replicated)",
-    "no_seq_parallel": "--no-seq-parallel drops an XLA sharding hint the "
-                       "port does not have (the model axis is replicated)",
+    "no_qkv_shard": "--no-qkv-shard drops an XLA layout constraint on "
+                    "q, k and v; the port's attention is an explicit "
+                    "scheme (heads, or q's rows against gathered k and v) "
+                    "with no constraint to drop",
     "save_hlo": "--save-hlo writes XLA's HLO; the port lowers no HLO",
 }
 
 
 def train_config(microbatches: int = 1, remat: bool = True,
-                 zero1: bool = True, bucket_mb: float = 16.0) -> TrainConfig:
+                 zero1: bool = True, bucket_mb: float = 16.0,
+                 sequence_parallel: bool = True) -> TrainConfig:
     """The ``TrainConfig`` of the dry-run's train cells (bf16, as the
     reference's dry-run); its defaults are the CLI's."""
     return TrainConfig(microbatches=microbatches, remat=remat, zero1=zero1,
-                       grad_bucket_mb=bucket_mb, param_dtype="bfloat16")
+                       grad_bucket_mb=bucket_mb, param_dtype="bfloat16",
+                       sequence_parallel=sequence_parallel)
+
+
+def model_axis(cfg: ModelConfig, mesh: MeshConfig) -> int:
+    """The ``model`` axis a share of ``cfg`` on ``mesh`` is cut over: its
+    size for a family the port shards, else 1 (replicated)."""
+    tp = dict(zip(mesh.axes, mesh.shape)).get("model", 1)
+    return tp if sharding.model_axis_sharded(cfg) else 1
+
+
+def share_rank(cfg: ModelConfig, mesh: MeshConfig) -> int:
+    """The rank of the model axis whose share a cell builds: the last
+    (0 where the axis is replicated). Every rank does the same work but
+    in sequence-parallel attention, where the last holds the last rows
+    and sees the most keys of a causal mask, and sets the step's time."""
+    return model_axis(cfg, mesh) - 1
 
 
 def mesh_config(mesh_kind: str) -> MeshConfig:
@@ -114,22 +146,24 @@ def mesh_config(mesh_kind: str) -> MeshConfig:
     return MeshConfig(shape, axes)
 
 
-def _fill(specs: dict, cfg: ModelConfig, seed: int) -> dict:
+def _fill(specs: dict, cfg: ModelConfig, seed: int,
+          ids: Optional[tuple] = None) -> dict:
     """Seeded values of the input ``specs`` on their device (meta specs
-    pass through): token ids and labels in the vocab, position ids
-    counting from 0, N(0, 1) frames and patches."""
+    pass through): token ids and labels in ``[lo, hi)`` of ``ids``
+    (default the vocab), position ids counting from 0, N(0, 1) frames
+    and patches."""
     if next(iter(specs.values())).device.type == "meta":
         return specs
+    lo, hi = ids or (0, cfg.vocab_size)
     rng = np.random.default_rng(seed)
     out = {}
     for k, v in specs.items():
         if k == "mrope_positions":
-            ids = torch.arange(v.shape[-1], dtype=torch.int32)
-            out[k] = ids.expand(v.shape).contiguous().to(v.device)
+            pos = torch.arange(v.shape[-1], dtype=torch.int32)
+            out[k] = pos.expand(v.shape).contiguous().to(v.device)
         elif v.dtype == torch.int32:
             out[k] = torch.from_numpy(rng.integers(
-                0, cfg.vocab_size, tuple(v.shape)).astype(np.int32)
-            ).to(v.device)
+                lo, hi, tuple(v.shape)).astype(np.int32)).to(v.device)
         else:
             out[k] = torch.from_numpy(rng.standard_normal(
                 tuple(v.shape), dtype=np.float32)).to(v.device, v.dtype)
@@ -161,17 +195,30 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshConfig,
     is the ``PlanMesh`` whose ``collectives`` the step records; a train
     cell's ``fn.step`` is its step (``grad_norm`` after a run). On
     ``meta`` nothing is drawn; elsewhere params and inputs come from
-    ``seed``."""
+    ``seed``. A sharded share is the last rank of the model axis
+    (``share_rank``), and draws its cut at its own shape and its token
+    ids and labels among the vocab rows it holds: the plan's all-reduce
+    adds no other rank's rows, so a token outside them would embed to 0
+    through every layer, where the RMS norms' gradient grows about 1 /
+    sqrt(eps) a layer and a deep share's overflows."""
     dtype = getattr(torch, tcfg.param_dtype)
-    params = init_params(cfg, seed, dtype, device)
-    plan = PlanMesh(mesh.shape, mesh.axes)
+    tp = model_axis(cfg, mesh)
+    rank = share_rank(cfg, mesh)
+    ids = None
+    if tp > 1:
+        rows = cfg.padded_vocab() // tp
+        ids = (rank * rows, min((rank + 1) * rows, cfg.vocab_size))
+    params = init_params(cfg, seed, dtype, device, tp_rank=rank,
+                         tp_size=tp)
+    coord = [rank if a == "model" else 0 for a in mesh.axes]
+    plan = PlanMesh(mesh.shape, mesh.axes, coord)
     if shape.kind == "train":
         batch = _fill(train_input_specs(cfg, shape, dtype, device), cfg,
-                      seed + 1)
+                      seed + 1, ids)
         opt = init_adam(params)
         if bucketed:
             step = make_bucketed_train_step(cfg, tcfg, plan, sync="psum")
-        elif dp_size(plan) > 1:
+        elif dp_size(plan) > 1 or tp > 1:
             step = make_train_step(cfg, tcfg, plan)
             if tcfg.zero1:
                 opt = zero1_init(opt, plan)
@@ -183,14 +230,17 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshConfig,
         fn.step = step
         return fn, (params, opt, batch), plan
     share = local_shape(shape, mesh)
-    specs = serve_input_specs(cfg, share, shape.kind, dtype, device)
+    specs = serve_input_specs(cfg, share, shape.kind, dtype, device,
+                              tp_size=tp)
     caches = specs.pop("caches")
     specs.pop("pos", None)
-    batch = _fill(specs, cfg, seed + 1)
+    batch = _fill(specs, cfg, seed + 1, ids)
+    group = (sharding.TensorParallel(plan.group(("model",)), False)
+             if tp > 1 else None)
     if shape.kind == "prefill":
         def fn():
             with torch.no_grad():
-                return prefill_step(params, cfg, batch, caches)
+                return prefill_step(params, cfg, batch, caches, tp=group)
     else:
         _fill_caches(caches, seed + 2)
         extra = {k: v for k, v in batch.items() if k != "tokens"}
@@ -198,7 +248,8 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshConfig,
         def fn():
             with torch.no_grad():
                 return decode_step(params, cfg, batch["tokens"], caches,
-                                   share.seq_len - 1, extra=extra or None)
+                                   share.seq_len - 1, extra=extra or None,
+                                   tp=group)
     return fn, (params, batch, caches), plan
 
 
@@ -239,9 +290,27 @@ def lower_cell(arch: str, shape: Union[str, ShapeConfig], mesh_kind: str,
     roof = analyze(arch, shape.name, mesh_kind, mesh.num_devices, counts,
                    plan.collectives, cfg, shape, tcfg.param_dtype, trace_s,
                    counts["peak_bytes"] / 1e9)
-    meta = {"hlo_chars": None, "device": "meta", "model_axis": "replicated",
+    meta = {"hlo_chars": None, "device": "meta",
+            "model_axis": ("sharded" if model_axis(cfg, mesh) > 1
+                           else "replicated"),
+            "model_rank": share_rank(cfg, mesh),
+            "collectives": collectives_by_op(plan.collectives,
+                                             plan.collective_axes),
             "kernels": counts["kernels"]}
     return roof, mem, meta
+
+
+def collectives_by_op(planned, axes) -> dict:
+    """{group axes: {op: {"count", "bytes"}}} of (op, operand bytes,
+    group size) records and the axes of each one's group (joined by
+    ","), the operand bytes summed."""
+    out: dict = {}
+    for (op, nbytes, _), ax in zip(planned, axes):
+        rec = out.setdefault(",".join(ax), {}).setdefault(
+            op, {"count": 0, "bytes": 0})
+        rec["count"] += 1
+        rec["bytes"] += int(nbytes)
+    return out
 
 
 def run_cell(arch, shape_name, mesh_kind, tcfg, out_dir, bucketed=False,
@@ -311,7 +380,6 @@ def main(argv=None):
 
     refused = {"remat_policy": args.remat_policy == "dots",
                "no_qkv_shard": args.no_qkv_shard,
-               "no_seq_parallel": args.no_seq_parallel,
                "save_hlo": bool(args.save_hlo)}
     for flag, why in XLA_ONLY.items():
         if refused[flag]:
@@ -320,7 +388,8 @@ def main(argv=None):
     tcfg = train_config(
         microbatches=args.microbatches,
         remat=not args.no_remat and args.remat_policy == "full",
-        zero1=not args.no_zero1, bucket_mb=args.bucket_mb)
+        zero1=not args.no_zero1, bucket_mb=args.bucket_mb,
+        sequence_parallel=not args.no_seq_parallel)
 
     meshes = (["single", "multi"] if args.mesh == "both" else [args.mesh])
     if args.all:

@@ -28,7 +28,7 @@ import queue
 import tempfile
 import time
 import traceback
-from typing import Callable, List, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -68,40 +68,141 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]) -> DeviceMesh:
 class PlanGroup:
     """A group of ``size`` ranks of a ``PlanMesh``: a collective on it is
     recorded in ``log`` as (op, operand bytes, group size), in the
-    reference's op names, and moves nothing (every rank of a plan holds
-    the same values)."""
+    reference's op names. ``rank`` is this process's index in it. An
+    all-reduce moves nothing; ``all_gather``, ``reduce_scatter`` and
+    ``all_to_all`` below return a new tensor of the result's shape,
+    filled from this rank's own part, so a one-device share allocates
+    what a device of the mesh would, but its values mean nothing (every
+    rank of a plan holds the same values)."""
 
-    def __init__(self, size: int, log: list):
-        self.size, self.log = size, log
+    def __init__(self, size: int, log: list, axes: tuple = (),
+                 axes_log: list = None, rank: int = 0):
+        self.size, self.log, self.rank = size, log, rank
+        self.axes, self.axes_log = tuple(axes), axes_log
 
     def record(self, op: str, t: torch.Tensor) -> None:
         self.log.append((op, t.numel() * t.element_size(), self.size))
+        if self.axes_log is not None:
+            self.axes_log.append(self.axes)
+
+
+# ---------------------------------------------------------------------------
+# Collectives over a group or a PlanGroup
+# ---------------------------------------------------------------------------
+# Plain functions of a tensor: the result is a new tensor (an all-reduce
+# sums in place). Over a process group a CUDA tensor is staged through
+# host memory, as ICITransport stages its words: gloo carries them.
+
+def group_size(group) -> int:
+    return group.size if isinstance(group, PlanGroup) \
+        else dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This process's index in ``group``."""
+    return group.rank if isinstance(group, PlanGroup) \
+        else dist.get_rank(group)
+
+
+def _staged(t: torch.Tensor) -> torch.Tensor:
+    return t.detach().to("cpu").contiguous()
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` summed (``op="max"``: its maximum) over ``group``, in
+    place."""
+    if isinstance(group, PlanGroup):
+        group.record("all-reduce", t)
+        return t
+    red = dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM
+    if t.device.type == "cpu":
+        dist.all_reduce(t, op=red, group=group)
+        return t
+    h = _staged(t)
+    dist.all_reduce(h, op=red, group=group)
+    return t.copy_(h)
+
+
+def all_gather(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """The ranks' ``t`` concatenated along ``dim`` in rank order."""
+    n = group_size(group)
+    if isinstance(group, PlanGroup):
+        group.record("all-gather", t)
+        return torch.cat([t] * n, dim=dim)
+    h = _staged(t)
+    parts = [torch.empty_like(h) for _ in range(n)]
+    dist.all_gather(parts, h, group=group)
+    return torch.cat(parts, dim=dim).to(t.device)
+
+
+def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """This rank's cut along ``dim`` (one of ``size`` equal cuts, in rank
+    order) of ``t`` summed over ``group``. gloo has no reduce-scatter:
+    the group sums the whole and each rank keeps its cut (recorded as
+    the reduce-scatter it stands for)."""
+    n = group_size(group)
+    m = t.shape[dim] // n
+    if isinstance(group, PlanGroup):
+        group.record("reduce-scatter", t)
+        return t.narrow(dim, group.rank * m, m).clone()
+    h = _staged(t)
+    dist.all_reduce(h, group=group)
+    return h.narrow(dim, group_rank(group) * m, m).clone().to(t.device)
+
+
+def all_to_all(t: torch.Tensor, group, split_dim: int,
+               cat_dim: int) -> torch.Tensor:
+    """``t`` cut into ``size`` equal parts along ``split_dim``, part
+    ``j`` sent to rank ``j``, and the parts received concatenated along
+    ``cat_dim`` in rank order. gloo builds may lack all-to-all (the
+    GPU machine's does): the group all-gathers the whole and each rank
+    keeps its parts (recorded as the all-to-all it stands for)."""
+    n = group_size(group)
+    m = t.shape[split_dim] // n
+    if isinstance(group, PlanGroup):
+        group.record("all-to-all", t)
+        part = t.narrow(split_dim, group.rank * m, m)
+        return torch.cat([part] * n, dim=cat_dim)
+    h = _staged(t)
+    parts = [torch.empty_like(h) for _ in range(n)]
+    dist.all_gather(parts, h, group=group)
+    me = group_rank(group)
+    return torch.cat([p.narrow(split_dim, me * m, m) for p in parts],
+                     dim=cat_dim).to(t.device)
 
 
 class PlanMesh:
     """A mesh description, ``shape`` over named ``axes``, that the steps
     take where they take a ``DeviceMesh`` (``make_train_step(mesh=)``,
     ``make_bucketed_train_step``) with no process group: this process is
-    the rank at coordinate 0 of every axis, and the collectives the step
-    would send land in ``collectives`` as (op, operand bytes, group
-    size) instead of being sent."""
+    the rank at ``coordinate`` (one index an axis; 0 on every axis by
+    default), and the collectives the step would send land in
+    ``collectives`` as (op, operand bytes, group size) instead of being
+    sent, and the axes of each one's group in ``collective_axes``."""
 
-    def __init__(self, shape: Sequence[int], axes: Sequence[str]):
+    def __init__(self, shape: Sequence[int], axes: Sequence[str],
+                 coordinate: Optional[Sequence[int]] = None):
         self.shape = tuple(int(x) for x in shape)
         self.mesh_dim_names = tuple(axes)
+        self.coordinate = ([0] * len(self.shape) if coordinate is None
+                           else [int(c) for c in coordinate])
         self.collectives: list = []
+        self.collective_axes: list = []
 
     def size(self, dim: int) -> int:
         return self.shape[dim]
 
     def get_coordinate(self) -> list:
-        return [0] * len(self.shape)
+        return list(self.coordinate)
 
     def group(self, axes: Sequence[str]) -> PlanGroup:
-        n = 1
+        n, rank = 1, 0
         for a in axes:
-            n *= axis_size(self, a)
-        return PlanGroup(n, self.collectives)
+            i = self.mesh_dim_names.index(a)
+            n *= self.shape[i]
+            rank = rank * self.shape[i] + self.coordinate[i]
+        return PlanGroup(n, self.collectives, axes, self.collective_axes,
+                         rank)
 
 
 def axis_size(mesh: DeviceMesh, axis: str) -> int:
@@ -154,6 +255,27 @@ def dp_rank(mesh: DeviceMesh) -> int:
     for a in dp_axes(mesh):
         idx = idx * axis_size(mesh, a) + coords[a]
     return idx
+
+
+def model_size(mesh) -> int:
+    """The size of the mesh's ``model`` axis (1 without one)."""
+    return (axis_size(mesh, "model") if "model" in mesh.mesh_dim_names
+            else 1)
+
+
+def model_rank(mesh) -> int:
+    """This rank's coordinate on the ``model`` axis (0 without one)."""
+    if "model" not in mesh.mesh_dim_names:
+        return 0
+    return mesh.get_coordinate()[mesh.mesh_dim_names.index("model")]
+
+
+def model_group(mesh):
+    """The group over the ``model`` axis that holds this rank (None
+    without a ``model`` axis)."""
+    if "model" not in mesh.mesh_dim_names:
+        return None
+    return axis_group(mesh, ("model",))
 
 
 # ---------------------------------------------------------------------------

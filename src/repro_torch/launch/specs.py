@@ -14,7 +14,9 @@ They return specs in the convention of ``models/sharding.py``: a tuple
 with one entry per dimension, ``None`` for a replicated one, an axis
 name, or a tuple of axis names (the entries of the reference's
 ``PartitionSpec``). The reference's ``named`` (a ``NamedSharding`` tree)
-has no counterpart: the port lays nothing out by sharding annotations.
+has no counterpart: a rank holds its cut instead
+(``models.sharding.shard_tree``, ``init_params(tp_size=)``,
+``init_caches(tp_size=)``).
 """
 from __future__ import annotations
 
@@ -67,10 +69,14 @@ def train_input_specs(cfg: ModelConfig, shape: ShapeConfig,
 
 
 def serve_input_specs(cfg: ModelConfig, shape: ShapeConfig, kind: str,
-                      dtype=torch.bfloat16, device="meta") -> Dict:
+                      dtype=torch.bfloat16, device="meta",
+                      tp_size: int = 1) -> Dict:
     """kind: 'prefill' (tokens = full prompt) or 'decode' (one token,
     caches at seq_len depth). ``pos`` is a 0-d int32 stand-in, as the
-    reference's; the port's ``decode_step`` takes it as a host int."""
+    reference's; the port's ``decode_step`` takes it as a host int.
+    ``tp_size``: the caches are a rank's cut over a ``model`` axis of
+    that size (``init_caches(tp_size=)``, the cut of
+    ``cache_partition_specs``)."""
     b, s = shape.global_batch, shape.seq_len
     if kind == "prefill":
         specs = {"tokens": sds((b, s), torch.int32, device)}
@@ -88,7 +94,8 @@ def serve_input_specs(cfg: ModelConfig, shape: ShapeConfig, kind: str,
     if cfg.enc_dec:
         specs["enc_embeds"] = sds(
             (b, s // cfg.encoder_seq_ratio, cfg.d_model), dtype, device)
-    specs["caches"] = init_caches(cfg, b, s, dtype, device=device)
+    specs["caches"] = init_caches(cfg, b, s, dtype, device=device,
+                                  tp_size=tp_size)
     return specs
 
 

@@ -5,7 +5,11 @@
 as ``repro/models/transformer.py:_stack_layers`` leaves it) and returns
 the same nested dicts of tensors, which is the port's layout. So the port
 computes exactly what the JAX package computes on the same weights, which
-is how the tests hold one against the other. Nothing here imports JAX.
+is how the tests hold one against the other. With ``tp_size`` over 1 the
+tree carried over is then cut to rank ``tp_rank``'s share of the
+``model`` axis (``sharding.shard_tree`` by ``sharding.model_specs``), so
+that both packages compute from the same weights. Nothing here imports
+JAX.
 """
 from __future__ import annotations
 
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.models import sharding
 
 
 def _leaf(x, device) -> torch.Tensor:
@@ -23,9 +28,11 @@ def _leaf(x, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)  # a writable copy
 
 
-def params_from_jax(np_params, device=None):
+def params_from_jax(np_params, device=None, *, tp_rank: int = 0,
+                    tp_size: int = 1):
     """Nested dicts of numpy arrays -> the same dicts of tensors on
-    ``device`` (``None`` -> the GPU), dtypes kept."""
+    ``device`` (``None`` -> the GPU), dtypes kept; with ``tp_size`` over
+    1, rank ``tp_rank``'s cut of them over the ``model`` axis."""
     dev = resolve_device(device)
 
     def conv(tree):
@@ -33,4 +40,8 @@ def params_from_jax(np_params, device=None):
             return {k: conv(v) for k, v in tree.items()}
         return _leaf(tree, dev)
 
-    return conv(np_params)
+    params = conv(np_params)
+    if tp_size > 1:
+        params = sharding.shard_tree(
+            params, sharding.model_specs(params, tp_size), tp_rank, tp_size)
+    return params

@@ -8,8 +8,11 @@ goes through K6 (``kernels.ops.attention``; MLA's at head dims 192 for
 q and k, 128 for v); decode attends over the cache
 with plain masked attention, the reference's own split (its XLA path
 there, ``repro/models/layers.py:_attention_naive``). Projections are
-``torch.matmul``, as the reference leaves them to XLA. There is one
-device, so the reference's sharding annotations have no counterpart.
+``torch.matmul``, as the reference leaves them to XLA. Given a
+``sharding.TensorParallel`` (``tp=``), ``attention_block`` and
+``mlp_block`` run as one rank of the ``model`` axis on that rank's cut
+of their parameters, with the collectives ``models/sharding.py`` sets
+out in place of the reference's layout hints.
 
 ``set_attention_impl("blockwise", chunk)`` is the reference's lowering
 knob (``attention_impl(impl, chunk)`` sets it for a ``with`` block and
@@ -37,6 +40,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models.sharding import active, attention_seq_mode
 
 NEG_INF = -1e30
 
@@ -191,19 +195,22 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """q: (B,Sq,Hq,d), k: (B,Skv,Hkv,d), v: (B,Skv,Hkv,dv) ->
     (B,Sq,Hq,dv). ``kv_len``: optional (B,) valid length (decode caches).
 
-    Attention from an empty cache (no offset, no ``kv_len``) is K6;
-    attention over a cache is plain masked attention. Under
-    ``"blockwise"``, over more than the chunk's keys and more than one
-    query row (the reference's rule), K6's backward recomputes through
-    ``_attention_blockwise`` and attention over a cache is that scan."""
+    Attention from an empty cache (no ``kv_len``; ``q_offset`` the
+    position of q's first row, a rank's rows under sequence-parallel
+    attention) is K6; attention over a cache is plain masked attention.
+    Under ``"blockwise"``, over more than the chunk's keys and more than
+    one query row (the reference's rule), K6's backward recomputes
+    through ``_attention_blockwise`` and attention over a cache is that
+    scan."""
     blockwise = (_ATTN_IMPL == "blockwise" and k.shape[1] > _ATTN_CHUNK
                  and q.shape[1] > 1)
-    if q_offset == 0 and kv_len is None:
-        backward = (functools.partial(_attention_blockwise, q_offset=0,
-                                      kv_len=None, chunk=_ATTN_CHUNK)
+    if kv_len is None:
+        backward = (functools.partial(_attention_blockwise,
+                                      q_offset=q_offset, kv_len=None,
+                                      chunk=_ATTN_CHUNK)
                     if blockwise else None)
         return ops.attention(q, k, v, causal=causal, window=window,
-                             backward=backward)
+                             q_offset=q_offset, backward=backward)
     if blockwise:
         return _attention_blockwise(q, k, v, causal=causal, window=window,
                                     q_offset=q_offset, kv_len=kv_len,
@@ -253,7 +260,8 @@ def _attention_blockwise(q, k, v, *, causal, window, q_offset, kv_len,
     every device (q once, each chunk's K and V in its body): the same
     ops on the CPU, the card and ``meta``. P is rounded to q's dtype
     before PV, as the reference casts it. The reference's sharding pins
-    have no counterpart: the ``model`` axis is replicated."""
+    have no counterpart: under tensor parallelism q holds this rank's
+    heads, or its rows at ``q_offset`` against whole k and v."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     dv = v.shape[-1]
@@ -323,7 +331,8 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
                     window: int = 0, cache: Optional[dict] = None,
                     pos: int = 0,
-                    mrope_positions: Optional[torch.Tensor] = None):
+                    mrope_positions: Optional[torch.Tensor] = None,
+                    tp=None):
     """Full attention sub-block. Returns (out, cache).
 
     q and k turn by M-RoPE over ``mrope_positions`` (3, B, S) when the
@@ -331,7 +340,13 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     With ``cache`` ({"k", "v", "pos"} views of one layer), the new keys
     and values are written in place at host position ``pos`` (the cache
     slot, apart from the rotation ids); ``pos == 0`` attends over them
-    alone (K6), a later position over the cache."""
+    alone (K6), a later position over the cache. With ``tp`` (a
+    ``sharding.TensorParallel``) the block is one rank's share
+    (``_attention_block_tp``)."""
+    if active(tp):
+        return _attention_block_tp(params, cfg, x, positions, causal=causal,
+                                   window=window, cache=cache, pos=pos,
+                                   mrope_positions=mrope_positions, tp=tp)
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim()
     q = x @ params["wq"]
@@ -376,6 +391,155 @@ def attention_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
                              kv_len=kv_len)
     out = out.reshape(b, s, cfg.num_heads * hd)
     return out @ params["wo"], cache
+
+
+def _tp_in(x, tp):
+    """A block's input, whole on every rank: the residual's rows gathered
+    under sequence parallelism, else the replicated residual."""
+    return tp.gather(x, 1) if tp.seq_cut else tp.copy(x)
+
+
+def _tp_out(y, tp):
+    """A row-parallel output's partial sums, reduced into the residual's
+    layout: reduce-scattered by sequence, or all-reduced."""
+    return tp.scatter(y, 1) if tp.seq_cut else tp.reduce(y)
+
+
+def _attention_block_tp(params, cfg: ModelConfig, x, positions, *, causal,
+                        window, cache, pos, mrope_positions, tp):
+    """One rank's share of ``attention_block`` over the ``model`` axis
+    of ``tp``: ``wq``, ``wk``, ``wv`` (and their biases) column-cut,
+    ``wo`` row-cut. q, k and v are column-parallel projections of the
+    whole input. Then, by ``attention_seq_mode``:
+
+    * heads: the rank's columns are its q and kv heads;
+    * rows (heads that do not divide, a sequence that does): q's
+      columns all-to-all into the rank's rows of every head, attended at
+      ``q_offset`` = their first position over k and v gathered whole;
+      the output all-to-all back into columns;
+    * replicated (neither divides, as a decode step's one row): q, k and
+      v gathered whole, every head attended, the rank's columns kept.
+
+    With a cache the new keys and values are gathered whole and the
+    rank's cut (the head dim, as ``cache_partition_specs`` cuts it)
+    written; a later step attends over the cut cache where it lies
+    (``_attention_hd_cut``)."""
+    n, r = tp.size, tp.rank
+    b = x.shape[0]
+    hd = cfg.resolved_head_dim()
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    h = _tp_in(x, tp)
+    s = h.shape[1]
+    q = h @ params["wq"]
+    k = h @ params["wk"]
+    v = h @ params["wv"]
+    if cfg.qkv_bias:
+        q = q + params["b_q"]
+        k = k + params["b_k"]
+        v = v + params["b_v"]
+    mode = ("heads" if not attention_seq_mode(hq, hkv, n) else
+            "rows" if s % n == 0 else "replicated")
+    q_offset, q_pos, q_mpos = 0, positions, mrope_positions
+    if mode == "heads":
+        hq_l, hkv_l = hq // n, hkv // n
+    else:
+        hq_l, hkv_l = hq, hkv
+        k, v = tp.gather(k, 2), tp.gather(v, 2)
+        if mode == "rows":
+            q = tp.all_to_all(q, 1, 2)
+            q_offset = r * (s // n)
+            q_pos = tp.cut(positions, 1)
+            if mrope_positions is not None:
+                q_mpos = tp.cut(mrope_positions, 2)
+        else:
+            q = tp.gather(q, 2)
+    sq = q.shape[1]
+    q = q.reshape(b, sq, hq_l, hd)
+    k = k.reshape(b, s, hkv_l, hd)
+    v = v.reshape(b, s, hkv_l, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, params["q_norm_scale"], cfg.rms_eps)
+        k = rms_norm(k, params["k_norm_scale"], cfg.rms_eps)
+    if cfg.mrope and mrope_positions is not None:
+        q = apply_mrope(q, q_mpos, cfg.rope_theta, cfg.mrope_sections)
+        k = apply_mrope(k, mrope_positions, cfg.rope_theta,
+                        cfg.mrope_sections)
+    else:
+        q = apply_rope(q, q_pos, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+
+    kv_len = None
+    if cache is not None:
+        ck, cv = cache["k"], cache["v"]
+        # the whole new keys and values, and this rank's cut of them
+        k_all, v_all = ((tp.gather(k, 2), tp.gather(v, 2))
+                        if mode == "heads" else (k, v))
+        cut_hd = ck.shape[-1] != hd
+        if cut_hd:
+            k_all, v_all = tp.cut(k_all, 3), tp.cut(v_all, 3)
+        ck[:, pos:pos + s] = k_all.to(ck.dtype)
+        cv[:, pos:pos + s] = v_all.to(cv.dtype)
+        cache["pos"].fill_(pos + s)
+        if pos == 0:
+            k, v = k.to(ck.dtype).to(q.dtype), v.to(cv.dtype).to(q.dtype)
+        elif cut_hd:
+            # q whole (every head, every row of the step) on every rank
+            if mode == "heads":
+                q = tp.all_gather(q.contiguous(), 2)
+            elif mode == "rows":
+                q = tp.all_gather(q.contiguous(), 1)
+            kv_len = torch.full((b,), pos + s, dtype=torch.int32,
+                                device=x.device)
+            out = _attention_hd_cut(q, ck, cv, tp, causal=causal,
+                                    window=window, q_offset=pos,
+                                    kv_len=kv_len)
+            return _tp_out(tp.cut(out, 2) @ params["wo"], tp), cache
+        else:
+            k_c, v_c = ck, cv
+            if mode == "heads":
+                k_c = k_c.narrow(2, r * hkv_l, hkv_l)
+                v_c = v_c.narrow(2, r * hkv_l, hkv_l)
+            k, v = k_c.to(q.dtype), v_c.to(q.dtype)
+            q_offset += pos
+            kv_len = torch.full((b,), pos + s, dtype=torch.int32,
+                                device=x.device)
+    out = attention_core(q, k.contiguous(), v.contiguous(), causal=causal,
+                         window=window, q_offset=q_offset, kv_len=kv_len)
+    out = out.reshape(b, sq, hq_l * hd)
+    if mode == "rows":
+        out = tp.all_to_all(out, 2, 1)
+    elif mode == "replicated":
+        out = tp.cut(out, 2)
+    return _tp_out(out @ params["wo"], tp), cache
+
+
+def _attention_hd_cut(q, ck, cv, tp, *, causal, window, q_offset, kv_len):
+    """Attention of whole ``q`` (B, Sq, Hq, hd) over a cache cut on the
+    head dim (``ck``, ``cv``: (B, S, Hkv, hd / n), every head) ->
+    (B, Sq, Hq * hd), whole on every rank: each rank scores q's hd
+    columns against its own, the (B, Hkv, group, Sq, S) partial scores
+    are all-reduced, and P against the rank's columns of V is gathered
+    over hd. The cache is read where it lies, never gathered: a decode
+    step sends its scores and its output, Hq (S + hd) values a row,
+    where the whole cache is 2 S Hkv hd. As ``_attention_naive``
+    otherwise: f32 scores, keys at or past ``kv_len`` masked."""
+    b, sq, hq, hd = q.shape
+    _, skv, hkv, dc = ck.shape
+    group = hq // hkv
+    qc = tp.cut(q, 3).reshape(b, sq, hkv, group, dc)
+    s = torch.einsum("bqhgd,bkhd->bhgqk",
+                     qc.to(torch.float32) * (hd ** -0.5),
+                     ck.to(q.dtype).to(torch.float32))
+    s = tp.all_reduce(s)
+    mask = _causal_window_mask(sq, skv, q_offset, window, causal, q.device)
+    mask = mask[None] & (torch.arange(skv, device=q.device)[None, None, :]
+                         < kv_len[:, None, None])
+    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", p,
+                       cv.to(q.dtype).to(torch.float32))
+    out = tp.all_gather(out.contiguous(), 4)
+    return out.reshape(b, sq, hq * hd).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -470,6 +634,12 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
             "w_down": dense(d_ff, d_model)}
 
 
-def mlp_block(params: dict, x: torch.Tensor) -> torch.Tensor:
+def mlp_block(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
+    """SwiGLU. With ``tp``, one rank's share: ``w_gate`` and ``w_up``
+    column-cut on the whole input, ``w_down`` row-cut, its partial sums
+    reduced into the residual's layout."""
+    if active(tp):
+        x = _tp_in(x, tp)
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    return h @ params["w_down"]
+    y = h @ params["w_down"]
+    return _tp_out(y, tp) if active(tp) else y

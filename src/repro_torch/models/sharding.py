@@ -12,13 +12,43 @@ leaf *paths* by role rules (Megatron-style TP):
   expert-parallel (E dim on 'model'):    experts/* 3-D weights
   replicated:                            norms, scalars, small biases
 
-The port replicates the ``model`` axis: ZeRO-1 (``train.optimizer``)
-reads these specs to find each leaf's free dimension for the
-data-parallel shard. The reference's XLA layout hints (``shard``,
-``shard_residual``, ``shard_activation_tp``, ``shard_attention_*``,
-``attention_seq_mode``) have no PyTorch counterpart and are not ported.
+A rank of a mesh with a ``model`` axis holds the cut of each leaf that
+these specs give after ``launch.specs.sanitize_specs`` (``shard_tree``;
+``gather_tree`` puts a tree of cuts back together), and ZeRO-1
+(``train.optimizer``) reads the same specs to find each leaf's free
+dimension for the data-parallel shard.
+
+The reference's activation rules are XLA layout hints (``shard``,
+``shard_residual``, ``shard_attention_qkv``, ``shard_attention_out``):
+the port computes the same function with explicit collectives over the
+rank's ``model`` group instead, through ``TensorParallel``:
+
+* the residual stream is replicated or, under sequence parallelism
+  (``TrainConfig.sequence_parallel``, when the sequence divides the
+  axis), cut by sequence; a block gathers it before its column-parallel
+  projections and reduce-scatters its row-parallel output (Megatron-SP),
+  or takes a replicated input and all-reduces its output;
+* attention is head-parallel when ``attention_seq_mode`` says the heads
+  divide the axis; otherwise each rank takes its rows of q (an
+  all-to-all of the column-parallel projection) against k and v gathered
+  whole, and an all-to-all turns the output back to columns for the
+  row-parallel o-projection; over a sequence that does not divide the
+  axis (decode) every rank attends with every head and keeps its
+  columns;
+* the embedding is vocab-parallel (a masked local gather, then a
+  reduce), the LM head column-parallel, and ``cross_entropy`` reduces
+  the max, the sum of exps and the picked logit over the group, never
+  forming the whole vocab on a rank.
 """
 from __future__ import annotations
+
+import copy
+import functools
+from collections import Counter
+
+import torch
+
+from repro_torch.launch import mesh as _mesh
 
 # leaf-name -> rule
 _COLUMN = {"wq", "wk", "wv", "w_gate", "w_up", "lm_head", "w_uk", "w_uv",
@@ -81,3 +111,287 @@ def _set(d: dict, keys, val):
     for k in keys[:-1]:
         d = d.setdefault(k, {})
     d[keys[-1]] = val
+
+
+def _map(fn, tree, specs):
+    if isinstance(tree, dict):
+        return {k: _map(fn, tree[k], specs[k]) for k in tree}
+    return fn(tree, specs)
+
+
+def model_dims(spec: tuple) -> list:
+    """The dimensions a spec cuts over ``model``."""
+    return [i for i, e in enumerate(spec) if e == "model"]
+
+
+def model_specs(tree, tp: int) -> dict:
+    """Each leaf's spec from ``param_specs`` after ``sanitize_specs`` over
+    a ``model`` axis of ``tp``: the dims a rank's cut takes ``1 / tp``
+    of (a non-divisible dim stays whole, as the reference's does)."""
+    from repro_torch.configs.base import MeshConfig
+    from repro_torch.launch.specs import sanitize_specs
+    return sanitize_specs(param_specs(tree), tree,
+                          MeshConfig((tp,), ("model",)))
+
+
+def cut_shape(shape, spec: tuple, tp: int) -> tuple:
+    """The shape of a rank's cut of a leaf of ``shape``."""
+    out = list(shape)
+    for d in model_dims(spec):
+        out[d] //= tp
+    return tuple(out)
+
+
+def cut_views(tree, specs, rank: int, tp: int) -> dict:
+    """Rank ``rank`` of ``tp``'s cut of each whole leaf of ``tree`` along
+    the dims its spec cuts over ``model``, as views (no copy)."""
+    def cut(x, spec):
+        for d in model_dims(spec):
+            n = x.shape[d] // tp
+            x = x.narrow(d, rank * n, n)
+        return x
+    return _map(cut, tree, specs)
+
+
+def shard_tree(tree, specs, rank: int, tp: int) -> dict:
+    """``cut_views``' cut as new tensors (a leaf its spec leaves whole is
+    copied whole)."""
+    return _map(lambda x, _: x.clone(),
+                cut_views(tree, specs, rank, tp), specs)
+
+
+def gather_tree(cuts, specs, tp: int) -> dict:
+    """Whole leaves from the ``tp`` ranks' cuts (a list of trees in rank
+    order), concatenated along the dims their specs cut."""
+    def join(spec, parts):
+        dims = model_dims(spec)
+        if not dims:
+            return parts[0]
+        return torch.cat(parts, dim=dims[0])
+
+    def walk(spec, parts):
+        if isinstance(spec, dict):
+            return {k: walk(spec[k], [p[k] for p in parts]) for k in spec}
+        return join(spec, parts)
+    return walk(specs, list(cuts))
+
+
+def attention_seq_mode(hq: int, hkv: int, tp: int) -> bool:
+    """True when attention runs sequence-parallel: the heads do not both
+    divide the ``model`` axis (the reference's rule)."""
+    return tp > 1 and not (hq % tp == 0 and hkv % tp == 0)
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism: explicit collectives over the model group
+# ---------------------------------------------------------------------------
+
+class TensorParallel:
+    """This rank's place on a ``model`` axis: its ``group`` (a process
+    group or a ``launch.mesh.PlanGroup``), ``size`` and ``rank``, and
+    whether the residual stream is cut by sequence
+    (``sequence_parallel``). ``issued`` counts the collectives sent, by
+    the reference's op names."""
+
+    def __init__(self, group, sequence_parallel: bool = True):
+        self.group = group
+        self.size = _mesh.group_size(group)
+        self.rank = _mesh.group_rank(group)
+        self.sequence_parallel = sequence_parallel
+        self.issued: Counter = Counter()
+
+    #: whether this forward's residual is cut by sequence (``for_seq``)
+    seq_cut = False
+
+    def for_seq(self, seq: int) -> "TensorParallel":
+        """This context for a forward over ``seq`` tokens: the residual
+        is cut by sequence under ``sequence_parallel`` when ``seq``
+        divides the axis (a decode step's one token does not), as the
+        reference's ``shard`` drops a spec that does not divide."""
+        out = copy.copy(self)
+        out.seq_cut = self.sequence_parallel and seq % self.size == 0
+        return out
+
+    # -- the differentiable collectives (Megatron's f, g and SP pairs) --
+    def copy(self, x):
+        """Identity forward; the gradient summed over the group."""
+        return _Copy.apply(x, self)
+
+    def reduce(self, x):
+        """Summed over the group; the gradient passed through."""
+        return _Reduce.apply(x, self)
+
+    def gather(self, x, dim: int):
+        """All-gathered along ``dim``; the gradient reduce-scattered."""
+        return _Gather.apply(x, self, dim)
+
+    def scatter(self, x, dim: int):
+        """Reduce-scattered along ``dim``; the gradient all-gathered."""
+        return _Scatter.apply(x, self, dim)
+
+    def all_to_all(self, x, split_dim: int, cat_dim: int):
+        """``split_dim`` cut over the ranks, ``cat_dim`` joined; the
+        gradient goes back the other way."""
+        return _AllToAll.apply(x, self, split_dim, cat_dim)
+
+    # -- the plain ones --
+    def all_reduce(self, x, op: str = "sum"):
+        self.issued["all-reduce"] += 1
+        return _mesh.all_reduce(x, self.group, op)
+
+    def all_gather(self, x, dim: int):
+        self.issued["all-gather"] += 1
+        return _mesh.all_gather(x, self.group, dim)
+
+    def reduce_scatter(self, x, dim: int):
+        self.issued["reduce-scatter"] += 1
+        return _mesh.reduce_scatter(x, self.group, dim)
+
+    def all_to_all_plain(self, x, split_dim: int, cat_dim: int):
+        self.issued["all-to-all"] += 1
+        return _mesh.all_to_all(x, self.group, split_dim, cat_dim)
+
+    def cut(self, x, dim: int):
+        """This rank's cut of ``x`` along ``dim`` (a view)."""
+        n = x.shape[dim] // self.size
+        return x.narrow(dim, self.rank * n, n)
+
+
+def active(tp) -> bool:
+    """Whether ``tp`` (a ``TensorParallel`` or None) cuts anything."""
+    return tp is not None and tp.size > 1
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.tp = tp
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_reduce(g.contiguous().clone()), None
+
+
+class _Reduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        return tp.all_reduce(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.reduce_scatter(g.contiguous(), ctx.dim), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp.reduce_scatter(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.all_gather(g.contiguous(), ctx.dim), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, split_dim, cat_dim):
+        ctx.tp, ctx.dims = tp, (split_dim, cat_dim)
+        return tp.all_to_all_plain(x.contiguous(), split_dim, cat_dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        split_dim, cat_dim = ctx.dims
+        return (ctx.tp.all_to_all_plain(g.contiguous(), cat_dim, split_dim),
+                None, None, None)
+
+
+def partial_grad_leaf(path: str, sp: bool) -> bool:
+    """Whether the gradient of a leaf that the ``model`` axis leaves whole
+    is computed on a shard, and so summed over the group: the q/k norm
+    scales (applied to a rank's heads or rows) always, and the residual
+    stream's norm scales under sequence parallelism."""
+    name = path.split("/")[-1]
+    if name in ("q_norm_scale", "k_norm_scale"):
+        return True
+    return sp and name in ("pre_norm_scale", "post_norm_scale",
+                           "final_norm_scale")
+
+
+#: the families whose ``model`` axis is sharded; the others keep it
+#: replicated (every rank holds whole parameters)
+SHARDED_FAMILIES = ("dense", "vlm")
+
+
+def model_axis_sharded(cfg) -> bool:
+    """Whether the port shards ``cfg`` over the ``model`` axis: the dense
+    and VLM families (no MoE, MLA, SSM, hybrid heads or encoder)."""
+    return (cfg.family in SHARDED_FAMILIES and not cfg.moe.enabled
+            and not cfg.mla.enabled and not cfg.enc_dec
+            and not cfg.hybrid_parallel_heads)
+
+
+@functools.lru_cache(maxsize=None)
+def check_model_axis(cfg, tp: int) -> None:
+    """Raise unless every dim that ``param_specs`` puts on ``model`` for
+    ``cfg`` divides ``tp``: the explicit scheme shards each projection
+    and the vocab, and has no path for one the axis leaves whole."""
+    if not model_axis_sharded(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family} family keeps the model axis "
+            f"replicated")
+    whole, kept = whole_specs(cfg, tp)
+    marked = param_specs(whole)
+    bad = [p for (p, a), (_, b) in zip(_leaf_paths(marked, ""),
+                                        _leaf_paths(kept, ""))
+           if model_dims(a) != model_dims(b)]
+    if bad:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(bad)} do not split over a model axis "
+            f"of {tp}")
+
+
+def tensor_parallel(cfg, mesh, sequence_parallel: bool = True):
+    """The ``TensorParallel`` of this rank of ``mesh`` for ``cfg``: over
+    the mesh's ``model`` group when the axis is over 1 and the port
+    shards ``cfg``'s family, else None (the axis replicated)."""
+    if mesh is None or _mesh.model_size(mesh) <= 1 \
+            or not model_axis_sharded(cfg):
+        return None
+    return TensorParallel(_mesh.model_group(mesh), sequence_parallel)
+
+
+@functools.lru_cache(maxsize=None)
+def whole_specs(cfg, tp: int):
+    """(the whole parameters on ``meta``, their ``model_specs``) of
+    ``cfg`` over a ``model`` axis of ``tp``, built once."""
+    from repro_torch.models.transformer import init_params
+    whole = init_params(cfg, 0, torch.float32, "meta")
+    return whole, model_specs(whole, tp)
+
+
+def params_are_whole(params, cfg, tp: int) -> bool:
+    """True for whole parameters of ``cfg``, False for one rank's cut
+    over a ``model`` axis of ``tp``; raises for anything else."""
+    whole, specs = whole_specs(cfg, tp)
+    got = [tuple(p.shape) for _, p in _leaf_paths(params, "")]
+    if got == [tuple(w.shape) for _, w in _leaf_paths(whole, "")]:
+        return True
+    if got == [cut_shape(w.shape, sp, tp) for (_, w), (_, sp) in zip(
+            _leaf_paths(whole, ""), _leaf_paths(specs, ""))]:
+        return False
+    raise ValueError(f"{cfg.name}: parameters are neither whole nor one "
+                     f"rank's cut over a model axis of {tp}")
+

@@ -24,6 +24,15 @@ each block.
 
 As in the reference, the encoder runs on every call, decode steps
 included: its output and the cross K/V are not cached.
+
+Given a ``sharding.TensorParallel`` (``tp=``), ``forward``, ``loss_fn``
+and the serving steps run as one rank of the ``model`` axis on that
+rank's cut of the parameters (``init_params(tp_rank=, tp_size=)`` draws
+one, ``sharding.shard_tree`` cuts a whole tree) and of the caches
+(``init_caches(tp_size=)``): the embedding vocab-parallel, the residual
+cut by sequence under sequence parallelism, the logits vocab-parallel
+(B, S, V_padded / tp) and ``cross_entropy`` reduced over the group. The
+dense and VLM families only (``sharding.model_axis_sharded``).
 """
 from __future__ import annotations
 
@@ -36,6 +45,7 @@ from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
+from repro_torch.models import sharding
 from repro_torch.models.layers import (attention_block, attention_core,
                                        init_attention, init_dense, init_mla,
                                        init_mlp, mla_block, mlp_block,
@@ -65,16 +75,20 @@ def _n_scanned(cfg: ModelConfig) -> int:
 # ---------------------------------------------------------------------------
 
 def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
-                device=None) -> dict:
+                device=None, *, tp_rank: int = 0, tp_size: int = 1) -> dict:
     """Random parameters in the reference's layout and distributions
     (``init_dense``: N(0, 1) * sqrt(2 / (d_in + d_out)); norm scales 1,
     biases 0), drawn from a ``torch.Generator`` seeded with ``seed`` on
     ``device`` (``None`` -> the GPU; a CPU generator for ``meta``, which
     has none and draws nothing). The numbers differ from the JAX
     package's for the same seed; ``convert.params_from_jax`` carries a
-    JAX pytree over instead."""
+    JAX pytree over instead. With ``tp_size`` over 1, rank ``tp_rank``'s
+    cut (``sharding.model_specs``) drawn at its own shape, so that no
+    whole leaf is ever allocated (``_init_cut``)."""
     check_supported(cfg)
     dev = resolve_device(device)
+    if tp_size > 1:
+        return _init_cut(cfg, seed, dtype, dev, tp_rank, tp_size)
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
     d, pv = cfg.d_model, cfg.padded_vocab()
@@ -94,6 +108,36 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
     else:
         p["layers"] = _init_block(gen, cfg, dtype, dev, _n_scanned(cfg))
     return p
+
+
+def _init_cut(cfg: ModelConfig, seed: int, dtype, dev, rank: int,
+              tp: int) -> dict:
+    """Rank ``rank`` of ``tp``'s cut of a dense or VLM model's parameters,
+    each leaf drawn at the cut's shape from one generator in leaf order:
+    a matrix N(0, 1) * sqrt(2 / (d_in + d_out)) of the whole leaf's last
+    two dims, a norm scale 1, a bias 0 (``init_params``'
+    distributions; the draws are not a cut of the whole draw)."""
+    sharding.check_model_axis(cfg, tp)
+    whole, specs = sharding.whole_specs(cfg, tp)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
+    gen.manual_seed(seed)
+
+    def draw(path, x, spec):
+        shape = sharding.cut_shape(x.shape, spec, tp)
+        name = path.split("/")[-1]
+        if name.endswith("scale"):
+            return torch.ones(shape, dtype=dtype, device=dev)
+        if name.startswith("b_"):
+            return torch.zeros(shape, dtype=dtype, device=dev)
+        scale = (2.0 / (x.shape[-2] + x.shape[-1])) ** 0.5
+        return torch.randn(shape, generator=gen, dtype=torch.float32,
+                           device=dev).mul_(scale).to(dtype)
+
+    out: dict = {}
+    for (path, x), (_, spec) in zip(sharding._leaf_paths(whole, ""),
+                                    sharding._leaf_paths(specs, "")):
+        sharding._set(out, path.split("/"), draw(path, x, spec))
+    return out
 
 
 def _init_block(gen, cfg: ModelConfig, dtype, dev, n: Optional[int],
@@ -169,7 +213,7 @@ def _unstack(tree, n: int) -> List[dict]:
 
 def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
                  cache, pos: int, causal: bool = True,
-                 mrope_positions=None):
+                 mrope_positions=None, tp=None):
     """Returns (out, cache); the cache is updated in place. ``causal``
     (the encoder's False) and M-RoPE reach the plain attention mixer
     only, as in the reference; an enc-dec decoder block's cache is
@@ -193,7 +237,7 @@ def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
         cache = cache["self"]
     return attention_block(mp["attn"], cfg, x, positions, causal=causal,
                            window=window, cache=cache, pos=pos,
-                           mrope_positions=mrope_positions)
+                           mrope_positions=mrope_positions, tp=tp)
 
 
 def _cross_attention(params: dict, cfg: ModelConfig, x, enc_out):
@@ -212,17 +256,19 @@ def _cross_attention(params: dict, cfg: ModelConfig, x, enc_out):
 
 def _block_apply(bp: dict, cfg: ModelConfig, x, positions, window: int,
                  cache, pos: int, mrope_positions=None, enc_out=None,
-                 causal: bool = True):
+                 causal: bool = True, tp=None):
     """One transformer block. Returns (x, cache, aux): the cache is
     updated in place, aux is the MoE FFN's load-balancing loss (None
     without MoE). With ``enc_out`` (an enc-dec decoder block), a
     cross-attention onto it follows the mixer. The FFN runs on every
     family, as in the reference (a reduced mamba2 has one); a zero-width
     FFN (full mamba2, ``d_ff`` 0) adds an exact 0 there and is skipped
-    here."""
+    here. With ``tp`` the norms run on the residual's layout (a rank's
+    rows under sequence parallelism) and the mixer and MLP gather and
+    reduce it themselves."""
     h = rms_norm(x, bp["pre_norm_scale"], cfg.rms_eps)
     mix, cache = _mixer_apply(bp["mixer"], cfg, h, positions, window,
-                              cache, pos, causal, mrope_positions)
+                              cache, pos, causal, mrope_positions, tp)
     x = x + mix
     if enc_out is not None:
         hc = rms_norm(x, bp["cross_norm_scale"], cfg.rms_eps)
@@ -234,7 +280,7 @@ def _block_apply(bp: dict, cfg: ModelConfig, x, positions, window: int,
         x = x + f
     elif cfg.d_ff:
         h2 = rms_norm(x, bp["post_norm_scale"], cfg.rms_eps)
-        x = x + mlp_block(bp["ffn"]["mlp"], h2)
+        x = x + mlp_block(bp["ffn"]["mlp"], h2, tp)
     return x, cache, aux
 
 
@@ -251,24 +297,41 @@ def _conv_caches_to(tree, dtype) -> None:
             tree[key] = val.to(dtype)
 
 
-def embed_inputs(params: dict, cfg: ModelConfig, batch: dict
+def embed_inputs(params: dict, cfg: ModelConfig, batch: dict, tp=None
                  ) -> torch.Tensor:
     """Token embeddings, with the frontend stub's ``embeds`` passed
     through (no ``enc_embeds`` given) and a VLM's ``patch_embeds`` (B, P,
-    D) over the first P positions."""
+    D) over the first P positions. With ``tp`` the table is this rank's
+    rows of the vocab: tokens outside them embed to 0, and the partial
+    embeddings are reduced into the residual's layout (reduce-scattered
+    by sequence under sequence parallelism, then the patches merged over
+    the rank's rows that fall among the first P)."""
     if cfg.embedding_frontend_stub and "enc_embeds" not in batch \
             and "embeds" in batch:
         return batch["embeds"]
-    x = params["embed"][batch["tokens"]]                # (B, S, D)
+    tokens = batch["tokens"]
+    if sharding.active(tp):
+        table = params["embed"]
+        rows = table.shape[0]
+        ids = tokens - tp.rank * rows
+        mine = (ids >= 0) & (ids < rows)
+        x = table[ids.clamp(0, rows - 1)] * mine[..., None].to(table.dtype)
+        x = tp.scatter(x, 1) if tp.seq_cut else tp.reduce(x)
+        lo = tp.rank * x.shape[1] if tp.seq_cut else 0
+    else:
+        x = params["embed"][tokens]                     # (B, S, D)
+        lo = 0
     if cfg.mrope and "patch_embeds" in batch:
         pe = batch["patch_embeds"].to(x.dtype)
-        x = torch.cat([pe, x[:, pe.shape[1]:]], dim=1)
+        p = min(max(pe.shape[1] - lo, 0), x.shape[1])
+        if p:
+            x = torch.cat([pe[:, lo:lo + p], x[:, p:]], dim=1)
     return x
 
 
 def _run_stack(blocks, cfg: ModelConfig, x, positions, checkpointed: bool,
                pos: int = 0, mrope_positions=None, enc_out=None,
-               causal: bool = True):
+               causal: bool = True, tp=None):
     """``blocks`` ((block params, its cache, its window), ...) in turn.
     Returns (x, the MoE layers' summed aux, 0 without MoE)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
@@ -276,10 +339,11 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, checkpointed: bool,
         if checkpointed:
             x, aux = torch.utils.checkpoint.checkpoint(
                 _remat_block, bp, x, cfg, positions, window,
-                mrope_positions, enc_out, causal, use_reentrant=False)
+                mrope_positions, enc_out, causal, tp, use_reentrant=False)
         else:
             x, _, aux = _block_apply(bp, cfg, x, positions, window, cache,
-                                     pos, mrope_positions, enc_out, causal)
+                                     pos, mrope_positions, enc_out, causal,
+                                     tp)
         if aux is not None:
             aux_total = aux_total + aux
     return x, aux_total
@@ -302,7 +366,7 @@ def encode(params: dict, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
-            pos: int = 0, remat: bool = False):
+            pos: int = 0, remat: bool = False, tp=None):
     """Full forward. batch keys: tokens (B,S)[, positions,
     mrope_positions (3,B,S), patch_embeds (B,P,D), enc_embeds
     (B,S_enc,D), embeds]. ``pos`` is the host position where the tokens
@@ -313,10 +377,16 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     model run before the stack. ``remat`` checkpoints each block
     (``torch.utils.checkpoint``, non-reentrant) when gradients are being
     recorded: its activations are recomputed in the backward, as the
-    reference's ``jax.checkpoint`` of the scanned block does."""
+    reference's ``jax.checkpoint`` of the scanned block does. With ``tp``
+    (a ``sharding.TensorParallel``) this is one rank's share on its cut
+    of ``params`` and ``caches``, and the logits are its cut of the
+    vocab, (B, S, V_padded / tp)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
+    if sharding.active(tp):
+        sharding.check_model_axis(cfg, tp.size)
+        tp = tp.for_seq(s)
     positions = batch.get("positions")
     if positions is None:
         positions = (pos + torch.arange(s, dtype=torch.int32,
@@ -326,7 +396,7 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     checkpointed = remat and caches is None and torch.is_grad_enabled()
     enc_out = (encode(params, cfg, batch["enc_embeds"],
                       checkpointed=checkpointed) if cfg.enc_dec else None)
-    x = embed_inputs(params, cfg, batch)
+    x = embed_inputs(params, cfg, batch, tp)
     if caches is not None:
         _conv_caches_to(caches["scan"], x.dtype)
     # (block params, its cache, its window): the dense blocks, then the stack
@@ -339,8 +409,12 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     blocks += [(bp, None if caches is None else _layer(caches["scan"], i),
                 wins[i]) for i, bp in enumerate(stack)]
     x, aux_total = _run_stack(blocks, cfg, x, positions, checkpointed, pos,
-                              mrope_positions, enc_out)
+                              mrope_positions, enc_out, tp=tp)
     x = rms_norm(x, params["final_norm_scale"], cfg.rms_eps)
+    if sharding.active(tp):
+        # the column-parallel head over every row: the logits stay
+        # vocab-parallel
+        x = tp.gather(x, 1) if tp.seq_cut else tp.copy(x)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
     logits = x @ head
@@ -348,39 +422,56 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
 
 
 def _remat_block(bp: dict, x, cfg: ModelConfig, positions, window: int,
-                 mrope_positions=None, enc_out=None, causal: bool = True):
+                 mrope_positions=None, enc_out=None, causal: bool = True,
+                 tp=None):
     """A block without caches, the function each remat checkpoint
     recomputes: (x, aux)."""
     x, _, aux = _block_apply(bp, cfg, x, positions, window, None, 0,
-                             mrope_positions, enc_out, causal)
+                             mrope_positions, enc_out, causal, tp)
     return x, aux
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                  vocab: int) -> torch.Tensor:
+                  vocab: int, tp=None) -> torch.Tensor:
     """Mean token cross entropy over the ``vocab``-wide (padded) logits,
     the reference's stable form: the max is held constant for the
-    gradient, and the label's logit is picked from the shifted logits."""
-    if logits.shape[-1] != vocab:
-        raise ValueError(f"logits are {logits.shape[-1]} wide, the vocab "
-                         f"{vocab}")
+    gradient, and the label's logit is picked from the shifted logits.
+    With ``tp`` the logits are this rank's cut of the vocab: the max is
+    an all-reduce max, and the sum of exps and the picked logit (0 on
+    every rank but the label's) are summed over the group, so no rank
+    forms the whole vocab."""
+    n = tp.size if sharding.active(tp) else 1
+    if logits.shape[-1] * n != vocab:
+        raise ValueError(f"logits are {logits.shape[-1]} wide on each of "
+                         f"{n} ranks, the vocab {vocab}")
     logits = logits.to(torch.float32)
     m = torch.amax(logits, dim=-1, keepdim=True).detach()
+    if n > 1:
+        m = tp.all_reduce(m.clone(), "max")
     shifted = logits - m
-    lse = torch.log(torch.sum(torch.exp(shifted), dim=-1)) + m[..., 0]
-    picked = torch.gather(shifted, -1,
-                          labels.long()[..., None])[..., 0] + m[..., 0]
-    return torch.mean(lse - picked)
+    sum_exp = torch.sum(torch.exp(shifted), dim=-1)
+    ids = labels.long()
+    if n > 1:
+        ids = ids - tp.rank * logits.shape[-1]
+        mine = (ids >= 0) & (ids < logits.shape[-1])
+        ids = ids.clamp(0, logits.shape[-1] - 1)
+    picked = torch.gather(shifted, -1, ids[..., None])[..., 0]
+    if n > 1:
+        sum_exp = tp.reduce(sum_exp)
+        picked = tp.reduce(picked * mine)
+    lse = torch.log(sum_exp) + m[..., 0]
+    return torch.mean(lse - (picked + m[..., 0]))
 
 
 def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
-            remat: bool = False,
-            aux_weight: Optional[float] = None) -> torch.Tensor:
+            remat: bool = False, aux_weight: Optional[float] = None,
+            tp=None) -> torch.Tensor:
     """Cross entropy of the forward's logits against ``batch["labels"]``
     over the padded vocab; an MoE model adds its aux loss weighted by
-    ``aux_weight`` (default ``cfg.moe.aux_loss_weight``)."""
-    logits, _, aux = forward(params, cfg, batch, remat=remat)
-    loss = cross_entropy(logits, batch["labels"], cfg.padded_vocab())
+    ``aux_weight`` (default ``cfg.moe.aux_loss_weight``). With ``tp``,
+    one rank's share: every rank of the group returns the whole loss."""
+    logits, _, aux = forward(params, cfg, batch, remat=remat, tp=tp)
+    loss = cross_entropy(logits, batch["labels"], cfg.padded_vocab(), tp)
     if cfg.moe.enabled:
         w = cfg.moe.aux_loss_weight if aux_weight is None else aux_weight
         loss = loss + w * aux
@@ -392,7 +483,7 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict, *,
 # ---------------------------------------------------------------------------
 
 def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
-                dtype=torch.bfloat16, device=None) -> dict:
+                dtype=torch.bfloat16, device=None, tp_size: int = 1) -> dict:
     """Stacked cache pytree, the reference's keys, shapes and dtypes:
     ``{"scan": {"k": (L, B, max_seq, Hkv, hd), "v": ..., "pos": (L,)
     int32}}`` for attention, ``{"scan": {"c_kv": (L, B, max_seq,
@@ -403,21 +494,31 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     enc-dec decoder (the encoder keeps no cache); an MoE model's leading
     dense blocks add ``{"dense": {"0": <one unstacked layer>, ...}}``. A
     forward gives the conv buffers the activations' dtype on its first
-    step (``_conv_caches_to``)."""
+    step (``_conv_caches_to``). With ``tp_size`` over 1 (a model the
+    port shards) a rank's cut: K and V hold ``hd / tp_size`` of the head
+    dim where it divides, as ``launch.specs.cache_partition_specs``
+    cuts them."""
     check_supported(cfg)
     dev = resolve_device(device)
     n = _n_scanned(cfg)
-    caches = {"scan": _layer_caches(cfg, n, batch, max_seq, dtype, dev)}
+    hd = cfg.resolved_head_dim()
+    if tp_size > 1 and sharding.model_axis_sharded(cfg) \
+            and hd % tp_size == 0:
+        hd //= tp_size
+    caches = {"scan": _layer_caches(cfg, n, batch, max_seq, dtype, dev,
+                                    hd)}
     if cfg.moe.enabled and cfg.moe.first_dense_layers:
         caches["dense"] = {
-            str(i): _layer_caches(cfg, None, batch, max_seq, dtype, dev)
+            str(i): _layer_caches(cfg, None, batch, max_seq, dtype, dev,
+                                  hd)
             for i in range(cfg.moe.first_dense_layers)}
     return caches
 
 
 def _layer_caches(cfg: ModelConfig, n: Optional[int], batch: int,
-                  max_seq: int, dtype, dev) -> dict:
-    """The caches of ``n`` stacked layers (``n`` None: one unstacked)."""
+                  max_seq: int, dtype, dev, hd: int) -> dict:
+    """The caches of ``n`` stacked layers (``n`` None: one unstacked),
+    K and V ``hd`` wide."""
     lead = () if n is None else (n,)
 
     def zeros(*shape, dt=dtype):
@@ -430,7 +531,6 @@ def _layer_caches(cfg: ModelConfig, n: Optional[int], batch: int,
         return {"c_kv": zeros(batch, max_seq, m.kv_lora_rank),
                 "k_rope": zeros(batch, max_seq, m.qk_rope_head_dim),
                 "pos": zeros(dt=torch.int32)}
-    hd = cfg.resolved_head_dim()
     attn = {"k": zeros(batch, max_seq, cfg.num_kv_heads, hd),
             "v": zeros(batch, max_seq, cfg.num_kv_heads, hd),
             "pos": zeros(dt=torch.int32)}

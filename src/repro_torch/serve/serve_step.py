@@ -5,6 +5,13 @@ loop.
 
 Positions are host ints: prefill starts at 0 and decode knows its step,
 so no step reads a cache's ``pos`` back from the device.
+
+With ``tp`` (a ``models.sharding.TensorParallel`` over the rank's
+``model`` group) a step is one rank's share on its cut of the
+parameters and of the caches (``init_caches(tp_size=)``: K and V cut on
+the head dim, as ``launch.specs.cache_partition_specs`` cuts them), and
+the logits are its cut of the vocab. Serving runs without sequence
+parallelism, as the reference's serving forward does.
 """
 from __future__ import annotations
 
@@ -16,17 +23,18 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.transformer import forward, init_caches
 
 
-def prefill_step(params, cfg: ModelConfig, batch: dict, caches):
+def prefill_step(params, cfg: ModelConfig, batch: dict, caches, tp=None):
     """Process the prompt from position 0, filling caches. ``batch`` goes
     to the forward whole (tokens, and ``enc_embeds``, ``patch_embeds``,
     ``mrope_positions`` where the model takes them). Returns
     (last_logits (B, 1, V), caches)."""
-    logits, caches, _ = forward(params, cfg, batch, caches=caches, pos=0)
+    logits, caches, _ = forward(params, cfg, batch, caches=caches, pos=0,
+                                tp=tp)
     return logits[:, -1:], caches
 
 
 def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches,
-                pos: int, extra: Optional[dict] = None):
+                pos: int, extra: Optional[dict] = None, tp=None):
     """One decode step. tokens: (B, 1); pos: host int, the position the
     tokens take (their cache slot). ``extra`` joins the batch: an enc-dec
     model's ``enc_embeds``, a VLM's ``mrope_positions`` (3, B, 1).
@@ -37,7 +45,8 @@ def decode_step(params, cfg: ModelConfig, tokens: torch.Tensor, caches,
                                      device=tokens.device)}
     if extra:
         batch.update(extra)
-    logits, caches, _ = forward(params, cfg, batch, caches=caches, pos=pos)
+    logits, caches, _ = forward(params, cfg, batch, caches=caches, pos=pos,
+                                tp=tp)
     return logits, caches
 
 

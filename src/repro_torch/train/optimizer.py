@@ -24,7 +24,7 @@ import torch.distributed as dist
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
 from repro_torch.configs.base import TrainConfig
 from repro_torch.launch.mesh import PlanGroup, dp_axes, dp_rank, dp_size
-from repro_torch.models.sharding import param_specs
+from repro_torch.models.sharding import model_dims, param_specs
 
 
 class AdamState(NamedTuple):
@@ -53,13 +53,26 @@ def lr_schedule(tcfg: TrainConfig) -> Callable:
     return lr
 
 
-def global_norm(tree) -> torch.Tensor:
-    return torch.sqrt(sum(torch.sum(torch.square(x.to(torch.float32)))
-                          for x in tree_leaves(tree)))
+def global_norm(tree, tp=None, specs=None) -> torch.Tensor:
+    """The f32 norm of every leaf of ``tree``. With ``tp`` (a
+    ``models.sharding.TensorParallel``) and the leaves' ``specs`` over
+    its ``model`` axis, ``tree`` is this rank's cut: the squares of the
+    cut leaves are summed over the group, each whole leaf counted
+    once."""
+    def sq(x):
+        return torch.sum(torch.square(x.to(torch.float32)))
+    if tp is None:
+        return torch.sqrt(sum(sq(x) for x in tree_leaves(tree)))
+    leaves = tree_leaves(tree)
+    cut = [bool(model_dims(s)) for s in tree_leaves(specs)]
+    zero = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+    total = sum((sq(x) for x, c in zip(leaves, cut) if c), zero)
+    whole = sum((sq(x) for x, c in zip(leaves, cut) if not c), zero)
+    return torch.sqrt(tp.all_reduce(total.reshape(1))[0] + whole)
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def clip_by_global_norm(grads, max_norm: float, tp=None, specs=None):
+    norm = global_norm(grads, tp, specs)
     scale = torch.clamp(max_norm / (norm + 1e-9), max=1.0)
     return tree_map(lambda g: (g * scale).to(g.dtype), grads), norm
 

@@ -32,11 +32,26 @@ paths, mirroring the paper's doorbell modes (§VI-C):
 Bucket planning bills every leaf at its dtype's itemsize. Attention runs
 K6 and the SSD scan K7 in every forward; their backward recomputes the
 plain versions (``kernels.flash_attention._FlashAttention``,
-``kernels.ssd_scan._SSDScan``). Each mesh step counts the collectives
-its last call issued in ``step.collectives`` (the port's stand-in for
-the reference's HLO all-reduce count). The model axis is replicated.
-Given a ``launch.mesh.PlanMesh`` (the dry-run's) the mesh steps run as
-its rank 0 and record their collectives there instead of sending them.
+``kernels.ssd_scan._SSDScan``). Each mesh step counts the data-parallel
+collectives its last call issued in ``step.collectives`` (the port's
+stand-in for the reference's HLO all-reduce count) and those over the
+``model`` axis, by op, in ``step.model_collectives``.
+
+The ``model`` axis: for the dense and VLM families, on a mesh whose
+``model`` axis is over 1, the plain and psum steps compute the loss and
+gradients as this rank's share over its ``model`` group
+(``models.sharding.TensorParallel``, sequence parallelism as
+``tcfg.sequence_parallel`` says). A gradient the axis leaves whole but
+a rank computes on its shard (the q/k norm scales; the residual's norms
+under sequence parallelism) is summed over the group, and the global
+norm counts each cut leaf across the group once. The steps take this
+rank's cut of the parameters (and of ``m`` and ``v``, ZeRO-1 cutting
+within it) and return its cut, or take whole parameters, which every
+rank cuts for itself and, after its share of the backward, gathers back
+whole (gradients first, then the update runs on whole leaves as on a
+replicated axis). The other families keep the axis replicated. Given a
+``launch.mesh.PlanMesh`` (the dry-run's) the mesh steps run as its rank
+0 and record their collectives there instead of sending them.
 """
 from __future__ import annotations
 
@@ -53,6 +68,7 @@ from repro_torch.core.rdma.engine import RDMAEngine
 from repro_torch.core.streaming.compress import compressed_all_reduce_group
 from repro_torch.launch.mesh import (PlanGroup, axis_group, dp_axes,
                                      dp_group, dp_rank, dp_size)
+from repro_torch.models import sharding
 from repro_torch.models.sharding import param_specs
 from repro_torch.models.transformer import loss_fn
 from repro_torch.train.collectives import RDMACollective
@@ -63,17 +79,18 @@ from repro_torch.train.optimizer import (AdamState, adamw_update,
 
 
 def _microbatch_grads(params, cfg: ModelConfig, batch: dict,
-                      tcfg: TrainConfig):
+                      tcfg: TrainConfig, tp=None):
     """(loss, grads) of the batch, accumulated over ``tcfg.microbatches``
     equal splits as the reference's ``lax.scan`` does (sum from zero,
     then times 1/n). Grads are f32 tensors in the params' layout; a
-    param the loss does not reach gets zeros, as ``jax.grad`` gives."""
+    param the loss does not reach gets zeros, as ``jax.grad`` gives.
+    With ``tp``, this rank's share over its ``model`` group."""
     n = tcfg.microbatches
 
     def value_and_grad(b):
         leaves = [p.detach().requires_grad_() for p in tree_leaves(params)]
         loss = loss_fn(tree_unflatten(params, leaves), cfg, b,
-                       remat=tcfg.remat)
+                       remat=tcfg.remat, tp=tp)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True,
                                     materialize_grads=True)
         return loss.detach(), list(grads)
@@ -130,6 +147,55 @@ def _mean_loss(loss: torch.Tensor, group, size: int, issued: Counter
     return _all_reduce(loss.reshape(1).clone(), group, issued)[0] / size
 
 
+class _ModelAxis:
+    """How a mesh step meets the ``model`` axis: ``tp`` (None: the axis
+    replicated) and, per call, whether it was given whole parameters."""
+
+    def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh):
+        self.cfg = cfg
+        self.tp = sharding.tensor_parallel(cfg, mesh, tcfg.sequence_parallel)
+        self.specs = (sharding.whole_specs(cfg, self.tp.size)[1]
+                      if self.tp is not None else None)
+        self.whole = False
+
+    def grads(self, params, batch: dict, tcfg: TrainConfig):
+        """(loss, grads) of this rank's share of ``batch``: the rank's cut
+        of ``params`` (views of whole ones) through its share of the
+        model, the gradients the axis leaves whole but the rank computes
+        on a shard summed over the group, and, for whole parameters,
+        the cut gradients gathered back whole."""
+        tp = self.tp
+        if tp is None:
+            return _microbatch_grads(params, self.cfg, batch, tcfg)
+        tp.issued.clear()
+        self.whole = sharding.params_are_whole(params, self.cfg, tp.size)
+        local = (sharding.cut_views(params, self.specs, tp.rank, tp.size)
+                 if self.whole else params)
+        loss, grads = _microbatch_grads(local, self.cfg, batch, tcfg, tp)
+        sp = tp.for_seq(batch["tokens"].shape[1]).seq_cut
+        out = []
+        for (path, g), (_, spec) in zip(sharding._leaf_paths(grads, ""),
+                                        sharding._leaf_paths(self.specs,
+                                                             "")):
+            dims = sharding.model_dims(spec)
+            if not dims and sharding.partial_grad_leaf(path, sp):
+                g = tp.all_reduce(g)
+            elif dims and self.whole:
+                g = tp.all_gather(g.contiguous(), dims[0])
+            out.append(g)
+        return loss, tree_unflatten(grads, out)
+
+    def clip(self, grads, max_norm: float):
+        """``clip_by_global_norm``, each cut leaf counted across the group
+        once (whole gradients: the plain norm)."""
+        if self.tp is None or self.whole:
+            return clip_by_global_norm(grads, max_norm)
+        return clip_by_global_norm(grads, max_norm, self.tp, self.specs)
+
+    def issued(self) -> dict:
+        return dict(self.tp.issued) if self.tp is not None else {}
+
+
 # ---------------------------------------------------------------------------
 # Path 1: the plain step ("single-request" over a mesh)
 # ---------------------------------------------------------------------------
@@ -149,6 +215,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     if mesh is not None:
         axes, size = dp_axes(mesh), dp_size(mesh)
         group, index = dp_group(mesh), dp_rank(mesh)
+        model = _ModelAxis(cfg, tcfg, mesh)
     zero1 = mesh is not None and tcfg.zero1
 
     def step(params, opt_state: AdamState, batch):
@@ -165,15 +232,18 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
                     "train.optimizer.zero1_init(opt, mesh)")
         if mesh is None:
             loss, grads = _microbatch_grads(params, cfg, batch, tcfg)
+            clip = clip_by_global_norm
         else:
-            loss, grads = _microbatch_grads(
-                params, cfg, _local_batch(batch, index, size), tcfg)
+            loss, grads = model.grads(
+                params, _local_batch(batch, index, size), tcfg)
             grads = tree_map(
                 lambda g: _all_reduce(g, group, issued).div_(size), grads)
             loss = _mean_loss(loss, group, size, issued)
+            step.model_collectives = model.issued()
+            clip = model.clip
         step.collectives = sum(issued.values())
         step.last_grads = grads if step.keep_grads else None
-        grads, step.grad_norm = clip_by_global_norm(grads, tcfg.grad_clip)
+        grads, step.grad_norm = clip(grads, tcfg.grad_clip)
         if not zero1:
             new_params, new_opt = adamw_update(grads, opt_state, params,
                                                tcfg)
@@ -188,6 +258,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
     step.keep_grads = False
     step.last_grads = None
     step.collectives = 0
+    step.model_collectives = {}
     step.grad_norm = None
     return step
 
@@ -278,25 +349,28 @@ def _make_psum_step(cfg: ModelConfig, tcfg: TrainConfig, mesh):
     axes, size = dp_axes(mesh), dp_size(mesh)
     group, index = dp_group(mesh), dp_rank(mesh)
     bucket_bytes = int(tcfg.grad_bucket_mb * (1 << 20)) or (16 << 20)
+    model = _ModelAxis(cfg, tcfg, mesh)
 
     def step(params, opt_state, batch, residuals=None):
         issued = Counter()
-        loss, grads = _microbatch_grads(
-            params, cfg, _local_batch(batch, index, size), tcfg)
+        loss, grads = model.grads(params, _local_batch(batch, index, size),
+                                  tcfg)
         grads = tree_map(lambda g: g.div_(size), grads)
         grads, residuals = bucketed_sync(
             grads, axes, bucket_bytes, compress=tcfg.compress_grads,
             residuals=residuals, mesh=mesh, issued=issued)
         loss = _mean_loss(loss, group, size, issued)
         step.collectives = sum(issued.values())
+        step.model_collectives = model.issued()
         step.last_grads = grads if step.keep_grads else None
-        grads, step.grad_norm = clip_by_global_norm(grads, tcfg.grad_clip)
+        grads, step.grad_norm = model.clip(grads, tcfg.grad_clip)
         new_params, new_opt = adamw_update(grads, opt_state, params, tcfg)
         return loss, new_params, new_opt, residuals
 
     step.keep_grads = False
     step.last_grads = None
     step.collectives = 0
+    step.model_collectives = {}
     step.grad_norm = None
     return step
 

@@ -1,0 +1,129 @@
+"""Rank programs of ``tests/test_torch_tp.py``: the port's ``model`` axis
+as gloo ranks on the CPU (``launch.mesh.run_peers``), one spawn a mesh.
+
+Each rank takes the JAX package's whole weights (numpy leaves, carried
+over by ``params_from_jax``) and cuts its share with
+``sharding.shard_tree``; every case runs on the global batch and returns
+host arrays for the test to gather over the model ranks and hold
+against the JAX package.
+"""
+import dataclasses
+
+import numpy as np
+import torch
+
+from _torch_ranks import _np_tree, _one_thread
+from repro_torch.configs.base import TrainConfig
+from repro_torch.configs.registry import get_config
+from repro_torch.launch.mesh import make_mesh, model_rank, model_size
+from repro_torch.models import params_from_jax, sharding
+from repro_torch.models.transformer import forward, init_caches
+
+#: serving traffic: prompt rows, decode steps, cache depth
+PROMPT, DECODE, MAX_SEQ = 12, 4, 16
+
+
+def tp_configs():
+    """name -> the port's config: ``tiny`` (4 q heads over 2 KV heads of
+    16: heads at a model axis of 2, rows at 4), ``tiny-h8`` (8 q heads
+    over 4 KV heads of 8: heads at 2 and 4) and ``tiny-vl`` (the VLM
+    family: M-RoPE, QKV bias and patch embeddings over ``tiny``'s
+    heads)."""
+    tiny = get_config("tiny")
+    return {"tiny": tiny,
+            "tiny-h8": dataclasses.replace(tiny, name="tiny-h8",
+                                           num_heads=8, num_kv_heads=4),
+            "tiny-vl": dataclasses.replace(
+                tiny, name="tiny-vl", family="vlm", mrope=True,
+                mrope_sections=(2, 3, 3), qkv_bias=True, qk_norm=False,
+                vision_patches_ratio=4)}
+
+
+def tcfg(sp: bool, zero1: bool = False) -> TrainConfig:
+    return TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=20,
+                       remat=False, zero1=zero1, sequence_parallel=sp)
+
+
+def _batch(batch):
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
+def _serve(cfg, params, prompt, tp):
+    """Prefill of the first PROMPT of ``prompt``'s PROMPT + DECODE tokens
+    (M-RoPE ids and patches with them for a VLM), then DECODE steps on
+    the tokens after it: each step's logits (this rank's vocab cut), and
+    the cache leaves' shapes."""
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+    full = _batch(prompt)
+    toks = full["tokens"]
+    caches = init_caches(cfg, toks.shape[0], MAX_SEQ, torch.float32,
+                         "cpu", tp_size=tp.size)
+    first = dict(full, tokens=toks[:, :PROMPT])
+    if cfg.mrope:
+        first["mrope_positions"] = full["mrope_positions"][..., :PROMPT]
+    outs = []
+    with torch.no_grad():
+        lg, caches = prefill_step(params, cfg, first, caches, tp=tp)
+        outs.append(lg.numpy().copy())
+        for pos in range(PROMPT, PROMPT + DECODE):
+            extra = ({"mrope_positions":
+                      full["mrope_positions"][..., pos:pos + 1]}
+                     if cfg.mrope else None)
+            lg, caches = decode_step(params, cfg, toks[:, pos:pos + 1],
+                                     caches, pos, extra=extra, tp=tp)
+            outs.append(lg.numpy().copy())
+    shapes = {k: tuple(v.shape) for k, v in caches["scan"].items()}
+    return outs, shapes
+
+
+def tp_cases(rank, shape, np_params, batches, prompts):
+    """One rank of a ``shape`` ("data", "model") mesh. For each config
+    (``np_params``, ``batches`` and ``prompts`` keyed by its name) and
+    sequence parallelism off and on: the forward's logits on the global
+    batch, the loss and the whole gradients (``_ModelAxis.grads`` over
+    whole parameters), one ``make_train_step(mesh)`` step with and
+    without ZeRO-1 on this rank's cut; and, once a config, prefill and
+    DECODE decode steps. Returns host data keyed by (config, sp, what)
+    and the rank's coordinates."""
+    _one_thread()
+    from repro_torch.train import init_adam, zero1_init
+    from repro_torch.train.train_step import _ModelAxis, make_train_step
+    mesh = make_mesh(shape, ("data", "model"))
+    n, r = model_size(mesh), model_rank(mesh)
+    out = {"coords": list(mesh.get_coordinate())}
+    for name, cfg in tp_configs().items():
+        whole = params_from_jax(np_params[name], device="cpu")
+        cut = params_from_jax(np_params[name], device="cpu", tp_rank=r,
+                              tp_size=n)
+        batch = _batch(batches[name])
+        for sp in (False, True):
+            tp = sharding.tensor_parallel(cfg, mesh, sp)
+            with torch.no_grad():
+                logits, _, _ = forward(cut, cfg, batch, tp=tp)
+            out[name, sp, "logits"] = logits.numpy()
+            model = _ModelAxis(cfg, tcfg(sp), mesh)
+            loss, grads = model.grads(whole, batch, tcfg(sp))
+            out[name, sp, "loss"] = float(loss)
+            out[name, sp, "grads"] = _np_tree(grads)
+            out[name, sp, "forward_collectives"] = dict(model.issued())
+            for zero1 in (False, True):
+                step = make_train_step(cfg, tcfg(sp, zero1), mesh)
+                step.keep_grads = True
+                opt = init_adam(cut)
+                if zero1:
+                    opt = zero1_init(opt, mesh)
+                loss, p, o = step(cut, opt, batch)
+                out[name, sp, f"step zero1={zero1}"] = {
+                    "loss": float(loss), "params": _np_tree(p),
+                    "grads": _np_tree(step.last_grads),
+                    "m_shapes": [tuple(t.shape) for t in _leaves(o.m)],
+                    "norm": float(step.grad_norm),
+                    "model_collectives": dict(step.model_collectives)}
+        tp = sharding.tensor_parallel(cfg, mesh, False)
+        out[name, "serve"] = _serve(cfg, cut, prompts[name], tp)
+    return out
+
+
+def _leaves(tree):
+    from repro_torch._tree import tree_leaves
+    return tree_leaves(tree)

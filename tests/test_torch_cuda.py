@@ -18,7 +18,10 @@ within twice the plain f32 version's own, and in bf16 (the wgmma kernel)
 over 512 to 32768 keys within twice the plain bf16 version's own. The
 wgmma kernel is held to the bf16 tolerance, the TF32 wgmma kernel (f32)
 to 2e-4, at GQA groups 1 to 8, ragged lengths, windows, rows without
-keys and B * Hq at and past 65535, each call counted on its route.
+keys and B * Hq at and past 65535, each call counted on its route; each
+of the three routes also at query offsets (a sequence-parallel rank's
+rows) against ``flash_attention_plain(q_offset=)``, with the same
+tolerances.
 K7 ``ssd_scan`` is within 2e-5 of its plain version in f32 and 6e-2 in bf16 (the reference's
 ``tests/test_kernels.py`` tolerances); its
 final state, f32 in both dtypes, within 2e-5. Under autograd, K6's and
@@ -656,6 +659,76 @@ def test_cuda_flash_attention_wgmma_tf32_matches_plain(cuda, d, dv, sq, skv,
     torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
 
 
+#: (dtype, route) of each K6 kernel the offset cases launch
+K6_OFFSET_ROUTES = ((torch.bfloat16, "wgmma"), (torch.float32, "wgmma_tf32"),
+                    (torch.float32, "mma_sync"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q_offset", [0, 37, 3840])
+@pytest.mark.parametrize("window", [0, 1024])
+@pytest.mark.parametrize("dtype,route", K6_OFFSET_ROUTES,
+                         ids=[r for _, r in K6_OFFSET_ROUTES])
+def test_cuda_flash_attention_q_offset_matches_plain(cuda, dtype, route,
+                                                     window, q_offset):
+    """Each K6 route at a query offset: 256 rows of a sequence-parallel
+    rank (16 sequences, 16 q heads over 2 KV heads of 128, qwen2.5-3b's
+    ``train_4k`` share) at positions ``q_offset ..`` over 4096 keys,
+    causal and with a window of 1024, against ``flash_attention_plain(
+    q_offset=)``: within 2e-4 in f32, plus one bf16 step in bf16 (phase
+    2's tolerances). The wgmma routes take the call through
+    ``flash_attention``; ``mma_sync`` (which the routing gives calls of
+    64 rows or fewer) is launched directly. Every call is the kernel's:
+    the launch is counted on its route."""
+    from repro_torch.kernels import flash_attention as fa
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(1000 + q_offset + window)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda).to(dtype)
+               for shape in ((16, 256, 16, 128), (16, 4096, 2, 128),
+                             (16, 4096, 2, 128)))
+    before, routes = flash_attention.launches, _route_counts()
+    if route == "mma_sync":
+        got = q.new_empty(q.shape)
+        fa._launch(route, q, k, v, got, True, window, 128 ** -0.5, q_offset)
+    else:
+        assert fa.flash_attention_route(dtype, 128, 128, 256) == route
+        got = flash_attention(q, k, v, causal=True, window=window,
+                              q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert _route_counts() == {**routes, route: routes[route] + 1}
+    want = flash_attention_plain(q, k, v, causal=True, window=window,
+                                 q_offset=q_offset)
+    rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rel,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_q_offset_grads_and_refusal(cuda):
+    """Under autograd an offset call's forward is the kernel and its
+    gradients autograd's through ``flash_attention_plain(q_offset=)``
+    (within 2e-4); a negative offset raises before any launch."""
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=gen, device=cuda)
+               for shape in ((2, 100, 8, 64), (2, 400, 2, 64),
+                             (2, 400, 2, 64)))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    before = flash_attention.launches
+    out = flash_attention(*leaves, causal=True, q_offset=300)
+    assert flash_attention.launches == before + 1
+    grads = torch.autograd.grad(out.square().sum(), leaves)
+    plain = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(flash_attention_plain(
+        *plain, causal=True, q_offset=300).square().sum(), plain)
+    for g, w in zip(grads, want):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-4)
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, q_offset=-1)
+    assert flash_attention.launches == before + 1
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("sq,skv,window,d,dv", [
     (700, 0, 0, 64, 64), (1000, 300, 64, 64, 64), (1000, 300, 64, 192, 128)])
@@ -750,7 +823,7 @@ def test_cuda_flash_attention_wgmma_tf32_refuses_short_scratch(cuda, d, dv):
         _build.launch("reconic_flash_attention_sm90_tf32", q.data_ptr(),
                       k.data_ptr(), v.data_ptr(), out.data_ptr(),
                       scratch.data_ptr(), n, 2, 4, 2, 300, 300, d, dv, 1, 0,
-                      float(d ** -0.5), _build.stream_ptr(cuda))
+                      0, float(d ** -0.5), _build.stream_ptr(cuda))
         torch.cuda.synchronize()
 
     with pytest.raises(RuntimeError, match="reconic_flash_attention_sm90_tf32"):

@@ -65,7 +65,11 @@ def test_dryrun_small_mesh(arch, shape, tmp_path):
     assert rec["ok"]
     assert rec["flops_per_device"] > 0
     assert rec["dominant"] in ("compute", "memory", "collective")
-    assert (rec["device"], rec["model_axis"]) == ("meta", "replicated")
+    # the dense family's model axis is cut, the others' replicated
+    axis = "sharded" if arch == "tiny" else "replicated"
+    assert (rec["device"], rec["model_axis"]) == ("meta", axis)
+    # a cut share is the model axis's last rank
+    assert rec["model_rank"] == (3 if arch == "tiny" else 0)
     assert rec["memory"]["peak_live_bytes"] >= \
         rec["memory"]["argument_size_in_bytes"] > 0
     want_keys = set(Roofline.__dataclass_fields__) | {"memory", "ok",
@@ -75,8 +79,9 @@ def test_dryrun_small_mesh(arch, shape, tmp_path):
 
 def test_dryrun_multipod_axes(tmp_path):
     """pod axis shards the batch: 2x2x2 pod,data,model; the gradient
-    sync plans one all-reduce a gradient leaf and one for the loss, and
-    ZeRO-1 an all-gather of each cut leaf."""
+    sync over (pod, data) plans one all-reduce a gradient leaf and one
+    for the loss, and ZeRO-1 an all-gather of each cut leaf (tiny's
+    leaves cut over model)."""
     r = _run(["--arch", "tiny", "--shape", "train_4k",
               "--mesh", "2x2x2:pod,data,model", "--out", str(tmp_path)])
     assert r.returncode == 0, r.stdout + r.stderr
@@ -85,8 +90,10 @@ def test_dryrun_multipod_axes(tmp_path):
     assert rec["coll_operand_bytes"] > 0
     n_leaves = len(torch.utils._pytree.tree_leaves(
         init_params(get_config("tiny"), device="meta")))
-    assert rec["coll_counts"]["all-reduce"] == n_leaves + 1
-    assert 0 < rec["coll_counts"]["all-gather"] <= n_leaves
+    dp = rec["collectives"]["pod,data"]
+    assert dp["all-reduce"]["count"] == n_leaves + 1
+    assert 0 < dp["all-gather"]["count"] <= n_leaves
+    assert rec["model_axis"] == "sharded" and "model" in rec["collectives"]
 
 
 def test_all_enumerates_the_cells_with_the_reference_reasons(
@@ -118,7 +125,6 @@ def test_all_enumerates_the_cells_with_the_reference_reasons(
 @pytest.mark.parametrize("flags", [
     ["--remat-policy", "dots"],
     ["--no-qkv-shard"],
-    ["--no-seq-parallel"],
     ["--save-hlo", "out.hlo"],
 ])
 def test_xla_only_flags_exit_non_zero(flags, tmp_path, capsys):
@@ -127,6 +133,78 @@ def test_xla_only_flags_exit_non_zero(flags, tmp_path, capsys):
     assert e.value.code != 0
     assert "not supported by the PyTorch port" in capsys.readouterr().err
     assert not list(tmp_path.glob("*.json"))
+
+
+@pytest.mark.parametrize("sp", [True, False])
+def test_no_seq_parallel_runs_the_residual_whole(sp, tmp_path):
+    """tiny's train cell on 2x2:data,model (heads over the model axis):
+    sequence parallelism reduce-scatters the residual and gathers it back
+    over ``model``; ``--no-seq-parallel`` keeps it whole and all-reduces
+    the blocks' outputs instead."""
+    flags = [] if sp else ["--no-seq-parallel"]
+    assert dryrun.main(["--arch", "tiny", "--shape", "train_4k", "--mesh",
+                        "2x2:data,model", "--out", str(tmp_path)]
+                       + flags) == 0
+    rec = _record(tmp_path)
+    assert rec["ok"], rec.get("error")
+    model = rec["collectives"]["model"]
+    assert ("reduce-scatter" in model) == sp
+    assert ("all-gather" in model) == sp
+
+
+def test_qwen2_5_3b_train_4k_share_fits_the_card():
+    """One device's share of qwen2.5-3b's ``train_4k`` on the single-pod
+    mesh, cut over the model axis as the reference cuts it, peaks under
+    the H100's 85.02 GB on ``meta`` (178.18 GB with the axis
+    replicated)."""
+    roof, mem, meta = dryrun.lower_cell("qwen2.5-3b", "train_4k", "single",
+                                        dryrun.train_config())
+    assert meta["model_axis"] == "sharded" and meta["model_rank"] == 15
+    assert 0 < mem["peak_live_bytes"] < 85.02e9
+    assert set(meta["collectives"]) == {"data", "model"}
+
+
+def test_plan_ranks_follow_the_coordinate():
+    """A ``PlanMesh`` at a coordinate: each group's rank is the
+    coordinate's index in it (row-major over its axes), and a plan's
+    reduce-scatter and all-to-all keep that rank's cut."""
+    from repro_torch.launch.mesh import (PlanMesh, all_to_all, group_rank,
+                                         model_rank, reduce_scatter)
+    plan = PlanMesh((2, 4), ("data", "model"), (1, 3))
+    assert model_rank(plan) == 3
+    assert group_rank(plan.group(("model",))) == 3
+    assert group_rank(plan.group(("data",))) == 1
+    assert group_rank(plan.group(("data", "model"))) == 7
+    t = torch.arange(8.0).reshape(1, 8)
+    g = plan.group(("model",))
+    assert torch.equal(reduce_scatter(t, g, 1), t[:, 6:8])
+    assert torch.equal(all_to_all(t, g, 1, 0), t[:, 6:8].repeat(4, 1))
+    assert group_rank(PlanMesh((2, 4), ("data", "model")).group(
+        ("model",))) == 0
+
+
+def test_decode_share_reads_its_cache_cut_where_it_lies():
+    """tiny's ``decode_32k`` share on 2x4:data,model (the cache cut on
+    the head dim): the step all-reduces its partial scores and gathers
+    q and its output over ``model``; no all-gather carries anything near
+    a layer's cut of the K cache, and all it sends over ``model`` is an
+    eighth of the whole K and V (4 q heads' f32 scores a position
+    against 2 KV heads of 16 in bf16, both K and V), and the small
+    gathers of q and the output beside."""
+    cfg = get_config("tiny")
+    fn, (_, _, caches), plan = dryrun.build_cell(
+        cfg, SHAPES["decode_32k"], dryrun.mesh_config("2x4:data,model"),
+        dryrun.train_config())
+    fn()
+    k = caches["scan"]["k"]
+    cut_bytes = k.numel() * k.element_size()
+    sent = [(op, nbytes) for (op, nbytes, _), ax in
+            zip(plan.collectives, plan.collective_axes) if ax == ("model",)]
+    assert {op for op, _ in sent} == {"all-reduce", "all-gather"}
+    gathered = max(nbytes for op, nbytes in sent if op == "all-gather")
+    assert gathered * 1000 <= cut_bytes // cfg.num_layers
+    # the whole K and V: 4 ranks' cuts of each
+    assert sum(nbytes for _, nbytes in sent) * 8 <= 2 * 4 * cut_bytes * 1.01
 
 
 @pytest.mark.parametrize("chunk", [1024, 2048])
@@ -201,7 +279,11 @@ def test_bucketed_plans_one_all_reduce_a_bucket():
         TrainConfig(param_dtype="bfloat16", grad_bucket_mb=16.0),
         bucketed=True)
     # tiny's grads fit one 16 MiB bucket: its all-reduce and the loss's
-    assert roof.coll_counts == {"all-reduce": 2}
+    # over data; the model axis's own collectives beside them
+    counts = {g: {op: c["count"] for op, c in ops.items()}
+              for g, ops in meta["collectives"].items()}
+    assert counts["data"] == {"all-reduce": 2}
+    assert set(counts) == {"data", "model"}
     assert meta["kernels"]["flash_attention"]["calls"] == 2 * 2
 
 

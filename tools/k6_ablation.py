@@ -322,8 +322,8 @@ def main(argv):
         scale = float(d ** -0.5)
         stream = _build.stream_ptr(dev)
         ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-        dims = (b, hq, hkv, sq, skv, d, dv, int(causal), int(window), scale,
-                stream)
+        dims = (b, hq, hkv, sq, skv, d, dv, int(causal), int(window), 0,
+                scale, stream)
         # room past the route's scratch for tf32_rnahi's K_hi
         scratch = torch.empty(fa.tf32_scratch_words(b, skv, hkv, d, dv)
                               + b * skv * hkv * d,
