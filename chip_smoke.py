@@ -39,7 +39,11 @@ and runs, on the card:
      offsets (``K6_OFFSETS``: 16 x 256 rows of a sequence-parallel rank
      at offsets 37 and 3840 over 4096 keys, 16 q heads over 2 KV heads
      of 128, causal and with a window of 1024, printed, not recorded,
-     beside SDPA on the same rows) — with
+     beside SDPA on the same rows), and in bf16 at the MoE family's cut
+     shapes (``K6_CUT``: phi3.5-moe-42b's 32/8 heads of 128 as the last
+     model rank's rows at their offset, deepseek-v2-lite-16b's one head
+     of 192/128 a rank, at ``prefill_32k`` and ``train_4k``; printed,
+     not recorded) — with
      its time, the plain version's time, its bound (the function's own
      work, by the formula its wrapper charges to the operation counter
      (``*_cost`` beside each kernel), at its dtype's peak, K6 in f32 as
@@ -217,17 +221,17 @@ and runs, on the card:
      lowest CPU priority (``CpuWork``), so that phases 18, 19, 26 and 27
      run beside them: ok, skipped and failed counts, 0 failed;
   28. the reference's bf16 cells: one device's share of the single-pod
-     mesh (16, 16) of the 20 ``prefill_32k``, ``decode_32k`` and
-     ``long_500k`` cells that fit the card (``BF16_CELLS``; the dense
-     and VLM archs' shares cut over the model axis, each the share of
-     its last model rank, which sequence-parallel attention loads
+     mesh (16, 16) of the 22 ``prefill_32k``, ``decode_32k`` and
+     ``long_500k`` cells that fit the card (``BF16_CELLS``; the dense,
+     VLM and MoE archs' shares cut over the model axis, each the share
+     of its last model rank, which sequence-parallel attention loads
      most), each traced
      on ``meta`` and run on the card from SEED in bf16 as phase 27 runs
      its cells (``card_cell``: (a) and (b) checked, (c) printed), decode
      cells stepping at their slot over caches of seeded values, with
      (d) a traced run's device share and tokens/s;
   29. bf16 serving against f32 on the same weights: the eight archs of
-     28 other than qwen1.5-32b at full width and depth, 2 x 512 prompt tokens and 8 decode
+     28 other than qwen1.5-32b and phi3.5-moe-42b at full width and depth, 2 x 512 prompt tokens and 8 decode
      steps, the bf16 prefill + decode within twice the gap between the
      bf16 and the f32 forward, the f32 prefill + decode within 1e-4 of
      the f32 forward's logits' scale (deepseek pinned to the bf16
@@ -238,14 +242,16 @@ and runs, on the card:
      sequence of 32768 tokens, the last 8 (hymba: 256, one chunk)
      decoded to slot 32767 after a prefill of the rest, against one
      forward over all of them: bf16 within twice its gap to f32, f32
-     within 1e-4 of the logits' scale;
+     within 1e-4 of the logits' scale (deepseek's cut MLA decode to slot
+     32767 runs in 32's ranks);
   31. the reference's ``train_4k`` cells the card trains: one device's
      share of the single-pod mesh (16, 16), 16 x 4096 tokens, of
      mamba2-370m, hymba-1.5b, tinyllama-1.1b, qwen2.5-3b, qwen3-4b,
-     qwen2-vl-7b and qwen1.5-32b at full width and depth, bf16, from
-     SEED, the dry-run's ``TrainConfig`` (remat, ZeRO-1 over the plan's
-     16 data ranks, the dense and VLM archs cut over its 16 model ranks
-     under sequence parallelism), under ``set_attention_impl(
+     qwen2-vl-7b, qwen1.5-32b, phi3.5-moe-42b and deepseek-v2-lite-16b
+     at full width and depth, bf16, from SEED, the dry-run's
+     ``TrainConfig`` (remat, ZeRO-1 over the plan's 16 data ranks, the
+     dense, VLM and MoE archs cut over its 16 model ranks under
+     sequence parallelism), under ``set_attention_impl(
      "blockwise", 1024)``: K6's backward recomputes the online softmax
      over chunks of 1024 keys. Each cell through ``card_cell`` as 28
      runs its cells (the traced run for mamba2 and tinyllama), its loss and
@@ -268,7 +274,14 @@ and runs, on the card:
      parallelism, its loss within 1e-5, norm within GRAD_SYNC_TOL and
      every gradient within 2e-5 of the unsharded run's; attention is
      sequence-parallel, so rank r launches K6 (``wgmma_tf32``) at query
-     offset 100 r, and no other offset;
+     offset 100 r, and no other offset; the same for a two-layer
+     deepseek-v2-lite-16b at full width (dense FFN narrowed; MLA
+     head-parallel, K6 at offset 0; its MoE layer's 64 experts 16 a
+     rank, at the config's capacity factor); then phase 30 (b) on the
+     same ranks: deepseek's MLA over a narrow dense FFN, each rank's cut
+     weights and cut latent cache, a prefill of 32760 tokens and 8
+     decode steps to slot 32767 within 1e-4 of the unsharded forward's
+     logits' scale, K6 once a layer in the prefill and never in decode;
   17. each kernel's launch count on the eighteen paths (3-6, 7-10,
      11-13, 14-15, 16, 20, 21, 22, 18, 19, 26 summed over its ranks, 27
      with two runs a cell on the card, 28 with three, 31's cells with
@@ -389,6 +402,21 @@ K6_OFFSETS = tuple((dtype, route, window, off)
                                         ("float32", "wgmma_tf32"),
                                         ("float32", "mma_sync"))
                    for window, off in ((0, 37), (0, 3840), (1024, 3840)))
+# K6 at the MoE family's cut shapes (phase 2, bf16 as the cells run it):
+# phi3.5-moe-42b's GQA 32/8 x 128 in sequence mode, the last model rank's
+# rows at their offset (2 x 2048 of 32768 at prefill_32k, 16 x 256 of 4096
+# at train_4k), and deepseek-v2-lite-16b's one head a rank of 192/128 at
+# prefill_32k and train_4k: (where, B, Sq, Skv, Hq, Hkv, d, dv, q_offset)
+K6_CUT = (
+    ("phi3.5-moe-42b prefill_32k rank 15", 2, 2048, 32768, 32, 8, 128, 128,
+     30720),
+    ("phi3.5-moe-42b train_4k rank 15", 16, 256, 4096, 32, 8, 128, 128,
+     3840),
+    ("deepseek-v2-lite-16b prefill_32k head", 2, 32768, 32768, 1, 1, 192,
+     128, 0),
+    ("deepseek-v2-lite-16b train_4k head", 16, 4096, 4096, 1, 1, 192, 128,
+     0),
+)
 # K6's three kernels: each route's source and its key in the kernels line
 K6_SOURCE = {"mma_sync": "flash_attention.cu",
              "wgmma": "flash_attention_sm90.cu",
@@ -1854,6 +1882,75 @@ def k6_offset_phase(dev, measure):
     torch.cuda.empty_cache()
 
 
+def k6_cut_phase(dev, measure):
+    """Phase 2's K6 in bf16 at the MoE family's cut shapes (``K6_CUT``),
+    each held against ``flash_attention_plain(q_offset=)`` over slices of
+    the query rows as in ``k6_served_phase`` (all rows up to 1024, else
+    a middle and the last 512), within 2e-4 plus one bf16 step, then
+    timed by ``measure`` over 5 calls and printed, not recorded. The
+    library time is SDPA on flash or memory-efficient attention alone
+    with K and V repeated to the q heads, causal from the top left at
+    offset 0 and ``causal_lower_right`` where the rows are the keys'
+    last."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from torch.nn.attention.bias import causal_lower_right
+
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_cost,
+                                                     flash_attention_plain,
+                                                     flash_attention_route)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 50)
+    for what, b, sq, skv, hq, hkv, d, dv, off in K6_CUT:
+        check(off + sq == skv, f"K6 cut row {what}: rows end at {off + sq}")
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                                          (b, skv, hkv, dv)))
+        got = flash_attention(q, k, v, causal=True, q_offset=off)
+        slices = ([(0, sq)] if sq <= 1024 else
+                  [(sq // 2 - 256, sq // 2 + 256), (sq - 512, sq)])
+        err = 0.0
+        for r0, r1 in slices:
+            want = flash_attention_plain(q[:, r0:r1], k, v, causal=True,
+                                         q_offset=off + r0)
+            e = (got[:, r0:r1].float() - want.float()).abs()
+            check(bool((e <= 2e-4 + 2.0 ** -7 * want.float().abs()).all()),
+                  f"flash_attention bf16 {what} rows {r0}:{r1}: max err "
+                  f"{e.max().item()}")
+            err = max(err, e.max().item())
+        del got, want, e
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        mask = causal_lower_right(sq, skv) if off else None
+
+        def library():
+            with sdpa_kernel(backends):
+                if mask is not None:
+                    return sdpa(qt, kt, vt, attn_mask=mask)
+                return sdpa(qt, kt, vt, is_causal=True)
+
+        r0 = slices[-1][0]
+        route = flash_attention_route(q.dtype, d, dv, sq)
+        cost = flash_attention_cost(q, k, v, causal=True, q_offset=off)
+        measure("flash_attention", K6_SOURCE[route],
+                "src/repro/kernels/flash_attention.py:102",
+                f"{what} {b}x{sq}/{skv}x{hq}/{hkv}x{d}"
+                f"{f'/{dv}' if dv != d else ''} causal q_offset{off} "
+                f"bfloat16", err,
+                lambda: flash_attention(q, k, v, causal=True, q_offset=off),
+                lambda: flash_attention_plain(q[:, r0:], k, v, causal=True,
+                                              q_offset=off + r0),
+                cost, library=library, peak_flops=PEAK_BF16_FLOPS, iters=5,
+                key=K6_KEY[route], record=False, plain_rows=f"{r0}:{sq}",
+                k6_route=route, q_offset=off)
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+
+
 def k7_route(b, s, nh, hd, n, chunk, nbytes, bf16_x=False):
     """``measure``'s route fields for K7 at (B, S, nh, hd, d_state,
     chunk), one group: the products the kernel's route runs, w.x, the
@@ -2260,16 +2357,19 @@ def dryrun_phase(dev, cpu, mem_tol=None):
 #: cell the card holds: the 9 archs whose share fits, at prefill_32k (2
 #: sequences of 32768 tokens) and decode_32k (8 sequences, the step at
 #: slot 32767), and the SSM and hybrid archs at long_500k (1 sequence,
-#: slot 524287). The dense and VLM archs' shares are cut over the model
-#: axis as the reference cuts them (qwen1.5-32b's 17.24 and 26.63 GB on
-#: meta, 176.90 and 424.81 with the axis replicated); phi3.5-moe-42b, its
-#: model axis replicated, needs more than the card (103.84 / 120.33 GB).
+#: slot 524287). The dense, VLM and MoE archs' shares are cut over the
+#: model axis as the reference cuts them (qwen1.5-32b's 17.24 and 26.63 GB
+#: on meta, 176.90 and 424.81 with the axis replicated; phi3.5-moe-42b's
+#: 11.69 and 7.59, 103.84 and 120.33 replicated).
 BF16_ARCHS = ("tinyllama-1.1b", "qwen2.5-3b", "qwen3-4b", "qwen2-vl-7b",
               "qwen1.5-32b", "mamba2-370m", "hymba-1.5b",
-              "deepseek-v2-lite-16b", "seamless-m4t-large-v2")
+              "deepseek-v2-lite-16b", "seamless-m4t-large-v2",
+              "phi3.5-moe-42b")
 #: phase 29's archs, each whole on the card in f32 beside bf16: not
-#: qwen1.5-32b, whose f32 weights alone are 130 GB
-BF16_SERVE_ARCHS = tuple(a for a in BF16_ARCHS if a != "qwen1.5-32b")
+#: qwen1.5-32b or phi3.5-moe-42b, whose f32 weights alone are 130 and
+#: 168 GB
+BF16_SERVE_ARCHS = tuple(a for a in BF16_ARCHS
+                         if a not in ("qwen1.5-32b", "phi3.5-moe-42b"))
 BF16_CELLS = tuple((a, s) for s in ("prefill_32k", "decode_32k")
                    for a in BF16_ARCHS) + (("mamba2-370m", "long_500k"),
                                            ("hymba-1.5b", "long_500k"))
@@ -2305,12 +2405,12 @@ def bf16_cells_phase(dev, traces=None):
 
 #: the train_4k cells one card trains: one device's share of the
 #: single-pod mesh (16 x 4096 tokens), under the blockwise backward at
-#: TRAIN_4K_CHUNK; the dense and VLM archs' shares cut over the model
-#: axis (PERF.md gives each meta peak). deepseek-v2-lite-16b,
-#: seamless-m4t-large-v2 and phi3.5-moe-42b keep the axis replicated and
-#: need more than the card (157.23, 281.00 and 321.57 GB on meta).
+#: TRAIN_4K_CHUNK; the dense, VLM and MoE archs' shares cut over the
+#: model axis (PERF.md gives each meta peak). seamless-m4t-large-v2 keeps
+#: the axis replicated and needs more than the card (281.00 GB on meta).
 TRAIN_4K_ARCHS = ("mamba2-370m", "hymba-1.5b", "tinyllama-1.1b",
-                  "qwen2.5-3b", "qwen3-4b", "qwen2-vl-7b", "qwen1.5-32b")
+                  "qwen2.5-3b", "qwen3-4b", "qwen2-vl-7b", "qwen1.5-32b",
+                  "phi3.5-moe-42b", "deepseek-v2-lite-16b")
 #: keys a chunk of K6's blockwise backward: the reference's 2048 leaves
 #: tinyllama's share at 92.18 GB on meta, over the card's 80 GB
 TRAIN_4K_CHUNK = 1024
@@ -2322,7 +2422,9 @@ TRAIN_4K_LAUNCHES = {"mamba2-370m": {"ssd_scan": 96},
                      "qwen2.5-3b": {"flash_attention": 72},
                      "qwen3-4b": {"flash_attention": 72},
                      "qwen2-vl-7b": {"flash_attention": 56},
-                     "qwen1.5-32b": {"flash_attention": 128}}
+                     "qwen1.5-32b": {"flash_attention": 128},
+                     "phi3.5-moe-42b": {"flash_attention": 64},
+                     "deepseek-v2-lite-16b": {"flash_attention": 54}}
 #: the cells whose step runs a third time under the profiler, to keep the
 #: smoke in its limit: one replicated and one cut share
 TRAIN_4K_TRACED = frozenset({"mamba2-370m", "tinyllama-1.1b"})
@@ -2461,46 +2563,39 @@ def train_4k_phase(dev, traces=None):
 # ---- 32. the model axis: four gloo ranks of a (1, 4) mesh ----------------
 
 TP_RANKS = 4
-#: phase 32's model: qwen2.5-3b's attention (16 q heads over 2 KV heads
-#: of 128, d_model 2048: sequence-parallel at a model axis of 4) at two
-#: layers, its FFN and vocab narrowed
+#: phase 32's models, each at two layers with its FFN and vocab narrowed:
+#: qwen2.5-3b's attention (16 q heads over 2 KV heads of 128, d_model 2048:
+#: sequence-parallel at a model axis of 4), and deepseek-v2-lite-16b's MLA
+#: (16 heads of 192/128 over a 512-wide latent: head-parallel) with its
+#: dense layer 0 and one MoE layer of 64 experts top-6 and 2 shared (16
+#: experts a rank), at the config's capacity factor
 TP_MODEL = dict(num_layers=2, d_ff=2048, vocab_size=4096)
+TP_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b")
 #: sequences and tokens: 100 q rows a rank, at offsets 0, 100, 200, 300
 TP_BATCH, TP_SEQ = 2, 400
 
 
-def _tp_cfg():
+def _tp_cfg(arch="qwen2.5-3b", moe=True):
+    """Phase 32's narrow ``arch``; deepseek's with ``moe=False`` is its MLA
+    over a dense FFN (phase 30's cut decode)."""
     import dataclasses
+
+    from repro_torch.configs.base import MoEConfig
     from repro_torch.configs.registry import get_config
-    return dataclasses.replace(get_config("qwen2.5-3b"),
-                               name="qwen2.5-3b-narrow", **TP_MODEL)
+    cfg = dataclasses.replace(get_config(arch), name=f"{arch}-narrow",
+                              **TP_MODEL)
+    if cfg.moe.enabled:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, dense_d_ff=TP_MODEL["d_ff"]))
+        if not moe:
+            cfg = dataclasses.replace(cfg, name=f"{arch}-mla-narrow",
+                                      family="dense", moe=MoEConfig())
+    return cfg
 
 
-def _tp_rank(rank, device, ref_path):
-    """32 in one rank of a (1, TP_RANKS) ("data", "model") mesh: the
-    narrow model's f32 weights from SEED, this rank's cut, phase 18's
-    batch of TP_BATCH x TP_SEQ; the forward's logits (its vocab cut) and
-    one ``make_train_step(mesh)`` step under sequence parallelism with
-    ``step.keep_grads``, each against the cut of the unsharded run saved
-    at ``ref_path``: the logits within SERVE_TOL of their largest
-    |value|, the loss within 1e-5 (relative), the gradient norm within
-    GRAD_SYNC_TOL, each gradient leaf within 2e-5 of the whole leaf's
-    largest |value|. Every K6 launch is logged with its route and
-    query offset."""
+def _k6_logged():
+    """Every K6 launch logged as (route, query offset): (the log, undo)."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models import init_params, sharding
-    from repro_torch.models.transformer import forward
-    from repro_torch.train import init_adam
-    from repro_torch.train.train_step import make_train_step
-    dev, counted = _rank_setup(rank, device)
-    ref = torch.load(ref_path)
-    cfg = _tp_cfg()
-    mesh = make_mesh((1, TP_RANKS), ("data", "model"))
-    _, specs = sharding.whole_specs(cfg, TP_RANKS)
-    cut = sharding.shard_tree(init_params(cfg, SEED, device=dev), specs,
-                              rank, TP_RANKS)
-    data = _train_data(cfg, dev, TP_BATCH, TP_SEQ)
     launch, offsets = fa._launch, []
 
     def logged(route, *args):
@@ -2508,64 +2603,143 @@ def _tp_rank(rank, device, ref_path):
         return launch(route, *args)
 
     fa._launch = logged
-    out = {}
+    return offsets, lambda: setattr(fa, "_launch", launch)
+
+
+def _tp_rank(rank, device, ref_paths):
+    """32 in one rank of a (1, TP_RANKS) ("data", "model") mesh, for each
+    of ``TP_ARCHS``' narrow model: its f32 weights from SEED, this rank's
+    cut, phase 18's batch of TP_BATCH x TP_SEQ; the forward's logits (its
+    vocab cut) and one ``make_train_step(mesh)`` step under sequence
+    parallelism with ``step.keep_grads``, each against the cut of the
+    unsharded run saved at ``ref_paths[arch]``: the logits within
+    SERVE_TOL of their largest |value|, the loss within 1e-5 (relative),
+    the gradient norm within GRAD_SYNC_TOL, each gradient leaf within
+    2e-5 of the whole leaf's largest |value|. Then phase 30's cut decode
+    (``_tp_long_decode``). Every K6 launch is logged with its route and
+    query offset."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import init_params, sharding
+    from repro_torch.models.transformer import forward
+    from repro_torch.train import init_adam
+    from repro_torch.train.train_step import make_train_step
+    dev, counted = _rank_setup(rank, device)
+    mesh = make_mesh((1, TP_RANKS), ("data", "model"))
+    res = {}
+    for arch in TP_ARCHS:
+        ref = torch.load(ref_paths[arch])
+        cfg = _tp_cfg(arch)
+        _, specs = sharding.whole_specs(cfg, TP_RANKS)
+        cut = sharding.shard_tree(init_params(cfg, SEED, device=dev), specs,
+                                  rank, TP_RANKS)
+        data = _train_data(cfg, dev, TP_BATCH, TP_SEQ)
+        offsets, undo = _k6_logged()
+        out = {}
+        try:
+            tp = sharding.tensor_parallel(cfg, mesh, True)
+            _sync(dev)
+            t = time.perf_counter()
+            with torch.no_grad():
+                logits, _, _ = forward(cut, cfg, data, tp=tp)
+            _sync(dev)
+            out["forward_ms"] = (time.perf_counter() - t) * 1e3
+            want = tp.cut(ref["logits"], 2)
+            out["logits_err"] = float((logits.cpu() - want).abs().max()
+                                      / ref["logits"].abs().max())
+            del logits
+            step = make_train_step(
+                cfg, _train_config(sequence_parallel=True), mesh)
+            step.keep_grads = True
+            _peak_reset(dev)
+            _sync(dev)
+            t = time.perf_counter()
+            loss, _, _ = step(cut, init_adam(cut), data)
+            _sync(dev)
+            out["step_ms"] = (time.perf_counter() - t) * 1e3
+            out["peak_gb"] = _peak_gb(dev)
+            out["loss"], out["grad_norm"] = (float(loss),
+                                             float(step.grad_norm))
+            errs = {}
+            for (path, g), (_, w), (_, whole) in zip(
+                    sharding._leaf_paths(step.last_grads, ""),
+                    sharding._leaf_paths(sharding.shard_tree(
+                        ref["grads"], specs, rank, TP_RANKS), ""),
+                    sharding._leaf_paths(ref["grads"], "")):
+                errs[path] = float((g.cpu() - w).abs().max()
+                                   / whole.abs().max())
+            out["grad_errs"] = errs
+            out["model_collectives"] = dict(step.model_collectives)
+            del cut, step, loss
+        finally:
+            undo()
+        out["k6"] = sorted(set(offsets))
+        res[arch] = out
+    res["long"] = _tp_long_decode(rank, dev, mesh, ref_paths["long"])
+    res["launches"] = _launches(dev, counted)
+    return res
+
+
+def _tp_long_decode(rank, dev, mesh, ref_path):
+    """30 (b) in one rank: deepseek-v2-lite-16b's MLA at full width over a
+    dense FFN (``_tp_cfg(moe=False)``: no routing, so prefill and decode
+    are the forward's function), f32 from SEED, this rank's cut and cut
+    caches (the latent's and the rope key's feature dims); prefill of
+    the saved sequence's tokens (LONG_SEQ) but the last 8, then 8
+    teacher-forced decode steps to its last slot, each scoring the cut latent cache
+    where it lies, against the cut of the unsharded forward's logits
+    saved at ``ref_path``. K6 launches once a layer in the prefill, none
+    in decode."""
+    from repro_torch.models import init_caches, init_params, sharding
+    from repro_torch.serve import decode_step, prefill_step
+    ref = torch.load(ref_path)
+    cfg = _tp_cfg("deepseek-v2-lite-16b", moe=False)
+    _, specs = sharding.whole_specs(cfg, TP_RANKS)
+    cut = sharding.shard_tree(init_params(cfg, SEED, device=dev), specs,
+                              rank, TP_RANKS)
+    tp = sharding.tensor_parallel(cfg, mesh, False)
+    toks = ref["tokens"].to(dev)
+    n = toks.shape[1]
+    head = n - 8
+    caches = init_caches(cfg, 1, n, torch.float32, dev, tp_size=TP_RANKS)
+    offsets, undo = _k6_logged()
     try:
-        tp = sharding.tensor_parallel(cfg, mesh, True)
-        _sync(dev)
-        t = time.perf_counter()
         with torch.no_grad():
-            logits, _, _ = forward(cut, cfg, data, tp=tp)
-        _sync(dev)
-        out["forward_ms"] = (time.perf_counter() - t) * 1e3
-        want = tp.cut(ref["logits"], 2)
-        out["logits_err"] = float((logits.cpu() - want).abs().max()
-                                  / ref["logits"].abs().max())
-        del logits
-        step = make_train_step(cfg, _train_config(sequence_parallel=True),
-                               mesh)
-        step.keep_grads = True
-        _peak_reset(dev)
-        _sync(dev)
-        t = time.perf_counter()
-        loss, _, _ = step(cut, init_adam(cut), data)
-        _sync(dev)
-        out["step_ms"] = (time.perf_counter() - t) * 1e3
-        out["peak_gb"] = _peak_gb(dev)
-        out["loss"], out["grad_norm"] = float(loss), float(step.grad_norm)
-        errs = {}
-        for (path, g), (_, w), (_, whole) in zip(
-                sharding._leaf_paths(step.last_grads, ""),
-                sharding._leaf_paths(sharding.shard_tree(
-                    ref["grads"], specs, rank, TP_RANKS), ""),
-                sharding._leaf_paths(ref["grads"], "")):
-            errs[path] = float((g.cpu() - w).abs().max()
-                               / whole.abs().max())
-        out["grad_errs"] = errs
-        out["model_collectives"] = dict(step.model_collectives)
+            _sync(dev)
+            t = time.perf_counter()
+            lg, caches = prefill_step(cut, cfg, {"tokens": toks[:, :head]},
+                                      caches, tp=tp)
+            _sync(dev)
+            prefill_ms = (time.perf_counter() - t) * 1e3
+            n_prefill = len(offsets)
+            steps = [lg[:, 0]]
+            t = time.perf_counter()
+            for i in range(head, n):
+                lg, caches = decode_step(cut, cfg, toks[:, i:i + 1], caches,
+                                         i, tp=tp)
+                steps.append(lg[:, 0])
+            _sync(dev)
+            decode_ms = (time.perf_counter() - t) * 1e3 / (n - head)
     finally:
-        fa._launch = launch
-    out["k6"] = sorted(set(offsets))
-    out["launches"] = _launches(dev, counted)
-    return out
+        undo()
+    got = torch.stack(steps, dim=1).cpu()
+    want = tp.cut(ref["logits"], 2)
+    return {"err": float((got - want).abs().max()),
+            "scale": float(ref["logits"].abs().max()),
+            "cache": {k: list(v.shape) for k, v in caches["scan"].items()},
+            "k6_prefill": n_prefill, "k6_decode": len(offsets) - n_prefill,
+            "k6": sorted(set(offsets)), "prefill_ms": prefill_ms,
+            "decode_ms": decode_ms}
 
 
-def tp_phase(dev):
-    """32. The model axis on the card: the narrow model (``_tp_cfg``)
-    unsharded in this process, its f32 logits and one plain train step's
-    loss, gradients and norm (``_train_config(sequence_parallel=True)``)
-    saved for the ranks; then TP_RANKS gloo ranks of a (1, TP_RANKS)
-    ("data", "model") mesh on the card (``_tp_rank``), each holding its
-    share against them. The heads do not divide the axis, so attention
-    is sequence-parallel: rank r's K6 launches take q rows at offset r x
-    TP_SEQ / TP_RANKS. Returns the ranks' launches summed."""
+def _tp_reference(cfg, dev):
+    """The unsharded run phase 32 holds a narrow model's ranks against:
+    f32 weights from SEED, the forward's logits and one plain train step's
+    loss, gradients and norm on phase 18's batch."""
     from repro_torch._tree import tree_map
-    from repro_torch.launch.mesh import run_peers
     from repro_torch.models import init_params
     from repro_torch.models.transformer import forward
     from repro_torch.train import init_adam
     from repro_torch.train.train_step import make_train_step
-
-    cfg = _tp_cfg()
     params = init_params(cfg, SEED, device=dev)
     data = _train_data(cfg, dev, TP_BATCH, TP_SEQ)
     with torch.no_grad():
@@ -2573,51 +2747,117 @@ def tp_phase(dev):
     step = make_train_step(cfg, _train_config(sequence_parallel=True))
     step.keep_grads = True
     loss, _, _ = step(params, init_adam(params), data)
-    ref = {"logits": logits, "loss": float(loss),
-           "norm": float(step.grad_norm),
-           "grads": tree_map(lambda g: g.detach().cpu(), step.last_grads)}
-    del params, step, loss
+    return {"logits": logits, "loss": float(loss),
+            "norm": float(step.grad_norm),
+            "grads": tree_map(lambda g: g.detach().cpu(), step.last_grads)}
+
+
+def _long_reference(dev):
+    """Phase 30 (b)'s unsharded run: the MLA model's forward over one
+    sequence of LONG_SEQ seeded tokens, the logits at the prefill's last
+    position and the 8 decode steps' positions."""
+    from repro_torch.models import forward, init_params
+    cfg = _tp_cfg("deepseek-v2-lite-16b", moe=False)
+    params = init_params(cfg, SEED, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(SEED + 40).integers(
+        0, cfg.vocab_size, (1, LONG_SEQ))).to(dev)
+    with torch.no_grad():
+        logits = forward(params, cfg, {"tokens": toks})[0]
+    return {"tokens": toks.cpu(),
+            "logits": logits[:, LONG_SEQ - 9:].float().cpu()}
+
+
+def tp_phase(dev):
+    """32. The model axis on the card: each narrow model of ``TP_ARCHS``
+    unsharded in this process (``_tp_reference``: ``_train_config(
+    sequence_parallel=True)``) and phase 30 (b)'s forward
+    (``_long_reference``), saved for the ranks; then TP_RANKS gloo ranks
+    of a (1, TP_RANKS) ("data", "model") mesh on the card (``_tp_rank``),
+    each holding its share against them. qwen2.5-3b's heads do not divide
+    the axis, so its attention is sequence-parallel: rank r's K6 launches
+    take q rows at offset r x TP_SEQ / TP_RANKS; deepseek's MLA is
+    head-parallel (4 heads a rank, offset 0) and its MoE layer
+    expert-parallel (16 experts a rank). Returns the ranks' launches
+    summed."""
+    from repro_torch.launch.mesh import run_peers
+
+    refs = {arch: _tp_reference(_tp_cfg(arch), dev) for arch in TP_ARCHS}
+    refs["long"] = _long_reference(dev)
     cuda = dev.type == "cuda"
     kind, rank_dev = ("cuda", None) if cuda else ("cpu", "cpu")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
     try:
-        path = os.path.join(tmp, "ref.pt")
-        torch.save(ref, path)
+        paths = {}
+        for name, ref in refs.items():
+            paths[name] = os.path.join(tmp, f"{name}.pt")
+            torch.save(ref, paths[name])
         _sync(dev)
         if cuda:
             torch.cuda.empty_cache()
         t = time.perf_counter()
         got = run_peers(_tp_rank, TP_RANKS, device=kind,
-                        timeout_s=MP_TIMEOUT_S, args=(rank_dev, path))
+                        timeout_s=MP_TIMEOUT_S, args=(rank_dev, paths))
         wall = time.perf_counter() - t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     rows = TP_SEQ // TP_RANKS
-    for r, out in enumerate(got):
-        check(out["logits_err"] <= SERVE_TOL,
-              f"model axis rank {r}: logits {out['logits_err']} off")
-        _near(out["loss"], ref["loss"], f"model axis rank {r} loss")
-        _near(out["grad_norm"], ref["norm"],
-              f"model axis rank {r} gradient norm", GRAD_SYNC_TOL)
-        worst = max(out["grad_errs"].values())
-        check(worst <= 2e-5, f"model axis rank {r}: a gradient {worst} "
-                             f"off ({out['grad_errs']})")
-        want = {("wgmma_tf32", r * rows)}
-        check(set(map(tuple, out["k6"])) == want,
-              f"model axis rank {r}: K6 launches {out['k6']}, want {want}")
-        phase("model axis rank", rank=r, ranks=TP_RANKS, arch=cfg.name,
-              batch=f"{TP_BATCH}x{TP_SEQ}", attention="rows",
-              k6=json.dumps(out["k6"]), logits_err=out["logits_err"],
-              loss=out["loss"], plain_loss=ref["loss"],
-              grad_norm=out["grad_norm"], plain_grad_norm=ref["norm"],
-              worst_grad_err=worst, forward_ms=out["forward_ms"],
-              step_ms=out["step_ms"], peak_gb=out["peak_gb"],
-              model_collectives=json.dumps(out["model_collectives"],
-                                           sort_keys=True),
+    for arch in TP_ARCHS:
+        ref, cfg = refs[arch], _tp_cfg(arch)
+        mla = cfg.mla.enabled
+        for r, res in enumerate(got):
+            out = res[arch]
+            check(out["logits_err"] <= SERVE_TOL,
+                  f"model axis {arch} rank {r}: logits {out['logits_err']} "
+                  f"off")
+            _near(out["loss"], ref["loss"], f"model axis {arch} rank {r} "
+                                            f"loss")
+            _near(out["grad_norm"], ref["norm"],
+                  f"model axis {arch} rank {r} gradient norm",
+                  GRAD_SYNC_TOL)
+            worst = max(out["grad_errs"].values())
+            check(worst <= 2e-5, f"model axis {arch} rank {r}: a gradient "
+                                 f"{worst} off ({out['grad_errs']})")
+            want = {("wgmma_tf32", 0 if mla else r * rows)}
+            check(set(map(tuple, out["k6"])) == want,
+                  f"model axis {arch} rank {r}: K6 launches {out['k6']}, "
+                  f"want {want}")
+            phase("model axis rank", rank=r, ranks=TP_RANKS, arch=cfg.name,
+                  batch=f"{TP_BATCH}x{TP_SEQ}",
+                  attention="heads" if mla else "rows",
+                  k6=json.dumps(out["k6"]), logits_err=out["logits_err"],
+                  loss=out["loss"], plain_loss=ref["loss"],
+                  grad_norm=out["grad_norm"], plain_grad_norm=ref["norm"],
+                  worst_grad_err=worst, forward_ms=out["forward_ms"],
+                  step_ms=out["step_ms"], peak_gb=out["peak_gb"],
+                  model_collectives=json.dumps(out["model_collectives"],
+                                               sort_keys=True),
+                  wire="gloo through host")
+    cfg = _tp_cfg("deepseek-v2-lite-16b", moe=False)
+    m = cfg.mla
+    for r, res in enumerate(got):
+        out = res["long"]
+        tol = SERVE_TOL * out["scale"]
+        check(out["err"] <= tol,
+              f"cut MLA decode at {LONG_SEQ} rank {r}: max err "
+              f"{out['err']} over {tol}")
+        check(out["cache"]["c_kv"][-1] == m.kv_lora_rank // TP_RANKS
+              and out["cache"]["k_rope"][-1] == m.qk_rope_head_dim
+              // TP_RANKS, f"cut MLA decode rank {r}: caches {out['cache']}")
+        check(out["k6_prefill"] == cfg.num_layers and out["k6_decode"] == 0
+              and set(map(tuple, out["k6"])) == {("wgmma_tf32", 0)},
+              f"cut MLA decode rank {r}: K6 {out['k6_prefill']} in prefill, "
+              f"{out['k6_decode']} in decode, {out['k6']}")
+        phase("long decode cut", rank=r, ranks=TP_RANKS, arch=cfg.name,
+              tokens=LONG_SEQ, prefill=LONG_SEQ - 8, decode_steps=8,
+              last_slot=LONG_SEQ - 1, max_abs_err=out["err"],
+              tolerance=tol, logit_scale=out["scale"],
+              cache=json.dumps(out["cache"]),
+              prefill_ms=out["prefill_ms"],
+              decode_ms_per_step=out["decode_ms"], dtype="float32",
               wire="gloo through host")
     phase("model axis", ranks=TP_RANKS, mesh="data 1 x model 4",
-          spawn_and_run_s=wall)
-    return {name: sum(out["launches"][name] for out in got)
+          archs=",".join(TP_ARCHS), spawn_and_run_s=wall)
+    return {name: sum(res["launches"][name] for res in got)
             for name in got[0]["launches"]}
 
 
@@ -2858,7 +3098,9 @@ def long_decode_phase(dev, during, kernels):
     ``_f32_of_bf16_draw``) within ``SERVE_TOL`` of the f32 forward's
     logits' scale. K6 and K7 launch once a layer in the prefills and the
     forwards, never in decode. ``kernels`` is (flash_attention,
-    ssd_scan)."""
+    ssd_scan). The MoE family's cut MLA decode at LONG_SEQ (30 b) runs
+    in phase 32's ranks (``_tp_long_decode``): a cut share needs its
+    model group's processes."""
     from repro_torch.configs.registry import get_config
     from repro_torch.models import forward, init_caches, init_params
     from repro_torch.serve import decode_step, prefill_step
@@ -3125,6 +3367,7 @@ def main():
 
     k6_served_phase(dev, measure)
     k6_offset_phase(dev, measure)
+    k6_cut_phase(dev, measure)
 
     # K6 at the tinyllama prefill shape (8 sequences x 32 q heads over 4 kv
     # heads, S = 512, d = 64, causal, f32; recorded last), with window 32,

@@ -13,18 +13,19 @@ have shapes and dtypes but no memory and no op computes a number, under
 A device's share follows what the port's steps do. The batch is split
 over the ``pod`` x ``data`` axes where ``launch.specs.batch_partition``
 allows (a ``long_500k`` cell's batch of 1 keeps its whole sequence on
-every device). For the dense and VLM families
+every device). For the dense, VLM and MoE families
 (``models.sharding.model_axis_sharded``) the ``model`` axis is the
 reference's: the share is the last rank of the axis, the one that
 sequence-parallel attention loads most (``share_rank``), and holds its
 cut of every parameter (``init_params(tp_rank=, tp_size=)``, the cut of
 ``sanitize_specs(param_specs(...))``), of the optimizer state and of
-the caches (K and V cut on the head dim, as ``cache_partition_specs``
-cuts them), and its step runs over the plan's ``model`` group with the
+the caches (K and V cut on the head dim, MLA's latent and rope key on
+their feature dims, as ``cache_partition_specs`` cuts them), and its
+step runs over the plan's ``model`` group with the
 explicit collectives of ``models/sharding.py`` (sequence parallelism as
 the CLI says); each record's ``model_axis`` says ``"sharded"`` and its
-``model_rank`` which rank the share is. The other families keep the
-axis replicated (whole parameters on every rank, ``"replicated"``). A
+``model_rank`` which rank the share is. The SSM, hybrid and enc-dec
+families keep the axis replicated (whole parameters on every rank, ``"replicated"``). A
 train cell runs ``make_train_step`` (forward, backward with ``remat``
 as the config says, clip, AdamW; ZeRO-1 cuts ``m`` and ``v`` over the
 data-parallel ranks, within the model cut) or, with ``bucketed``, the

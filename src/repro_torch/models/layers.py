@@ -9,10 +9,11 @@ q and k, 128 for v); decode attends over the cache
 with plain masked attention, the reference's own split (its XLA path
 there, ``repro/models/layers.py:_attention_naive``). Projections are
 ``torch.matmul``, as the reference leaves them to XLA. Given a
-``sharding.TensorParallel`` (``tp=``), ``attention_block`` and
-``mlp_block`` run as one rank of the ``model`` axis on that rank's cut
-of their parameters, with the collectives ``models/sharding.py`` sets
-out in place of the reference's layout hints.
+``sharding.TensorParallel`` (``tp=``), ``attention_block``,
+``mla_block`` and ``mlp_block`` run as one rank of the ``model`` axis on
+that rank's cut of their parameters, with the collectives
+``models/sharding.py`` sets out in place of the reference's layout
+hints.
 
 ``set_attention_impl("blockwise", chunk)`` is the reference's lowering
 knob (``attention_impl(impl, chunk)`` sets it for a ``with`` block and
@@ -570,7 +571,7 @@ def init_mla(gen: torch.Generator, cfg: ModelConfig, dtype, device,
 
 def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
               positions: torch.Tensor, *, cache: Optional[dict] = None,
-              pos: int = 0):
+              pos: int = 0, tp=None):
     """MLA: the KV cache is the compressed ``c_kv`` (kv_lora_rank) and the
     one rope key shared by all heads, per token. Returns (out, cache).
 
@@ -578,10 +579,26 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     tokens' entries are written in place at host position ``pos``;
     ``pos == 0`` attends over them alone (K6 at head dims 192/128), a
     later position up-projects the whole cache and attends plainly with
-    ``kv_len`` masking, as the reference does (no weight absorption)."""
+    ``kv_len`` masking, as the reference does (no weight absorption).
+
+    With ``tp`` the block is one rank's share over the ``model`` axis,
+    head-parallel (the heads divide the axis,
+    ``sharding.check_model_axis``): ``wq``, ``w_uk``, ``w_uv`` column-cut
+    into the rank's heads, ``wo`` row-cut, the input gathered whole
+    (``_tp_in``) and the output reduced (``_tp_out``); ``w_dkv`` and
+    ``kv_norm_scale`` whole, so the latent ``c_kv`` is whole on every
+    rank; ``w_kr`` column-cut, its rank's rope dims gathered whole before
+    they turn (``_rotate`` pairs dim ``i`` with ``i + d / 2``). A cache
+    holds the rank's cut of the rope key's feature dim (it divides the
+    axis, as ``w_kr``'s does) and of the latent's where it divides
+    (``launch.specs.cache_partition_specs``); a later step scores the
+    cut where it lies (``_mla_latent_scores``) and never gathers it."""
     m = cfg.mla
+    sharded = active(tp)
+    if sharded:
+        x = _tp_in(x, tp)
     b, s, _ = x.shape
-    h = cfg.num_heads
+    h = cfg.num_heads // tp.size if sharded else cfg.num_heads
     q = (x @ params["wq"]).reshape(b, s, h, m.qk_head_dim)
     q_nope, q_rope = torch.split(
         q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
@@ -589,20 +606,30 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
 
     c_kv = rms_norm(x @ params["w_dkv"], params["kv_norm_scale"],
                     cfg.rms_eps)                        # (b, s, r)
-    k_rope = apply_rope((x @ params["w_kr"])[:, :, None, :], positions,
+    k_rope = x @ params["w_kr"]
+    if sharded:
+        k_rope = tp.gather(k_rope, 2)
+    k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)                 # (b, s, 1, dr)
 
     kv_len = None
     if cache is not None:
         cc, cr = cache["c_kv"], cache["k_rope"]
-        cc[:, pos:pos + s] = c_kv.to(cc.dtype)
-        cr[:, pos:pos + s] = k_rope[:, :, 0].to(cr.dtype)
+        cut_c = cc.shape[-1] != m.kv_lora_rank
+        cc[:, pos:pos + s] = (tp.cut(c_kv, 2) if cut_c else c_kv).to(
+            cc.dtype)
+        cr[:, pos:pos + s] = (tp.cut(k_rope[:, :, 0], 2) if sharded else
+                              k_rope[:, :, 0]).to(cr.dtype)
         cache["pos"].fill_(pos + s)
         if pos == 0:
             # the new tokens as the cache holds them (a bf16 cache), as
             # the reference attends over its cache; no copy for f32
             c_kv = c_kv.to(cc.dtype).to(x.dtype)
             k_rope = k_rope.to(cr.dtype).to(x.dtype)
+        elif sharded:
+            out = _mla_latent_scores(params, cfg, q_nope, q_rope, cc, cr,
+                                     cut_c, tp, pos, x.dtype)
+            return _tp_out(out @ params["wo"], tp), cache
         else:
             c_kv, k_rope = cc.to(x.dtype), cr.to(x.dtype)[:, :, None]
             kv_len = torch.full((b,), pos + s, dtype=torch.int32,
@@ -617,8 +644,57 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     out = attention_core(qfull, k, v, causal=True,
                          q_offset=0 if kv_len is None else pos,
                          kv_len=kv_len)
-    out = out.reshape(b, s, h * m.v_head_dim)
-    return out @ params["wo"], cache
+    out = out.reshape(b, s, h * m.v_head_dim) @ params["wo"]
+    return (_tp_out(out, tp) if sharded else out), cache
+
+
+def _mla_latent_scores(params, cfg: ModelConfig, q_nope, q_rope, cc, cr,
+                       cut_c: bool, tp, pos: int, dtype):
+    """MLA over a cache for the rank's heads' queries (``q_nope``,
+    ``q_rope``: (B, Sq, H / n, ·), at positions ``pos ..``), the cache
+    ``cr`` (B, S, dr / n) cut on its feature dim and ``cc`` (B, S, r / n
+    with ``cut_c``, else r) -> (B, Sq, H / n * dv), the rank's heads'
+    outputs. The reference's sums in another order: ``q_nope_h . (c_kv
+    W_uk_h)`` is ``(q_nope_h W_uk_h^T) . c_kv``, so every head's query
+    goes into latent space on the rank that holds its ``w_uk`` and is
+    all-gathered over the heads with ``q_rope`` (a few hundred values a
+    row); each rank scores every head against its cut of the rope key
+    and of the latent, and the partial scores are all-reduced; after the
+    softmax each rank forms ``P . c_kv[cut]``, which is all-gathered
+    over the latent's dims, and applies its heads' ``w_uv``. A latent
+    the axis leaves whole is scored on every rank after the reduce. f32
+    scores and products, causal at ``pos`` (the slots past the step are
+    masked with it), as ``_attention_naive``."""
+    m = cfg.mla
+    b, sq, h_l, _ = q_nope.shape
+    r = m.kv_lora_rank
+    skv = cc.shape[1]
+    f32 = torch.float32
+    w_uk = params["w_uk"].to(f32).reshape(r, h_l, m.qk_nope_head_dim)
+    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32), w_uk)
+    q_lat = tp.all_gather(q_lat.contiguous(), 2)        # (b, sq, h, r)
+    q_rot = tp.all_gather(q_rope.to(f32).contiguous(), 2)
+    c = cc.to(dtype).to(f32)
+    scale = m.qk_head_dim ** -0.5
+
+    def scores(qq, kk):
+        return torch.einsum("bqhr,bkr->bhqk", qq * scale, kk)
+
+    s = scores(tp.cut(q_rot, 3), cr.to(dtype).to(f32))
+    if cut_c:
+        s = s + scores(tp.cut(q_lat, 3), c)
+    s = tp.all_reduce(s)
+    if not cut_c:
+        s = s + scores(q_lat, c)
+    mask = _causal_window_mask(sq, skv, pos, 0, True, c.device)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    lat = torch.einsum("bhqk,bkr->bqhr", p, c)
+    if cut_c:
+        lat = tp.all_gather(lat.contiguous(), 3)        # (b, sq, h, r)
+    w_uv = params["w_uv"].to(f32).reshape(r, h_l, m.v_head_dim)
+    out = torch.einsum("bqhr,rhv->bqhv", tp.cut(lat, 2), w_uv)
+    return out.reshape(b, sq, h_l * m.v_head_dim).to(dtype)
 
 
 # ---------------------------------------------------------------------------

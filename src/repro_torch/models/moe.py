@@ -12,8 +12,22 @@ and ``searchsorted`` for each expert's segment start), dispatch is a
 gather into ``(E, C, d)`` expert buffers, the experts are stacked
 ``(E, d_in, d_out)`` SwiGLU products (``torch.einsum``, batched over E,
 as the reference leaves them to XLA outside Pallas), and the combine is
-a gate-weighted gather and sum. There is one device, so the reference's
-expert-parallel sharding has no counterpart.
+a gate-weighted gather and sum.
+
+Given a ``sharding.TensorParallel`` (``tp=``) the FFN is one rank's share
+of the reference's expert parallelism over the ``model`` axis: the rank
+holds ``E / n`` experts (``(E / n, d_in, d_out)`` stacks, the
+reference's ``experts/*`` spec) and its column and row cuts of the
+shared experts. It gathers the residual's rows first (``layers._tp_in``),
+so that ``route``, ``_capacity`` and ``_dispatch_indices`` see the same
+``T`` tokens in the same order as the unsharded call, dispatches only to
+its own experts' ``(E / n, C, d)`` buffers, and reduces its partial sum
+(its experts' combine plus its shared-expert columns) into the
+residual's layout (``layers._tp_out``). The router and the aux loss are
+computed alike on every rank; the aux term's gradient goes through
+``TensorParallel.once``, and the router's gradient, the combine's gates
+of the rank's experts, is summed over the group by the train step
+(``sharding.partial_grad_leaf``).
 """
 from __future__ import annotations
 
@@ -23,7 +37,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import init_dense, init_mlp, mlp_block
+from repro_torch.models.layers import (_tp_in, _tp_out, init_dense, init_mlp,
+                                       mlp_block)
+from repro_torch.models.sharding import active
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device,
@@ -100,13 +116,21 @@ def _dispatch_indices(expert_idx: torch.Tensor, k: int, e: int, cap: int):
     return pos.reshape(t, k), keep.reshape(t, k)
 
 
-def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor
+def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d) -> (out, aux_loss)."""
+    """x: (B, S, d) -> (out, aux_loss). With ``tp``, one rank's share:
+    ``x`` in the residual's layout (a rank's rows under sequence
+    parallelism), ``params`` the rank's cut, the output in ``x``'s
+    layout and the aux loss whole on every rank."""
     m = cfg.moe
+    sharded = active(tp)
+    if sharded:
+        x = _tp_in(x, tp)
     b, s, d = x.shape
     t = b * s
     e = m.num_experts
+    we = params["experts"]
+    e_l = we["w_gate"].shape[0]                         # this rank's experts
     x2d = x.reshape(t, d)
     cap = _capacity(t, cfg)
 
@@ -127,24 +151,45 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor
                                device=x.device)
     token_of_slot[flat_slot] = torch.arange(
         t, device=x.device).repeat_interleave(m.top_k)
-    token_of_slot = token_of_slot[:-1]                  # drop the dummy
+    n_slots = e_l * cap
+    lo = tp.rank * n_slots if sharded else 0
+    # this rank's experts' slots (the dummy dropped); ``index_select``,
+    # whose backward adds into the rows in parallel, where the backward
+    # of indexing accumulates an index's duplicates (the empty slots'
+    # padding row) one after another
+    token_of_slot = token_of_slot[lo:lo + n_slots]
     x_pad = torch.cat([x2d, x2d.new_zeros((1, d))], dim=0)
-    xe = x_pad[token_of_slot].reshape(e, cap, d)
+    xe = x_pad.index_select(0, token_of_slot).reshape(e_l, cap, d)
+    del x_pad
 
     # expert computation (per-expert SwiGLU)
-    we = params["experts"]
     h = F.silu(torch.einsum("ecd,edf->ecf", xe, we["w_gate"]))
     h = h * torch.einsum("ecd,edf->ecf", xe, we["w_up"])
     ye = torch.einsum("ecf,efd->ecd", h, we["w_down"])
+    del xe, h
 
-    # combine: gate-weighted gather back to tokens
-    ye_slots = torch.cat([ye.reshape(e * cap, d), ye.new_zeros((1, d))],
-                         dim=0)
-    gathered = ye_slots[flat_slot].reshape(t, m.top_k, d)
-    w = torch.where(keep, gate_w, torch.zeros_like(gate_w)).to(
-        gathered.dtype)
-    out = torch.einsum("tkd,tk->td", gathered, w)
+    # combine: each of the rank's slots adds its expert's output times its
+    # assignment's gate into its token's row, in f32 (the reference
+    # gathers every token's k slots; under ``tp`` that gather would point
+    # the other ranks' (n - 1) / n of them at one zero row, whose
+    # gradient is accumulated one assignment at a time)
+    w = torch.where(keep, gate_w, torch.zeros_like(gate_w))
+    local = flat_slot - lo
+    mine = (local >= 0) & (local < n_slots)
+    gate_of_slot = w.new_zeros(n_slots + 1).index_put(
+        (torch.where(mine, local, torch.full_like(local, n_slots)),),
+        w.reshape(-1))[:n_slots]
+    out = torch.zeros((t + 1, d), dtype=torch.float32,
+                      device=x.device).index_add(
+        0, token_of_slot,
+        ye.reshape(n_slots, d).float() * gate_of_slot[:, None])
+    out = out[:t].to(ye.dtype)
 
     if "shared" in params:
+        # with ``tp`` the rank's columns of the shared experts: a partial
+        # sum too, reduced with the experts'
         out = out + mlp_block(params["shared"], x2d)
-    return out.reshape(b, s, d), aux
+    out = out.reshape(b, s, d)
+    if sharded:
+        return _tp_out(out, tp), tp.once(aux)
+    return out, aux

@@ -38,7 +38,22 @@ rank's ``model`` group instead, through ``TensorParallel``:
 * the embedding is vocab-parallel (a masked local gather, then a
   reduce), the LM head column-parallel, and ``cross_entropy`` reduces
   the max, the sum of exps and the picked logit over the group, never
-  forming the whole vocab on a rank.
+  forming the whole vocab on a rank;
+* MoE is expert-parallel (``models.moe.moe_ffn``): every rank routes
+  all the tokens of the gathered input, as the unsharded call does, runs
+  only its ``E / n`` experts on their capacity buffers, and the partial
+  sums over its experts (and its columns of the shared experts) are
+  reduced into the residual's layout; the aux loss, the same on every
+  rank, sends its gradient through ``once``;
+* MLA is head-parallel (``models.layers.mla_block``): ``wq``, ``w_uk``,
+  ``w_uv`` and ``w_kr`` column-cut, ``w_dkv`` and ``kv_norm_scale``
+  whole, the rope key gathered whole before it turns; its cache is cut
+  on the latent's and the rope key's feature dims, and decode scores the
+  cut where it lies.
+
+The leaves that the axis leaves whole but whose gradient a rank computes
+from its share (``partial_grad_leaf``) are summed over the group after
+the backward.
 """
 from __future__ import annotations
 
@@ -251,6 +266,14 @@ class TensorParallel:
         self.issued["all-to-all"] += 1
         return _mesh.all_to_all(x, self.group, split_dim, cat_dim)
 
+    def once(self, x):
+        """A value every rank computes alike from whole inputs: identity
+        forward, the gradient divided by the group's size, so that the
+        sums over the group that a rank's share of the backward meets
+        (of a whole leaf's gradient, or of the gathered input's) count
+        it once."""
+        return _Once.apply(x, self)
+
     def cut(self, x, dim: int):
         """This rank's cut of ``x`` along ``dim`` (a view)."""
         n = x.shape[dim] // self.size
@@ -271,6 +294,17 @@ class _Copy(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return ctx.tp.all_reduce(g.contiguous().clone()), None
+
+
+class _Once(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp):
+        ctx.n = tp.size
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g / ctx.n, None
 
 
 class _Reduce(torch.autograd.Function):
@@ -318,13 +352,23 @@ class _AllToAll(torch.autograd.Function):
                 None, None, None)
 
 
+#: whole leaves whose gradient a rank computes from its share, whatever
+#: the residual's layout: the q/k norm scales (applied to a rank's heads
+#: or rows), the MoE router (the combine's gates of the rank's experts
+#: only; the aux term, the same on every rank, goes through
+#: ``TensorParallel.once``) and MLA's down-projection and latent norm
+#: (their output feeds the rank's heads only)
+_PARTIAL_ALWAYS = ("q_norm_scale", "k_norm_scale", "router", "w_dkv",
+                   "kv_norm_scale")
+
+
 def partial_grad_leaf(path: str, sp: bool) -> bool:
     """Whether the gradient of a leaf that the ``model`` axis leaves whole
-    is computed on a shard, and so summed over the group: the q/k norm
-    scales (applied to a rank's heads or rows) always, and the residual
-    stream's norm scales under sequence parallelism."""
+    is computed on a shard, and so summed over the group:
+    ``_PARTIAL_ALWAYS`` always, and the residual stream's norm scales
+    under sequence parallelism."""
     name = path.split("/")[-1]
-    if name in ("q_norm_scale", "k_norm_scale"):
+    if name in _PARTIAL_ALWAYS:
         return True
     return sp and name in ("pre_norm_scale", "post_norm_scale",
                            "final_norm_scale")
@@ -332,26 +376,31 @@ def partial_grad_leaf(path: str, sp: bool) -> bool:
 
 #: the families whose ``model`` axis is sharded; the others keep it
 #: replicated (every rank holds whole parameters)
-SHARDED_FAMILIES = ("dense", "vlm")
+SHARDED_FAMILIES = ("dense", "vlm", "moe")
 
 
 def model_axis_sharded(cfg) -> bool:
-    """Whether the port shards ``cfg`` over the ``model`` axis: the dense
-    and VLM families (no MoE, MLA, SSM, hybrid heads or encoder)."""
-    return (cfg.family in SHARDED_FAMILIES and not cfg.moe.enabled
-            and not cfg.mla.enabled and not cfg.enc_dec
-            and not cfg.hybrid_parallel_heads)
+    """Whether the port shards ``cfg`` over the ``model`` axis: the dense,
+    VLM and MoE families, with GQA attention or MLA (no SSM, hybrid heads
+    or encoder)."""
+    return (cfg.family in SHARDED_FAMILIES and not cfg.ssm.enabled
+            and not cfg.enc_dec and not cfg.hybrid_parallel_heads)
 
 
 @functools.lru_cache(maxsize=None)
 def check_model_axis(cfg, tp: int) -> None:
     """Raise unless every dim that ``param_specs`` puts on ``model`` for
-    ``cfg`` divides ``tp``: the explicit scheme shards each projection
-    and the vocab, and has no path for one the axis leaves whole."""
+    ``cfg`` divides ``tp``: the explicit scheme shards each projection,
+    the experts and the vocab, and has no path for one the axis leaves
+    whole. MLA runs head-parallel only: its heads must divide ``tp``."""
     if not model_axis_sharded(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family keeps the model axis "
             f"replicated")
+    if cfg.mla.enabled and cfg.num_heads % tp:
+        raise NotImplementedError(
+            f"{cfg.name}: MLA's {cfg.num_heads} heads do not divide a "
+            f"model axis of {tp} (the port's MLA is head-parallel only)")
     whole, kept = whole_specs(cfg, tp)
     marked = param_specs(whole)
     bad = [p for (p, a), (_, b) in zip(_leaf_paths(marked, ""),

@@ -31,8 +31,9 @@ rank's cut of the parameters (``init_params(tp_rank=, tp_size=)`` draws
 one, ``sharding.shard_tree`` cuts a whole tree) and of the caches
 (``init_caches(tp_size=)``): the embedding vocab-parallel, the residual
 cut by sequence under sequence parallelism, the logits vocab-parallel
-(B, S, V_padded / tp) and ``cross_entropy`` reduced over the group. The
-dense and VLM families only (``sharding.model_axis_sharded``).
+(B, S, V_padded / tp) and ``cross_entropy`` reduced over the group; MoE
+expert-parallel and MLA head-parallel (``models/sharding.py``). The
+dense, VLM and MoE families (``sharding.model_axis_sharded``).
 """
 from __future__ import annotations
 
@@ -112,11 +113,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 
 def _init_cut(cfg: ModelConfig, seed: int, dtype, dev, rank: int,
               tp: int) -> dict:
-    """Rank ``rank`` of ``tp``'s cut of a dense or VLM model's parameters,
-    each leaf drawn at the cut's shape from one generator in leaf order:
-    a matrix N(0, 1) * sqrt(2 / (d_in + d_out)) of the whole leaf's last
-    two dims, a norm scale 1, a bias 0 (``init_params``'
-    distributions; the draws are not a cut of the whole draw)."""
+    """Rank ``rank`` of ``tp``'s cut of a dense, VLM or MoE model's
+    parameters, each leaf drawn at the cut's shape from one generator in
+    leaf order: a matrix (an expert stack's ``(layers, E / tp, d_in,
+    d_out)`` too) N(0, 1) * sqrt(2 / (d_in + d_out)) of the whole leaf's
+    last two dims, a norm scale 1, a bias 0, the router in f32
+    (``init_params``' distributions and dtypes; the draws are not a cut
+    of the whole draw)."""
     sharding.check_model_axis(cfg, tp)
     whole, specs = sharding.whole_specs(cfg, tp)
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
@@ -131,7 +134,8 @@ def _init_cut(cfg: ModelConfig, seed: int, dtype, dev, rank: int,
             return torch.zeros(shape, dtype=dtype, device=dev)
         scale = (2.0 / (x.shape[-2] + x.shape[-1])) ** 0.5
         return torch.randn(shape, generator=gen, dtype=torch.float32,
-                           device=dev).mul_(scale).to(dtype)
+                           device=dev).mul_(scale).to(
+            torch.float32 if name == "router" else dtype)
 
     out: dict = {}
     for (path, x), (_, spec) in zip(sharding._leaf_paths(whole, ""),
@@ -221,7 +225,8 @@ def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
     if cfg.family == "ssm":
         return ssm_mod.ssm_block(mp["ssm"], cfg, x, cache=cache)
     if cfg.mla.enabled:
-        return mla_block(mp["mla"], cfg, x, positions, cache=cache, pos=pos)
+        return mla_block(mp["mla"], cfg, x, positions, cache=cache, pos=pos,
+                         tp=tp)
     if cfg.hybrid_parallel_heads:
         a_out, _ = attention_block(
             mp["attn"], cfg, x, positions, window=window,
@@ -276,7 +281,7 @@ def _block_apply(bp: dict, cfg: ModelConfig, x, positions, window: int,
     aux = None
     if "moe" in bp["ffn"]:
         h2 = rms_norm(x, bp["post_norm_scale"], cfg.rms_eps)
-        f, aux = moe_mod.moe_ffn(bp["ffn"]["moe"], cfg, h2)
+        f, aux = moe_mod.moe_ffn(bp["ffn"]["moe"], cfg, h2, tp)
         x = x + f
     elif cfg.d_ff:
         h2 = rms_norm(x, bp["post_norm_scale"], cfg.rms_eps)
@@ -496,30 +501,32 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     forward gives the conv buffers the activations' dtype on its first
     step (``_conv_caches_to``). With ``tp_size`` over 1 (a model the
     port shards) a rank's cut: K and V hold ``hd / tp_size`` of the head
-    dim where it divides, as ``launch.specs.cache_partition_specs``
+    dim, MLA's latent and rope key ``1 / tp_size`` of their feature
+    dims, each where it divides, as ``launch.specs.cache_partition_specs``
     cuts them."""
     check_supported(cfg)
     dev = resolve_device(device)
     n = _n_scanned(cfg)
-    hd = cfg.resolved_head_dim()
-    if tp_size > 1 and sharding.model_axis_sharded(cfg) \
-            and hd % tp_size == 0:
-        hd //= tp_size
+    if tp_size <= 1 or not sharding.model_axis_sharded(cfg):
+        tp_size = 1
     caches = {"scan": _layer_caches(cfg, n, batch, max_seq, dtype, dev,
-                                    hd)}
+                                    tp_size)}
     if cfg.moe.enabled and cfg.moe.first_dense_layers:
         caches["dense"] = {
             str(i): _layer_caches(cfg, None, batch, max_seq, dtype, dev,
-                                  hd)
+                                  tp_size)
             for i in range(cfg.moe.first_dense_layers)}
     return caches
 
 
 def _layer_caches(cfg: ModelConfig, n: Optional[int], batch: int,
-                  max_seq: int, dtype, dev, hd: int) -> dict:
+                  max_seq: int, dtype, dev, tp_size: int) -> dict:
     """The caches of ``n`` stacked layers (``n`` None: one unstacked),
-    K and V ``hd`` wide."""
+    each feature dim cut to ``1 / tp_size`` where it divides."""
     lead = () if n is None else (n,)
+
+    def cut(dim):
+        return dim // tp_size if dim % tp_size == 0 else dim
 
     def zeros(*shape, dt=dtype):
         return torch.zeros((*lead, *shape), dtype=dt, device=dev)
@@ -528,9 +535,10 @@ def _layer_caches(cfg: ModelConfig, n: Optional[int], batch: int,
         return ssm_mod.init_ssm_cache(cfg, n, batch, dtype, dev)
     if cfg.mla.enabled:
         m = cfg.mla
-        return {"c_kv": zeros(batch, max_seq, m.kv_lora_rank),
-                "k_rope": zeros(batch, max_seq, m.qk_rope_head_dim),
+        return {"c_kv": zeros(batch, max_seq, cut(m.kv_lora_rank)),
+                "k_rope": zeros(batch, max_seq, cut(m.qk_rope_head_dim)),
                 "pos": zeros(dt=torch.int32)}
+    hd = cut(cfg.resolved_head_dim())
     attn = {"k": zeros(batch, max_seq, cfg.num_kv_heads, hd),
             "v": zeros(batch, max_seq, cfg.num_kv_heads, hd),
             "pos": zeros(dt=torch.int32)}

@@ -37,14 +37,18 @@ collectives its last call issued in ``step.collectives`` (the port's
 stand-in for the reference's HLO all-reduce count) and those over the
 ``model`` axis, by op, in ``step.model_collectives``.
 
-The ``model`` axis: for the dense and VLM families, on a mesh whose
-``model`` axis is over 1, the plain and psum steps compute the loss and
+The ``model`` axis: for the dense, VLM and MoE families, on a mesh
+whose ``model`` axis is over 1, the plain and psum steps compute the loss and
 gradients as this rank's share over its ``model`` group
 (``models.sharding.TensorParallel``, sequence parallelism as
 ``tcfg.sequence_parallel`` says). A gradient the axis leaves whole but
-a rank computes on its shard (the q/k norm scales; the residual's norms
-under sequence parallelism) is summed over the group, and the global
-norm counts each cut leaf across the group once. The steps take this
+a rank computes on its shard (``sharding.partial_grad_leaf``: the q/k
+norm scales, the MoE router, MLA's ``w_dkv`` and latent norm; the
+residual's norms under sequence parallelism) is summed over the group,
+and the global norm counts each cut leaf (an expert stack's ``E / n``
+experts among them) across the group once. A data rank routes its own
+rows through the MoE layers, as the reference's ``shard_map`` step
+does. The steps take this
 rank's cut of the parameters (and of ``m`` and ``v``, ZeRO-1 cutting
 within it) and return its cut, or take whole parameters, which every
 rank cuts for itself and, after its share of the backward, gathers back

@@ -39,6 +39,44 @@ def tp_configs():
                 vision_patches_ratio=4)}
 
 
+def moe_configs():
+    """name -> the port's config of ``tests/test_torch_tp_moe.py``:
+    ``tiny-moe`` (the registry's: 4 experts top-2 over ``tiny``'s GQA
+    heads, which divide a model axis of 2 and run by rows at 4),
+    ``tiny-mla`` (``tiny`` with MLA in place of GQA and a dense FFN; its
+    18-wide latent is cut at 2 and whole at 4, its 8 rope dims cut at
+    both) and ``tiny-ds`` (deepseek-v2-lite's structure: a dense first
+    block, MLA, 8 routed experts top-3 and 2 shared, 3 layers)."""
+    from repro_torch.configs.base import MLAConfig, MoEConfig
+    return {name: dataclasses.replace(get_config("tiny"), name=name,
+                                      **moe_fields(name, MLAConfig,
+                                                   MoEConfig))
+            for name in ("tiny-moe", "tiny-mla", "tiny-ds")}
+
+
+def moe_fields(name, mla_cls, moe_cls) -> dict:
+    """The fields ``moe_configs`` sets over ``tiny``, built with either
+    package's ``MLAConfig`` and ``MoEConfig``."""
+    if name == "tiny-moe":
+        return dict(family="moe", qk_norm=False, moe=moe_cls(
+            num_experts=4, top_k=2, expert_d_ff=64))
+    if name == "tiny-mla":
+        return dict(qk_norm=False, mla=mla_cls(
+            kv_lora_rank=18, q_lora_rank=0, qk_nope_head_dim=16,
+            qk_rope_head_dim=8, v_head_dim=16))
+    return dict(family="moe", num_layers=3, qk_norm=False, mla=mla_cls(
+        kv_lora_rank=24, q_lora_rank=0, qk_nope_head_dim=16,
+        qk_rope_head_dim=8, v_head_dim=16), moe=moe_cls(
+        num_experts=8, num_shared_experts=2, top_k=3, expert_d_ff=32,
+        shared_d_ff=64, first_dense_layers=1, dense_d_ff=128))
+
+
+def configs(kind: str) -> dict:
+    """``tp_configs()`` for ``"dense"``, ``moe_configs()`` for
+    ``"moe"``."""
+    return tp_configs() if kind == "dense" else moe_configs()
+
+
 def tcfg(sp: bool, zero1: bool = False) -> TrainConfig:
     return TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=20,
                        remat=False, zero1=zero1, sequence_parallel=sp)
@@ -72,26 +110,28 @@ def _serve(cfg, params, prompt, tp):
             lg, caches = decode_step(params, cfg, toks[:, pos:pos + 1],
                                      caches, pos, extra=extra, tp=tp)
             outs.append(lg.numpy().copy())
-    shapes = {k: tuple(v.shape) for k, v in caches["scan"].items()}
+    shapes = {k: tuple(v.shape) for k, v in caches["scan"].items()
+              if isinstance(v, torch.Tensor)}
     return outs, shapes
 
 
-def tp_cases(rank, shape, np_params, batches, prompts):
+def tp_cases(rank, shape, np_params, batches, prompts, kind="dense"):
     """One rank of a ``shape`` ("data", "model") mesh. For each config
     (``np_params``, ``batches`` and ``prompts`` keyed by its name) and
     sequence parallelism off and on: the forward's logits on the global
     batch, the loss and the whole gradients (``_ModelAxis.grads`` over
     whole parameters), one ``make_train_step(mesh)`` step with and
     without ZeRO-1 on this rank's cut; and, once a config, prefill and
-    DECODE decode steps. Returns host data keyed by (config, sp, what)
-    and the rank's coordinates."""
+    DECODE decode steps. ``kind`` names the configs (``configs``).
+    Returns host data keyed by (config, sp, what) and the rank's
+    coordinates."""
     _one_thread()
     from repro_torch.train import init_adam, zero1_init
     from repro_torch.train.train_step import _ModelAxis, make_train_step
     mesh = make_mesh(shape, ("data", "model"))
     n, r = model_size(mesh), model_rank(mesh)
     out = {"coords": list(mesh.get_coordinate())}
-    for name, cfg in tp_configs().items():
+    for name, cfg in configs(kind).items():
         whole = params_from_jax(np_params[name], device="cpu")
         cut = params_from_jax(np_params[name], device="cpu", tp_rank=r,
                               tp_size=n)
