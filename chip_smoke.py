@@ -32,15 +32,17 @@ and runs, on the card:
      heads of 64, and at qwen2-vl's prefill, 28 q over 4 kv heads of
      128), and in bf16 at each shape phases 28 and 31 give it
      (``K6_SERVED``: 2 x 32768 rows at every attention model's heads,
-     MLA's 192/128, hymba's window of 1024, seamless's 8192 frames; 16 x
-     4096 rows at tinyllama's and hymba's heads), held over slices
+     MLA's 192/128, seamless's one head a model rank over its 8192
+     frames; 16 x 4096 rows at tinyllama's heads and seamless's one head,
+     over 1024 frames), held over slices
      of the query rows at their offset (the plain version's scores at
      32768 rows would not fit), and on each of its three routes at query
      offsets (``K6_OFFSETS``: 16 x 256 rows of a sequence-parallel rank
      at offsets 37 and 3840 over 4096 keys, 16 q heads over 2 KV heads
      of 128, causal and with a window of 1024, printed, not recorded,
-     beside SDPA on the same rows), and in bf16 at the MoE family's cut
-     shapes (``K6_CUT``: phi3.5-moe-42b's 32/8 heads of 128 as the last
+     beside SDPA on the same rows), and in bf16 at the cut shapes of the
+     MoE and hybrid families (``K6_CUT``: phi3.5-moe-42b's 32/8 heads of
+     128 and hymba-1.5b's 25/5 of 64, windowed and global, as the last
      model rank's rows at their offset, deepseek-v2-lite-16b's one head
      of 192/128 a rank, at ``prefill_32k`` and ``train_4k``; printed,
      not recorded) — with
@@ -62,7 +64,8 @@ and runs, on the card:
      of 64, d_state 128, chunk 256, f32) from a zero and a given state,
      and in f32 at each shape phases 28 and 31 give it (``K7_SERVED``: 2
      x 32768 tokens, 128 chunks a sequence, and 16 x 4096, 16 chunks, at
-     mamba2's and hymba's heads) as a prefill passes it and with slow
+     mamba2's cut of 2 heads a model rank and hymba's 50, which every
+     rank scans) as a prefill passes it and with slow
      decays from a seeded state,
      with each of its five passes' traced time on a line of its own,
      and K7 in f32 at mamba2's shape within 2e-5 (relative to 1 +
@@ -222,10 +225,9 @@ and runs, on the card:
      run beside them: ok, skipped and failed counts, 0 failed;
   28. the reference's bf16 cells: one device's share of the single-pod
      mesh (16, 16) of the 22 ``prefill_32k``, ``decode_32k`` and
-     ``long_500k`` cells that fit the card (``BF16_CELLS``; the dense,
-     VLM and MoE archs' shares cut over the model axis, each the share
-     of its last model rank, which sequence-parallel attention loads
-     most), each traced
+     ``long_500k`` cells that fit the card (``BF16_CELLS``; every arch's
+     share cut over the model axis, each the share of its last model
+     rank, which sequence-parallel attention loads most), each traced
      on ``meta`` and run on the card from SEED in bf16 as phase 27 runs
      its cells (``card_cell``: (a) and (b) checked, (c) printed), decode
      cells stepping at their slot over caches of seeded values, with
@@ -242,22 +244,25 @@ and runs, on the card:
      sequence of 32768 tokens, the last 8 (hymba: 256, one chunk)
      decoded to slot 32767 after a prefill of the rest, against one
      forward over all of them: bf16 within twice its gap to f32, f32
-     within 1e-4 of the logits' scale (deepseek's cut MLA decode to slot
-     32767 runs in 32's ranks);
+     within 1e-4 of the logits' scale (deepseek's cut MLA decode, (b),
+     and mamba2's cut SSM decode, (c), to slot 32767 run in 32's ranks);
   31. the reference's ``train_4k`` cells the card trains: one device's
      share of the single-pod mesh (16, 16), 16 x 4096 tokens, of
      mamba2-370m, hymba-1.5b, tinyllama-1.1b, qwen2.5-3b, qwen3-4b,
-     qwen2-vl-7b, qwen1.5-32b, phi3.5-moe-42b and deepseek-v2-lite-16b
-     at full width and depth, bf16, from SEED, the dry-run's
-     ``TrainConfig`` (remat, ZeRO-1 over the plan's 16 data ranks, the
-     dense, VLM and MoE archs cut over its 16 model ranks under
-     sequence parallelism), under ``set_attention_impl(
-     "blockwise", 1024)``: K6's backward recomputes the online softmax
-     over chunks of 1024 keys. Each cell through ``card_cell`` as 28
-     runs its cells (the traced run for mamba2 and tinyllama), its loss and
-     global gradient norm finite and some parameter moved, K6 at two
-     calls a layer a step and K7 at 96 and 64 (mamba2, hymba), each
-     traced cell's K6 and K7 device ms a step printed.
+     qwen2-vl-7b, qwen1.5-32b, phi3.5-moe-42b, deepseek-v2-lite-16b and
+     seamless-m4t-large-v2 at full width and depth, bf16, from SEED, the
+     dry-run's ``TrainConfig`` (remat, ZeRO-1 over the plan's 16 data
+     ranks, every arch cut over its 16 model ranks under sequence
+     parallelism; an MoE layer routes as data rank 0 of the global
+     batch, the other ranks' counts stand-ins), under
+     ``set_attention_impl("blockwise", 1024)``: K6's backward recomputes
+     the online softmax over chunks of 1024 keys. Each cell through
+     ``card_cell`` as 28 runs its cells (the traced run for mamba2,
+     tinyllama and seamless), its loss and global gradient norm finite
+     and some parameter moved, K6 at two calls an attention layer a step
+     (seamless's 72: encoder, self and cross) and K7 at 96 and 64
+     (mamba2, hymba), each traced cell's K6 and K7 device ms a step
+     printed.
      Before them, the blockwise backward against the plain one at a
      depth where both fit: tinyllama cut to 2 layers, 2 x 4096, remat,
      the loss and its gradients under ``"naive"`` and under
@@ -272,16 +277,32 @@ and runs, on the card:
      weights, its forward's vocab-cut logits within 1e-4 of their
      scale, and one ``make_train_step(mesh)`` step under sequence
      parallelism, its loss within 1e-5, norm within GRAD_SYNC_TOL and
-     every gradient within 2e-5 of the unsharded run's; attention is
+     every gradient within 2e-5 of the unsharded run's (a leaf that one
+     f32 rounding of the unsharded run's weights moves by over 5e-6, the
+     SSM's ``a_log`` and ``dt_bias``, within GRAD_SYNC_TOL of the global
+     gradient norm); attention is
      sequence-parallel, so rank r launches K6 (``wgmma_tf32``) at query
      offset 100 r, and no other offset; the same for a two-layer
      deepseek-v2-lite-16b at full width (dense FFN narrowed; MLA
      head-parallel, K6 at offset 0; its MoE layer's 64 experts 16 a
-     rank, at the config's capacity factor); then phase 30 (b) on the
-     same ranks: deepseek's MLA over a narrow dense FFN, each rank's cut
-     weights and cut latent cache, a prefill of 32760 tokens and 8
-     decode steps to slot 32767 within 1e-4 of the unsharded forward's
-     logits' scale, K6 once a layer in the prefill and never in decode;
+     rank, at the config's capacity factor), a two-layer encoder and
+     decoder of seamless-m4t-large-v2 (4 heads a rank, K6 at offset 0,
+     100 frames), and on 2 x 512 tokens mamba2-370m's mixer (a
+     head-parallel scan, K7 once a layer a forward) and hymba-1.5b's
+     hybrid heads (attention by rows at offset 128 r, every rank
+     scanning all 50 SSM heads); then phase 30 (b) on the same ranks:
+     deepseek's MLA over a narrow dense FFN, each rank's cut weights and
+     cut latent cache, a prefill of 32760 tokens and 8 decode steps to
+     slot 32767 within 1e-4 of the unsharded forward's logits' scale, K6
+     once a layer in the prefill and never in decode; 30 (c): mamba2 at
+     full width, two layers, its cut conv and SSM caches, prefills of
+     32512 and 248 tokens and 8 decode steps to slot 32767 within 1e-4,
+     K7 once a layer a prefill and never in decode; and (b) a (2, 2)
+     data x model mesh of the same ranks: deepseek's narrow model at
+     capacity factor 1 (assignments dropped), one ``make_train_step``
+     step whose MoE layer routes each data rank's rows as a part of the
+     global batch, its loss, norm and gradients against the unsharded
+     step on the global batch;
   17. each kernel's launch count on the eighteen paths (3-6, 7-10,
      11-13, 14-15, 16, 20, 21, 22, 18, 19, 26 summed over its ranks, 27
      with two runs a cell on the card, 28 with three, 31's cells with
@@ -364,16 +385,19 @@ K6_SERVED = (
     ("qwen2-vl-7b", 2, 32768, 32768, 28, 4, 128, 128, True, 0),
     ("deepseek-v2-lite-16b mla", 2, 32768, 32768, 16, 16, 192, 128, True,
      0),
-    ("hymba-1.5b windowed", 2, 32768, 32768, 25, 5, 64, 64, True, 1024),
-    ("hymba-1.5b global", 2, 32768, 32768, 25, 5, 64, 64, True, 0),
-    ("seamless encoder", 2, 8192, 8192, 16, 16, 64, 64, False, 0),
-    ("seamless self", 2, 32768, 32768, 16, 16, 64, 64, True, 0),
-    ("seamless cross prefill", 2, 32768, 8192, 16, 16, 64, 64, False, 0),
-    ("seamless cross decode", 8, 1, 8192, 16, 16, 64, 64, False, 0),
+    # seamless-m4t-large-v2's cut shares: one head of 64 a rank (16 over
+    # 16 model ranks), the encoder over S / 4 frames
+    ("seamless encoder head", 2, 8192, 8192, 1, 1, 64, 64, False, 0),
+    ("seamless self head", 2, 32768, 32768, 1, 1, 64, 64, True, 0),
+    ("seamless cross prefill head", 2, 32768, 8192, 1, 1, 64, 64, False, 0),
+    ("seamless decode encoder head", 8, 8192, 8192, 1, 1, 64, 64, False, 0),
+    ("seamless cross decode head", 8, 1, 8192, 1, 1, 64, 64, False, 0),
     ("tinyllama-1.1b train_4k", 16, 4096, 4096, 32, 4, 64, 64, True, 0),
-    ("hymba-1.5b train_4k windowed", 16, 4096, 4096, 25, 5, 64, 64, True,
-     1024),
-    ("hymba-1.5b train_4k global", 16, 4096, 4096, 25, 5, 64, 64, True, 0),
+    ("seamless train_4k encoder head", 16, 1024, 1024, 1, 1, 64, 64, False,
+     0),
+    ("seamless train_4k self head", 16, 4096, 4096, 1, 1, 64, 64, True, 0),
+    ("seamless train_4k cross head", 16, 4096, 1024, 1, 1, 64, 64, False,
+     0),
 )
 # K6 at phase 2's shapes, f32 but for one bf16 row (the f32 tinyllama row
 # recorded last): (where, dtype, B, Sq, Skv, Hq, Hkv, d, dv, causal, window)
@@ -402,20 +426,30 @@ K6_OFFSETS = tuple((dtype, route, window, off)
                                         ("float32", "wgmma_tf32"),
                                         ("float32", "mma_sync"))
                    for window, off in ((0, 37), (0, 3840), (1024, 3840)))
-# K6 at the MoE family's cut shapes (phase 2, bf16 as the cells run it):
-# phi3.5-moe-42b's GQA 32/8 x 128 in sequence mode, the last model rank's
-# rows at their offset (2 x 2048 of 32768 at prefill_32k, 16 x 256 of 4096
-# at train_4k), and deepseek-v2-lite-16b's one head a rank of 192/128 at
-# prefill_32k and train_4k: (where, B, Sq, Skv, Hq, Hkv, d, dv, q_offset)
+# K6 at the cut shapes of the MoE and hybrid families (phase 2, bf16 as
+# the cells run it), causal: phi3.5-moe-42b's GQA 32/8 x 128 and
+# hymba-1.5b's 25/5 x 64 (its window of 1024 and its global layers) in
+# sequence mode, the last model rank's rows at their offset (2 x 2048 of
+# 32768 at prefill_32k, 16 x 256 of 4096 at train_4k), and
+# deepseek-v2-lite-16b's one head a rank of 192/128 at prefill_32k and
+# train_4k: (where, B, Sq, Skv, Hq, Hkv, d, dv, q_offset, window)
 K6_CUT = (
     ("phi3.5-moe-42b prefill_32k rank 15", 2, 2048, 32768, 32, 8, 128, 128,
-     30720),
+     30720, 0),
     ("phi3.5-moe-42b train_4k rank 15", 16, 256, 4096, 32, 8, 128, 128,
-     3840),
+     3840, 0),
     ("deepseek-v2-lite-16b prefill_32k head", 2, 32768, 32768, 1, 1, 192,
-     128, 0),
+     128, 0, 0),
     ("deepseek-v2-lite-16b train_4k head", 16, 4096, 4096, 1, 1, 192, 128,
-     0),
+     0, 0),
+    ("hymba-1.5b prefill_32k rank 15 windowed", 2, 2048, 32768, 25, 5, 64,
+     64, 30720, 1024),
+    ("hymba-1.5b prefill_32k rank 15 global", 2, 2048, 32768, 25, 5, 64, 64,
+     30720, 0),
+    ("hymba-1.5b train_4k rank 15 windowed", 16, 256, 4096, 25, 5, 64, 64,
+     3840, 1024),
+    ("hymba-1.5b train_4k rank 15 global", 16, 256, 4096, 25, 5, 64, 64,
+     3840, 0),
 )
 # K6's three kernels: each route's source and its key in the kernels line
 K6_SOURCE = {"mma_sync": "flash_attention.cu",
@@ -425,11 +459,13 @@ K6_KEY = {"mma_sync": "flash_attention", "wgmma": "flash_attention_sm90",
           "wgmma_tf32": "flash_attention_sm90_tf32"}
 # K7's shapes in the bf16 cells and the train_4k cells, f32 as models/ssm.py
 # passes them (phase 2 holds each): (where, B, S, nh, hd, d_state, chunk),
-# one group
+# one group. The cut shares: mamba2-370m's scan head-parallel, 2 of its 32
+# heads a model rank; hymba-1.5b's 50 heads do not divide 16 ranks, and
+# every rank scans them all
 K7_SERVED = (
-    ("mamba2-370m", 2, 32768, 32, 64, 128, 256),
+    ("mamba2-370m 2 heads", 2, 32768, 2, 64, 128, 256),
     ("hymba-1.5b", 2, 32768, 50, 64, 16, 256),
-    ("mamba2-370m train_4k", 16, 4096, 32, 64, 128, 256),
+    ("mamba2-370m train_4k 2 heads", 16, 4096, 2, 64, 128, 256),
     ("hymba-1.5b train_4k", 16, 4096, 50, 64, 16, 256),
 )
 # phases 11-16: requests, prompt tokens, greedy tokens; the caches' slots
@@ -1883,7 +1919,8 @@ def k6_offset_phase(dev, measure):
 
 
 def k6_cut_phase(dev, measure):
-    """Phase 2's K6 in bf16 at the MoE family's cut shapes (``K6_CUT``),
+    """Phase 2's K6 in bf16 at the cut shapes of the MoE and hybrid
+    families (``K6_CUT``),
     each held against ``flash_attention_plain(q_offset=)`` over slices of
     the query rows as in ``k6_served_phase`` (all rows up to 1024, else
     a middle and the last 512), within 2e-4 plus one bf16 step, then
@@ -1904,18 +1941,19 @@ def k6_cut_phase(dev, measure):
     backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 50)
-    for what, b, sq, skv, hq, hkv, d, dv, off in K6_CUT:
+    for what, b, sq, skv, hq, hkv, d, dv, off, window in K6_CUT:
         check(off + sq == skv, f"K6 cut row {what}: rows end at {off + sq}")
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
             torch.bfloat16) for shape in ((b, sq, hq, d), (b, skv, hkv, d),
                                           (b, skv, hkv, dv)))
-        got = flash_attention(q, k, v, causal=True, q_offset=off)
+        got = flash_attention(q, k, v, causal=True, window=window,
+                              q_offset=off)
         slices = ([(0, sq)] if sq <= 1024 else
                   [(sq // 2 - 256, sq // 2 + 256), (sq - 512, sq)])
         err = 0.0
         for r0, r1 in slices:
             want = flash_attention_plain(q[:, r0:r1], k, v, causal=True,
-                                         q_offset=off + r0)
+                                         window=window, q_offset=off + r0)
             e = (got[:, r0:r1].float() - want.float()).abs()
             check(bool((e <= 2e-4 + 2.0 ** -7 * want.float().abs()).all()),
                   f"flash_attention bf16 {what} rows {r0}:{r1}: max err "
@@ -1925,7 +1963,12 @@ def k6_cut_phase(dev, measure):
         qt = q.transpose(1, 2).contiguous()
         kt, vt = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
                   .contiguous() for t in (k, v))
-        mask = causal_lower_right(sq, skv) if off else None
+        if window:
+            i = off + torch.arange(sq, device=dev)[:, None]
+            j = torch.arange(skv, device=dev)[None, :]
+            mask = (i >= j) & (i - j < window)
+        else:
+            mask = causal_lower_right(sq, skv) if off else None
 
         def library():
             with sdpa_kernel(backends):
@@ -1935,14 +1978,18 @@ def k6_cut_phase(dev, measure):
 
         r0 = slices[-1][0]
         route = flash_attention_route(q.dtype, d, dv, sq)
-        cost = flash_attention_cost(q, k, v, causal=True, q_offset=off)
+        cost = flash_attention_cost(q, k, v, causal=True, window=window,
+                                    q_offset=off)
         measure("flash_attention", K6_SOURCE[route],
                 "src/repro/kernels/flash_attention.py:102",
                 f"{what} {b}x{sq}/{skv}x{hq}/{hkv}x{d}"
-                f"{f'/{dv}' if dv != d else ''} causal q_offset{off} "
+                f"{f'/{dv}' if dv != d else ''} causal"
+                f"{f' window{window}' if window else ''} q_offset{off} "
                 f"bfloat16", err,
-                lambda: flash_attention(q, k, v, causal=True, q_offset=off),
+                lambda: flash_attention(q, k, v, causal=True, window=window,
+                                        q_offset=off),
                 lambda: flash_attention_plain(q[:, r0:], k, v, causal=True,
+                                              window=window,
                                               q_offset=off + r0),
                 cost, library=library, peak_flops=PEAK_BF16_FLOPS, iters=5,
                 key=K6_KEY[route], record=False, plain_rows=f"{r0}:{sq}",
@@ -2357,10 +2404,11 @@ def dryrun_phase(dev, cpu, mem_tol=None):
 #: cell the card holds: the 9 archs whose share fits, at prefill_32k (2
 #: sequences of 32768 tokens) and decode_32k (8 sequences, the step at
 #: slot 32767), and the SSM and hybrid archs at long_500k (1 sequence,
-#: slot 524287). The dense, VLM and MoE archs' shares are cut over the
-#: model axis as the reference cuts them (qwen1.5-32b's 17.24 and 26.63 GB
-#: on meta, 176.90 and 424.81 with the axis replicated; phi3.5-moe-42b's
-#: 11.69 and 7.59, 103.84 and 120.33 replicated).
+#: slot 524287). Every arch's share is cut over the model axis as the
+#: reference cuts it (qwen1.5-32b's 17.24 and 26.63 GB on meta, 176.90 and
+#: 424.81 with the axis replicated; phi3.5-moe-42b's 11.69 and 7.59,
+#: 103.84 and 120.33 replicated; seamless-m4t-large-v2's 2.96 and 3.34,
+#: 44.30 and 33.87).
 BF16_ARCHS = ("tinyllama-1.1b", "qwen2.5-3b", "qwen3-4b", "qwen2-vl-7b",
               "qwen1.5-32b", "mamba2-370m", "hymba-1.5b",
               "deepseek-v2-lite-16b", "seamless-m4t-large-v2",
@@ -2405,17 +2453,19 @@ def bf16_cells_phase(dev, traces=None):
 
 #: the train_4k cells one card trains: one device's share of the
 #: single-pod mesh (16 x 4096 tokens), under the blockwise backward at
-#: TRAIN_4K_CHUNK; the dense, VLM and MoE archs' shares cut over the
-#: model axis (PERF.md gives each meta peak). seamless-m4t-large-v2 keeps
-#: the axis replicated and needs more than the card (281.00 GB on meta).
+#: TRAIN_4K_CHUNK, every arch's share cut over the model axis (PERF.md
+#: gives each meta peak; seamless-m4t-large-v2's needed 281.00 GB with
+#: the axis replicated)
 TRAIN_4K_ARCHS = ("mamba2-370m", "hymba-1.5b", "tinyllama-1.1b",
                   "qwen2.5-3b", "qwen3-4b", "qwen2-vl-7b", "qwen1.5-32b",
-                  "phi3.5-moe-42b", "deepseek-v2-lite-16b")
+                  "phi3.5-moe-42b", "deepseek-v2-lite-16b",
+                  "seamless-m4t-large-v2")
 #: keys a chunk of K6's blockwise backward: the reference's 2048 leaves
 #: tinyllama's share at 92.18 GB on meta, over the card's 80 GB
 TRAIN_4K_CHUNK = 1024
 #: K6 and K7 calls a step: the forward and the remat recompute, each
-#: once per attention or SSM layer
+#: once per attention or SSM layer (seamless's encoder, decoder self- and
+#: cross-attention: 72)
 TRAIN_4K_LAUNCHES = {"mamba2-370m": {"ssd_scan": 96},
                      "hymba-1.5b": {"flash_attention": 64, "ssd_scan": 64},
                      "tinyllama-1.1b": {"flash_attention": 44},
@@ -2424,10 +2474,12 @@ TRAIN_4K_LAUNCHES = {"mamba2-370m": {"ssd_scan": 96},
                      "qwen2-vl-7b": {"flash_attention": 56},
                      "qwen1.5-32b": {"flash_attention": 128},
                      "phi3.5-moe-42b": {"flash_attention": 64},
-                     "deepseek-v2-lite-16b": {"flash_attention": 54}}
+                     "deepseek-v2-lite-16b": {"flash_attention": 54},
+                     "seamless-m4t-large-v2": {"flash_attention": 144}}
 #: the cells whose step runs a third time under the profiler, to keep the
-#: smoke in its limit: one replicated and one cut share
-TRAIN_4K_TRACED = frozenset({"mamba2-370m", "tinyllama-1.1b"})
+#: smoke in its limit: an SSM, a dense and the enc-dec share
+TRAIN_4K_TRACED = frozenset({"mamba2-370m", "tinyllama-1.1b",
+                             "seamless-m4t-large-v2"})
 #: the blockwise backward against the plain one: tinyllama's layers, and
 #: the batch and length of the check
 BLOCKWISE_CHECK = (2, 2, 4096)
@@ -2563,16 +2615,29 @@ def train_4k_phase(dev, traces=None):
 # ---- 32. the model axis: four gloo ranks of a (1, 4) mesh ----------------
 
 TP_RANKS = 4
-#: phase 32's models, each at two layers with its FFN and vocab narrowed:
-#: qwen2.5-3b's attention (16 q heads over 2 KV heads of 128, d_model 2048:
-#: sequence-parallel at a model axis of 4), and deepseek-v2-lite-16b's MLA
-#: (16 heads of 192/128 over a 512-wide latent: head-parallel) with its
-#: dense layer 0 and one MoE layer of 64 experts top-6 and 2 shared (16
-#: experts a rank), at the config's capacity factor
+#: phase 32's models, each at two layers (an enc-dec's encoder too) with
+#: its FFN (where it has one) and vocab narrowed: qwen2.5-3b's attention
+#: (16 q heads over 2 KV heads of 128, d_model 2048: sequence-parallel at
+#: a model axis of 4); deepseek-v2-lite-16b's MLA (16 heads of 192/128
+#: over a 512-wide latent: head-parallel) with its dense layer 0 and one
+#: MoE layer of 64 experts top-6 and 2 shared (16 experts a rank), at the
+#: config's capacity factor; seamless-m4t-large-v2's encoder and decoder
+#: (16 heads of 64: 4 a rank, the cross-attention too); mamba2-370m's
+#: mixer (32 heads of 64: a head-parallel scan, 8 a rank); hymba-1.5b's
+#: hybrid heads (25 q over 5 KV heads of 64 by rows; 50 SSM heads, every
+#: rank scanning all, over its whole 6482-column in_proj)
 TP_MODEL = dict(num_layers=2, d_ff=2048, vocab_size=4096)
-TP_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b")
-#: sequences and tokens: 100 q rows a rank, at offsets 0, 100, 200, 300
-TP_BATCH, TP_SEQ = 2, 400
+TP_ARCHS = ("qwen2.5-3b", "deepseek-v2-lite-16b", "seamless-m4t-large-v2",
+            "mamba2-370m", "hymba-1.5b")
+#: sequences and tokens: 100 q rows a rank, at offsets 0, 100, 200, 300;
+#: the scanning models take 512 (two chunks of 256), 128 rows a rank
+TP_BATCH, TP_SEQ, TP_SCAN_SEQ = 2, 400, 512
+#: the (2, 2) data x model MoE step: deepseek's narrow model at capacity
+#: factor 1, so that the global batch's routing drops assignments
+TP_MOE_CAPACITY = 1.0
+#: a rank's gradient leaf against the unsharded run's: max |difference|
+#: over the whole leaf's largest |value| (tests/test_torch_train.py's)
+TP_GRAD_TOL = 2e-5
 
 
 def _tp_cfg(arch="qwen2.5-3b", moe=True):
@@ -2582,8 +2647,11 @@ def _tp_cfg(arch="qwen2.5-3b", moe=True):
 
     from repro_torch.configs.base import MoEConfig
     from repro_torch.configs.registry import get_config
-    cfg = dataclasses.replace(get_config(arch), name=f"{arch}-narrow",
-                              **TP_MODEL)
+    base = get_config(arch)
+    narrow = dict(TP_MODEL, d_ff=TP_MODEL["d_ff"] if base.d_ff else 0)
+    if base.enc_dec:
+        narrow["encoder_layers"] = TP_MODEL["num_layers"]
+    cfg = dataclasses.replace(base, name=f"{arch}-narrow", **narrow)
     if cfg.moe.enabled:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
             cfg.moe, dense_d_ff=TP_MODEL["d_ff"]))
@@ -2591,6 +2659,54 @@ def _tp_cfg(arch="qwen2.5-3b", moe=True):
             cfg = dataclasses.replace(cfg, name=f"{arch}-mla-narrow",
                                       family="dense", moe=MoEConfig())
     return cfg
+
+
+def _tp_moe_cfg():
+    """The (2, 2) MoE step's model: deepseek's narrow one at
+    ``TP_MOE_CAPACITY``."""
+    import dataclasses
+    cfg = _tp_cfg("deepseek-v2-lite-16b")
+    return dataclasses.replace(cfg, name=f"{cfg.name}-cf1",
+                               moe=dataclasses.replace(
+                                   cfg.moe,
+                                   capacity_factor=TP_MOE_CAPACITY))
+
+
+def _tp_data(cfg, dev):
+    """Phase 32's batch of ``cfg``: phase 18's TP_BATCH sequences of
+    TP_SEQ tokens (TP_SCAN_SEQ where the model scans), and for an
+    enc-dec model N(0, 1) frames from SEED, a quarter as many."""
+    seq = TP_SCAN_SEQ if cfg.ssm.enabled else TP_SEQ
+    data = _train_data(cfg, dev, TP_BATCH, seq)
+    if cfg.enc_dec:
+        gen = torch.Generator().manual_seed(SEED + 60)
+        data["enc_embeds"] = torch.randn(
+            (TP_BATCH, seq // cfg.encoder_seq_ratio, cfg.d_model),
+            generator=gen).to(dev)
+    return data
+
+
+def _tp_attention(cfg):
+    """How a phase 32 model's attention runs over TP_RANKS: "none" (an
+    SSM), "heads" (they divide the axis, or MLA) or "rows"."""
+    from repro_torch.models.sharding import attention_seq_mode
+    if cfg.family == "ssm":
+        return "none"
+    if cfg.mla.enabled or not attention_seq_mode(
+            cfg.num_heads, cfg.num_kv_heads, TP_RANKS):
+        return "heads"
+    return "rows"
+
+
+def _tp_k6_want(cfg, rank):
+    """The (route, query offset) set of a rank's K6 launches: none for an
+    SSM, offset 0 by heads, else the rank's rows of phase 32's
+    sequence."""
+    mode = _tp_attention(cfg)
+    if mode == "none":
+        return set()
+    rows = (TP_SCAN_SEQ if cfg.ssm.enabled else TP_SEQ) // TP_RANKS
+    return {("wgmma_tf32", rank * rows if mode == "rows" else 0)}
 
 
 def _k6_logged():
@@ -2618,6 +2734,7 @@ def _tp_rank(rank, device, ref_paths):
     2e-5 of the whole leaf's largest |value|. Then phase 30's cut decode
     (``_tp_long_decode``). Every K6 launch is logged with its route and
     query offset."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_params, sharding
     from repro_torch.models.transformer import forward
@@ -2632,8 +2749,9 @@ def _tp_rank(rank, device, ref_paths):
         _, specs = sharding.whole_specs(cfg, TP_RANKS)
         cut = sharding.shard_tree(init_params(cfg, SEED, device=dev), specs,
                                   rank, TP_RANKS)
-        data = _train_data(cfg, dev, TP_BATCH, TP_SEQ)
+        data = _tp_data(cfg, dev)
         offsets, undo = _k6_logged()
+        k7_before = ssd_scan.launches
         out = {}
         try:
             tp = sharding.tensor_parallel(cfg, mesh, True)
@@ -2659,24 +2777,139 @@ def _tp_rank(rank, device, ref_paths):
             out["peak_gb"] = _peak_gb(dev)
             out["loss"], out["grad_norm"] = (float(loss),
                                              float(step.grad_norm))
-            errs = {}
-            for (path, g), (_, w), (_, whole) in zip(
-                    sharding._leaf_paths(step.last_grads, ""),
-                    sharding._leaf_paths(sharding.shard_tree(
-                        ref["grads"], specs, rank, TP_RANKS), ""),
-                    sharding._leaf_paths(ref["grads"], "")):
-                errs[path] = float((g.cpu() - w).abs().max()
-                                   / whole.abs().max())
-            out["grad_errs"] = errs
+            out["grad_errs"] = _tp_grad_errs(step.last_grads, ref["grads"],
+                                             specs, rank, TP_RANKS)
             out["model_collectives"] = dict(step.model_collectives)
             del cut, step, loss
         finally:
             undo()
         out["k6"] = sorted(set(offsets))
+        out["k7"] = ssd_scan.launches - k7_before
         res[arch] = out
     res["long"] = _tp_long_decode(rank, dev, mesh, ref_paths["long"])
+    res["long_ssm"] = _tp_long_ssm_decode(rank, dev, mesh,
+                                          ref_paths["long_ssm"])
+    res["moe_data"] = _tp_moe_data_step(rank, dev, ref_paths["moe_data"])
     res["launches"] = _launches(dev, counted)
     return res
+
+
+def _tp_grad_errs(grads, ref_grads, specs, rank, n):
+    """Each leaf of a rank's cut gradients against the cut of the whole
+    ``ref_grads``: (its max |difference| over the whole leaf's largest
+    |value|, the max |difference| itself); an empty leaf (a full-width
+    SSM's zero-width FFN) has none, a leaf of zeros its difference."""
+    from repro_torch.models import sharding
+    out = {}
+    for (path, g), (_, w), (_, whole) in zip(
+            sharding._leaf_paths(grads, ""),
+            sharding._leaf_paths(sharding.shard_tree(
+                ref_grads, specs, rank, n), ""),
+            sharding._leaf_paths(ref_grads, "")):
+        if whole.numel():
+            err = float((g.cpu() - w).abs().max())
+            out[path] = (err / max(float(whole.abs().max()), 1e-30), err)
+    return out
+
+
+def _tp_grad_ok(errs, ref):
+    """The leaves of ``_tp_grad_errs`` off their unsharded twin: each
+    must lie within TP_GRAD_TOL of the whole leaf's largest |value|, or,
+    for a leaf that one f32 rounding of the weights moves by over a
+    quarter of that in the unsharded run (``_tp_reference``'s
+    sensitivity; a rank's step rounds the same values in several more
+    places, each gather, reduce and the split norm), within
+    GRAD_SYNC_TOL of the global gradient norm, the bound the rdma step's
+    gradients, summed in another order, are held to (phase 19)."""
+    return {path: rel for path, (rel, err) in errs.items()
+            if rel > TP_GRAD_TOL and not (
+                ref["sensitivity"].get(path, 0.0) > TP_GRAD_TOL / 4
+                and err <= GRAD_SYNC_TOL * ref["norm"])}
+
+
+def _tp_moe_data_step(rank, dev, ref_path):
+    """32 (b) in one rank of a (2, 2) ("data", "model") mesh over the same
+    ranks: ``_tp_moe_cfg``'s cut over 2 model ranks, one
+    ``make_train_step(mesh)`` step on phase 32's global batch (one
+    sequence a data rank), its MoE layer routing the rank's rows as a
+    part of the global batch, against the unsharded step on the global
+    batch saved at ``ref_path``: the loss, the norm and each gradient
+    leaf of the rank's cut."""
+    from repro_torch.launch.mesh import make_mesh, model_rank
+    from repro_torch.models import init_params, sharding
+    from repro_torch.train import init_adam
+    from repro_torch.train.train_step import make_train_step
+    ref = torch.load(ref_path)
+    cfg = _tp_moe_cfg()
+    mesh = make_mesh((2, 2), ("data", "model"))
+    m = model_rank(mesh)
+    _, specs = sharding.whole_specs(cfg, 2)
+    cut = sharding.shard_tree(init_params(cfg, SEED, device=dev), specs, m,
+                              2)
+    step = make_train_step(cfg, _train_config(sequence_parallel=True), mesh)
+    step.keep_grads = True
+    _sync(dev)
+    t = time.perf_counter()
+    loss, _, _ = step(cut, init_adam(cut), _tp_data(cfg, dev))
+    _sync(dev)
+    return {"coords": list(mesh.get_coordinate()), "loss": float(loss),
+            "grad_norm": float(step.grad_norm),
+            "step_ms": (time.perf_counter() - t) * 1e3,
+            "grad_errs": _tp_grad_errs(step.last_grads, ref["grads"], specs,
+                                       m, 2)}
+
+
+def _tp_long_ssm_decode(rank, dev, mesh, ref_path):
+    """30 (c) in one rank: mamba2-370m at full width, two layers
+    (``_tp_cfg``), f32 from SEED, this rank's cut and cut caches (the
+    conv cache's channels and the state's head dim); a prefill of the
+    saved sequence's first 32512 tokens (127 chunks) and of the next 248
+    from the state (one chunk), then 8 teacher-forced decode steps to its
+    last slot, each updating the state's cut where it lies, against the
+    cut of the unsharded forward's logits saved at ``ref_path``. K7
+    launches once a layer in each prefill, none in decode."""
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import (forward, init_caches, init_params,
+                                    sharding)
+    from repro_torch.serve import decode_step, prefill_step
+    ref = torch.load(ref_path)
+    cfg = _tp_cfg("mamba2-370m")
+    _, specs = sharding.whole_specs(cfg, TP_RANKS)
+    cut = sharding.shard_tree(init_params(cfg, SEED, device=dev), specs,
+                              rank, TP_RANKS)
+    tp = sharding.tensor_parallel(cfg, mesh, False)
+    toks = ref["tokens"].to(dev)
+    n = toks.shape[1]
+    head = n - 8
+    first = head // cfg.ssm.chunk_size * cfg.ssm.chunk_size
+    caches = init_caches(cfg, 1, n, torch.float32, dev, tp_size=TP_RANKS)
+    k7 = ssd_scan.launches
+    with torch.no_grad():
+        _sync(dev)
+        t = time.perf_counter()
+        _, caches = prefill_step(cut, cfg, {"tokens": toks[:, :first]},
+                                 caches, tp=tp)
+        lg, caches, _ = forward(cut, cfg, {"tokens": toks[:, first:head]},
+                                caches=caches, pos=first, tp=tp)
+        _sync(dev)
+        prefill_ms = (time.perf_counter() - t) * 1e3
+        k7_prefill = ssd_scan.launches - k7
+        steps = [lg[:, -1]]
+        t = time.perf_counter()
+        for i in range(head, n):
+            lg, caches = decode_step(cut, cfg, toks[:, i:i + 1], caches, i,
+                                     tp=tp)
+            steps.append(lg[:, 0])
+        _sync(dev)
+        decode_ms = (time.perf_counter() - t) * 1e3 / (n - head)
+    got = torch.stack(steps, dim=1).cpu()
+    want = tp.cut(ref["logits"], 2)
+    return {"err": float((got - want).abs().max()),
+            "scale": float(ref["logits"].abs().max()),
+            "cache": {k: list(v.shape) for k, v in caches["scan"].items()},
+            "prefills": [first, head - first], "k7_prefill": k7_prefill,
+            "k7_decode": ssd_scan.launches - k7 - k7_prefill,
+            "prefill_ms": prefill_ms, "decode_ms": decode_ms}
 
 
 def _tp_long_decode(rank, dev, mesh, ref_path):
@@ -2734,30 +2967,82 @@ def _tp_long_decode(rank, dev, mesh, ref_path):
 def _tp_reference(cfg, dev):
     """The unsharded run phase 32 holds a narrow model's ranks against:
     f32 weights from SEED, the forward's logits and one plain train step's
-    loss, gradients and norm on phase 18's batch."""
+    loss, gradients and norm on phase 18's batch. ``sensitivity``: each
+    gradient leaf's change, over its largest |value|, when every matrix
+    of the weights moves by one f32 rounding (times 1 + 2^-23 N(0, 1),
+    seeded): the SSM's per-head ``a_log`` and ``dt_bias`` gradients sum
+    the chunked scan's large decays, and move by 1e-5 to 1e-4 of
+    themselves (``_tp_grad_ok``)."""
     from repro_torch._tree import tree_map
-    from repro_torch.models import init_params
+    from repro_torch.models import init_params, sharding
     from repro_torch.models.transformer import forward
     from repro_torch.train import init_adam
     from repro_torch.train.train_step import make_train_step
     params = init_params(cfg, SEED, device=dev)
-    data = _train_data(cfg, dev, TP_BATCH, TP_SEQ)
+    data = _tp_data(cfg, dev)
     with torch.no_grad():
         logits = forward(params, cfg, data)[0].cpu()
     step = make_train_step(cfg, _train_config(sequence_parallel=True))
     step.keep_grads = True
-    loss, _, _ = step(params, init_adam(params), data)
-    return {"logits": logits, "loss": float(loss),
-            "norm": float(step.grad_norm),
-            "grads": tree_map(lambda g: g.detach().cpu(), step.last_grads)}
+
+    def grads(p):
+        out = step(p, init_adam(p), data)
+        return out[0], tree_map(lambda g: g.detach().cpu(), step.last_grads)
+
+    loss, whole = grads(params)
+    norm = float(step.grad_norm)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    _, moved = grads(tree_map(lambda t: t * (1 + 2.0 ** -23 * torch.randn(
+        t.shape, generator=gen, device=dev)) if t.ndim >= 2 else t, params))
+    sensitivity = {path: float((a - b).abs().max()
+                               / max(float(b.abs().max()), 1e-30))
+                   for (path, a), (_, b) in zip(
+                       sharding._leaf_paths(moved, ""),
+                       sharding._leaf_paths(whole, "")) if b.numel()}
+    return {"logits": logits, "loss": float(loss), "norm": norm,
+            "grads": whole, "sensitivity": sensitivity}
 
 
-def _long_reference(dev):
-    """Phase 30 (b)'s unsharded run: the MLA model's forward over one
-    sequence of LONG_SEQ seeded tokens, the logits at the prefill's last
-    position and the 8 decode steps' positions."""
+def _moe_data_reference(dev):
+    """32 (b)'s unsharded run: ``_tp_reference`` of ``_tp_moe_cfg`` (the
+    plain step routes the global batch at once), with the assignments
+    its MoE layer drops counted, and the loss of the per-shard function
+    (each data shard's sequence routed alone, the reference's
+    ``shard_map`` step) beside."""
+    from repro_torch.models import init_params
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import loss_fn
+    cfg = _tp_moe_cfg()
+    real, dropped = moe_mod._dispatch_indices, []
+
+    def counted(*args):
+        pos, keep = real(*args)
+        dropped.append(int((~keep).sum()))
+        return pos, keep
+
+    moe_mod._dispatch_indices = counted
+    try:
+        ref = _tp_reference(cfg, dev)
+    finally:
+        moe_mod._dispatch_indices = real
+    params = init_params(cfg, SEED, device=dev)
+    data = _tp_data(cfg, dev)
+    with torch.no_grad():
+        shards = [float(loss_fn(params, cfg, {k: v[i:i + 1]
+                                              for k, v in data.items()}))
+                  for i in range(TP_BATCH)]
+    ref["dropped"] = dropped
+    ref["per_shard_loss"] = sum(shards) / len(shards)
+    return ref
+
+
+def _long_reference(dev, arch="deepseek-v2-lite-16b"):
+    """Phase 30 (b)'s unsharded run (30 (c)'s with ``arch``
+    mamba2-370m): the narrow model's forward (deepseek's MLA over a
+    dense FFN) over one sequence of LONG_SEQ seeded tokens, the logits at
+    the prefill's last position and the 8 decode steps' positions."""
     from repro_torch.models import forward, init_params
-    cfg = _tp_cfg("deepseek-v2-lite-16b", moe=False)
+    cfg = _tp_cfg(arch, moe=False)
     params = init_params(cfg, SEED, device=dev)
     toks = torch.from_numpy(np.random.default_rng(SEED + 40).integers(
         0, cfg.vocab_size, (1, LONG_SEQ))).to(dev)
@@ -2773,16 +3058,23 @@ def tp_phase(dev):
     sequence_parallel=True)``) and phase 30 (b)'s forward
     (``_long_reference``), saved for the ranks; then TP_RANKS gloo ranks
     of a (1, TP_RANKS) ("data", "model") mesh on the card (``_tp_rank``),
-    each holding its share against them. qwen2.5-3b's heads do not divide
-    the axis, so its attention is sequence-parallel: rank r's K6 launches
-    take q rows at offset r x TP_SEQ / TP_RANKS; deepseek's MLA is
-    head-parallel (4 heads a rank, offset 0) and its MoE layer
-    expert-parallel (16 experts a rank). Returns the ranks' launches
-    summed."""
+    each holding its share against them. qwen2.5-3b's and hymba's heads
+    do not divide the axis, so their attention is sequence-parallel: rank
+    r's K6 launches take q rows at offset r x S / TP_RANKS; deepseek's MLA
+    and seamless's attention are head-parallel (4 heads a rank, offset
+    0), deepseek's MoE layer expert-parallel (16 experts a rank); K7 runs
+    on every rank's share of mamba2 and hymba, once a layer a forward.
+    The same ranks then run phase 30 (b) and (c), the cut MLA and SSM
+    decodes to slot 32767, and (b) a (2, 2) data x model mesh's MoE step
+    (``_tp_moe_data_step``) against the unsharded step on the global
+    batch, whose routing drops assignments (``_moe_data_reference``).
+    Returns the ranks' launches summed."""
     from repro_torch.launch.mesh import run_peers
 
     refs = {arch: _tp_reference(_tp_cfg(arch), dev) for arch in TP_ARCHS}
     refs["long"] = _long_reference(dev)
+    refs["long_ssm"] = _long_reference(dev, "mamba2-370m")
+    refs["moe_data"] = _moe_data_reference(dev)
     cuda = dev.type == "cuda"
     kind, rank_dev = ("cuda", None) if cuda else ("cpu", "cpu")
     tmp = tempfile.mkdtemp(prefix="chip_smoke_tp_")
@@ -2800,10 +3092,9 @@ def tp_phase(dev):
         wall = time.perf_counter() - t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    rows = TP_SEQ // TP_RANKS
     for arch in TP_ARCHS:
         ref, cfg = refs[arch], _tp_cfg(arch)
-        mla = cfg.mla.enabled
+        scans = cfg.ssm.enabled
         for r, res in enumerate(got):
             out = res[arch]
             check(out["logits_err"] <= SERVE_TOL,
@@ -2814,20 +3105,33 @@ def tp_phase(dev):
             _near(out["grad_norm"], ref["norm"],
                   f"model axis {arch} rank {r} gradient norm",
                   GRAD_SYNC_TOL)
-            worst = max(out["grad_errs"].values())
-            check(worst <= 2e-5, f"model axis {arch} rank {r}: a gradient "
-                                 f"{worst} off ({out['grad_errs']})")
-            want = {("wgmma_tf32", 0 if mla else r * rows)}
+            off = _tp_grad_ok(out["grad_errs"], ref)
+            check(not off, f"model axis {arch} rank {r}: gradients off "
+                           f"{off} ({out['grad_errs']})")
+            worst = max(rel for rel, _ in out["grad_errs"].values())
+            held = sorted(p for p, (rel, _) in out["grad_errs"].items()
+                          if rel > TP_GRAD_TOL)
+            want = _tp_k6_want(cfg, r)
             check(set(map(tuple, out["k6"])) == want,
                   f"model axis {arch} rank {r}: K6 launches {out['k6']}, "
                   f"want {want}")
+            # the forward, the step's and its remat recompute: one a layer
+            k7 = 3 * cfg.num_layers if scans else 0
+            check(out["k7"] == k7, f"model axis {arch} rank {r}: K7 "
+                                   f"launched {out['k7']}, want {k7}")
             phase("model axis rank", rank=r, ranks=TP_RANKS, arch=cfg.name,
-                  batch=f"{TP_BATCH}x{TP_SEQ}",
-                  attention="heads" if mla else "rows",
-                  k6=json.dumps(out["k6"]), logits_err=out["logits_err"],
+                  batch=f"{TP_BATCH}x{TP_SCAN_SEQ if scans else TP_SEQ}",
+                  attention=_tp_attention(cfg),
+                  k6=json.dumps(out["k6"]), k7=out["k7"],
+                  logits_err=out["logits_err"],
                   loss=out["loss"], plain_loss=ref["loss"],
                   grad_norm=out["grad_norm"], plain_grad_norm=ref["norm"],
-                  worst_grad_err=worst, forward_ms=out["forward_ms"],
+                  worst_grad_err=worst,
+                  held_to_the_norm=json.dumps({p: [out["grad_errs"][p][1]
+                                                   / ref["norm"],
+                                                   ref["sensitivity"][p]]
+                                               for p in held}),
+                  forward_ms=out["forward_ms"],
                   step_ms=out["step_ms"], peak_gb=out["peak_gb"],
                   model_collectives=json.dumps(out["model_collectives"],
                                                sort_keys=True),
@@ -2854,6 +3158,53 @@ def tp_phase(dev):
               cache=json.dumps(out["cache"]),
               prefill_ms=out["prefill_ms"],
               decode_ms_per_step=out["decode_ms"], dtype="float32",
+              wire="gloo through host")
+    cfg = _tp_cfg("mamba2-370m")
+    s_cfg = cfg.ssm
+    conv = s_cfg.d_inner(cfg.d_model) + 2 * s_cfg.d_state
+    for r, res in enumerate(got):
+        out = res["long_ssm"]
+        tol = SERVE_TOL * out["scale"]
+        check(out["err"] <= tol,
+              f"cut SSM decode at {LONG_SEQ} rank {r}: max err "
+              f"{out['err']} over {tol}")
+        check(out["cache"]["conv"][-1] == conv // TP_RANKS
+              and out["cache"]["ssm"][-2] == s_cfg.head_dim // TP_RANKS,
+              f"cut SSM decode rank {r}: caches {out['cache']}")
+        check(out["k7_prefill"] == 2 * cfg.num_layers
+              and out["k7_decode"] == 0,
+              f"cut SSM decode rank {r}: K7 {out['k7_prefill']} in the "
+              f"prefills, {out['k7_decode']} in decode")
+        phase("long decode cut ssm", rank=r, ranks=TP_RANKS, arch=cfg.name,
+              tokens=LONG_SEQ, prefills=json.dumps(out["prefills"]),
+              decode_steps=8, last_slot=LONG_SEQ - 1,
+              max_abs_err=out["err"], tolerance=tol,
+              logit_scale=out["scale"], cache=json.dumps(out["cache"]),
+              k7_prefill=out["k7_prefill"], prefill_ms=out["prefill_ms"],
+              decode_ms_per_step=out["decode_ms"], dtype="float32",
+              wire="gloo through host")
+    ref, cfg = refs["moe_data"], _tp_moe_cfg()
+    check(sum(ref["dropped"]) > 0,
+          f"the (2, 2) MoE step's global batch drops nothing: "
+          f"{ref['dropped']}")
+    for r, res in enumerate(got):
+        out = res["moe_data"]
+        _near(out["loss"], ref["loss"], f"(2, 2) MoE step rank {r} loss")
+        _near(out["grad_norm"], ref["norm"],
+              f"(2, 2) MoE step rank {r} gradient norm", GRAD_SYNC_TOL)
+        off = _tp_grad_ok(out["grad_errs"], ref)
+        check(not off, f"(2, 2) MoE step rank {r}: gradients off {off} "
+                       f"({out['grad_errs']})")
+        worst = max(rel for rel, _ in out["grad_errs"].values())
+        phase("model axis data routing", rank=r,
+              coords=json.dumps(out["coords"]), arch=cfg.name,
+              mesh="data 2 x model 2", batch=f"{TP_BATCH}x{TP_SEQ}",
+              capacity_factor=TP_MOE_CAPACITY,
+              dropped_by_call=json.dumps(ref["dropped"]), loss=out["loss"],
+              plain_loss=ref["loss"],
+              per_shard_loss=ref["per_shard_loss"],
+              grad_norm=out["grad_norm"], plain_grad_norm=ref["norm"],
+              worst_grad_err=worst, step_ms=out["step_ms"],
               wire="gloo through host")
     phase("model axis", ranks=TP_RANKS, mesh="data 1 x model 4",
           archs=",".join(TP_ARCHS), spawn_and_run_s=wall)
@@ -4426,7 +4777,7 @@ def main():
 
     # ---- 32. the model axis: four gloo ranks of a (1, 4) mesh on the card --
     # every rank counts its own launches from 0 and returns them; ranks 1-3
-    # launch K6 at query offsets above 0
+    # launch K6 at query offsets above 0, and every rank K7 on its share
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     path = "model axis"
@@ -4434,6 +4785,8 @@ def main():
     phase("launches " + path, **launches[path])
     check(launches[path]["flash_attention.wgmma_tf32"] > 0,
           f"K6 never launched on the {path} path")
+    check(launches[path]["ssd_scan"] > 0,
+          f"K7 never launched on the {path} path")
 
     # ---- 17. launches on the main path -------------------------------------
     # K6's three kernels are recorded apart: flash_attention (mma.sync),

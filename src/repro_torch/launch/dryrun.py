@@ -13,32 +13,35 @@ have shapes and dtypes but no memory and no op computes a number, under
 A device's share follows what the port's steps do. The batch is split
 over the ``pod`` x ``data`` axes where ``launch.specs.batch_partition``
 allows (a ``long_500k`` cell's batch of 1 keeps its whole sequence on
-every device). For the dense, VLM and MoE families
-(``models.sharding.model_axis_sharded``) the ``model`` axis is the
-reference's: the share is the last rank of the axis, the one that
-sequence-parallel attention loads most (``share_rank``), and holds its
-cut of every parameter (``init_params(tp_rank=, tp_size=)``, the cut of
-``sanitize_specs(param_specs(...))``), of the optimizer state and of
-the caches (K and V cut on the head dim, MLA's latent and rope key on
-their feature dims, as ``cache_partition_specs`` cuts them), and its
-step runs over the plan's ``model`` group with the
-explicit collectives of ``models/sharding.py`` (sequence parallelism as
-the CLI says); each record's ``model_axis`` says ``"sharded"`` and its
-``model_rank`` which rank the share is. The SSM, hybrid and enc-dec
-families keep the axis replicated (whole parameters on every rank, ``"replicated"``). A
-train cell runs ``make_train_step`` (forward, backward with ``remat``
-as the config says, clip, AdamW; ZeRO-1 cuts ``m`` and ``v`` over the
-data-parallel ranks, within the model cut) or, with ``bucketed``, the
-psum step of ``make_bucketed_train_step``, on a ``launch.mesh.PlanMesh``
-whose groups record each collective the step would send (a gradient
-leaf's or bucket's all-reduce, the loss's, ZeRO-1's parameter
-all-gather, the model axis's all-reduces, all-gathers, reduce-scatters
-and all-to-alls; shape-correct, so the share allocates their results)
-with no process group; on one rank of a mesh with neither axis over 1
-it is the plain step with no mesh. Prefill and decode cells run
-``serve/serve_step.py``'s ``prefill_step`` and ``decode_step`` (at the
-last cache slot), over the model group where the axis is sharded. Each
-record holds its collectives by op (count and operand bytes).
+every device). For every family (``models.sharding.model_axis_sharded``)
+the ``model`` axis is the reference's: the share is the last rank of the
+axis, the one that sequence-parallel attention loads most
+(``share_rank``), and holds its cut of every parameter
+(``init_params(tp_rank=, tp_size=)``, the cut of
+``sanitize_specs(param_specs(...))``), of the optimizer state and of the
+caches (K and V cut on the head dim, MLA's latent and rope key on their
+feature dims, the SSM's conv on its channels and its state on its head
+dim, as ``cache_partition_specs`` cuts them), and its step runs over the
+plan's ``model`` group with the explicit collectives of
+``models/sharding.py`` (sequence parallelism as the CLI says); each
+record's ``model_axis`` says ``"sharded"`` (``"replicated"`` on a mesh
+whose axis is 1) and its ``model_rank`` which rank the share is. An MoE
+layer of a ``make_train_step`` share routes as data rank 0 of the global
+batch, the plan's other ranks' expert counts stand-ins (copies of its
+own; ``models.moe.global_routing``). A train cell runs
+``make_train_step`` (forward, backward with ``remat`` as the config
+says, clip, AdamW; ZeRO-1 cuts ``m`` and ``v`` over the data-parallel
+ranks, within the model cut) or, with ``bucketed``, the psum step of
+``make_bucketed_train_step``, on a ``launch.mesh.PlanMesh`` whose groups
+record each collective the step would send (a gradient leaf's or
+bucket's all-reduce, the loss's, ZeRO-1's parameter all-gather, the
+model axis's all-reduces, all-gathers, reduce-scatters and all-to-alls;
+shape-correct, so the share allocates their results) with no process
+group; on one rank of a mesh with neither axis over 1 it is the plain
+step with no mesh. Prefill and decode cells run ``serve/serve_step.py``'s
+``prefill_step`` and ``decode_step`` (at the last cache slot), over the
+model group where the axis is sharded. Each record holds its
+collectives by op (count and operand bytes).
 
 This is the one entry point of the port that takes no device: ``meta``
 computes nothing, so no CUDA device is needed. ``build_cell`` builds the

@@ -438,22 +438,14 @@ def _attention_block_tp(params, cfg: ModelConfig, x, positions, *, causal,
         q = q + params["b_q"]
         k = k + params["b_k"]
         v = v + params["b_v"]
-    mode = ("heads" if not attention_seq_mode(hq, hkv, n) else
-            "rows" if s % n == 0 else "replicated")
+    q, k, v, mode = _tp_attention_in(q, k, v, hq, hkv, tp)
+    hq_l, hkv_l = (hq // n, hkv // n) if mode == "heads" else (hq, hkv)
     q_offset, q_pos, q_mpos = 0, positions, mrope_positions
-    if mode == "heads":
-        hq_l, hkv_l = hq // n, hkv // n
-    else:
-        hq_l, hkv_l = hq, hkv
-        k, v = tp.gather(k, 2), tp.gather(v, 2)
-        if mode == "rows":
-            q = tp.all_to_all(q, 1, 2)
-            q_offset = r * (s // n)
-            q_pos = tp.cut(positions, 1)
-            if mrope_positions is not None:
-                q_mpos = tp.cut(mrope_positions, 2)
-        else:
-            q = tp.gather(q, 2)
+    if mode == "rows":
+        q_offset = r * (s // n)
+        q_pos = tp.cut(positions, 1)
+        if mrope_positions is not None:
+            q_mpos = tp.cut(mrope_positions, 2)
     sq = q.shape[1]
     q = q.reshape(b, sq, hq_l, hd)
     k = k.reshape(b, s, hkv_l, hd)
@@ -506,12 +498,36 @@ def _attention_block_tp(params, cfg: ModelConfig, x, positions, *, causal,
                                 device=x.device)
     out = attention_core(q, k.contiguous(), v.contiguous(), causal=causal,
                          window=window, q_offset=q_offset, kv_len=kv_len)
-    out = out.reshape(b, sq, hq_l * hd)
-    if mode == "rows":
-        out = tp.all_to_all(out, 2, 1)
-    elif mode == "replicated":
-        out = tp.cut(out, 2)
+    out = _tp_attention_out(out.reshape(b, sq, hq_l * hd), mode, tp)
     return _tp_out(out @ params["wo"], tp), cache
+
+
+def _tp_attention_in(q, k, v, hq: int, hkv: int, tp):
+    """Column-parallel projections q (B, Sq, cols) and k, v (B, Skv,
+    cols) laid out for ``attention_seq_mode``'s scheme: (q, k, v, mode).
+    "heads": the rank's columns are its heads, as they are; "rows" (the
+    heads do not divide the axis, Sq does): q's columns all-to-all into
+    the rank's rows of every head, k and v gathered whole; "replicated"
+    (neither divides, as a decode step's one row): all three gathered
+    whole."""
+    n = tp.size
+    if not attention_seq_mode(hq, hkv, n):
+        return q, k, v, "heads"
+    k, v = tp.gather(k, 2), tp.gather(v, 2)
+    if q.shape[1] % n == 0:
+        return tp.all_to_all(q, 1, 2), k, v, "rows"
+    return tp.gather(q, 2), k, v, "replicated"
+
+
+def _tp_attention_out(out, mode: str, tp):
+    """The attention output (B, Sq, cols) of ``_tp_attention_in``'s
+    ``mode`` back in the rank's columns, for the row-parallel
+    o-projection."""
+    if mode == "rows":
+        return tp.all_to_all(out, 2, 1)
+    if mode == "replicated":
+        return tp.cut(out, 2)
+    return out
 
 
 def _attention_hd_cut(q, ck, cv, tp, *, causal, window, q_offset, kv_len):

@@ -28,18 +28,71 @@ computed alike on every rank; the aux term's gradient goes through
 ``TensorParallel.once``, and the router's gradient, the combine's gates
 of the rank's experts, is summed over the group by the train step
 (``sharding.partial_grad_leaf``).
+
+Within ``global_routing(group)`` (``train.make_train_step`` on a mesh,
+over its data-parallel group) a rank routes its rows as the reference's
+pjit step routes the global batch, data rank r's rows after ranks
+0..r-1's: the ranks exchange their per-expert assignment counts (one
+all-gather of E counts, no tokens), an assignment's position in its
+expert is the earlier ranks' count plus its own position, the capacity
+is ``_capacity(T_global)``, and the aux loss takes the global ``me`` (a
+mean over the group that carries its gradient) and ``ce``. A rank still
+runs only its own kept assignments, in buffers of ``min(C(T_global),
+T)`` slots an expert: the most it can keep of one expert, since a token
+takes an expert once (the reference's device holds ``C(T_global)``
+slots of each of its experts). On a ``launch.mesh.PlanGroup`` (the
+dry-run's) the other ranks' counts are stand-ins, copies of this
+rank's, and the share is data rank 0, with no rank before it.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.launch import mesh as _mesh
 from repro_torch.models.layers import (_tp_in, _tp_out, init_dense, init_mlp,
                                        mlp_block)
 from repro_torch.models.sharding import active
+
+#: the data-parallel group ``moe_ffn`` routes over (``global_routing``)
+_DATA = None
+
+
+@contextlib.contextmanager
+def global_routing(group):
+    """Within the block, ``moe_ffn`` routes each rank's rows as a part of
+    the global batch of the data-parallel ``group`` (None, or a group of
+    one rank: its own rows alone); restored after."""
+    global _DATA
+    before = _DATA
+    _DATA = (group if group is not None and _mesh.group_size(group) > 1
+             else None)
+    try:
+        yield
+    finally:
+        _DATA = before
+
+
+class _MeanOver(torch.autograd.Function):
+    """The mean of ``x`` over the ranks of ``group``; the gradient the
+    mean over the group too, so that the data step's mean of the ranks'
+    gradients carries each rank's part of a term every rank adds
+    alike."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        n = _mesh.group_size(group)
+        return _mesh.all_reduce(x.detach().clone(), group) / n
+
+    @staticmethod
+    def backward(ctx, g):
+        n = _mesh.group_size(ctx.group)
+        return _mesh.all_reduce(g.detach().clone(), ctx.group) / n, None
 
 
 def init_moe(gen: torch.Generator, cfg: ModelConfig, dtype, device,
@@ -136,10 +189,14 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
 
     expert_idx, gate_w, aux = route(params["router"], x2d, cfg)
     pos, keep = _dispatch_indices(expert_idx, m.top_k, e, cap)
+    slots = cap                                         # an expert's buffer
+    if _DATA is not None:
+        slots, keep, aux = _global_routing(params["router"], x2d, cfg,
+                                           expert_idx, pos, _DATA)
 
     # flat slot id per assignment; dropped ones park on a dummy slot
-    slot = torch.where(keep, expert_idx * cap + pos,
-                       torch.full_like(expert_idx, e * cap))  # (T, k)
+    slot = torch.where(keep, expert_idx * slots + pos,
+                       torch.full_like(expert_idx, e * slots))  # (T, k)
     flat_slot = slot.reshape(-1)
 
     # dispatch: scatter token ids into slots, then gather tokens. Every
@@ -147,11 +204,11 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
     # the dummy slot, in an order that is unspecified on CUDA (and in the
     # reference), which is harmless only because that slot is cut off
     # right after.
-    token_of_slot = torch.full((e * cap + 1,), t, dtype=torch.int64,
+    token_of_slot = torch.full((e * slots + 1,), t, dtype=torch.int64,
                                device=x.device)
     token_of_slot[flat_slot] = torch.arange(
         t, device=x.device).repeat_interleave(m.top_k)
-    n_slots = e_l * cap
+    n_slots = e_l * slots
     lo = tp.rank * n_slots if sharded else 0
     # this rank's experts' slots (the dummy dropped); ``index_select``,
     # whose backward adds into the rows in parallel, where the backward
@@ -159,7 +216,7 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
     # padding row) one after another
     token_of_slot = token_of_slot[lo:lo + n_slots]
     x_pad = torch.cat([x2d, x2d.new_zeros((1, d))], dim=0)
-    xe = x_pad.index_select(0, token_of_slot).reshape(e_l, cap, d)
+    xe = x_pad.index_select(0, token_of_slot).reshape(e_l, slots, d)
     del x_pad
 
     # expert computation (per-expert SwiGLU)
@@ -193,3 +250,29 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
     if sharded:
         return _tp_out(out, tp), tp.once(aux)
     return out, aux
+
+
+def _global_routing(router_w, x2d, cfg: ModelConfig, expert_idx, pos,
+                    group):
+    """This rank's routing as a part of the global batch of ``group``
+    (``global_routing``): (the buffer slots an expert, which assignments
+    are kept, the global aux loss). ``pos`` is each assignment's position
+    among this rank's own, the same order the global one takes after the
+    earlier ranks' assignments."""
+    m = cfg.moe
+    t, e = x2d.shape[0], m.num_experts
+    n, r = _mesh.group_size(group), _mesh.group_rank(group)
+    flat = expert_idx.reshape(-1)
+    counts = torch.zeros((e,), dtype=torch.int64,
+                         device=x2d.device).index_add_(
+        0, flat, torch.ones_like(flat))
+    every = _mesh.all_gather(counts, group, 0).reshape(n, e)
+    cap = _capacity(t * n, cfg)
+    keep = (every[:r].sum(0)[expert_idx] + pos) < cap
+    # the aux loss of the global batch: its mean router probabilities
+    # (this rank's mean, averaged over the group with its gradient) and
+    # its assignment fractions
+    probs = torch.softmax(x2d.to(torch.float32) @ router_w, dim=-1)
+    me = _MeanOver.apply(torch.mean(probs, dim=0), group)
+    ce = every.sum(0).to(torch.float32) / (t * n * m.top_k)
+    return min(cap, t), keep, e * torch.sum(me * ce)

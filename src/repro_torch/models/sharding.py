@@ -7,7 +7,8 @@ entries of the reference's ``PartitionSpec``). Specs are derived from
 leaf *paths* by role rules (Megatron-style TP):
 
   column-parallel (out dim on 'model'):  wq wk wv w_gate w_up lm_head
-                                         w_uk w_uv w_qa w_qb embed(d dim)
+                                         w_uk w_uv w_qa w_qb in_proj
+                                         conv_w embed(d dim)
   row-parallel    (in dim on 'model'):   wo w_down out_proj
   expert-parallel (E dim on 'model'):    experts/* 3-D weights
   replicated:                            norms, scalars, small biases
@@ -49,11 +50,22 @@ rank's ``model`` group instead, through ``TensorParallel``:
   ``w_uv`` and ``w_kr`` column-cut, ``w_dkv`` and ``kv_norm_scale``
   whole, the rope key gathered whole before it turns; its cache is cut
   on the latent's and the rope key's feature dims, and decode scores the
-  cut where it lies.
+  cut where it lies;
+* the Mamba-2 mixer (``models.ssm.ssm_block``): the rank's columns of
+  ``in_proj`` (or the whole leaf, where its width does not divide the
+  axis) and of the conv are gathered whole; the scan is head-parallel
+  when the heads divide the axis (every head on every rank otherwise),
+  the gate norm's sum of squares reduced over the group, ``out_proj``
+  row-cut; the conv cache is cut on its channels and the state on its
+  head dim, and decode updates the state's cut where it lies;
+* hybrid heads run both mixers on their cuts, each output reduced before
+  its own norm; the enc-dec encoder is the same blocks over its own
+  residual, and the cross-attention reads the encoder's output gathered
+  whole once, with ``wq``, ``wk``, ``wv`` column-cut and ``wo`` row-cut.
 
-The leaves that the axis leaves whole but whose gradient a rank computes
-from its share (``partial_grad_leaf``) are summed over the group after
-the backward.
+Every family is cut (``model_axis_sharded``). The leaves that the axis
+leaves whole but whose gradient a rank computes from its share
+(``partial_grad_leaf``) are summed over the group after the backward.
 """
 from __future__ import annotations
 
@@ -356,47 +368,59 @@ class _AllToAll(torch.autograd.Function):
 #: the residual's layout: the q/k norm scales (applied to a rank's heads
 #: or rows), the MoE router (the combine's gates of the rank's experts
 #: only; the aux term, the same on every rank, goes through
-#: ``TensorParallel.once``) and MLA's down-projection and latent norm
-#: (their output feeds the rank's heads only)
+#: ``TensorParallel.once``), MLA's down-projection and latent norm
+#: (their output feeds the rank's heads only) and the Mamba-2 mixer's
+#: whole leaves (``models.ssm``: ``a_log``, ``d_skip``, ``dt_bias`` and
+#: the gate norm's scale enter a rank's heads, or every head with only
+#: the rank's columns of the output used; ``in_proj`` and ``conv_w`` where
+#: their width does not divide the axis feed the same partial use)
 _PARTIAL_ALWAYS = ("q_norm_scale", "k_norm_scale", "router", "w_dkv",
-                   "kv_norm_scale")
+                   "kv_norm_scale", "a_log", "d_skip", "dt_bias",
+                   "gate_norm_scale", "in_proj", "conv_w")
+
+#: norm scales applied to the residual stream's layout: a rank's rows
+#: under sequence parallelism, the whole replicated residual otherwise
+_RESIDUAL_NORMS = ("pre_norm_scale", "post_norm_scale", "final_norm_scale",
+                   "cross_norm_scale", "attn_out_norm_scale",
+                   "ssm_out_norm_scale")
+
+#: the leaves the axis may leave whole (their width does not divide it,
+#: and ``sanitize_specs`` keeps them whole): the Mamba-2 mixer's input
+#: projection and conv (hymba-1.5b's 6482 in-projection columns)
+_WHOLE_ADMITTED = ("in_proj", "conv_w")
 
 
 def partial_grad_leaf(path: str, sp: bool) -> bool:
     """Whether the gradient of a leaf that the ``model`` axis leaves whole
     is computed on a shard, and so summed over the group:
-    ``_PARTIAL_ALWAYS`` always, and the residual stream's norm scales
-    under sequence parallelism."""
+    ``_PARTIAL_ALWAYS`` always, and the norms of the residual stream
+    (``_RESIDUAL_NORMS``) when it is cut by sequence (``sp``: for an
+    ``enc_layers/`` leaf the encoder's residual, else the decoder's)."""
     name = path.split("/")[-1]
     if name in _PARTIAL_ALWAYS:
         return True
-    return sp and name in ("pre_norm_scale", "post_norm_scale",
-                           "final_norm_scale")
-
-
-#: the families whose ``model`` axis is sharded; the others keep it
-#: replicated (every rank holds whole parameters)
-SHARDED_FAMILIES = ("dense", "vlm", "moe")
+    return sp and name in _RESIDUAL_NORMS
 
 
 def model_axis_sharded(cfg) -> bool:
-    """Whether the port shards ``cfg`` over the ``model`` axis: the dense,
-    VLM and MoE families, with GQA attention or MLA (no SSM, hybrid heads
-    or encoder)."""
-    return (cfg.family in SHARDED_FAMILIES and not cfg.ssm.enabled
-            and not cfg.enc_dec and not cfg.hybrid_parallel_heads)
+    """Whether the port shards ``cfg`` over the ``model`` axis: every
+    family it runs (dense, VLM, MoE, SSM, hybrid heads, enc-dec), as the
+    reference's rules cut every family alike."""
+    from repro_torch.models.transformer import FAMILIES
+    return cfg.family in FAMILIES
 
 
 @functools.lru_cache(maxsize=None)
 def check_model_axis(cfg, tp: int) -> None:
-    """Raise unless every dim that ``param_specs`` puts on ``model`` for
-    ``cfg`` divides ``tp``: the explicit scheme shards each projection,
-    the experts and the vocab, and has no path for one the axis leaves
-    whole. MLA runs head-parallel only: its heads must divide ``tp``."""
+    """Raise unless ``cfg`` splits over a ``model`` axis of ``tp``: every
+    dim that ``param_specs`` puts on ``model`` divides ``tp``, but for
+    the leaves the explicit scheme runs whole (``_WHOLE_ADMITTED``, as
+    ``sanitize_specs`` leaves them); the rest are the projections, the
+    experts and the vocab, with no path for a whole one. MLA runs
+    head-parallel only: its heads must divide ``tp``."""
     if not model_axis_sharded(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family} family keeps the model axis "
-            f"replicated")
+            f"{cfg.name}: the {cfg.family} family is not ported")
     if cfg.mla.enabled and cfg.num_heads % tp:
         raise NotImplementedError(
             f"{cfg.name}: MLA's {cfg.num_heads} heads do not divide a "
@@ -405,7 +429,8 @@ def check_model_axis(cfg, tp: int) -> None:
     marked = param_specs(whole)
     bad = [p for (p, a), (_, b) in zip(_leaf_paths(marked, ""),
                                         _leaf_paths(kept, ""))
-           if model_dims(a) != model_dims(b)]
+           if model_dims(a) != model_dims(b)
+           and p.split("/")[-1] not in _WHOLE_ADMITTED]
     if bad:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(bad)} do not split over a model axis "
@@ -414,8 +439,7 @@ def check_model_axis(cfg, tp: int) -> None:
 
 def tensor_parallel(cfg, mesh, sequence_parallel: bool = True):
     """The ``TensorParallel`` of this rank of ``mesh`` for ``cfg``: over
-    the mesh's ``model`` group when the axis is over 1 and the port
-    shards ``cfg``'s family, else None (the axis replicated)."""
+    the mesh's ``model`` group when the axis is over 1, else None."""
     if mesh is None or _mesh.model_size(mesh) <= 1 \
             or not model_axis_sharded(cfg):
         return None

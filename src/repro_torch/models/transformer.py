@@ -32,8 +32,11 @@ one, ``sharding.shard_tree`` cuts a whole tree) and of the caches
 (``init_caches(tp_size=)``): the embedding vocab-parallel, the residual
 cut by sequence under sequence parallelism, the logits vocab-parallel
 (B, S, V_padded / tp) and ``cross_entropy`` reduced over the group; MoE
-expert-parallel and MLA head-parallel (``models/sharding.py``). The
-dense, VLM and MoE families (``sharding.model_axis_sharded``).
+expert-parallel, MLA head-parallel, the Mamba-2 mixer on its column,
+conv and row cuts (``models/ssm.py``), hybrid heads with both mixers
+cut, and the enc-dec encoder over its own residual, its output gathered
+whole once for the decoder's cross-attention (``models/sharding.py``).
+Every family (``sharding.model_axis_sharded``).
 """
 from __future__ import annotations
 
@@ -47,10 +50,11 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import sharding
-from repro_torch.models.layers import (attention_block, attention_core,
-                                       init_attention, init_dense, init_mla,
-                                       init_mlp, mla_block, mlp_block,
-                                       rms_norm)
+from repro_torch.models.layers import (_tp_attention_in, _tp_attention_out,
+                                       _tp_in, _tp_out, attention_block,
+                                       attention_core, init_attention,
+                                       init_dense, init_mla, init_mlp,
+                                       mla_block, mlp_block, rms_norm)
 
 
 FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "audio")
@@ -113,13 +117,14 @@ def init_params(cfg: ModelConfig, seed: int = 0, dtype=torch.float32,
 
 def _init_cut(cfg: ModelConfig, seed: int, dtype, dev, rank: int,
               tp: int) -> dict:
-    """Rank ``rank`` of ``tp``'s cut of a dense, VLM or MoE model's
-    parameters, each leaf drawn at the cut's shape from one generator in
-    leaf order: a matrix (an expert stack's ``(layers, E / tp, d_in,
-    d_out)`` too) N(0, 1) * sqrt(2 / (d_in + d_out)) of the whole leaf's
-    last two dims, a norm scale 1, a bias 0, the router in f32
-    (``init_params``' distributions and dtypes; the draws are not a cut
-    of the whole draw)."""
+    """Rank ``rank`` of ``tp``'s cut of a model's parameters, each leaf
+    drawn at the cut's shape from one generator in leaf order: a matrix
+    (an expert stack's ``(layers, E / tp, d_in, d_out)`` too) N(0, 1) *
+    sqrt(2 / (d_in + d_out)) of the whole leaf's last two dims, a norm
+    scale 1, a bias 0, the router in f32; the SSM's ``conv_w`` N(0, 1) /
+    sqrt(d_conv), ``a_log`` log(linspace(1, 16, nh)), ``d_skip`` 1 and
+    ``dt_bias`` 0 in f32 (``init_params``' distributions and dtypes; the
+    draws are not a cut of the whole draw)."""
     sharding.check_model_axis(cfg, tp)
     whole, specs = sharding.whole_specs(cfg, tp)
     gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
@@ -128,11 +133,20 @@ def _init_cut(cfg: ModelConfig, seed: int, dtype, dev, rank: int,
     def draw(path, x, spec):
         shape = sharding.cut_shape(x.shape, spec, tp)
         name = path.split("/")[-1]
+        f32 = torch.float32
+        if name == "a_log":
+            return torch.log(torch.linspace(1.0, 16.0, shape[-1],
+                                            dtype=f32, device=dev)
+                             ).expand(shape).clone()
+        if name in ("d_skip", "dt_bias"):
+            return (torch.ones if name == "d_skip" else torch.zeros)(
+                shape, dtype=f32, device=dev)
         if name.endswith("scale"):
             return torch.ones(shape, dtype=dtype, device=dev)
         if name.startswith("b_"):
             return torch.zeros(shape, dtype=dtype, device=dev)
-        scale = (2.0 / (x.shape[-2] + x.shape[-1])) ** 0.5
+        scale = ((1.0 / x.shape[-2]) ** 0.5 if name == "conv_w" else
+                 (2.0 / (x.shape[-2] + x.shape[-1])) ** 0.5)
         return torch.randn(shape, generator=gen, dtype=torch.float32,
                            device=dev).mul_(scale).to(
             torch.float32 if name == "router" else dtype)
@@ -223,17 +237,20 @@ def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
     only, as in the reference; an enc-dec decoder block's cache is
     ``{"self": {...}}``."""
     if cfg.family == "ssm":
-        return ssm_mod.ssm_block(mp["ssm"], cfg, x, cache=cache)
+        return ssm_mod.ssm_block(mp["ssm"], cfg, x, cache=cache, tp=tp)
     if cfg.mla.enabled:
         return mla_block(mp["mla"], cfg, x, positions, cache=cache, pos=pos,
                          tp=tp)
     if cfg.hybrid_parallel_heads:
+        # with ``tp`` each branch's output is reduced into the residual's
+        # layout before its norm, which is not linear
         a_out, _ = attention_block(
             mp["attn"], cfg, x, positions, window=window,
-            cache=cache["attn"] if cache is not None else None, pos=pos)
+            cache=cache["attn"] if cache is not None else None, pos=pos,
+            tp=tp)
         s_out, _ = ssm_mod.ssm_block(
             mp["ssm"], cfg, x,
-            cache=cache["ssm"] if cache is not None else None)
+            cache=cache["ssm"] if cache is not None else None, tp=tp)
         out = 0.5 * (rms_norm(a_out, mp["attn_out_norm_scale"], cfg.rms_eps)
                      + rms_norm(s_out, mp["ssm_out_norm_scale"],
                                 cfg.rms_eps))
@@ -245,18 +262,37 @@ def _mixer_apply(mp: dict, cfg: ModelConfig, x, positions, window: int,
                            mrope_positions=mrope_positions, tp=tp)
 
 
-def _cross_attention(params: dict, cfg: ModelConfig, x, enc_out):
+def _cross_attention(params: dict, cfg: ModelConfig, x, enc_out, tp=None):
     """Cross-attention: q from the decoder's ``x``, k and v from the
     encoder's output; no rope, no bias, not causal, from no cache (K6
-    over the encoder's frames)."""
+    over the encoder's frames). With ``tp``, one rank's share: ``x`` in
+    the residual's layout, ``enc_out`` whole on every rank (``encode``'s),
+    ``wq``, ``wk``, ``wv`` column-cut and ``wo`` row-cut; the rank's heads
+    where they divide the axis, else its rows of q (every head, the
+    sequence dividing the axis) or all of q (a decode step's row) against
+    k and v gathered whole, as ``layers._attention_block_tp`` runs."""
+    sharded = sharding.active(tp)
+    if sharded:
+        x = _tp_in(x, tp)
     b, s, _ = x.shape
     se = enc_out.shape[1]
     hd = cfg.resolved_head_dim()
-    q = (x @ params["wq"]).reshape(b, s, cfg.num_heads, hd)
-    k = (enc_out @ params["wk"]).reshape(b, se, cfg.num_kv_heads, hd)
-    v = (enc_out @ params["wv"]).reshape(b, se, cfg.num_kv_heads, hd)
-    out = attention_core(q, k, v, causal=False)
-    return out.reshape(b, s, cfg.num_heads * hd) @ params["wo"]
+    hq, hkv = cfg.num_heads, cfg.num_kv_heads
+    q = x @ params["wq"]
+    k = enc_out @ params["wk"]
+    v = enc_out @ params["wv"]
+    if sharded:
+        q, k, v, mode = _tp_attention_in(q, k, v, hq, hkv, tp)
+        if mode == "heads":
+            hq, hkv = hq // tp.size, hkv // tp.size
+    sq = q.shape[1]
+    out = attention_core(q.reshape(b, sq, hq, hd),
+                         k.reshape(b, se, hkv, hd),
+                         v.reshape(b, se, hkv, hd), causal=False)
+    out = out.reshape(b, sq, hq * hd)
+    if not sharded:
+        return out @ params["wo"]
+    return _tp_out(_tp_attention_out(out, mode, tp) @ params["wo"], tp)
 
 
 def _block_apply(bp: dict, cfg: ModelConfig, x, positions, window: int,
@@ -277,7 +313,7 @@ def _block_apply(bp: dict, cfg: ModelConfig, x, positions, window: int,
     x = x + mix
     if enc_out is not None:
         hc = rms_norm(x, bp["cross_norm_scale"], cfg.rms_eps)
-        x = x + _cross_attention(bp["cross"], cfg, hc, enc_out)
+        x = x + _cross_attention(bp["cross"], cfg, hc, enc_out, tp)
     aux = None
     if "moe" in bp["ffn"]:
         h2 = rms_norm(x, bp["post_norm_scale"], cfg.rms_eps)
@@ -355,19 +391,28 @@ def _run_stack(blocks, cfg: ModelConfig, x, positions, checkpointed: bool,
 
 
 def encode(params: dict, cfg: ModelConfig, enc_embeds: torch.Tensor, *,
-           checkpointed: bool = False) -> torch.Tensor:
+           checkpointed: bool = False, tp=None) -> torch.Tensor:
     """The enc-dec encoder over the frontend stub's frame embeddings (B,
     S_enc, D), in the parameters' dtype: not causal, no cache, RoPE over
-    0..S_enc-1, no final norm."""
+    0..S_enc-1, no final norm. With ``tp``, one rank's share over the
+    encoder's own residual (cut by sequence under sequence parallelism
+    when S_enc divides the axis), and the output whole on every rank, as
+    the rank's share of every cross-attention reads it (gathered once;
+    its gradient summed over the group)."""
     b, se = enc_embeds.shape[:2]
     x = enc_embeds.to(params["embed"].dtype)
+    if sharding.active(tp):
+        tp = tp.for_seq(se)
+        if tp.seq_cut:
+            x = tp.cut(x, 1)
     positions = torch.arange(se, dtype=torch.int32,
                              device=x.device).expand(b, se)
     n = cfg.encoder_layers
     blocks = zip(_unstack(params["enc_layers"], n), [None] * n,
                  layer_windows(cfg, n))
-    x, _ = _run_stack(blocks, cfg, x, positions, checkpointed, causal=False)
-    return x
+    x, _ = _run_stack(blocks, cfg, x, positions, checkpointed, causal=False,
+                      tp=tp)
+    return _tp_in(x, tp) if sharding.active(tp) else x
 
 
 def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
@@ -400,7 +445,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     mrope_positions = batch.get("mrope_positions")
     checkpointed = remat and caches is None and torch.is_grad_enabled()
     enc_out = (encode(params, cfg, batch["enc_embeds"],
-                      checkpointed=checkpointed) if cfg.enc_dec else None)
+                      checkpointed=checkpointed, tp=tp)
+               if cfg.enc_dec else None)
     x = embed_inputs(params, cfg, batch, tp)
     if caches is not None:
         _conv_caches_to(caches["scan"], x.dtype)
@@ -499,11 +545,11 @@ def init_caches(cfg: ModelConfig, batch: int, max_seq: int,
     enc-dec decoder (the encoder keeps no cache); an MoE model's leading
     dense blocks add ``{"dense": {"0": <one unstacked layer>, ...}}``. A
     forward gives the conv buffers the activations' dtype on its first
-    step (``_conv_caches_to``). With ``tp_size`` over 1 (a model the
-    port shards) a rank's cut: K and V hold ``hd / tp_size`` of the head
-    dim, MLA's latent and rope key ``1 / tp_size`` of their feature
-    dims, each where it divides, as ``launch.specs.cache_partition_specs``
-    cuts them."""
+    step (``_conv_caches_to``). With ``tp_size`` over 1 a rank's cut: K
+    and V hold ``hd / tp_size`` of the head dim, MLA's latent and rope
+    key ``1 / tp_size`` of their feature dims, the SSM's conv its
+    channels and its state its head dim, each where it divides, as
+    ``launch.specs.cache_partition_specs`` cuts them."""
     check_supported(cfg)
     dev = resolve_device(device)
     n = _n_scanned(cfg)
@@ -532,7 +578,7 @@ def _layer_caches(cfg: ModelConfig, n: Optional[int], batch: int,
         return torch.zeros((*lead, *shape), dtype=dt, device=dev)
 
     if cfg.family == "ssm":
-        return ssm_mod.init_ssm_cache(cfg, n, batch, dtype, dev)
+        return ssm_mod.init_ssm_cache(cfg, n, batch, dtype, dev, tp_size)
     if cfg.mla.enabled:
         m = cfg.mla
         return {"c_kv": zeros(batch, max_seq, cut(m.kv_lora_rank)),
@@ -544,7 +590,7 @@ def _layer_caches(cfg: ModelConfig, n: Optional[int], batch: int,
             "pos": zeros(dt=torch.int32)}
     if cfg.hybrid_parallel_heads:
         return {"attn": attn, "ssm": ssm_mod.init_ssm_cache(
-            cfg, n, batch, dtype, dev)}
+            cfg, n, batch, dtype, dev, tp_size)}
     if cfg.enc_dec:
         return {"self": attn}
     return attn

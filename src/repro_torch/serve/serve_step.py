@@ -9,10 +9,13 @@ so no step reads a cache's ``pos`` back from the device.
 With ``tp`` (a ``models.sharding.TensorParallel`` over the rank's
 ``model`` group) a step is one rank's share on its cut of the
 parameters and of the caches (``init_caches(tp_size=)``: K and V cut on
-the head dim, MLA's latent and rope key on their feature dims, as
+the head dim, MLA's latent and rope key on their feature dims, the SSM's
+conv on its channels and its state on its head dim, as
 ``launch.specs.cache_partition_specs`` cuts them; a decode step scores
-the cut where it lies), and the logits are its cut of the vocab. Serving runs without sequence
-parallelism, as the reference's serving forward does.
+the cut where it lies and updates the state's cut where it lies), and
+the logits are its cut of the vocab. Every family takes the cut.
+Serving runs without sequence parallelism, as the reference's serving
+forward does.
 """
 from __future__ import annotations
 

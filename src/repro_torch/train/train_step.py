@@ -37,25 +37,32 @@ collectives its last call issued in ``step.collectives`` (the port's
 stand-in for the reference's HLO all-reduce count) and those over the
 ``model`` axis, by op, in ``step.model_collectives``.
 
-The ``model`` axis: for the dense, VLM and MoE families, on a mesh
-whose ``model`` axis is over 1, the plain and psum steps compute the loss and
-gradients as this rank's share over its ``model`` group
-(``models.sharding.TensorParallel``, sequence parallelism as
-``tcfg.sequence_parallel`` says). A gradient the axis leaves whole but
-a rank computes on its shard (``sharding.partial_grad_leaf``: the q/k
-norm scales, the MoE router, MLA's ``w_dkv`` and latent norm; the
-residual's norms under sequence parallelism) is summed over the group,
-and the global norm counts each cut leaf (an expert stack's ``E / n``
-experts among them) across the group once. A data rank routes its own
-rows through the MoE layers, as the reference's ``shard_map`` step
-does. The steps take this
-rank's cut of the parameters (and of ``m`` and ``v``, ZeRO-1 cutting
-within it) and return its cut, or take whole parameters, which every
-rank cuts for itself and, after its share of the backward, gathers back
-whole (gradients first, then the update runs on whole leaves as on a
-replicated axis). The other families keep the axis replicated. Given a
-``launch.mesh.PlanMesh`` (the dry-run's) the mesh steps run as its rank
-0 and record their collectives there instead of sending them.
+The ``model`` axis: for every family, on a mesh whose ``model`` axis is
+over 1, the plain and psum steps compute the loss and gradients as this
+rank's share over its ``model`` group (``models.sharding.
+TensorParallel``, sequence parallelism as ``tcfg.sequence_parallel``
+says). A gradient the axis leaves whole but a rank computes on its
+shard (``sharding.partial_grad_leaf``: the q/k norm scales, the MoE
+router, MLA's ``w_dkv`` and latent norm, the SSM mixer's whole leaves;
+the residual's norms under sequence parallelism, an encoder leaf's by
+the encoder's frames) is summed over the group, and the global norm
+counts each cut leaf (an expert stack's ``E / n`` experts among them)
+across the group once. The steps take this rank's cut of the
+parameters (and of ``m`` and ``v``, ZeRO-1 cutting within it) and
+return its cut, or take whole parameters, which every rank cuts for
+itself and, after its share of the backward, gathers back whole
+(gradients first, then the update runs on whole leaves as on a
+replicated axis). Given a ``launch.mesh.PlanMesh`` (the dry-run's) the
+mesh steps run as its rank 0 and record their collectives there instead
+of sending them.
+
+MoE routing over the data axis: ``make_train_step(mesh)`` is the
+reference's pjit step, whose MoE layers route the global (micro)batch
+at once, so it splits the global batch into microbatches first and
+takes its data shard of each (``_local_batch``), and routes its rows
+under ``models.moe.global_routing`` over the data-parallel group. The
+psum and rdma steps are the reference's ``shard_map`` step, manual over
+the data axes: a rank routes its own rows alone.
 """
 from __future__ import annotations
 
@@ -72,6 +79,7 @@ from repro_torch.core.rdma.engine import RDMAEngine
 from repro_torch.core.streaming.compress import compressed_all_reduce_group
 from repro_torch.launch.mesh import (PlanGroup, axis_group, dp_axes,
                                      dp_group, dp_rank, dp_size)
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import sharding
 from repro_torch.models.sharding import param_specs
 from repro_torch.models.transformer import loss_fn
@@ -125,14 +133,27 @@ def _batch_rows(batch: dict, start: int, stop: int) -> dict:
             for k, v in batch.items()}
 
 
-def _local_batch(batch: dict, index: int, size: int) -> dict:
-    """Data-parallel rank ``index``'s rows of the global batch."""
+def _local_batch(batch: dict, index: int, size: int,
+                 microbatches: int = 1) -> dict:
+    """Data-parallel rank ``index``'s rows of the global batch: its
+    ``1 / size`` share of each of the ``microbatches`` equal splits, in
+    order, so that the rank's i-th microbatch is data shard ``index`` of
+    the global batch's i-th (the reference's pjit step splits the global
+    batch first)."""
     rows = batch["tokens"].shape[0]
-    if rows % size:
+    if rows % (size * microbatches):
         raise ValueError(f"batch of {rows} does not split over {size} "
-                         f"data-parallel ranks")
-    m = rows // size
-    return _batch_rows(batch, index * m, (index + 1) * m)
+                         f"data-parallel ranks x {microbatches} "
+                         f"microbatches")
+    mb = rows // microbatches
+    m = mb // size
+    parts = [_batch_rows(batch, i * mb + index * m, i * mb + (index + 1) * m)
+             for i in range(microbatches)]
+    if microbatches == 1:
+        return parts[0]
+    return {k: torch.cat([p[k] for p in parts],
+                         dim=1 if k == "mrope_positions" else 0)
+            for k in batch}
 
 
 def _all_reduce(t: torch.Tensor, group, issued: Counter) -> torch.Tensor:
@@ -177,12 +198,16 @@ class _ModelAxis:
                  if self.whole else params)
         loss, grads = _microbatch_grads(local, self.cfg, batch, tcfg, tp)
         sp = tp.for_seq(batch["tokens"].shape[1]).seq_cut
+        # the encoder's residual is cut by sequence on its own frames
+        sp_enc = ("enc_embeds" in batch
+                  and tp.for_seq(batch["enc_embeds"].shape[1]).seq_cut)
         out = []
         for (path, g), (_, spec) in zip(sharding._leaf_paths(grads, ""),
                                         sharding._leaf_paths(self.specs,
                                                              "")):
             dims = sharding.model_dims(spec)
-            if not dims and sharding.partial_grad_leaf(path, sp):
+            cut_seq = sp_enc if path.startswith("enc_layers/") else sp
+            if not dims and sharding.partial_grad_leaf(path, cut_seq):
                 g = tp.all_reduce(g)
             elif dims and self.whole:
                 g = tp.all_gather(g.contiguous(), dims[0])
@@ -238,8 +263,9 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, mesh=None):
             loss, grads = _microbatch_grads(params, cfg, batch, tcfg)
             clip = clip_by_global_norm
         else:
-            loss, grads = model.grads(
-                params, _local_batch(batch, index, size), tcfg)
+            local = _local_batch(batch, index, size, tcfg.microbatches)
+            with moe_mod.global_routing(group if cfg.moe.enabled else None):
+                loss, grads = model.grads(params, local, tcfg)
             grads = tree_map(
                 lambda g: _all_reduce(g, group, issued).div_(size), grads)
             loss = _mean_loss(loss, group, size, issued)

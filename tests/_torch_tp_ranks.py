@@ -1,5 +1,6 @@
-"""Rank programs of ``tests/test_torch_tp.py``: the port's ``model`` axis
-as gloo ranks on the CPU (``launch.mesh.run_peers``), one spawn a mesh.
+"""Rank programs of ``tests/test_torch_tp.py`` (and of the MoE, enc-dec
+and SSM files beside it): the port's ``model`` axis as gloo ranks on the
+CPU (``launch.mesh.run_peers``), one spawn a mesh.
 
 Each rank takes the JAX package's whole weights (numpy leaves, carried
 over by ``params_from_jax``) and cuts its share with
@@ -71,15 +72,68 @@ def moe_fields(name, mla_cls, moe_cls) -> dict:
         shared_d_ff=64, first_dense_layers=1, dense_d_ff=128))
 
 
+def encdec_configs():
+    """name -> the port's config of ``tests/test_torch_tp_encdec.py``,
+    seamless-m4t's smoke structure (2 encoder and 2 decoder layers, 16
+    dims a head): ``tiny-encdec`` (4 q heads over 4 KV heads, as
+    seamless's 16 over 16: heads at a model axis of 2 and 4) and
+    ``tiny-encdec-gqa`` (6 over 2: heads at 2, rows at 4, every head
+    where the frames do not divide the axis)."""
+    base = get_config("seamless-m4t-large-v2-smoke")
+    return {name: dataclasses.replace(base, name=name, **encdec_fields(name))
+            for name in ("tiny-encdec", "tiny-encdec-gqa")}
+
+
+def encdec_fields(name) -> dict:
+    return (dict(num_heads=4, num_kv_heads=4) if name == "tiny-encdec"
+            else dict(num_heads=6, num_kv_heads=2))
+
+
+def ssm_configs():
+    """name -> the port's config of ``tests/test_torch_tp_ssm.py``:
+    ``tiny-ssm`` (the registry's: 8 heads of 16, head-parallel at a model
+    axis of 2 and 4, every leaf cut), ``tiny-ssm-odd`` (d_model 80 and
+    d_state 17: 10 heads, head-parallel at 2, every head on every rank
+    at 4, where the conv's 194 channels stay whole and ``out_proj``'s
+    40-row cut straddles the heads) and ``tiny-hybrid`` (hymba-1.5b's
+    smoke structure at d_model 80: 5 q heads over 1 KV head, rows at 2
+    and 4, 3 layers whose middle one has a window of 8; 10 SSM heads,
+    every head on every rank at 4, where ``in_proj``'s 362 columns stay
+    whole)."""
+    return {name: ssm_config(name, get_config)
+            for name in ("tiny-ssm", "tiny-ssm-odd", "tiny-hybrid")}
+
+
+def ssm_config(name, get):
+    """``ssm_configs()[name]`` built from either package's registry
+    (``get``, its ``get_config``)."""
+    base = get("hymba-1.5b-smoke" if name == "tiny-hybrid" else "tiny-ssm")
+    return dataclasses.replace(base, name=name, **ssm_fields(name, base))
+
+
+def ssm_fields(name, base) -> dict:
+    if name == "tiny-ssm":
+        return {}
+    if name == "tiny-ssm-odd":
+        return dict(d_model=80,
+                    ssm=dataclasses.replace(base.ssm, d_state=17))
+    return dict(d_model=80, num_heads=5, num_kv_heads=1, num_layers=3,
+                sliding_window=8)
+
+
 def configs(kind: str) -> dict:
-    """``tp_configs()`` for ``"dense"``, ``moe_configs()`` for
-    ``"moe"``."""
-    return tp_configs() if kind == "dense" else moe_configs()
+    """The configs of a test file: ``tp_configs()`` for ``"dense"``,
+    ``moe_configs()`` for ``"moe"``, ``encdec_configs()`` for
+    ``"encdec"``, ``ssm_configs()`` for ``"ssm"``."""
+    return {"dense": tp_configs, "moe": moe_configs,
+            "encdec": encdec_configs, "ssm": ssm_configs}[kind]()
 
 
-def tcfg(sp: bool, zero1: bool = False) -> TrainConfig:
+def tcfg(sp: bool, zero1: bool = False, microbatches: int = 1
+         ) -> TrainConfig:
     return TrainConfig(learning_rate=3e-3, warmup_steps=1, total_steps=20,
-                       remat=False, zero1=zero1, sequence_parallel=sp)
+                       remat=False, zero1=zero1, sequence_parallel=sp,
+                       microbatches=microbatches)
 
 
 def _batch(batch):
@@ -88,9 +142,10 @@ def _batch(batch):
 
 def _serve(cfg, params, prompt, tp):
     """Prefill of the first PROMPT of ``prompt``'s PROMPT + DECODE tokens
-    (M-RoPE ids and patches with them for a VLM), then DECODE steps on
+    (M-RoPE ids and patches with them for a VLM; an enc-dec model's
+    frames with the prefill and every decode step), then DECODE steps on
     the tokens after it: each step's logits (this rank's vocab cut), and
-    the cache leaves' shapes."""
+    the cache leaves' shapes by path."""
     from repro_torch.serve.serve_step import decode_step, prefill_step
     full = _batch(prompt)
     toks = full["tokens"]
@@ -106,12 +161,14 @@ def _serve(cfg, params, prompt, tp):
         for pos in range(PROMPT, PROMPT + DECODE):
             extra = ({"mrope_positions":
                       full["mrope_positions"][..., pos:pos + 1]}
-                     if cfg.mrope else None)
+                     if cfg.mrope else
+                     {"enc_embeds": full["enc_embeds"]} if cfg.enc_dec
+                     else None)
             lg, caches = decode_step(params, cfg, toks[:, pos:pos + 1],
                                      caches, pos, extra=extra, tp=tp)
             outs.append(lg.numpy().copy())
-    shapes = {k: tuple(v.shape) for k, v in caches["scan"].items()
-              if isinstance(v, torch.Tensor)}
+    shapes = {p: tuple(v.shape)
+              for p, v in sharding._leaf_paths(caches["scan"], "")}
     return outs, shapes
 
 
@@ -122,12 +179,15 @@ def tp_cases(rank, shape, np_params, batches, prompts, kind="dense"):
     batch, the loss and the whole gradients (``_ModelAxis.grads`` over
     whole parameters), one ``make_train_step(mesh)`` step with and
     without ZeRO-1 on this rank's cut; and, once a config, prefill and
-    DECODE decode steps. ``kind`` names the configs (``configs``).
-    Returns host data keyed by (config, sp, what) and the rank's
-    coordinates."""
+    DECODE decode steps. ``kind`` names the configs (``configs``); for
+    ``"moe"`` also a plain step in two microbatches and a psum step
+    (``make_bucketed_train_step``), each without ZeRO-1. Returns host
+    data keyed by (config, sp, what) and the rank's coordinates."""
     _one_thread()
     from repro_torch.train import init_adam, zero1_init
-    from repro_torch.train.train_step import _ModelAxis, make_train_step
+    from repro_torch.train.train_step import (_ModelAxis,
+                                              make_bucketed_train_step,
+                                              make_train_step)
     mesh = make_mesh(shape, ("data", "model"))
     n, r = model_size(mesh), model_rank(mesh)
     out = {"coords": list(mesh.get_coordinate())}
@@ -146,14 +206,21 @@ def tp_cases(rank, shape, np_params, batches, prompts, kind="dense"):
             out[name, sp, "loss"] = float(loss)
             out[name, sp, "grads"] = _np_tree(grads)
             out[name, sp, "forward_collectives"] = dict(model.issued())
-            for zero1 in (False, True):
-                step = make_train_step(cfg, tcfg(sp, zero1), mesh)
+            steps = [(f"step zero1={z}", make_train_step(cfg, tcfg(sp, z),
+                                                          mesh), z)
+                     for z in (False, True)]
+            if kind == "moe":
+                steps += [("step mb=2", make_train_step(
+                    cfg, tcfg(sp, microbatches=2), mesh), False),
+                          ("psum", make_bucketed_train_step(
+                              cfg, tcfg(sp), mesh, sync="psum"), False)]
+            for key, step, zero1 in steps:
                 step.keep_grads = True
                 opt = init_adam(cut)
                 if zero1:
                     opt = zero1_init(opt, mesh)
-                loss, p, o = step(cut, opt, batch)
-                out[name, sp, f"step zero1={zero1}"] = {
+                loss, p, o = step(cut, opt, batch)[:3]
+                out[name, sp, key] = {
                     "loss": float(loss), "params": _np_tree(p),
                     "grads": _np_tree(step.last_grads),
                     "m_shapes": [tuple(t.shape) for t in _leaves(o.m)],

@@ -707,16 +707,17 @@ def test_cuda_flash_attention_q_offset_matches_plain(cuda, dtype, route,
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
                          ids=["bf16", "f32"])
-@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,q_offset",
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,q_offset,window",
                          [row[1:] for row in K6_CUT],
                          ids=[row[0] for row in K6_CUT])
 def test_cuda_flash_attention_at_the_moe_cut_shapes(cuda, b, sq, skv, hq,
                                                     hkv, d, dv, q_offset,
-                                                    dtype):
-    """K6 at the MoE family's cut shapes (``chip_smoke.K6_CUT``):
-    phi3.5-moe-42b's 32/8 heads of 128 as the last model rank's rows at
-    their offset, and deepseek-v2-lite-16b's one head a rank of 192/128,
-    on the bf16 and the f32 wgmma routes, against
+                                                    window, dtype):
+    """K6 at the cut shapes of the MoE and hybrid families
+    (``chip_smoke.K6_CUT``): phi3.5-moe-42b's 32/8 heads of 128 and
+    hymba-1.5b's 25/5 of 64 (windowed and global) as the last model
+    rank's rows at their offset, and deepseek-v2-lite-16b's one head a
+    rank of 192/128, on the bf16 and the f32 wgmma routes, against
     ``flash_attention_plain(q_offset=)`` over slices of the rows (the
     first, a middle and the last 256), within 2e-4, plus one bf16 step in
     bf16."""
@@ -729,7 +730,8 @@ def test_cuda_flash_attention_at_the_moe_cut_shapes(cuda, b, sq, skv, hq,
     route = flash_attention_route(dtype, d, dv, sq)
     assert route == ("wgmma" if dtype == torch.bfloat16 else "wgmma_tf32")
     before, routes = flash_attention.launches, _route_counts()
-    got = flash_attention(q, k, v, causal=True, q_offset=q_offset)
+    got = flash_attention(q, k, v, causal=True, window=window,
+                          q_offset=q_offset)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
     assert _route_counts() == {**routes, route: routes[route] + 1}
@@ -739,7 +741,7 @@ def test_cuda_flash_attention_at_the_moe_cut_shapes(cuda, b, sq, skv, hq,
     rel = 2.0 ** -7 if dtype == torch.bfloat16 else 0.0
     for r0, r1 in sorted(rows):
         want = flash_attention_plain(q[:, r0:r1], k, v, causal=True,
-                                     q_offset=q_offset + r0)
+                                     window=window, q_offset=q_offset + r0)
         torch.testing.assert_close(got[:, r0:r1].float(), want.float(),
                                    rtol=rel, atol=2e-4)
 

@@ -65,12 +65,10 @@ def test_dryrun_small_mesh(arch, shape, tmp_path):
     assert rec["ok"]
     assert rec["flops_per_device"] > 0
     assert rec["dominant"] in ("compute", "memory", "collective")
-    # the dense and MoE families' model axis is cut, the SSM's replicated
-    cut = arch in ("tiny", "tiny-moe")
-    axis = "sharded" if cut else "replicated"
-    assert (rec["device"], rec["model_axis"]) == ("meta", axis)
-    # a cut share is the model axis's last rank
-    assert rec["model_rank"] == (3 if cut else 0)
+    # every family's model axis is cut, and a cut share is the axis's
+    # last rank
+    assert (rec["device"], rec["model_axis"]) == ("meta", "sharded")
+    assert rec["model_rank"] == 3
     assert rec["memory"]["peak_live_bytes"] >= \
         rec["memory"]["argument_size_in_bytes"] > 0
     want_keys = set(Roofline.__dataclass_fields__) | {"memory", "ok",

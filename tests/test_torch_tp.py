@@ -1,9 +1,8 @@
 """The port's ``model`` axis (Megatron tensor and sequence parallelism for
 the dense and VLM families) against the JAX package, on the CPU.
 
-* The cuts: for each of the seven archs whose ``model`` axis the port
-  cuts (the dense and VLM ones, phi3.5-moe-42b and
-  deepseek-v2-lite-16b), the spec of every parameter leaf over
+* The cuts: for each of the ten archs (every family's ``model`` axis is
+  cut), the spec of every parameter leaf over
   ``model`` (``sharding.model_specs``) equals the reference's ``sanitize_specs(param_specs(...))`` on its
   ``jax.eval_shape`` shapes, on the (16, 16) and (2, 16, 16) meshes;
   every rank's cut (``init_params(tp_rank=, tp_size=)`` on ``meta``,
@@ -64,7 +63,8 @@ GRAD_TOL = 2e-5
 PARAM_TOL = 1e-5
 SPAWN_TIMEOUT_S = 300
 ARCHS = ("tinyllama-1.1b", "qwen2.5-3b", "qwen3-4b", "qwen1.5-32b",
-         "qwen2-vl-7b", "phi3.5-moe-42b", "deepseek-v2-lite-16b")
+         "qwen2-vl-7b", "phi3.5-moe-42b", "deepseek-v2-lite-16b",
+         "seamless-m4t-large-v2", "mamba2-370m", "hymba-1.5b")
 MESHES = ((1, 2), (1, 4), (2, 2))
 CONFIGS = ("tiny", "tiny-h8", "tiny-vl")
 SPS = (False, True)

@@ -2,8 +2,8 @@
 experts, MLA head-parallel with its latent cache cut on its feature dim)
 against the JAX package, on the CPU.
 
-* The cuts: ``model_axis_sharded`` admits the MoE family, with or
-  without MLA, and keeps enc-dec, SSM and hybrid heads replicated; the
+* The cuts: ``model_axis_sharded`` admits every family (the MoE one
+  with or without MLA, enc-dec, SSM and hybrid heads among them); the
   ZeRO-1 free dim of every leaf of phi3.5-moe-42b's and
   deepseek-v2-lite-16b's cut (the 4-D expert stacks among them) is the
   reference's ``zero1_specs`` over its sanitized specs. The specs and
@@ -20,16 +20,19 @@ against the JAX package, on the CPU.
   configs' own capacity factor (1.25), and ``test_assignments_drop``
   asserts that the reference drops assignments on these batches.
 
-Which routing the train steps are held to: a data rank of the port's
-mesh step routes its own rows (``_local_batch``), as the reference's
-``shard_map`` step (``make_bucketed_train_step``) does; the reference's
-pjit ``loss_fn`` over the global batch routes all rows together, with a
-capacity twice as large. At drops the two are different functions
-(``test_data_shard_routing_differs_from_the_global_batch`` pins the
-gap; the port's mesh step against the pjit step is an open parity
-fault), so a step on the (2, 2) mesh is held to the reference's
-per-shard function: the mean of ``loss_fn`` and its gradients over the
-two data shards (on (1, n) meshes that is the global batch's).
+Which routing the train steps are held to: the reference's pjit step
+(``make_train_step``) routes the global (micro)batch at once, with the
+capacity of all its tokens; its ``shard_map`` step
+(``make_bucketed_train_step``) routes each data shard alone. At drops
+the two are different functions
+(``test_data_shard_routing_differs_from_the_global_batch`` shows that
+these batches tell them apart). So the port's ``make_train_step(mesh)``
+(a data rank's rows routed as a part of the global batch, the per-expert
+counts exchanged over the data group) is held to the reference's
+``make_train_step`` gradients on the global batch, in one microbatch and
+in two (the global batch split first); the port's psum step is held to
+the per-shard function: the mean of ``loss_fn`` and its gradients over
+the data shards. On (1, n) meshes the two are the same.
 
 Tolerances: ``tests/test_torch_tp.py``'s (5e-5 on logits, the loss
 within 1e-5 relative, gradient leaves within 2e-5 of the leaf's largest
@@ -59,6 +62,7 @@ from repro.launch import specs as JS
 from repro.models.sharding import param_specs as j_param_specs
 from repro.serve.serve_step import decode_step as j_decode
 from repro.serve.serve_step import prefill_step as j_prefill
+from repro.train.train_step import _microbatch_grads as J_mb_grads
 from repro_torch._tree import tree_leaves
 from repro_torch.configs.registry import get_config
 from repro_torch.launch.mesh import run_peers
@@ -81,14 +85,23 @@ BATCH, SEQ, SERVE_B = 4, 16, 2
 @pytest.mark.parametrize("arch,cut", [
     ("phi3.5-moe-42b", True), ("deepseek-v2-lite-16b", True),
     ("tiny-moe", True), ("tinyllama-1.1b", True),
-    ("seamless-m4t-large-v2", False), ("mamba2-370m", False),
-    ("hymba-1.5b", False), ("tiny-ssm", False)])
+    ("seamless-m4t-large-v2", True), ("mamba2-370m", True),
+    ("hymba-1.5b", True), ("tiny-ssm", True)])
 def test_model_axis_sharded_families(arch, cut):
+    """Every family is cut, and splits over a model axis of 16 (4 for
+    ``tiny-moe``'s 4 experts): the Mamba-2 mixer's ``in_proj`` may stay
+    whole (hymba-1.5b's 6482 columns, ``tiny-ssm``'s 296), any other leaf
+    that does not divide the axis raises."""
     cfg = get_config(arch)
     assert sharding.model_axis_sharded(cfg) == cut
-    if not cut:
-        with pytest.raises(NotImplementedError, match="replicated"):
-            sharding.check_model_axis(cfg, 16)
+    axis = 4 if arch == "tiny-moe" else 16
+    sharding.check_model_axis(cfg, axis)
+    _, specs = sharding.whole_specs(cfg, axis)
+    whole = [p for p, s in sharding._leaf_paths(specs, "")
+             if p.endswith("in_proj") and not sharding.model_dims(s)]
+    assert bool(whole) == (arch in ("hymba-1.5b", "tiny-ssm")), whole
+    with pytest.raises(NotImplementedError):
+        sharding.check_model_axis(cfg, 7)
 
 
 def test_mla_needs_heads_that_divide_the_axis():
@@ -187,6 +200,17 @@ def _shards(batch, n):
     m = batch["tokens"].shape[0] // n
     return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()}
             for i in range(n)]
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_global(name, microbatches):
+    """The JAX package's pjit step's loss and gradients on the global
+    batch (``train_step._microbatch_grads``: the batch split into
+    ``microbatches`` first, each routed whole)."""
+    jp, _, batch, _ = _world(name)
+    loss, grads = J_mb_grads(jp, _jcfg(name), _jb(batch), JTrainConfig(
+        microbatches=microbatches, remat=False))
+    return float(loss), jax.tree.map(np.asarray, grads)
 
 
 @functools.lru_cache(maxsize=None)
@@ -308,19 +332,11 @@ def test_loss_and_whole_gradients_match_the_reference(ranks, name, sp):
             assert rs[1] > rs[0], rs
 
 
-@pytest.mark.parametrize("zero1", [False, True], ids=["plain", "zero1"])
-@pytest.mark.parametrize("sp", SPS, ids=["sp_off", "sp_on"])
-@pytest.mark.parametrize("name", CONFIGS)
-def test_train_step_on_cuts_matches_the_reference(ranks, name, sp, zero1):
-    """One ``make_train_step(mesh)`` step on each rank's cut, the cuts
-    gathered whole, against the JAX package's per-shard function (the
-    module docstring): the loss and the step's gradients against the
-    mean of its ``loss_fn`` and gradients over the data shards, the
-    parameters against its clip and AdamW on the step's gradients; the
-    global norm counts each expert leaf once."""
-    shape, out = ranks
-    loss, grads = _ref_loss_grads(name, shape[0])
-    key = f"step zero1={zero1}"
+def _check_step(out, shape, name, sp, key, loss, grads):
+    """Each data row's step ``key``: every rank's loss, the step's
+    gradients gathered whole and their global norm against ``loss`` and
+    ``grads``, the parameters against the JAX package's clip and AdamW on
+    the step's gradients."""
     for row in range(shape[0]):
         mine = [r for r in out if r["coords"][0] == row]
         for r in mine:
@@ -337,6 +353,44 @@ def test_train_step_on_cuts_matches_the_reference(ranks, name, sp, zero1):
                        shape[1])
         _close_tree(whole, _ref_update(name, synced), PARAM_TOL, "params",
                     rel=False)
+
+
+@pytest.mark.parametrize("zero1", [False, True], ids=["plain", "zero1"])
+@pytest.mark.parametrize("sp", SPS, ids=["sp_off", "sp_on"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_train_step_on_cuts_matches_the_reference(ranks, name, sp, zero1):
+    """One ``make_train_step(mesh)`` step on each rank's cut, the cuts
+    gathered whole, against the JAX package's pjit step on the global
+    batch (the module docstring): the loss and the step's gradients
+    against its ``_microbatch_grads``, the parameters against its clip
+    and AdamW on the step's gradients; the global norm counts each
+    expert leaf once."""
+    shape, out = ranks
+    loss, grads = _ref_global(name, 1)
+    _check_step(out, shape, name, sp, f"step zero1={zero1}", loss, grads)
+
+
+@pytest.mark.parametrize("sp", SPS, ids=["sp_off", "sp_on"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_train_step_in_microbatches_matches_the_reference(ranks, name, sp):
+    """``make_train_step(mesh)`` in two microbatches: a rank's i-th is
+    data shard r of the global batch's i-th, routed as a part of it, held
+    to the JAX package's pjit step in two microbatches."""
+    shape, out = ranks
+    loss, grads = _ref_global(name, 2)
+    _check_step(out, shape, name, sp, "step mb=2", loss, grads)
+
+
+@pytest.mark.parametrize("sp", SPS, ids=["sp_off", "sp_on"])
+@pytest.mark.parametrize("name", CONFIGS)
+def test_psum_step_holds_the_per_shard_function(ranks, name, sp):
+    """The psum step (``make_bucketed_train_step(sync="psum")``, the
+    reference's ``shard_map`` step) routes each data shard alone: held to
+    the mean of the JAX package's ``loss_fn`` and gradients over the data
+    shards."""
+    shape, out = ranks
+    loss, grads = _ref_loss_grads(name, shape[0])
+    _check_step(out, shape, name, sp, "psum", loss, grads)
 
 
 @pytest.mark.parametrize("name", CONFIGS)
