@@ -29,14 +29,18 @@ and runs, on the card:
      deepseek-v2-lite's MLA prefill, 16 heads with q and k 192 wide and
      v 128, at seamless-m4t's encoder (128 x 128, not causal), its
      cross-attention in prefill (512 x 128) and in decode (1 x 128), 16
-     heads of 64, and at qwen2-vl's prefill, 28 q over 4 kv heads of
-     128), and in bf16 at each shape phases 28 and 31 give it
+     heads of 64, at qwen2-vl's prefill, 28 q over 4 kv heads of
+     128, and at the serve driver's default ``tiny`` prefill, 8 x 32
+     rows, 4 q over 2 kv heads of 16, and the same at head dim 32: the
+     ``mma_sync`` route's shapes, the d-16 row recorded as its row), and
+     in bf16 at each shape phases 28 and 31 give it
      (``K6_SERVED``: 2 x 32768 rows at every attention model's heads,
      MLA's 192/128, seamless's one head a model rank over its 8192
      frames; 16 x 4096 rows at tinyllama's heads and seamless's one head,
      over 1024 frames), held over slices
      of the query rows at their offset (the plain version's scores at
-     32768 rows would not fit), and on each of its three routes at query
+     32768 rows would not fit), and on each of its wgmma and mma_sync
+     routes at query
      offsets (``K6_OFFSETS``: 16 x 256 rows of a sequence-parallel rank
      at offsets 37 and 3840 over 4096 keys, 16 q heads over 2 KV heads
      of 128, causal and with a window of 1024, printed, not recorded,
@@ -45,7 +49,16 @@ and runs, on the card:
      128 and hymba-1.5b's 25/5 of 64, windowed and global, as the last
      model rank's rows at their offset, deepseek-v2-lite-16b's one head
      of 192/128 a rank, at ``prefill_32k`` and ``train_4k``; printed,
-     not recorded) — with
+     not recorded), and in bf16 at decode-shaped calls (``K6_DECODE``:
+     seamless's cross decode with 16 heads over 8192 frames, and GQA
+     decode steps over a 32768-slot cache, tinyllama's 32/4 x 64,
+     qwen3-4b's 32/8 x 128 and hymba's 25/5 x 64 with its window of
+     1024, one row a sequence at slot 32767; printed, not recorded, each
+     bound over the keys the call reads) — calls of 64 rows or fewer on ``split_kv``, with the
+     ``mma_sync`` kernel launched directly and timed beside it at the
+     cross-decode shapes (seamless's one head over 8192 frames in bf16,
+     16 heads over 128 in f32; printed, not recorded)
+     — with
      its time, the plain version's time, its bound (the function's own
      work, by the formula its wrapper charges to the operation counter
      (``*_cost`` beside each kernel), at its dtype's peak, K6 in f32 as
@@ -303,18 +316,26 @@ and runs, on the card:
      step whose MoE layer routes each data rank's rows as a part of the
      global batch, its loss, norm and gradients against the unsharded
      step on the global batch;
-  17. each kernel's launch count on the eighteen paths (3-6, 7-10,
-     11-13, 14-15, 16, 20, 21, 22, 18, 19, 26 summed over its ranks, 27
+  33. the serve driver's default (``launch/serve.py``'s ``run`` with
+     its default ``tiny``: 8 requests, 32-token prompts, 16 greedy
+     tokens, f32): K6 on ``mma_sync`` at head dim 16, once a layer in
+     the prefill, and finite outputs of the shape it reports;
+  17. each kernel's launch count on the nineteen paths (3-6, 7-10,
+     11-13, 14-15, 16, 20, 21, 22, 33, 18, 19, 26 summed over its
+     ranks, 27
      with two runs a cell on the card, 28 with three, 31's cells with
      two or three, 29, 30, 31's check and 32 summed over its ranks),
      each path run with the counters at 0 and read right after: every
      kernel a path runs must have launched on it, and each of the seven
      > 0, K6 also per route (``flash_attention.wgmma`` and
      ``flash_attention.wgmma_tf32``, the Hopper kernels that bf16 and
-     f32 calls over 64 rows at the served head dims take, and
-     ``flash_attention.mma_sync``), each > 0; the kernels line records
-     K6's three kernels apart (``flash_attention``,
-     ``flash_attention_sm90`` and ``flash_attention_sm90_tf32``).
+     f32 calls over 64 rows at the served head dims take,
+     ``flash_attention.split_kv``, which calls of 64 rows or fewer there
+     take, seamless's cross-attention in decode above all, and
+     ``flash_attention.mma_sync``, head dims 16 and 32: path 33's), each
+     > 0; the kernels line records K6's four kernels apart
+     (``flash_attention``, ``flash_attention_sm90``,
+     ``flash_attention_sm90_tf32`` and ``flash_attention_splitkv``).
 
 Any mismatch raises, so the exit code is not 0. The second-to-last line
 is the kernels' JSON record, the last ``{"ok": true, "device": ...}``.
@@ -400,7 +421,9 @@ K6_SERVED = (
      0),
 )
 # K6 at phase 2's shapes, f32 but for one bf16 row (the f32 tinyllama row
-# recorded last): (where, dtype, B, Sq, Skv, Hq, Hkv, d, dv, causal, window)
+# recorded last, as wgmma_tf32's; the serve driver's default `tiny` prefill,
+# path 33's call and the main path's only mma_sync one, as mma_sync's):
+# (where, dtype, B, Sq, Skv, Hq, Hkv, d, dv, causal, window)
 K6_PHASE2 = (
     ("tinyllama-1.1b window 32", "float32", 8, 512, 512, 32, 4, 64, 64, True,
      32),
@@ -414,6 +437,8 @@ K6_PHASE2 = (
      0),
     ("seamless cross decode", "float32", 8, 1, 128, 16, 16, 64, 64, False, 0),
     ("qwen2-vl-7b", "float32", 8, 512, 512, 28, 4, 128, 128, True, 0),
+    ("tiny d 32", "float32", 8, 32, 32, 4, 2, 32, 32, True, 0),
+    ("tiny serve prefill", "float32", 8, 32, 32, 4, 2, 16, 16, True, 0),
     ("tinyllama-1.1b", "float32", 8, 512, 512, 32, 4, 64, 64, True, 0),
 )
 # K6 at query offsets (phase 2): 256 rows of a sequence-parallel rank,
@@ -451,12 +476,30 @@ K6_CUT = (
     ("hymba-1.5b train_4k rank 15 global", 16, 256, 4096, 25, 5, 64, 64,
      3840, 0),
 )
-# K6's three kernels: each route's source and its key in the kernels line
+# K6 at decode-shaped calls (phase 2, bf16, on split_kv): seamless's cross
+# decode replicated, and GQA decode steps over a 32768-slot cache, one row
+# a sequence at slot 32767, causal; hymba's window of 1024 reads 1024 keys,
+# not 32768. The yardstick for decode attention over the cache, which
+# runs plain today: (where, B, Sq, Skv, Hq, Hkv, d, dv, causal, window,
+# q_offset)
+K6_DECODE = (
+    # seamless's cross-attention decode with the model axis replicated: 16
+    # heads of 64 over 8192 frames, not causal
+    ("seamless cross decode 16 heads", 8, 1, 8192, 16, 16, 64, 64, False, 0,
+     0),
+    ("tinyllama-1.1b decode", 8, 1, 32768, 32, 4, 64, 64, True, 0, 32767),
+    ("qwen3-4b decode", 8, 1, 32768, 32, 8, 128, 128, True, 0, 32767),
+    ("hymba-1.5b decode window", 8, 1, 32768, 25, 5, 64, 64, True, 1024,
+     32767),
+)
+# K6's four routes: each route's source and its key in the kernels line
 K6_SOURCE = {"mma_sync": "flash_attention.cu",
              "wgmma": "flash_attention_sm90.cu",
-             "wgmma_tf32": "flash_attention_sm90_tf32.cu"}
+             "wgmma_tf32": "flash_attention_sm90_tf32.cu",
+             "split_kv": "flash_attention_splitkv.cu"}
 K6_KEY = {"mma_sync": "flash_attention", "wgmma": "flash_attention_sm90",
-          "wgmma_tf32": "flash_attention_sm90_tf32"}
+          "wgmma_tf32": "flash_attention_sm90_tf32",
+          "split_kv": "flash_attention_splitkv"}
 # K7's shapes in the bf16 cells and the train_4k cells, f32 as models/ssm.py
 # passes them (phase 2 holds each): (where, B, S, nh, hd, d_state, chunk),
 # one group. The cut shares: mamba2-370m's scan head-parallel, 2 of its 32
@@ -556,12 +599,16 @@ def traced_device_us(fn, tries=1, per_kernel=None):
 # the __global__ functions one call of each counted wrapper launches, once
 # each: K7 runs five passes per call, each named ssd_scan_<pass>; a K6 call
 # runs its route's kernels (ROUTE_SYMBOL: the TF32 route a pre-pass, then
-# the attention)
+# the attention; split_kv the split pass, then the merge of its splits,
+# which a call of one split does without: a trace must hold the split pass
+# and counts the merge where it appears, SPLIT_KV_MERGE)
+SPLIT_KV_MERGE = "flash_attention_splitkv_combine"
 ROUTE_SYMBOL = {"flash_attention": {
     "mma_sync": ("flash_attention_kernel",),
     "wgmma": ("flash_attention_sm90_kernel",),
     "wgmma_tf32": ("flash_attention_tf32_split",
-                   "flash_attention_sm90_tf32_kernel")}}
+                   "flash_attention_sm90_tf32_kernel"),
+    "split_kv": ("flash_attention_splitkv_kernel", SPLIT_KV_MERGE)}}
 KERNEL_SYMBOL = {"systolic_mm": ("systolic_mm_kernel",),
                  "flash_attention": tuple(
                      sym for syms in ROUTE_SYMBOL["flash_attention"].values()
@@ -615,7 +662,8 @@ def _traced_ms(fn, iters, wrapper=None):
             # the kernels of the routes these calls took
             names = {sym for r, n in wrapper.route_launches.items()
                      if n > r0[r]
-                     for sym in ROUTE_SYMBOL[wrapper.__name__][r]}
+                     for sym in ROUTE_SYMBOL[wrapper.__name__][r]
+                     if sym != SPLIT_KV_MERGE}
         rows = [e for e in rows if e.count]
         if not any(e.self_device_time_total > 0 for e in rows):
             continue
@@ -1816,7 +1864,11 @@ def k6_served_phase(dev, measure):
         cost = flash_attention_cost(q, k, v, causal=causal, window=window)
         r0 = slices[-1][0]
         route = flash_attention_route(q.dtype, d, dv, sq)
-        # the wgmma kernel's record in the kernels line is tinyllama's row
+        if route == "split_kv":
+            mma_sync_beside(measure, what, q, k, v, causal, window, cost,
+                            library, PEAK_BF16_FLOPS)
+        # the wgmma kernel's record in the kernels line is tinyllama's row,
+        # split_kv's seamless's cross decode
         measure("flash_attention", K6_SOURCE[route],
                 "src/repro/kernels/flash_attention.py:102",
                 f"{what} {b}x{sq}{f'/{skv}' if skv != sq else ''}x"
@@ -1830,11 +1882,122 @@ def k6_served_phase(dev, measure):
                     q_offset=r0), cost, library=library,
                 peak_flops=PEAK_BF16_FLOPS, iters=5,
                 key=K6_KEY[route],
-                record=route == "wgmma" and what == "tinyllama-1.1b",
+                record=(route, what) in (
+                    ("wgmma", "tinyllama-1.1b"),
+                    ("split_kv", "seamless cross decode head")),
                 plain_rows=f"{r0}:{sq}", k6_route=route,
                 route_bound_ms=bound(cost[1], 1.5 * cost[0],
                                      PEAK_BF16_FLOPS)[0])
         del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+
+
+def mma_sync_beside(measure, what, q, k, v, causal, window, cost, library,
+                    peak):
+    """A split_kv shape on the ``mma_sync`` kernel, the route such calls
+    took before split_kv, launched directly (``_launch``): held against
+    ``flash_attention_plain`` with phase 2's tolerances, then timed by
+    ``measure`` and printed, not recorded."""
+    from repro_torch.kernels import flash_attention as fa
+    b, sq, hq, d = q.shape
+    out = q.new_empty((b, sq, hq, v.shape[-1]))
+
+    def kernel():
+        fa._launch("mma_sync", q, k, v, out, causal, window, d ** -0.5)
+        return out
+
+    def plain():
+        return fa.flash_attention_plain(q, k, v, causal=causal,
+                                        window=window)
+
+    before = fa.flash_attention.route_launches["mma_sync"]
+    got, want = kernel(), plain()
+    check(fa.flash_attention.route_launches["mma_sync"] == before + 1,
+          f"K6 {what} did not launch mma_sync")
+    err = (got.float() - want.float()).abs()
+    rel = 2.0 ** -7 if q.dtype == torch.bfloat16 else 0.0
+    check(bool((err <= 2e-4 + rel * want.float().abs()).all()),
+          f"flash_attention mma_sync {what}: max err {err.max().item()}")
+    measure("flash_attention", K6_SOURCE["mma_sync"],
+            "src/repro/kernels/flash_attention.py:102",
+            f"{what} {b}x{sq}/{k.shape[1]}x{hq}/{k.shape[2]}x{d} "
+            f"{'causal' if causal else 'noncausal'} "
+            f"{str(q.dtype).split('.')[-1]} on mma_sync",
+            err.max().item(), kernel, plain, cost, library=library,
+            peak_flops=peak, key=K6_KEY["mma_sync"], record=False,
+            k6_route="mma_sync")
+
+
+def k6_decode_phase(dev, measure):
+    """Phase 2's K6 in bf16 at decode-shaped calls (``K6_DECODE``), on
+    split_kv: each held against ``flash_attention_plain(q_offset=)``
+    within 2e-4 plus one bf16 step, then timed by ``measure`` over 5
+    calls and printed, not recorded. The bound counts the keys the call
+    reads (hymba's window: 1024 of 32768), each once per kv head, and q
+    and the output once; SDPA on flash or memory-efficient attention
+    alone, with K and V repeated to the q heads, the window as a boolean
+    mask, is the library time."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels import flash_attention as fa
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    backends = [SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 70)
+    for what, b, sq, skv, hq, hkv, d, dv, causal, window, off in K6_DECODE:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(
+            torch.bfloat16) for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                                          (b, skv, hkv, dv)))
+        route = fa.flash_attention_route(q.dtype, d, dv, sq)
+        check(route == "split_kv", f"K6 decode row {what} routed to {route}")
+
+        def kernel():
+            return fa.flash_attention(q, k, v, causal=causal, window=window,
+                                      q_offset=off)
+
+        def plain():
+            return fa.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window, q_offset=off)
+
+        before = fa.flash_attention.route_launches[route]
+        got, want = kernel(), plain()
+        check(fa.flash_attention.route_launches[route] == before + 1,
+              f"K6 {what} did not launch {route}")
+        err = (got.float() - want.float()).abs()
+        check(bool((err <= 2e-4 + 2.0 ** -7 * want.float().abs()).all()),
+              f"flash_attention split_kv {what}: max err "
+              f"{err.max().item()}")
+        pos = off + torch.arange(sq, device=dev)[:, None]
+        j = torch.arange(skv, device=dev)[None, :]
+        seen = torch.ones((sq, skv), dtype=torch.bool, device=dev)
+        if causal:
+            seen &= pos >= j
+        if window:
+            seen &= pos - j < window
+        keys = int(seen.any(0).sum())
+        flops = fa.flash_attention_cost(q, k, v, causal=causal,
+                                        window=window, q_offset=off)[0]
+        nbytes = q.element_size() * b * (d + dv) * (sq * hq + keys * hkv)
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(hq // hkv, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        mask = seen if bool((~seen).any()) else None
+
+        def library():
+            with sdpa_kernel(backends):
+                return sdpa(qt, kt, vt, attn_mask=mask)
+
+        measure("flash_attention", K6_SOURCE[route],
+                "src/repro/kernels/flash_attention.py:102",
+                f"{what} {b}x{sq}/{skv}x{hq}/{hkv}x{d} "
+                f"{'causal' if causal else 'noncausal'}"
+                f"{f' window{window}' if window else ''} q_offset{off} "
+                f"bfloat16", err.max().item(), kernel, plain,
+                (flops, nbytes), library=library, peak_flops=PEAK_BF16_FLOPS,
+                iters=5, key=K6_KEY[route], record=False, k6_route=route,
+                keys_read=keys, q_offset=off)
+        del q, k, v, got, want, err, qt, kt, vt, mask, seen
         torch.cuda.empty_cache()
 
 
@@ -1844,7 +2007,7 @@ def k6_offset_phase(dev, measure):
     tolerances (2e-4, and one bf16 step in bf16), then timed by
     ``measure`` (main's) and printed, not recorded. The wgmma routes take
     the call through ``flash_attention``; ``mma_sync``, which the
-    routing gives calls of 64 rows or fewer, is launched directly. The
+    routing gives head dims 16 and 32, is launched directly. The
     library time is SDPA on flash or memory-efficient attention alone,
     with K and V repeated to the q heads beforehand, as in
     ``k6_served_phase``: the last rows of the keys (offset Skv - Sq, no
@@ -3717,6 +3880,7 @@ def main():
     del x, y, q, s, pq, ps
 
     k6_served_phase(dev, measure)
+    k6_decode_phase(dev, measure)
     k6_offset_phase(dev, measure)
     k6_cut_phase(dev, measure)
 
@@ -3741,7 +3905,7 @@ def main():
     # bf16 peak, in f32 three TF32 products each (3xTF32) at the TF32 peak,
     # the f32 bound itself.
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    for (_, dname, ab, asq, askv, ahq, ahkv, ad, adv, causal,
+    for (what, dname, ab, asq, askv, ahq, ahkv, ad, adv, causal,
          window) in K6_PHASE2:
         dtype = getattr(torch, dname)
         qa = torch.from_numpy(rng.standard_normal(
@@ -3782,8 +3946,14 @@ def main():
             peak, work = PEAK_TF32_FLOPS / 3, "3xTF32 tensor cores"
             route_flops, route_peak = 3.0 * flops, PEAK_TF32_FLOPS
         rb = bound(nbytes, route_flops, route_peak)
-        # recorded last per f32 kernel: the f32 tinyllama row (the TF32
-        # wgmma kernel) and seamless's cross decode row (mma.sync)
+        if route == "split_kv":
+            # seamless's cross decode on the route it took before split_kv,
+            # printed beside it
+            mma_sync_beside(measure, what, qa, ka, va, causal, window,
+                            cost, library, peak)
+        # recorded: the f32 tinyllama row (the TF32 wgmma kernel) and the
+        # tiny serve prefill (mma_sync); split_kv's record is the bf16
+        # cross decode's
         measure("flash_attention", K6_SOURCE[route],
                 "src/repro/kernels/flash_attention.py:102",
                 f"{ab * ahq}x{asq}{f'/{askv}' if askv != asq else ''}"
@@ -3797,7 +3967,8 @@ def main():
                 lambda: flash_attention_plain(qa, ka, va, causal=causal,
                                               window=window),
                 cost, library=library, peak_flops=peak, key=K6_KEY[route],
-                record=route != "wgmma", k6_route=route,
+                record=(route == "wgmma_tf32"
+                        or what == "tiny serve prefill"), k6_route=route,
                 route_work=work, route_flops=route_flops,
                 route_bound_ms=rb[0], route_bound_by=rb[1])
     del qa, ka, va, qt, kt, vt, got, want, err
@@ -4696,6 +4867,24 @@ def main():
     del params, caches, inp
     torch.cuda.empty_cache()
 
+    # 33. the serve driver as a user calls it with no arguments: its
+    # default `tiny` (4 q over 2 kv heads of 16), whose prefill takes K6's
+    # mma_sync route (head dims 16 and 32) once a layer; decode runs none
+    from repro_torch.launch.serve import run as serve_run
+    zero_counts()
+    tiny_cfg = get_config("tiny")
+    served = serve_run("tiny", device=dev)
+    phase("serve default", **{k: json.dumps(v) if isinstance(v, list) else v
+                              for k, v in served.items()})
+    check(served["no_nans"] and served["output_shape"] == [8, 16],
+          f"the serve driver's default run: {served}")
+    read_counts("serve default", (flash_attention,))
+    check(launches["serve default"]["flash_attention.mma_sync"]
+          == launches["serve default"]["flash_attention"]
+          == tiny_cfg.num_layers,
+          f"serve default: K6 launches {launches['serve default']}, want "
+          f"{tiny_cfg.num_layers} on mma_sync")
+
     # the dry-run sweep (27) and phases 28 and 31's meta traces need no
     # card: they run on the host's other cores from here on
     cpu = CpuWork()
@@ -4789,9 +4978,10 @@ def main():
           f"K7 never launched on the {path} path")
 
     # ---- 17. launches on the main path -------------------------------------
-    # K6's three kernels are recorded apart: flash_attention (mma.sync),
-    # flash_attention_sm90 (wgmma, bf16) and flash_attention_sm90_tf32
-    # (wgmma, f32), each with its route's launches
+    # K6's four kernels are recorded apart: flash_attention (mma.sync),
+    # flash_attention_sm90 (wgmma, bf16), flash_attention_sm90_tf32
+    # (wgmma, f32) and flash_attention_splitkv (split_kv), each with its
+    # route's launches
     counts = {name: sum(c[name] for c in launches.values())
               for name in launches["datapath"]}
     phase("kernels", **counts)
@@ -4802,7 +4992,8 @@ def main():
                       ("flash_attention", "flash_attention.mma_sync"),
                       ("flash_attention_sm90", "flash_attention.wgmma"),
                       ("flash_attention_sm90_tf32",
-                       "flash_attention.wgmma_tf32")):
+                       "flash_attention.wgmma_tf32"),
+                      ("flash_attention_splitkv", "flash_attention.split_kv")):
         rec[name]["launches"] = counts[key]
         rec[name]["launches_by_path"] = {
             path: per[key] for path, per in launches.items()}

@@ -48,6 +48,11 @@ SIGNATURES = {
                                           _I, _I, _I, _I, _I, _I, _I, _I,
                                           ctypes.c_float, _P],
     "reconic_flash_attention_sm90_tf32_scratch_words": [_I, _I, _I, _I, _I],
+    "reconic_flash_attention_splitkv": [_P, _P, _P, _P, _P, _L, _I, _I, _I,
+                                        _I, _I, _I, _I, _I, _I, _I,
+                                        ctypes.c_float, _I, _I, _I, _P],
+    "reconic_flash_attention_splitkv_scratch_words": [_I, _I, _I, _I, _I],
+    "reconic_flash_attention_splitkv_wave": [_I, _I, _I, _I],
     "reconic_ssd_scan": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _L, _I, _I, _I,
                          _I, _I, _I, _I, _P],
     "reconic_ssd_scan_work_floats": [_I, _I, _I, _I, _I, _I],
@@ -55,6 +60,8 @@ SIGNATURES = {
 #: entry points that return something else than a cudaError_t code
 RESTYPES = {"reconic_ssd_scan_work_floats": ctypes.c_longlong,
             "reconic_flash_attention_sm90_tf32_scratch_words":
+                ctypes.c_longlong,
+            "reconic_flash_attention_splitkv_scratch_words":
                 ctypes.c_longlong}
 
 

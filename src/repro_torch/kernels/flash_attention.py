@@ -3,7 +3,7 @@
 
 Online-softmax attention with causal and sliding-window masks, GQA (q
 head ``h`` reads kv head ``h // group``) and a zero output for a row that
-sees no key. On the H100 a CUDA call takes one of three hand-written
+sees no key. On the H100 a CUDA call takes one of four hand-written
 kernels, as ``flash_attention_route`` says:
 
 * ``"wgmma"`` (``csrc/flash_attention_sm90.cu``), bf16 at the served head
@@ -17,11 +17,19 @@ kernels, as ``flash_attention_route`` says:
   3xTF32, every operand K-major (a pre-pass writes K's TF32 lo part
   and V transposed, hi and lo, into scratch that ``_launch``
   allocates), one consumer warpgroup per 64-row q tile, 32-key stages;
-* ``"mma_sync"`` (``csrc/flash_attention.cu``), every other call: a
+* ``"split_kv"`` (``csrc/flash_attention_splitkv.cu``), bf16 and f32 at
+  the served head dims with 64 query rows or fewer (a decode step): a
+  block per (sequence, kv head, key split) whose rows are the GQA
+  group's q heads times the query rows, the visible keys cut into the
+  splits ``split_kv_plan`` chooses and streamed by ``cp.async`` through
+  a ring of 64-key stages, the splits merged by a second kernel with
+  log-sum-exp weights in split order;
+* ``"mma_sync"`` (``csrc/flash_attention.cu``), head dims 16 and 32: a
   4-warp block per 64-row q tile, 64-key K/V tiles double-buffered by
-  ``cp.async``, ``mma.sync`` products (3xTF32 in f32).
+  ``cp.async``, ``mma.sync`` products (3xTF32 in f32). split_kv shares
+  its tile arithmetic (``csrc/flash_attention_mma.cuh``).
 
-All three stay within the reference's f32 tolerance (plus one bf16 step
+All four stay within the reference's f32 tolerance (plus one bf16 step
 in bf16), mask ragged edges themselves (any ``Sq``, ``Skv`` runs without
 padding) and never repeat K/V per q head. Each takes ``q_offset``, the
 position of q's first row among the keys (a rank's rows of a
@@ -44,6 +52,7 @@ call, whatever the device.
 """
 from __future__ import annotations
 
+import functools
 from typing import Callable, Optional
 
 import numpy as np
@@ -59,7 +68,9 @@ NEG_INF = -1e30
 HEAD_DIMS = ((16, 16), (32, 32), (64, 64), (128, 128), (192, 128))
 #: the pairs the wgmma kernels are instantiated for: the served ones
 SM90_HEAD_DIMS = ((64, 64), (128, 128), (192, 128))
-ROUTES = ("wgmma", "wgmma_tf32", "mma_sync")
+ROUTES = ("wgmma", "wgmma_tf32", "mma_sync", "split_kv")
+#: split_kv_plan's keys a tile
+SPLIT_KV_TILE = 64
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -140,7 +151,8 @@ def flash_attention_cost(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def flash_attention_route(dtype: torch.dtype, d: int, dv: int,
                           sq: int) -> str:
     """The kernel a CUDA call of this dtype, (q/k, v) head dims and query
-    rows goes to: ``"wgmma"``, ``"wgmma_tf32"`` or ``"mma_sync"``.
+    rows goes to: ``"wgmma"``, ``"wgmma_tf32"``, ``"split_kv"`` or
+    ``"mma_sync"``.
 
     * At ``SM90_HEAD_DIMS`` with more than 64 rows, bf16 goes to
       ``wgmma`` (TMA boxes and swizzle atoms of 64 columns, 128-row
@@ -152,15 +164,52 @@ def flash_attention_route(dtype: torch.dtype, d: int, dv: int,
       16 heads of 64, not causal) 0.0178 ms against 0.0180-0.0190, 8 x
       128 causal rows at 128/128 GQA 7 0.054 against 0.095 (``PERF.md``
       §6, ``tools/k6_drift.py``).
-    * Either dtype at 64 rows or fewer (seamless's cross-attention decode
-      step, one row over the encoder's frames) goes to ``mma_sync``,
-      whose one 64-row tile covers the call where bf16's wgmma tile of
-      128 rows would be half empty at best.
+    * Either dtype there at 64 rows or fewer (a decode step; seamless's
+      cross-attention, one row over the encoder's frames) goes to
+      ``split_kv``. Such a call is bound by the bytes of K and V, so it
+      wants many blocks streaming keys and each key read once: split_kv
+      packs the GQA group's rows into one tile (K and V read once per kv
+      head) and cuts the keys into splits, where ``mma_sync`` runs one
+      block per (sequence, q head) over all keys with one real row in
+      its 64 (seamless's cut decode: 8 blocks on 132 SMs).
     * Either dtype at (16, 16) and (32, 32) goes to ``mma_sync``: under
       one swizzle atom of 128 bytes."""
-    if (d, dv) in SM90_HEAD_DIMS and sq > 64:
-        return "wgmma" if dtype == torch.bfloat16 else "wgmma_tf32"
+    if (d, dv) in SM90_HEAD_DIMS:
+        if sq > 64:
+            return "wgmma" if dtype == torch.bfloat16 else "wgmma_tf32"
+        return "split_kv"
     return "mma_sync"
+
+
+def split_kv_plan(b: int, hq: int, hkv: int, sq: int, skv: int,
+                  causal: bool, window: int, q_offset: int, *,
+                  wave: int) -> tuple[int, int]:
+    """(splits, keys_per_split) of a ``split_kv`` call. The keys some row
+    can see, ``[lo, hi)`` (``lo`` the first row's window edge rounded
+    down to a tile, ``hi`` the last row's causal bound or Skv), are cut
+    into runs of ``keys_per_split`` keys from ``lo``, a whole number of
+    64-key tiles each, the last one ragged. The rule: the fewest tiles a
+    split with which the call's blocks (B x Hkv x the 64-row tiles of its
+    Hq / Hkv x Sq packed rows, times the splits) still fit one ``wave``,
+    the blocks the card holds at once, so that every SM streams K and V
+    with no second, partial wave behind them (on an H100 a plan of 1.2
+    waves ran 1.6x slower than one of a wave, ``PERF.md`` §6); one split,
+    with no merge pass after it, when the keys fit in one tile or the
+    blocks alone fill the wave. A block's tiles run one after another on
+    one warp, so even two tiles go faster as two splits and a merge
+    (seamless's f32 cross decode over 128 frames on an H100: 0.0107 ms
+    against 0.0155 as one split, ``PERF.md`` §6). The launcher refuses a
+    plan that leaves a key out or starts a split at or past ``hi``."""
+    lo = (max(0, q_offset - window + 1) // SPLIT_KV_TILE * SPLIT_KV_TILE
+          if window > 0 else 0)
+    hi = min(skv, q_offset + sq) if causal else skv
+    tiles = max(0, -(-(hi - lo) // SPLIT_KV_TILE))
+    blocks = b * hkv * -(-(hq // hkv * sq) // 64)
+    most = wave // max(blocks, 1)
+    if tiles <= 1 or most <= 1:
+        return 1, max(tiles, 1) * SPLIT_KV_TILE
+    per = -(-tiles // min(tiles, most))
+    return -(-tiles // per), per * SPLIT_KV_TILE
 
 
 def tf32_scratch_words(b: int, skv: int, hkv: int, d: int, dv: int) -> int:
@@ -172,6 +221,32 @@ def tf32_scratch_words(b: int, skv: int, hkv: int, d: int, dv: int) -> int:
     return int(_build.library()
                .reconic_flash_attention_sm90_tf32_scratch_words(
                    b, hkv, skv, d, dv))
+
+
+@functools.lru_cache(maxsize=None)
+def splitkv_wave(dtype: torch.dtype, d: int, dv: int, warps: int) -> int:
+    """The blocks of ``warps`` warps (one a 16-row part of the call's
+    packed rows, at most 4) of the ``split_kv`` kernel of this dtype and
+    head dims that the current card holds at once, by CUDA's occupancy
+    calculator (``reconic_flash_attention_splitkv_wave``):
+    ``split_kv_plan``'s wave. Raises where the card cannot say."""
+    wave = int(_build.library().reconic_flash_attention_splitkv_wave(
+        d, dv, int(dtype == torch.bfloat16), warps))
+    if wave <= 0:
+        raise RuntimeError(f"reconic_flash_attention_splitkv_wave: CUDA "
+                           f"error {-wave}")
+    return wave
+
+
+def splitkv_scratch_words(b: int, hq: int, sq: int, dv: int,
+                          splits: int) -> int:
+    """f32 words of the ``split_kv`` route's scratch, the launcher's own
+    count (``reconic_flash_attention_splitkv_scratch_words``): each
+    output row's unnormalised O (dv words) and its (m, l) per split; 0
+    for one split, which writes the output itself."""
+    return int(_build.library()
+               .reconic_flash_attention_splitkv_scratch_words(
+                   b, hq, sq, dv, splits))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -217,9 +292,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              f"head_dim {dv} not in {HEAD_DIMS}")
         # grid.y takes at most 65535 blocks: mma_sync's (sequence, q head)
         # pairs, wgmma's 128-row q tiles; wgmma_tf32's one grid dimension
-        # takes 2^31 - 1 blocks of 64 rows
+        # takes 2^31 - 1 blocks of 64 rows, split_kv's grid.x as many
+        # (sequence, kv head) pairs (its 64-row tiles of a GQA group's
+        # rows and its splits stay far under 65535)
         route = flash_attention_route(q.dtype, d, dv, sq)
-        if route == "wgmma":
+        if route == "split_kv":
+            if b * hkv > 2 ** 31 - 1:
+                raise ValueError(f"flash_attention: B * Hkv = {b * hkv} "
+                                 f">= 2^31")
+        elif route == "wgmma":
             if -(-sq // 128) > 65535:
                 raise ValueError(f"flash_attention: Sq = {sq} is over 65535 "
                                  f"tiles of 128 rows")
@@ -304,6 +385,21 @@ def _launch(route, q, k, v, out, causal, window, scale, q_offset=0):
                       scratch.data_ptr(), words, b, hq, hkv, sq, skv, d, dv,
                       int(causal), int(window), int(q_offset),
                       float(np.float32(scale)), _build.stream_ptr(q.device))
+    elif route == "split_kv":
+        warps = -(-min(hq // hkv * sq, 64) // 16)
+        splits, per = split_kv_plan(
+            b, hq, hkv, sq, skv, causal, window, q_offset,
+            wave=splitkv_wave(q.dtype, d, dv, warps))
+        words = splitkv_scratch_words(b, hq, sq, dv, splits)
+        scratch = (torch.empty(words, dtype=torch.float32, device=q.device)
+                   if words else None)
+        _build.launch("reconic_flash_attention_splitkv", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr() if words else 0, words, b, hq, hkv,
+                      sq, skv, d, dv, int(causal), int(window),
+                      int(q_offset), float(np.float32(scale)),
+                      int(q.dtype == torch.bfloat16), splits, per,
+                      _build.stream_ptr(q.device))
     else:
         _build.launch("reconic_flash_attention", q.data_ptr(), k.data_ptr(),
                       v.data_ptr(), out.data_ptr(), b, hq, hkv, sq, skv, d,

@@ -24,7 +24,8 @@ from repro_torch.kernels.flash_attention import (HEAD_DIMS, ROUTES,
                                                  SM90_HEAD_DIMS,
                                                  flash_attention,
                                                  flash_attention_plain,
-                                                 flash_attention_route)
+                                                 flash_attention_route,
+                                                 split_kv_plan)
 
 TOL = 2e-4
 
@@ -143,8 +144,8 @@ def test_plain_version_is_the_wrapper_on_cpu():
     (torch.bfloat16, 64, 64, 32768, "wgmma"),
     (torch.bfloat16, 128, 128, 65, "wgmma"),
     (torch.bfloat16, 192, 128, 8192, "wgmma"),
-    (torch.bfloat16, 64, 64, 64, "mma_sync"),
-    (torch.bfloat16, 64, 64, 1, "mma_sync"),
+    (torch.bfloat16, 64, 64, 64, "split_kv"),
+    (torch.bfloat16, 64, 64, 1, "split_kv"),
     (torch.bfloat16, 16, 16, 4096, "mma_sync"),
     (torch.bfloat16, 32, 32, 4096, "mma_sync"),
     (torch.float32, 64, 64, 32768, "wgmma_tf32"),
@@ -152,12 +153,13 @@ def test_plain_version_is_the_wrapper_on_cpu():
     (torch.float32, 192, 128, 512, "wgmma_tf32"),
     (torch.float32, 64, 64, 128, "wgmma_tf32"),
     (torch.float32, 64, 64, 65, "wgmma_tf32"),
-    (torch.float32, 128, 128, 64, "mma_sync"),
+    (torch.float32, 128, 128, 64, "split_kv"),
 ])
 def test_route_of_each_call_class(dtype, d, dv, sq, route):
     """Which kernel a CUDA call goes to: bf16 at the served head dims with
     more than 64 rows to the wgmma kernel, f32 there with more than 64
-    rows to the TF32 wgmma kernel, the rest to mma.sync."""
+    rows to the TF32 wgmma kernel, either dtype there with 64 rows or
+    fewer to split_kv, head dims 16 and 32 to mma.sync."""
     assert flash_attention_route(dtype, d, dv, sq) == route
 
 
@@ -165,15 +167,17 @@ def test_route_of_each_call_class(dtype, d, dv, sq, route):
 @pytest.mark.parametrize("d,dv", HEAD_DIMS)
 def test_f32_routing_table(d, dv, sq):
     """f32 takes the TF32 wgmma kernel at the served head dims over 64
-    rows and mma.sync's 3xTF32 everywhere else (one 64-row tile); bf16
-    takes the bf16 wgmma kernel at those dims over 64 rows."""
+    rows, bf16 the bf16 wgmma kernel there; either takes split_kv at
+    those dims at 64 rows or fewer, and mma.sync (3xTF32 in f32) at head
+    dims 16 and 32."""
     served = (d, dv) in SM90_HEAD_DIMS
+    short = "split_kv" if served else "mma_sync"
     assert flash_attention_route(torch.float32, d, dv, sq) == (
-        "wgmma_tf32" if served and sq > 64 else "mma_sync")
+        "wgmma_tf32" if served and sq > 64 else short)
     assert flash_attention_route(torch.bfloat16, d, dv, sq) == (
-        "wgmma" if served and sq > 64 else "mma_sync")
+        "wgmma" if served and sq > 64 else short)
     assert set(SM90_HEAD_DIMS) <= set(HEAD_DIMS)
-    assert ROUTES == ("wgmma", "wgmma_tf32", "mma_sync")
+    assert ROUTES == ("wgmma", "wgmma_tf32", "mma_sync", "split_kv")
 
 
 @pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv", [
@@ -217,6 +221,136 @@ def test_tf32_launch_passes_the_scratch_it_allocates(monkeypatch, b, sq,
     assert args[5:12] == (words, b, hq, hkv, sq, skv, d) and args[12] == dv
     assert flash_attention.route_launches == {
         **before, "wgmma_tf32": before["wgmma_tf32"] + 1}
+
+
+def _visible(sq, skv, causal, window, q_offset):
+    """The keys some query row sees, by the plain version's mask."""
+    i = q_offset + np.arange(sq)[:, None]
+    j = np.arange(skv)[None, :]
+    seen = np.ones((sq, skv), bool)
+    if causal:
+        seen &= i >= j
+    if window > 0:
+        seen &= i - j < window
+    return np.flatnonzero(seen.any(0))
+
+
+@pytest.mark.parametrize("sq", [1, 3, 64])
+@pytest.mark.parametrize("b,hq,hkv", [(1, 1, 1), (8, 1, 1), (8, 32, 4),
+                                      (2, 25, 5), (8, 32, 8)])
+def test_split_kv_plan_covers_the_visible_keys_once(b, hq, hkv, sq):
+    """``split_kv_plan`` over a grid of key counts, masks and offsets: at
+    least one split, each a whole number of 64-key tiles, the runs laid
+    from the first row's window edge rounded down to a tile (where the
+    launcher starts them) holding every visible key in exactly one run,
+    no run starting past the last visible key (one split when none is
+    visible), one split when the keys fit in one tile or the blocks alone
+    fill a wave (the blocks the card holds at once: 1, 3 and 4 on each
+    of 132 SMs here), else the blocks of all splits within the wave with
+    the fewest tiles a split that keeps them there, and the same answer
+    on every call."""
+    for skv, wave in ((0, 528), (1, 396), (63, 528), (100, 132),
+                      (1000, 528), (8192, 396), (32768, 528),
+                      (32768, 132)):
+        for causal, window in ((True, 0), (False, 0), (True, 16),
+                               (True, 1024)):
+            for off in {0, max(skv - sq, 0), skv + 5}:
+                args = (b, hq, hkv, sq, skv, causal, window, off)
+                splits, per = split_kv_plan(*args, wave=wave)
+                assert split_kv_plan(*args, wave=wave) == (splits, per)
+                assert splits >= 1 and per >= 64 and per % 64 == 0
+                keys = _visible(sq, skv, causal, window, off)
+                if not keys.size:
+                    assert splits == 1, args
+                    continue
+                lo = max(0, off - window + 1) // 64 * 64 if window else 0
+                run = (keys - lo) // per
+                assert run.min() >= 0 and run.max() < splits, args
+                assert lo + (splits - 1) * per <= keys.max(), args
+                tiles = -(-(keys.max() + 1 - lo) // 64)
+                most = wave // (b * hkv * -(-(hq // hkv * sq) // 64))
+                if tiles <= 1 or most <= 1:
+                    assert splits == 1, args
+                else:
+                    assert splits <= most, args
+                    fewer = per // 64 - 1
+                    assert fewer == 0 or -(-tiles // fewer) > most, args
+
+
+def test_split_kv_plan_at_the_decode_shapes():
+    """The plan at phase 2's decode shapes, at the waves an H100 reports
+    for them (4 one-warp blocks an SM in bf16 at head dim 64, 3 at 128
+    and in f32 at 64; ``splitkv_wave``): seamless's cut cross decode (8 x
+    1 over 8192 frames, one head) in 64 splits of 2 tiles (512 blocks),
+    its f32 decode over 128 frames in 2 of 1, tinyllama's decode at slot
+    32767 (8 x 4 kv heads) in 16 of 32 tiles, qwen3-4b's (8 x 8 kv heads
+    of 128) in 6 of 86, the last of 82, hymba's window of 1024 keys (8 x
+    5 kv heads) in 8 of 2."""
+    assert split_kv_plan(8, 1, 1, 1, 8192, False, 0, 0,
+                         wave=528) == (64, 128)
+    assert split_kv_plan(8, 16, 16, 1, 128, False, 0, 0,
+                         wave=396) == (2, 64)
+    assert split_kv_plan(8, 32, 4, 1, 32768, True, 0, 32767,
+                         wave=528) == (16, 2048)
+    assert split_kv_plan(8, 32, 8, 1, 32768, True, 0, 32767,
+                         wave=396) == (6, 5504)
+    assert split_kv_plan(8, 25, 5, 1, 32768, True, 1024, 32767,
+                         wave=528) == (8, 128)
+
+
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,causal,window,q_offset", [
+    (8, 1, 8192, 1, 1, 64, 64, False, 0, 0),
+    (8, 1, 128, 16, 16, 64, 64, False, 0, 0),
+    (2, 3, 1000, 8, 1, 192, 128, True, 16, 997),
+])
+def test_split_kv_launch_passes_its_plan_and_scratch(
+        monkeypatch, b, sq, skv, hq, hkv, d, dv, causal, window, q_offset):
+    """``_launch("split_kv")`` passes ``split_kv_plan``'s splits and keys
+    a split at the wave the card holds (``splitkv_wave``, asked for the
+    call's warps: one a 16-row part of its packed rows, at most 4), and
+    a scratch of the library's own count
+    (``splitkv_scratch_words``) when there are several splits, none for
+    one; each call counts once on its route. CPU tensors, with the
+    library and the launch stood in for: the card's tests hold the kernel
+    and its refusals."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as fa
+    asked, launched = [], []
+
+    class Library:
+        def reconic_flash_attention_splitkv_scratch_words(self, *args):
+            asked.append(args)
+            return 0 if args[-1] == 1 else 3 * args[-1] + 5
+
+    monkeypatch.setattr(_build, "library", Library)
+    monkeypatch.setattr(_build, "stream_ptr", lambda device: 0)
+    monkeypatch.setattr(_build, "launch",
+                        lambda name, *args: launched.append((name, args)))
+    waves = []
+    monkeypatch.setattr(fa, "splitkv_wave",
+                        lambda *args: waves.append(args) or 396)
+    q, k, v = (torch.zeros(shape) for shape in ((b, sq, hq, d),
+                                               (b, skv, hkv, d),
+                                               (b, skv, hkv, dv)))
+    out = torch.empty((b, sq, hq, dv))
+    before = dict(flash_attention.route_launches)
+    fa._launch("split_kv", q, k, v, out, causal, window, d ** -0.5,
+               q_offset)
+    assert waves == [(q.dtype, d, dv, -(-min(hq // hkv * sq, 64) // 16))]
+    splits, per = split_kv_plan(b, hq, hkv, sq, skv, causal, window,
+                                q_offset, wave=396)
+    assert asked == [(b, hq, sq, dv, splits)]
+    [(name, args)] = launched
+    assert name == "reconic_flash_attention_splitkv"
+    assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                        out.data_ptr())
+    words = 0 if splits == 1 else 3 * splits + 5
+    assert (args[4] != 0) == (splits > 1) and args[5] == words
+    assert args[6:13] == (b, hq, hkv, sq, skv, d, dv)
+    assert args[13:16] == (int(causal), window, q_offset)
+    assert args[17:20] == (0, splits, per)
+    assert flash_attention.route_launches == {
+        **before, "split_kv": before["split_kv"] + 1}
 
 
 def test_bad_arguments_raise():

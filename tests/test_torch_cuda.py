@@ -45,7 +45,8 @@ import pytest
 import torch
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
-from chip_smoke import K6_CUT, K6_SERVED, K7_SERVED  # noqa: E402
+from chip_smoke import (K6_CUT, K6_DECODE, K6_SERVED,  # noqa: E402
+                        K7_SERVED)
 from repro_torch.core.lookaside import ControlMsg, LookasideBlock
 from repro_torch.core.rdma import RDMAEngine
 from repro_torch.core.streaming import (Drop, Forward, Handler, MatchTable,
@@ -475,7 +476,7 @@ def test_cuda_flash_attention_wgmma_matches_plain(cuda, d, dv, sq, skv, hq,
     divides and Skv < Sq, within 2e-4 plus one bf16 step. A call with
     more than 64 rows goes to it through ``flash_attention``; one with
     fewer is launched on it directly (the routing sends those to the
-    mma.sync kernel)."""
+    split_kv kernel)."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = _wgmma_case(cuda, sq + skv + d + hq, 2, sq, skv, hq, hkv, d,
                           dv)
@@ -519,12 +520,13 @@ def test_cuda_flash_attention_wgmma_rows_without_keys_write_zero(cuda, sq,
                                      (4096, 16, 129)])
 def test_cuda_flash_attention_many_heads(cuda, b, hq, sq):
     """B * Hq at and past 65535: the wgmma route puts (sequence, head)
-    pairs on grid.x and takes 65536; the mma.sync route (64 rows) takes
-    65535 on its grid.y. Checked on the first and last sequences."""
+    pairs on grid.x and takes 65536; the split_kv route (64 rows) puts
+    (sequence, kv head) pairs there. Checked on the first and last
+    sequences."""
     from repro_torch.kernels.flash_attention import flash_attention_route
     q, k, v = _wgmma_case(cuda, b + sq, b, sq, 64, hq, 1, 64, 64)
     route = flash_attention_route(q.dtype, 64, 64, sq)
-    assert route == ("wgmma" if sq > 64 else "mma_sync")
+    assert route == ("wgmma" if sq > 64 else "split_kv")
     routes = _route_counts()
     got = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -539,9 +541,9 @@ def test_cuda_flash_attention_many_heads(cuda, b, hq, sq):
 @pytest.mark.cuda
 def test_cuda_flash_attention_routes_and_misaligned_input(cuda):
     """Each route's launch count moves with the calls routed to it (bf16
-    at (32, 32), a bf16 call of 64 rows and an f32 one to mma.sync, bf16
-    at the served dims over 64 rows to wgmma, f32 there over 64 rows to
-    wgmma_tf32),
+    at (32, 32) to mma.sync, a bf16 call of 64 rows and an f32 one at the
+    served dims to split_kv, bf16 there over 64 rows to wgmma, f32 there
+    over 64 rows to wgmma_tf32),
     and a misaligned input on either wgmma route raises with no launch
     on any."""
     before, routes = flash_attention.launches, _route_counts()
@@ -556,7 +558,8 @@ def test_cuda_flash_attention_routes_and_misaligned_input(cuda):
     assert flash_attention.launches == before + 5
     assert _route_counts() == {"wgmma": routes["wgmma"] + 1,
                                "wgmma_tf32": routes["wgmma_tf32"] + 1,
-                               "mma_sync": routes["mma_sync"] + 3}
+                               "mma_sync": routes["mma_sync"] + 1,
+                               "split_kv": routes["split_kv"] + 2}
     n = 1 * 200 * 4 * 128
     for dtype in (torch.bfloat16, torch.float32):
         off = torch.randn(n + 1, device=cuda).to(dtype)[1:].view(
@@ -641,7 +644,7 @@ def test_cuda_flash_attention_wgmma_tf32_matches_plain(cuda, d, dv, sq, skv,
     Skv of 65, 129 and 1000 and Skv < Sq, within 2e-4. An f32 call of
     more than 64 rows goes to it through ``flash_attention``; one with
     fewer is launched on it directly (the routing sends those to the
-    mma.sync kernel)."""
+    split_kv kernel)."""
     from repro_torch.kernels import flash_attention as fa
     q, k, v = _tf32_case(cuda, sq + skv + d + hq, 2, sq, skv, hq, hkv, d, dv)
     before, routes = flash_attention.launches, _route_counts()
@@ -677,8 +680,8 @@ def test_cuda_flash_attention_q_offset_matches_plain(cuda, dtype, route,
     causal and with a window of 1024, against ``flash_attention_plain(
     q_offset=)``: within 2e-4 in f32, plus one bf16 step in bf16 (phase
     2's tolerances). The wgmma routes take the call through
-    ``flash_attention``; ``mma_sync`` (which the routing gives calls of
-    64 rows or fewer) is launched directly. Every call is the kernel's:
+    ``flash_attention``; ``mma_sync`` (which the routing gives head dims
+    16 and 32) is launched directly. Every call is the kernel's:
     the launch is counted on its route."""
     from repro_torch.kernels import flash_attention as fa
     gen = torch.Generator(device=cuda)
@@ -796,12 +799,12 @@ def test_cuda_flash_attention_wgmma_tf32_rows_without_keys_write_zero(
 def test_cuda_flash_attention_wgmma_tf32_many_heads(cuda, b, hq, sq):
     """f32 at B * Hq at and past 65535: the TF32 wgmma route's one grid
     dimension (B * Hq * ceil(Sq / 64) blocks) takes 65536 pairs; the
-    mma.sync route (64 rows) takes 65535 on its grid.y. Checked on the
-    first and last sequences."""
+    split_kv route (64 rows) puts (sequence, kv head) pairs on grid.x.
+    Checked on the first and last sequences."""
     from repro_torch.kernels.flash_attention import flash_attention_route
     q, k, v = _tf32_case(cuda, b + sq, b, sq, 64, hq, 1, 64, 64)
     route = flash_attention_route(q.dtype, 64, 64, sq)
-    assert route == ("wgmma_tf32" if sq > 64 else "mma_sync")
+    assert route == ("wgmma_tf32" if sq > 64 else "split_kv")
     routes = _route_counts()
     got = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
@@ -874,6 +877,234 @@ def test_cuda_flash_attention_wgmma_tf32_refuses_short_scratch(cuda, d, dv):
     launch(words)
     torch.testing.assert_close(out, flash_attention_plain(q, k, v),
                                rtol=2e-4, atol=2e-4)
+
+
+#: (b, sq, skv, hq, hkv, d, dv, causal, window, q_offset) of the split_kv
+#: route's cases: 1, 3 and 64 rows over 1, 100 and 1000 keys at GQA
+#: groups 1, 4 and 8, causal at the last rows (q_offset = Skv - Sq), with
+#: a window of 16, not causal, rows past every key's window (no visible
+#: key), and one, several and a ragged last split (split_kv_plan)
+SPLIT_KV_CASES = [
+    (2, 1, 1, 4, 4, 64, 64, True, 0, 0),
+    (2, 1, 100, 4, 1, 64, 64, True, 0, 99),
+    (1, 1, 1000, 8, 1, 64, 64, True, 0, 999),
+    (1, 3, 1000, 4, 1, 64, 64, True, 16, 997),
+    (2, 3, 100, 8, 1, 128, 128, False, 0, 0),
+    (1, 64, 1000, 4, 1, 64, 64, True, 0, 936),
+    (2, 64, 1000, 8, 8, 128, 128, True, 16, 936),
+    (1, 3, 1000, 8, 1, 192, 128, True, 0, 997),
+    (3, 1, 1000, 5, 1, 192, 128, False, 0, 0),
+    (2, 64, 100, 4, 4, 192, 128, True, 16, 36),
+    (2, 3, 100, 4, 1, 64, 64, True, 16, 130),
+    (1, 64, 1000, 8, 1, 64, 64, True, 16, 1100),
+]
+
+
+#: phase 2's decode shapes: (where, b, sq, skv, hq, hkv, d, dv, causal,
+#: window, q_offset)
+DECODE_SHAPES = [
+    *((row[0], *row[1:], 0) for row in K6_SERVED if row[2] <= 64),
+    ("seamless cross decode", 8, 1, 128, 16, 16, 64, 64, False, 0, 0),
+    *K6_DECODE,
+]
+
+
+def _split_kv_case(cuda, dtype, seed, b, sq, skv, hq, hkv, d, dv):
+    gen = torch.Generator(device=cuda)
+    gen.manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=cuda).to(dtype)
+                 for shape in ((b, sq, hq, d), (b, skv, hkv, d),
+                               (b, skv, hkv, dv)))
+
+
+def _split_kv_close(got, want):
+    rel = 2.0 ** -7 if got.dtype == torch.bfloat16 else 0.0
+    torch.testing.assert_close(got.float(), want.float(), rtol=rel,
+                               atol=2e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,causal,window,q_offset",
+                         SPLIT_KV_CASES)
+def test_cuda_flash_attention_split_kv_matches_plain(cuda, dtype, b, sq, skv,
+                                                     hq, hkv, d, dv, causal,
+                                                     window, q_offset):
+    """The split_kv kernel (``csrc/flash_attention_splitkv.cu``) against
+    the plain version over ``SPLIT_KV_CASES``, through
+    ``flash_attention``, within 2e-4 (plus one bf16 step in bf16); each
+    call counted once on its route."""
+    from repro_torch.kernels.flash_attention import flash_attention_route
+    q, k, v = _split_kv_case(cuda, dtype, sq + skv + hq + d + q_offset, b,
+                             sq, skv, hq, hkv, d, dv)
+    assert flash_attention_route(dtype, d, dv, sq) == "split_kv"
+    before, routes = flash_attention.launches, _route_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert _route_counts() == {**routes, "split_kv": routes["split_kv"] + 1}
+    assert got.dtype == dtype and got.shape == (b, sq, hq, dv)
+    _split_kv_close(got, flash_attention_plain(
+        q, k, v, causal=causal, window=window, q_offset=q_offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,causal,window,q_offset",
+                         [row[1:] for row in DECODE_SHAPES],
+                         ids=[row[0] for row in DECODE_SHAPES])
+def test_cuda_flash_attention_split_kv_at_the_decode_shapes(
+        cuda, dtype, b, sq, skv, hq, hkv, d, dv, causal, window, q_offset):
+    """split_kv at phase 2's decode shapes: seamless's cut cross-attention
+    decode (8 x 1 over 8192 frames, one head of 64), its f32 decode at 16
+    heads over 128 frames, and ``chip_smoke.K6_DECODE`` (GQA decode over
+    a 32768-slot cache at slot 32767), against the plain version."""
+    q, k, v = _split_kv_case(cuda, dtype, skv + hq + d, b, sq, skv, hq, hkv,
+                             d, dv)
+    routes = _route_counts()
+    got = flash_attention(q, k, v, causal=causal, window=window,
+                          q_offset=q_offset)
+    torch.cuda.synchronize()
+    assert _route_counts() == {**routes, "split_kv": routes["split_kv"] + 1}
+    _split_kv_close(got, flash_attention_plain(
+        q, k, v, causal=causal, window=window, q_offset=q_offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("skv,window,q_offset", [(0, 0, 0), (100, 16, 90),
+                                                 (1000, 16, 990)])
+def test_cuda_flash_attention_split_kv_rows_without_keys_write_zero(
+        cuda, dtype, skv, window, q_offset):
+    """Rows that see no key write 0 on the split_kv route: every row when
+    there are no keys, and, causal with a window of 16, the rows whose
+    window starts past the last key (the keys those rows see then fit in
+    one tile: one split)."""
+    q, k, v = _split_kv_case(cuda, dtype, 11, 2, 40, skv, 8, 2, 64, 64)
+    got = flash_attention(q, k, v, causal=True, window=window,
+                          q_offset=q_offset)
+    torch.cuda.synchronize()
+    first_blind = max(0, skv + window - 1 - q_offset) if skv else 0
+    assert bool((got[:, first_blind:] == 0).all())
+    if skv:
+        assert bool((got[:, :first_blind] != 0).any())
+    _split_kv_close(got, flash_attention_plain(
+        q, k, v, causal=True, window=window, q_offset=q_offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+def test_cuda_flash_attention_split_kv_is_deterministic(cuda, dtype):
+    """Two launches on the same inputs give the same bits: the splits are
+    merged in split order, with no atomics (8 x 1 over 8192 keys, 32 q
+    over 4 kv heads of 64: several splits)."""
+    from repro_torch.kernels.flash_attention import (split_kv_plan,
+                                                     splitkv_wave)
+    assert split_kv_plan(8, 32, 4, 1, 8192, False, 0, 0,
+                         wave=splitkv_wave(dtype, 64, 64, 1))[0] > 1
+    q, k, v = _split_kv_case(cuda, dtype, 12, 8, 1, 8192, 32, 4, 64, 64)
+    first = flash_attention(q, k, v, causal=False)
+    second = flash_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_split_kv_f32_is_not_tf32(cuda):
+    """split_kv in f32 at seamless's cut decode (8 x 1 over 8192 keys, one
+    head of 64, not causal) within 1e-5 of a float64 oracle: 3xTF32
+    meets it, a single TF32 product does not."""
+    q, k, v = _split_kv_case(cuda, torch.float32, 13, 8, 1, 8192, 1, 1, 64,
+                             64)
+    routes = _route_counts()
+    got = flash_attention(q, k, v, causal=False).double()
+    assert _route_counts()["split_kv"] == routes["split_kv"] + 1
+    sc = torch.einsum("bqhd,bkhd->bhqk", q.double() * 64 ** -0.5, k.double())
+    want = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(sc, dim=-1),
+                        v.double())
+    err = (got - want).abs().max().item()
+    assert err <= 1e-5, err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("keys", [512, 4096, 32768])
+def test_cuda_flash_attention_split_kv_does_not_drift_with_key_count(
+        cuda, dtype, keys):
+    """split_kv over ``keys`` keys at tinyllama's decode (8 x 1 row at slot
+    keys - 1, 32 q over 4 kv heads of 64, causal): its error against
+    float64, over the output's largest |value|, stays put as the keys
+    grow: in bf16 within twice the plain version's own (the output's
+    rounding), in f32 within the 1e-5 that tells 3xTF32 from one TF32
+    product at every key count (each tile's PV added to O in f32, the
+    splits merged in f32; the plain f32 version of one row, a dot of f32
+    products, sits far under it)."""
+    q, k, v = _split_kv_case(cuda, dtype, keys + 2, 8, 1, keys, 32, 4, 64,
+                             64)
+    qg = q.double().reshape(8, 1, 4, 8, 64) * 64 ** -0.5
+    sc = torch.einsum("bqhgd,bkhd->bhgqk", qg, k.double())
+    want = torch.einsum("bhgqk,bkhd->bqhgd", torch.softmax(sc, dim=-1),
+                        v.double()).reshape(8, 1, 32, 64)
+    scale = want.abs().max().item()
+    got = flash_attention(q, k, v, causal=True, q_offset=keys - 1).double()
+    plain = flash_attention_plain(q, k, v, causal=True,
+                                  q_offset=keys - 1).double()
+    err = (got - want).abs().max().item() / scale
+    plain_err = (plain - want).abs().max().item() / scale
+    if dtype == torch.bfloat16:
+        assert err <= 2 * plain_err, (err, plain_err)
+    else:
+        assert err <= 1e-5, (err, plain_err)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_attention_split_kv_refusals(cuda):
+    """The split_kv entry point refuses a scratch one word short of its
+    own count, a plan that leaves keys out or starts a split past them,
+    and head dims it is not built for, writing nothing; a misaligned
+    input raises in the wrapper before any launch."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.flash_attention import (split_kv_plan,
+                                                     splitkv_scratch_words,
+                                                     splitkv_wave)
+    q, k, v = _split_kv_case(cuda, torch.bfloat16, 14, 2, 1, 4096, 8, 2, 64,
+                             64)
+    splits, per = split_kv_plan(2, 8, 2, 1, 4096, False, 0, 0,
+                                wave=splitkv_wave(torch.bfloat16, 64, 64, 1))
+    words = splitkv_scratch_words(2, 8, 1, 64, splits)
+    assert splits > 1 and words == 2 * 8 * splits * (64 + 2)
+    scratch = torch.zeros(words, device=cuda)
+    out = torch.zeros_like(q)
+
+    def launch(n, splits, per, d=64):
+        _build.launch("reconic_flash_attention_splitkv", q.data_ptr(),
+                      k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                      scratch.data_ptr(), n, 2, 8, 2, 1, 4096, d, d, 0, 0,
+                      0, float(64 ** -0.5), 1, splits, per,
+                      _build.stream_ptr(cuda))
+        torch.cuda.synchronize()
+
+    for args in ((words - 1, splits, per), (words, splits - 1, per),
+                 (words, splits + 1, per), (words, splits, per + 1),
+                 (words, splits, per, 32)):
+        with pytest.raises(RuntimeError,
+                           match="reconic_flash_attention_splitkv"):
+            launch(*args)
+    assert not scratch.any() and not out.any()
+    launch(words, splits, per)
+    _split_kv_close(out, flash_attention_plain(q, k, v, causal=False))
+    before, routes = flash_attention.launches, _route_counts()
+    off = torch.randn(q.numel() + 1, device=cuda).bfloat16()[1:]
+    with pytest.raises(ValueError, match="q is not 16-byte aligned"):
+        flash_attention(off.view(q.shape), k, v)
+    assert flash_attention.launches == before
+    assert _route_counts() == routes
 
 
 @pytest.mark.cuda

@@ -19,7 +19,12 @@ K6 runs QK^T and PV on the tensor cores (``csrc/flash_attention.cu``):
   ``P_hi = bf16(p)`` and ``P_lo = bf16(p - P_hi)``, two PV products: the
   route of both the mma.sync kernel and the wgmma kernel
   (``csrc/flash_attention_sm90.cu``), which chose the split over a single
-  bf16 P on ``test_bf16_routes_against_the_bf16_contract``.
+  bf16 P on ``test_bf16_routes_against_the_bf16_contract``;
+* the split_kv route (``csrc/flash_attention_splitkv.cu``): either of the
+  two above over each key split of the port's ``split_kv_plan``, the
+  splits merged with log-sum-exp weights in split order
+  (``attention_split_kv``), held against ``ref_attention`` and the
+  Pallas kernel in interpret mode.
 
 The emulation runs each product as the kernel's chain of ``mma`` calls:
 k in chunks of the mma depth (8 for TF32, 16 for bf16), each chunk's
@@ -34,15 +39,19 @@ test ``test_cuda_flash_attention_f32_is_not_tf32`` holds the kernel to:
 tells the two apart.
 
 These tests check the arithmetic of the kernels' design, emulated here,
-and no code of ``repro_torch``: the kernels themselves are held by the
-GPU tests of ``tests/test_torch_cuda.py``.
+and of ``repro_torch`` only ``split_kv_plan``, whose splits the split_kv
+emulation takes: the kernels themselves are held by the GPU tests of
+``tests/test_torch_cuda.py``.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref
+from repro.kernels.flash_attention import flash_attention as jax_fa
+from repro_torch.kernels.flash_attention import split_kv_plan
 
 TOL = 2e-4
 ORACLE_TOL = 1e-5
@@ -85,8 +94,8 @@ def mm_1xtf32(a, b):
     return _mma_chain([(tf32_rna(a), tf32_rna(b))], 8)
 
 
-def _mask(sq, skv, causal, window):
-    q_pos = torch.arange(sq)[:, None]
+def _mask(sq, skv, causal, window, q_offset=0):
+    q_pos = q_offset + torch.arange(sq)[:, None]
     k_pos = torch.arange(skv)[None, :]
     mask = torch.ones((sq, skv), dtype=torch.bool)
     if causal:
@@ -369,3 +378,158 @@ def test_single_tf32_product_misses_k5_tolerance(m, k, n):
     assert bool(((chain - want).abs() <= tol + tol * want.abs()).all())
     tf32 = (tf32_rna(x).double() @ tf32_rna(y).double()).float()
     assert not bool(((tf32 - want).abs() <= tol + tol * want.abs()).all())
+
+
+def attention_split_kv(q, k, v, route, *, causal, window, q_offset, plan):
+    """The split_kv kernel's arithmetic (``csrc/flash_attention_splitkv.cu``)
+    on (BH, Sq, d) q and (BH, Skv, d | dv) k / v, f32 (bf16 values widened
+    for ``route == "bf16"``): S over all keys as the kernel's mma chain
+    (bf16: exact products, scaled after; "3xtf32": of q * scale), the
+    plan's splits ``(splits, keys_per_split)`` laid from the first row's
+    window edge rounded down to a 64-key tile, and per split the running
+    max m, the denominator l and the unnormalised O = P V (bf16: P split
+    in two bf16 halves; f32: 3xTF32), then the merge in split order in
+    f32: weights exp(m_s - M) over the splits with l_s > 0, O = sum w O_s
+    / sum w l_s, 0 for a row that sees no key. Each split's softmax runs
+    over its keys at once (the kernel's 64-key tiling within a split moves
+    a result by a few f32 steps and is left out, as above)."""
+    splits, per = plan
+    sq, skv = q.shape[1], k.shape[1]
+    scale = q.shape[-1] ** -0.5
+    kt = k.transpose(-1, -2)
+    if route == "bf16":
+        s = _mma_chain([(q, kt)], 16) * scale
+    else:
+        s = mm_3xtf32(q * scale, kt)
+    mask = _mask(sq, skv, causal, window, q_offset)
+    s = torch.where(mask, s, torch.full_like(s, -1e30))
+    lo = max(0, q_offset - window + 1) // 64 * 64 if window > 0 else 0
+    parts = []
+    for i in range(splits):
+        a, b = lo + i * per, min(lo + (i + 1) * per, skv)
+        if a >= b:
+            continue                       # a split past Skv sees no key
+        ss, seen = s[..., a:b], mask[:, a:b]
+        m = ss.amax(-1, keepdim=True)
+        p = torch.where(seen, torch.exp(ss - m), torch.zeros_like(ss))
+        if route == "bf16":
+            p_hi = p.bfloat16().float()
+            p_lo = (p - p_hi).bfloat16().float()
+            o = _mma_chain([(p_lo, v[:, a:b]), (p_hi, v[:, a:b])], 16)
+        else:
+            o = mm_3xtf32(p, v[:, a:b])
+        parts.append((m, p.sum(-1, keepdim=True), o))
+    out = torch.zeros(q.shape[:-1] + v.shape[-1:])
+    if not parts:
+        return out
+    big = torch.full_like(parts[0][0], -1e30)
+    for m, l, _ in parts:
+        big = torch.where(l > 0, torch.maximum(big, m), big)
+    num, den = torch.zeros_like(out), torch.zeros_like(parts[0][1])
+    for m, l, o in parts:
+        w = torch.where(l > 0, torch.exp(m - big), torch.zeros_like(m))
+        num = num + w * o
+        den = den + w * l
+    return torch.where(den > 0, num / den, out)
+
+
+def _ref_at_offset(q, k, v, causal, window, q_offset):
+    """``ref_attention`` of q's rows at positions ``q_offset ..``: the
+    rows behind zero rows that take positions 0 .. q_offset - 1."""
+    qf = torch.cat([torch.zeros((q.shape[0], q_offset, q.shape[2])), q], 1)
+    out = ref.ref_attention(*(jnp.asarray(t.numpy()) for t in (qf, k, v)),
+                            causal=causal, window=window)
+    return torch.from_numpy(np.array(out))[:, q_offset:]
+
+
+def _pallas_at_offset(q, k, v, window, q_offset, b):
+    """The JAX package's Pallas kernel in interpret mode on the rows at
+    positions ``q_offset ..``, causal, where they are the keys' last
+    (``q_offset + Sq == Skv``, so the keys it pads to a block stay
+    masked): through ``ops.attention`` up to 128 keys, and over more as
+    ``ops.attention`` runs it, padded to blocks of 128 (its own choice
+    at 1000 keys, blocks of 8, would take minutes in interpret mode)."""
+    bh, sq, d = q.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    assert q_offset + sq == skv and d == dv
+    qf = torch.cat([torch.zeros((bh, q_offset, d)), q], 1)
+    if skv <= 128:
+        four = [t.reshape(b, bh // b, skv, d).transpose(1, 2).numpy()
+                for t in (qf, k, v)]
+        out = jops.attention(*map(jnp.asarray, four), causal=True,
+                             window=window)
+        out = np.array(out).transpose(0, 2, 1, 3).reshape(bh, skv, d)
+    else:
+        pad = -skv % 128
+        qf, kp, vp = (torch.nn.functional.pad(t, (0, 0, 0, pad))
+                      for t in (qf, k, v))
+        out = np.array(jax_fa(*(jnp.asarray(t.numpy()) for t in (qf, kp, vp)),
+                              causal=True, window=window, block_q=128,
+                              block_k=128, interpret=True))[:, :skv]
+    return torch.from_numpy(out)[:, q_offset:]
+
+
+# (b, sq, skv, hq, hkv, d, dv, causal, window, q_offset, splits): 1, 3 and
+# 64 rows over 1, 100 and 1000 keys at GQA groups 1, 4 and 8, causal at
+# the keys' last rows, with a window of 16, not causal, and rows that see
+# no key; one split (1), several (> 1) and a ragged last split ("ragged":
+# one sequence and head over 33960 keys, 531 tiles in 266 splits of 2)
+# as split_kv_plan cuts them at the wave of an H100 in bf16 at head dim 64
+# (4 one-warp blocks on each of 132 SMs)
+H100_WAVE = 4 * 132
+SPLIT_KV_CASES = [
+    (1, 1, 1, 1, 1, 64, 64, True, 0, 0, 1),
+    (1, 1, 100, 4, 1, 64, 64, True, 0, 99, 2),
+    (1, 3, 100, 8, 1, 64, 64, True, 16, 97, 1),
+    (1, 1, 1000, 1, 1, 64, 64, True, 0, 999, 16),
+    (1, 64, 1000, 4, 1, 64, 64, True, 0, 936, 16),
+    (1, 1, 33960, 1, 1, 64, 64, False, 0, 0, "ragged"),
+    (1, 1, 1000, 4, 4, 64, 64, False, 0, 0, 16),
+    (3, 3, 1000, 8, 1, 192, 128, True, 0, 997, 16),
+    (2, 3, 100, 8, 1, 192, 128, False, 0, 0, 2),
+    (1, 64, 1000, 8, 8, 192, 128, True, 16, 936, 2),
+    (1, 3, 100, 4, 1, 64, 64, True, 16, 120, 1),
+    (2, 64, 100, 8, 8, 64, 64, True, 16, 90, 1),
+]
+
+
+@pytest.mark.parametrize("route", ["3xtf32", "bf16"], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,dv,causal,window,q_offset,want",
+                         SPLIT_KV_CASES)
+def test_split_kv_emulation_matches_the_reference(route, b, sq, skv, hq, hkv,
+                                                  d, dv, causal, window,
+                                                  q_offset, want):
+    """The split_kv route's arithmetic over the splits the port's
+    ``split_kv_plan`` gives each case, against ``ref_attention`` (and,
+    where the rows are the keys' last and q and v share a head dim, the
+    Pallas kernel in interpret mode) on the same inputs: f32 within 2e-4,
+    bf16 (inputs bf16 values, the output rounded to bf16 as the kernel
+    stores it, the reference's rounded the same way) within 2e-4 plus one
+    bf16 step. A row that sees no key is 0."""
+    plan = split_kv_plan(b, hq, hkv, sq, skv, causal, window, q_offset,
+                         wave=H100_WAVE)
+    splits, per = plan
+    if want == "ragged":
+        assert splits > 1 and per > 64
+        assert (skv - 1) // 64 + 1 < splits * (per // 64)
+    else:
+        assert splits == want
+    bf16 = route == "bf16"
+    q, k, v = _inputs(sq + skv + hq + d + q_offset, b, sq, skv, hq, hkv, d,
+                      bf16)
+    v = v[..., :dv].contiguous()
+    got = attention_split_kv(q, k, v, route, causal=causal, window=window,
+                             q_offset=q_offset, plan=plan)
+    wants = [_ref_at_offset(q, k, v, causal, window, q_offset)]
+    if causal and q_offset + sq == skv and d == dv:
+        wants.append(_pallas_at_offset(q, k, v, window, q_offset, b))
+    blind = ~_mask(sq, skv, causal, window, q_offset).any(-1)
+    assert bool((got[:, blind] == 0).all())
+    for want_ in wants:
+        if bf16:
+            g, w = got.bfloat16().float(), want_.bfloat16().float()
+            over = ((g - w).abs() / (TOL + 2.0 ** -7 * w.abs())).max()
+            assert over <= 1.0, over
+        else:
+            err = (got - want_).abs().max().item()
+            assert err < TOL, err
