@@ -183,11 +183,12 @@ and runs, on the card:
      times per prefill and forward, none in decode; prefill and decode
      times with their traced device share; free memory before the
      weights and the peak allocated;
-  18. training, the plain step: tinyllama-1.1b at full width and depth,
-     f32, random weights, one repeated ``SyntheticPipeline`` batch of 4 x
-     512 tokens, 3 steps of ``make_train_step`` with remat: ms per step,
-     tokens/s, losses (finite, step 3's below step 1's), peak memory and
-     K6 launches per step (44: a forward and a remat recompute per layer;
+  18. training, the plain step: tinyllama-1.1b at full width, cut to
+     TRAIN_LAYERS (11) layers, f32, random weights, one repeated
+     ``SyntheticPipeline`` batch of 4 x 512 tokens, 3 steps of
+     ``make_train_step`` with remat: ms per step, tokens/s, losses
+     (finite, step 3's below step 1's), peak memory and K6 launches per
+     step (22: a forward and a remat recompute per layer;
      K6's backward recomputes its plain version); step 1's state saved
      async beside step 2, restored onto the card and held bit-equal;
   19. training, the engine-synced step: the same weights and batch
@@ -198,7 +199,7 @@ and runs, on the card:
      global gradient norm of the plain step's, no transport or QDMA
      compile and some overlapped flushes in step 2, no peer failed; its
      buckets, rounds, flushes, wire bytes, collective ms, step ms, peak
-     memory and K6 launches (88 per step);
+     memory and K6 launches (44 per step);
   26. the multi-process path: two gloo ranks sharing the card
      (``run_peers``; the parent's memory freed first, the wire gloo
      through host memory): (a) ``read_batch_16k`` on a 2-peer engine over
@@ -206,8 +207,8 @@ and runs, on the card:
      to a LocalTransport run of the same traffic on the card; (b) the
      Lookaside block over the twin, ``lc_offload_mm`` 512x16x512 and a
      4096-packet ``PARSER_WORKLOAD``, byte-equal to the single-process run
-     (K5 and K3 launched in every rank); (c) tinyllama-1.1b at full width
-     and depth, f32, remat, phase 18's batch of 4 x 512 split over a
+     (K5 and K3 launched in every rank); (c) phase 18's tinyllama-1.1b
+     (full width, TRAIN_LAYERS deep), f32, remat, its batch split over a
      ("data",) = (2,) mesh: two ``sync="psum"`` steps with 16 MiB buckets
      (their losses within 1e-5 of phase 18's first two, step 1's synced
      gradients' global norm within GRAD_SYNC_TOL of phase 18's,
@@ -253,7 +254,8 @@ and runs, on the card:
      forward's routing, every routing flip a near-tie, no expert over
      its capacity), and tinyllama's bf16 caches through the uncompressed
      handoff with greedy tokens equal;
-  30. decode at the cells' length: tinyllama-1.1b and hymba-1.5b, one
+  30. decode at the cells' length: tinyllama-1.1b and hymba-1.5b (cut
+     to 8 of its 32 layers, ``LONG_LAYERS``), one
      sequence of 32768 tokens, the last 8 (hymba: 256, one chunk)
      decoded to slot 32767 after a prefill of the rest, against one
      forward over all of them: bf16 within twice its gap to f32, f32
@@ -275,7 +277,13 @@ and runs, on the card:
      and some parameter moved, K6 at two calls an attention layer a step
      (seamless's 72: encoder, self and cross) and K7 at 96 and 64
      (mamba2, hymba), each traced cell's K6 and K7 device ms a step
-     printed.
+     printed. (c) tinyllama's and mamba2's shares again under the
+     reference's ``--remat-policy dots`` (``remat_policy("dots")``:
+     selective checkpointing that keeps the outputs of the products
+     without batch dims): meta against the card's peak within
+     DRYRUN_MEM_TOL, K6 and K7 calls a step as under ``full``, the loss
+     and gradient norm within GRAD_SYNC_TOL of (b)'s, printed beside
+     them with both walls, peaks and traced device ms.
      Before them, the blockwise backward against the plain one at a
      depth where both fit: tinyllama cut to 2 layers, 2 x 4096, remat,
      the loss and its gradients under ``"naive"`` and under
@@ -315,16 +323,29 @@ and runs, on the card:
      capacity factor 1 (assignments dropped), one ``make_train_step``
      step whose MoE layer routes each data rank's rows as a part of the
      global batch, its loss, norm and gradients against the unsharded
-     step on the global batch;
+     step on the global batch; (d) qwen2.5-3b's narrow model again on
+     the (1, 4) ranks with ``sharding.qkv_sharding(False)`` (the
+     reference's ``--no-qkv-shard``): every rank scores its 32 columns of
+     each head's 128 and the scores are all-reduced, held to the same
+     unsharded run with the same tolerances, and no K6 launch;
+  34. MLA over a model axis its heads do not divide: one device's
+     share of deepseek-v2-lite-16b's ``prefill_32k`` and ``decode_32k``
+     on the reference's custom ``8x32:data,model`` mesh (its 16 heads
+     over 32 model ranks), bf16, through ``card_cell`` with the traced
+     run: the prefill's MLA by rows, the last rank's 1024 rows of each
+     sequence against K and V gathered whole, K6 once a layer on
+     ``wgmma`` at 192/128 and query offset 31744; the decode step none;
+     meta equal to the card;
   33. the serve driver's default (``launch/serve.py``'s ``run`` with
      its default ``tiny``: 8 requests, 32-token prompts, 16 greedy
      tokens, f32): K6 on ``mma_sync`` at head dim 16, once a layer in
      the prefill, and finite outputs of the shape it reports;
-  17. each kernel's launch count on the nineteen paths (3-6, 7-10,
+  17. each kernel's launch count on the twenty-one paths (3-6, 7-10,
      11-13, 14-15, 16, 20, 21, 22, 33, 18, 19, 26 summed over its
      ranks, 27
      with two runs a cell on the card, 28 with three, 31's cells with
-     two or three, 29, 30, 31's check and 32 summed over its ranks),
+     two or three, 31 (c)'s with three, 34's with three, 29, 30, 31's
+     check and 32 summed over its ranks),
      each path run with the counters at 0 and read right after: every
      kernel a path runs must have launched on it, and each of the seven
      > 0, K6 also per route (``flash_attention.wgmma`` and
@@ -389,6 +410,10 @@ TUNER_POOL = 1 << 12
 TUNER_SEED = 7
 # phase 26: gloo ranks sharing the card, the twin's pool words per peer
 MP_RANKS = 2
+#: the depth of tinyllama-1.1b in phases 18-19 and 26 (its 22 layers cut
+#: to pay for phases 31 (c), 32 (d) and 34: half of 26's gloo traffic is
+#: the stack's gradients and state)
+TRAIN_LAYERS = 11
 MP_POOL = 1 << 21
 MP_TIMEOUT_S = 900
 # traces of a kernel's timed calls before the profiler's empty-handed
@@ -467,6 +492,9 @@ K6_CUT = (
      128, 0, 0),
     ("deepseek-v2-lite-16b train_4k head", 16, 4096, 4096, 1, 1, 192, 128,
      0, 0),
+    # phase 34: every head, the last of 32 model ranks' rows (MLA by rows)
+    ("deepseek-v2-lite-16b prefill_32k 8x32 rank 31 rows", 4, 1024, 32768,
+     16, 16, 192, 128, 31744, 0),
     ("hymba-1.5b prefill_32k rank 15 windowed", 2, 2048, 32768, 25, 5, 64,
      64, 30720, 1024),
     ("hymba-1.5b prefill_32k rank 15 global", 2, 2048, 32768, 25, 5, 64, 64,
@@ -734,7 +762,12 @@ def check(ok, what):
         raise AssertionError(what)
 
 
+#: when this process started: every phase line gives its seconds since
+_T0 = time.perf_counter()
+
+
 def phase(name, **nums):
+    nums["at_s"] = f"{time.perf_counter() - _T0:.1f}"
     print(f"[{name}] " + " ".join(f"{k}={v}" for k, v in nums.items()),
           flush=True)
 
@@ -2085,8 +2118,8 @@ def k6_cut_phase(dev, measure):
     """Phase 2's K6 in bf16 at the cut shapes of the MoE and hybrid
     families (``K6_CUT``),
     each held against ``flash_attention_plain(q_offset=)`` over slices of
-    the query rows as in ``k6_served_phase`` (all rows up to 1024, else
-    a middle and the last 512), within 2e-4 plus one bf16 step, then
+    the query rows (all rows up to 512, else a middle and the last 512),
+    within 2e-4 plus one bf16 step, then
     timed by ``measure`` over 5 calls and printed, not recorded. The
     library time is SDPA on flash or memory-efficient attention alone
     with K and V repeated to the q heads, causal from the top left at
@@ -2111,7 +2144,7 @@ def k6_cut_phase(dev, measure):
                                           (b, skv, hkv, dv)))
         got = flash_attention(q, k, v, causal=True, window=window,
                               q_offset=off)
-        slices = ([(0, sq)] if sq <= 1024 else
+        slices = ([(0, sq)] if sq <= 512 else
                   [(sq // 2 - 256, sq // 2 + 256), (sq - 512, sq)])
         err = 0.0
         for r0, r1 in slices:
@@ -2323,31 +2356,41 @@ class CpuWork:
         shutil.rmtree(self.dir, ignore_errors=True)
 
 
-def cell_key(arch, shape_name, tcfg, attn="naive"):
-    return f"{arch}|{shape_name}|{tcfg.param_dtype}|{attn}"
+def cell_key(arch, shape_name, tcfg, attn="naive", extra=""):
+    return f"{arch}|{shape_name}|{tcfg.param_dtype}|{attn}" + (
+        f"|{extra}" if extra else "")
 
 
 def meta_traces(path):
-    """Trace each cell of phases 28 (``BF16_CELLS``) and 31
-    (``TRAIN_4K_ARCHS``, under the blockwise backward) on ``meta`` as
-    ``card_cell`` does, and write {``cell_key``: the trace} to ``path``
-    as JSON."""
+    """Trace each cell of phases 28 (``BF16_CELLS``), 31
+    (``TRAIN_4K_ARCHS``, under the blockwise backward, and
+    ``DOTS_ARCHS`` under the ``dots`` remat policy too) and 34
+    (``MLA_ROWS_CELLS`` on MLA_ROWS_MESH) on ``meta`` as ``card_cell``
+    does, and write {``cell_key``: the trace} to ``path`` as JSON."""
     sys.path.insert(0, os.path.join(HERE, "src"))
-    from repro_torch.configs.base import SHAPES, SINGLE_POD_MESH
+    from repro_torch.configs.base import SHAPES, SINGLE_POD_MESH, MeshConfig
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.dryrun import build_cell, trace, train_config
     from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
 
-    cells = [(a, s, _train_config(param_dtype="bfloat16"), "naive")
-             for a, s in BF16_CELLS]
-    cells += [(a, "train_4k", train_config(), "blockwise")
-              for a in TRAIN_4K_ARCHS]
+    single, rows = SINGLE_POD_MESH, MeshConfig(*MLA_ROWS_MESH)
+    rows_name = "x".join(map(str, rows.shape)) + ":" + ",".join(rows.axes)
+    bf16 = _train_config(param_dtype="bfloat16")
+    cells = [(a, s, bf16, "naive", single, "", "full") for a, s in BF16_CELLS]
+    cells += [(a, "train_4k", train_config(), "blockwise", single, "",
+               "full") for a in TRAIN_4K_ARCHS]
+    cells += [(a, "train_4k", train_config(), "blockwise", single, "dots",
+               "dots") for a in DOTS_ARCHS]
+    cells += [("deepseek-v2-lite-16b", s, bf16, "naive", rows, rows_name,
+               "full") for s in MLA_ROWS_CELLS]
     out = {}
-    for arch, shape_name, tcfg, attn in cells:
-        with L.attention_impl(attn, TRAIN_4K_CHUNK):
+    for arch, shape_name, tcfg, attn, mesh, extra, policy in cells:
+        with L.attention_impl(attn, TRAIN_4K_CHUNK), T.remat_policy(policy):
             fn, inputs, _ = build_cell(get_config(arch), SHAPES[shape_name],
-                                       SINGLE_POD_MESH, tcfg)
-            out[cell_key(arch, shape_name, tcfg, attn)] = trace(fn, inputs)
+                                       mesh, tcfg)
+            out[cell_key(arch, shape_name, tcfg, attn, extra)] = trace(
+                fn, inputs)
     with open(path, "w") as f:
         json.dump(out, f)
 
@@ -2383,7 +2426,7 @@ def card_cell(dev, arch, shape, mesh, mesh_name, tcfg, mem_tol, label,
     ms in it. ``meta``: the ``meta`` trace, where it was taken beside
     (``CpuWork``).
     Prints a ``[<label>]`` line; returns (the kernels charged a run, the
-    card runs made)."""
+    card runs made, the numbers printed)."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.dryrun import build_cell, trace
     from repro_torch.launch.specs import local_shape
@@ -2448,20 +2491,23 @@ def card_cell(dev, arch, shape, mesh, mesh_name, tcfg, mem_tol, label,
         nums["tokens_per_s"] = (share.global_batch
                                 * (share.seq_len if shape.kind == "prefill"
                                    else 1) / (wall_ms / 1e3))
+    nums.update(predicted_peak_gb=pred / 1e9, card_peak_gb=peak / 1e9,
+                wall_ms=wall_ms)
     phase(label, arch=arch, shape=shape.name, kind=shape.kind,
           dtype=tcfg.param_dtype, mesh=mesh_name, flops=meta["flops"],
           bytes=meta["bytes"],
           kernels=json.dumps(meta["kernels"], sort_keys=True),
-          equal_on_meta_and_card=True, predicted_peak_gb=pred / 1e9,
-          card_peak_gb=peak / 1e9, card_max_allocated_gb=card_max / 1e9,
+          equal_on_meta_and_card=True,
+          card_max_allocated_gb=card_max / 1e9,
           peak_err=mem_err, peak_tol=mem_tol,
           compute_ms=roof.compute_s * 1e3, memory_ms=roof.memory_s * 1e3,
-          bound_ms=bound_ms, dominant=roof.dominant, wall_ms=wall_ms,
+          bound_ms=bound_ms, dominant=roof.dominant,
           bound_over_wall=bound_ms / wall_ms, **nums,
           hardware=json.dumps(roof.hardware))
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
-    return {name: k["calls"] for name, k in card["kernels"].items()}, runs
+    return ({name: k["calls"] for name, k in card["kernels"].items()}, runs,
+            nums)
 
 
 def train_step_checks(tag, out, params, step, tcfg):
@@ -2550,8 +2596,8 @@ def dryrun_phase(dev, cpu, mem_tol=None):
     tcfg = _train_config(param_dtype="float32")
     launched = {}
     for arch, shape in dryrun_cells():
-        charged, runs = card_cell(dev, arch, shape, mesh, "1:data", tcfg,
-                                  mem_tol, "dryrun cell")
+        charged, runs, _ = card_cell(dev, arch, shape, mesh, "1:data",
+                                     tcfg, mem_tol, "dryrun cell")
         for name, n in charged.items():
             launched[name] = launched.get(name, 0) + runs * n
     n_ok, n_skip, n_fail, wall = cpu.sweep_counts()
@@ -2601,7 +2647,7 @@ def bf16_cells_phase(dev, traces=None):
     launched = {}
     t = time.perf_counter()
     for arch, shape_name in BF16_CELLS:
-        charged, runs = card_cell(
+        charged, runs, _ = card_cell(
             dev, arch, SHAPES[shape_name], SINGLE_POD_MESH, "single", tcfg,
             DRYRUN_MEM_TOL, "bf16 cell", traced=True,
             meta=(traces or {}).get(cell_key(arch, shape_name, tcfg)))
@@ -2745,17 +2791,18 @@ def train_4k_phase(dev, traces=None):
     device share, and the step's loss, gradient norm and moved
     parameters; each kernel's calls a step as ``TRAIN_4K_LAUNCHES``
     says; ``traces`` as ``bf16_cells_phase`` takes them. Returns each
-    kernel's launches the card runs should have made."""
+    kernel's launches the card runs should have made, and each cell's
+    numbers (``card_cell``'s) by arch."""
     from repro_torch.configs.base import SHAPES, SINGLE_POD_MESH
     from repro_torch.launch.dryrun import train_config
     from repro_torch.models import layers as L
 
     tcfg = train_config()
-    launched = {}
+    launched, cells = {}, {}
     t = time.perf_counter()
     with L.attention_impl("blockwise", TRAIN_4K_CHUNK):
         for arch in TRAIN_4K_ARCHS:
-            charged, runs = card_cell(
+            charged, runs, cells[arch] = card_cell(
                 dev, arch, SHAPES["train_4k"], SINGLE_POD_MESH, "single",
                 tcfg, DRYRUN_MEM_TOL, "train 4k cell",
                 traced=arch in TRAIN_4K_TRACED,
@@ -2772,6 +2819,121 @@ def train_4k_phase(dev, traces=None):
           attn=f"blockwise/{TRAIN_4K_CHUNK}",
           chunk_cut="2048->1024 (tinyllama's share 92.18 GB on meta at "
                     "2048)", seconds=time.perf_counter() - t)
+    return launched, cells
+
+
+#: 31 (c): the train_4k shares run again under the reference's
+#: ``--remat-policy dots``: an attention share (K6) and an SSM share (K7)
+DOTS_ARCHS = ("tinyllama-1.1b", "mamba2-370m")
+
+
+def train_4k_dots_phase(dev, full, traces=None):
+    """31 (c). Each of ``DOTS_ARCHS``' ``train_4k`` share as 31 (b) runs
+    it, under ``remat_policy("dots")`` (restored after): selective
+    checkpointing that keeps the outputs of the products without batch
+    dims from the forward. Through ``card_cell``: meta against the card
+    (its peak within DRYRUN_MEM_TOL, the kept outputs held from the
+    forward to the backward), each kernel's calls a step as
+    ``TRAIN_4K_LAUNCHES`` says for ``full`` (K6 and K7 are recomputed:
+    ctypes launches the policy never sees), and the loss and gradient
+    norm within GRAD_SYNC_TOL (relative) of the ``full`` step's in
+    ``full`` (31 (b)'s numbers by arch), printed beside them with both
+    walls and peaks. Returns each kernel's launches the card runs should
+    have made."""
+    from repro_torch.configs.base import SHAPES, SINGLE_POD_MESH
+    from repro_torch.launch.dryrun import train_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer as T
+
+    tcfg = train_config()
+    launched = {}
+    with L.attention_impl("blockwise", TRAIN_4K_CHUNK), \
+            T.remat_policy("dots"):
+        for arch in DOTS_ARCHS:
+            charged, runs, nums = card_cell(
+                dev, arch, SHAPES["train_4k"], SINGLE_POD_MESH, "single",
+                tcfg, DRYRUN_MEM_TOL, "train 4k dots cell", traced=True,
+                meta=(traces or {}).get(cell_key(arch, "train_4k", tcfg,
+                                                 "blockwise", "dots")))
+            want = {k: TRAIN_4K_LAUNCHES[arch].get(k, 0)
+                    for k in ("flash_attention", "ssd_scan")}
+            got = {k: charged.get(k, 0) for k in want}
+            check(got == want, f"train_4k dots {arch}: kernel calls a "
+                               f"step {got}, want {want} (as under full)")
+            ref = full[arch]
+            for key in ("loss", "grad_norm"):
+                _near(nums[key], ref[key], f"train_4k dots {arch} {key}",
+                      GRAD_SYNC_TOL)
+            phase("train 4k dots", arch=arch, policy="dots",
+                  loss=nums["loss"], full_loss=ref["loss"],
+                  grad_norm=nums["grad_norm"],
+                  full_grad_norm=ref["grad_norm"], wall_ms=nums["wall_ms"],
+                  full_wall_ms=ref["wall_ms"],
+                  device_ms=nums["device_ms"],
+                  full_device_ms=ref.get("device_ms", "not traced"),
+                  predicted_peak_gb=nums["predicted_peak_gb"],
+                  card_peak_gb=nums["card_peak_gb"],
+                  full_card_peak_gb=ref["card_peak_gb"])
+            for name, n in charged.items():
+                launched[name] = launched.get(name, 0) + runs * n
+    return launched
+
+
+#: the reference's custom mesh whose model axis MLA's heads do not divide
+#: (``repro/launch/dryrun.py --mesh 8x32:data,model``): deepseek's 16
+#: heads over 32 model ranks run by rows, the last rank's share 1024 of
+#: a 32768-token sequence's rows at offset 31744
+MLA_ROWS_MESH = ((8, 32), ("data", "model"))
+MLA_ROWS_CELLS = ("prefill_32k", "decode_32k")
+
+
+def mla_rows_phase(dev, traces=None):
+    """34. deepseek-v2-lite-16b's ``prefill_32k`` and ``decode_32k`` as
+    one device's share of MLA_ROWS_MESH, in bf16, through ``card_cell``
+    (meta against the card, the peak, the wall against the roofline):
+    MLA by rows, the last model rank's 1024 rows of q (its 96 columns of
+    ``wq``, half a head, all-to-all into whole rows) against K and V
+    gathered whole; the prefill's K6 calls (one an MLA layer) all on
+    ``wgmma`` at 192/128 and offset 31744, the decode's none (it scores
+    the cut latent cache where it lies). Returns each kernel's launches
+    the card runs should have made."""
+    from repro_torch.configs.base import SHAPES, MeshConfig
+    from repro_torch.configs.registry import get_config
+
+    cfg = get_config("deepseek-v2-lite-16b")
+    mesh = MeshConfig(*MLA_ROWS_MESH)
+    name = "x".join(map(str, mesh.shape)) + ":" + ",".join(mesh.axes)
+    tcfg = _train_config(param_dtype="bfloat16")
+    n = mesh.shape[mesh.axes.index("model")]
+    launched = {}
+    for shape_name in MLA_ROWS_CELLS:
+        shape = SHAPES[shape_name]
+        offsets, undo = _k6_logged()
+        try:
+            charged, runs, nums = card_cell(
+                dev, cfg.name, shape, mesh, name, tcfg, DRYRUN_MEM_TOL,
+                "mla rows cell", traced=True,
+                meta=(traces or {}).get(cell_key(cfg.name, shape_name, tcfg,
+                                                 "naive", name)))
+        finally:
+            undo()
+        rows = shape.seq_len // n
+        want = ({("wgmma", (n - 1) * rows)} if shape.kind == "prefill"
+                else set())
+        calls = charged.get("flash_attention", 0)
+        check(set(offsets) == want and calls == (
+            cfg.num_layers if shape.kind == "prefill" else 0),
+              f"mla rows {shape_name}: K6 {calls} calls a run at "
+              f"{sorted(set(offsets))}, want {want}")
+        phase("mla rows", arch=cfg.name, shape=shape_name, mesh=name,
+              attention=("rows" if shape.kind == "prefill" else
+                         "every head, the cut latent cache scored where "
+                         "it lies"), q_rows=rows, k6_calls=calls,
+              k6=json.dumps(sorted(set(offsets))),
+              predicted_peak_gb=nums["predicted_peak_gb"],
+              card_peak_gb=nums["card_peak_gb"], wall_ms=nums["wall_ms"])
+        for key, c in charged.items():
+            launched[key] = launched.get(key, 0) + runs * c
     return launched
 
 
@@ -2949,12 +3111,70 @@ def _tp_rank(rank, device, ref_paths):
         out["k6"] = sorted(set(offsets))
         out["k7"] = ssd_scan.launches - k7_before
         res[arch] = out
+    res["qkv_off"] = _tp_qkv_off(rank, dev, mesh, ref_paths[QKV_OFF_ARCH])
     res["long"] = _tp_long_decode(rank, dev, mesh, ref_paths["long"])
     res["long_ssm"] = _tp_long_ssm_decode(rank, dev, mesh,
                                           ref_paths["long_ssm"])
     res["moe_data"] = _tp_moe_data_step(rank, dev, ref_paths["moe_data"])
     res["launches"] = _launches(dev, counted)
     return res
+
+
+#: 32 (d): the narrow model run again with ``qkv_sharding`` off (the
+#: reference's ``--no-qkv-shard``): qwen2.5-3b's 2 KV heads do not divide
+#: the axis, its head dim of 128 does, so every rank scores its 32 columns
+#: of every head and the scores are all-reduced, with no K6
+QKV_OFF_ARCH = "qwen2.5-3b"
+
+
+def _tp_qkv_off(rank, dev, mesh, ref_path):
+    """32 (d) in one rank: ``_tp_rank``'s forward and train step of
+    QKV_OFF_ARCH's narrow model under ``sharding.qkv_sharding(False)``
+    (restored after), its logits, loss, gradient norm and gradient
+    errors against the same unsharded run, its collectives, and its K6
+    launches logged (none: the softmax needs the sum in the middle)."""
+    from repro_torch.models import init_params, sharding
+    from repro_torch.models.transformer import forward
+    from repro_torch.train import init_adam
+    from repro_torch.train.train_step import make_train_step
+    ref = torch.load(ref_path)
+    cfg = _tp_cfg(QKV_OFF_ARCH)
+    _, specs = sharding.whole_specs(cfg, TP_RANKS)
+    cut = sharding.shard_tree(init_params(cfg, SEED, device=dev), specs,
+                              rank, TP_RANKS)
+    data = _tp_data(cfg, dev)
+    offsets, undo = _k6_logged()
+    out = {}
+    try:
+        with sharding.qkv_sharding(False):
+            tp = sharding.tensor_parallel(cfg, mesh, True)
+            _sync(dev)
+            t = time.perf_counter()
+            with torch.no_grad():
+                logits, _, _ = forward(cut, cfg, data, tp=tp)
+            _sync(dev)
+            out["forward_ms"] = (time.perf_counter() - t) * 1e3
+            out["logits_err"] = float(
+                (logits.cpu() - tp.cut(ref["logits"], 2)).abs().max()
+                / ref["logits"].abs().max())
+            del logits
+            step = make_train_step(
+                cfg, _train_config(sequence_parallel=True), mesh)
+            step.keep_grads = True
+            _sync(dev)
+            t = time.perf_counter()
+            loss, _, _ = step(cut, init_adam(cut), data)
+            _sync(dev)
+            out["step_ms"] = (time.perf_counter() - t) * 1e3
+            out["loss"], out["grad_norm"] = (float(loss),
+                                             float(step.grad_norm))
+            out["grad_errs"] = _tp_grad_errs(step.last_grads, ref["grads"],
+                                             specs, rank, TP_RANKS)
+            out["model_collectives"] = dict(step.model_collectives)
+    finally:
+        undo()
+    out["k6"] = sorted(set(offsets))
+    return out
 
 
 def _tp_grad_errs(grads, ref_grads, specs, rank, n):
@@ -3299,6 +3519,33 @@ def tp_phase(dev):
                   model_collectives=json.dumps(out["model_collectives"],
                                                sort_keys=True),
                   wire="gloo through host")
+    ref, cfg = refs[QKV_OFF_ARCH], _tp_cfg(QKV_OFF_ARCH)
+    for r, res in enumerate(got):
+        out = res["qkv_off"]
+        check(out["logits_err"] <= SERVE_TOL,
+              f"no qkv shard {cfg.name} rank {r}: logits "
+              f"{out['logits_err']} off")
+        _near(out["loss"], ref["loss"], f"no qkv shard {cfg.name} rank {r} "
+                                        f"loss")
+        _near(out["grad_norm"], ref["norm"],
+              f"no qkv shard {cfg.name} rank {r} gradient norm",
+              GRAD_SYNC_TOL)
+        off = _tp_grad_ok(out["grad_errs"], ref)
+        check(not off, f"no qkv shard {cfg.name} rank {r}: gradients off "
+                       f"{off} ({out['grad_errs']})")
+        check(not out["k6"], f"no qkv shard {cfg.name} rank {r}: K6 "
+                             f"launched at {out['k6']}")
+        phase("model axis no qkv shard", rank=r, ranks=TP_RANKS,
+              arch=cfg.name, batch=f"{TP_BATCH}x{TP_SEQ}", attention="hd",
+              logits_err=out["logits_err"], loss=out["loss"],
+              plain_loss=ref["loss"], grad_norm=out["grad_norm"],
+              plain_grad_norm=ref["norm"],
+              worst_grad_err=max(rel for rel, _ in
+                                 out["grad_errs"].values()),
+              forward_ms=out["forward_ms"], step_ms=out["step_ms"],
+              model_collectives=json.dumps(out["model_collectives"],
+                                           sort_keys=True),
+              wire="gloo through host")
     cfg = _tp_cfg("deepseek-v2-lite-16b", moe=False)
     m = cfg.mla
     for r, res in enumerate(got):
@@ -3598,11 +3845,17 @@ def bf16_serve_phase(dev, during, kernels, handoff, ledger):
 #: of the cell's length
 LONG_ARCHS = ("tinyllama-1.1b", "hymba-1.5b")
 LONG_SEQ = 32768
+#: depths cut for phase 30: hymba's host-bound decode steps (its scan
+#: takes a chunk of 256 teacher-forced steps, twice) cost ~100 s at its
+#: 32 layers; 8 keep its global first and last layers and 6 windowed
+#: ones between
+LONG_LAYERS = {"hymba-1.5b": 8}
 
 
 def long_decode_phase(dev, during, kernels):
     """30. Decode at the bf16 cells' length held against the forward, for
-    each of ``LONG_ARCHS`` at full width and depth, one sequence of
+    each of ``LONG_ARCHS`` at full width and depth (``LONG_LAYERS``
+    where it cuts one), one sequence of
     ``LONG_SEQ`` seeded tokens: prefill all but the last ``tail`` (8, or
     one chunk where the model scans, whose prefill takes whole chunks),
     then ``tail`` teacher-forced decode steps up to slot ``LONG_SEQ`` - 1,
@@ -3615,6 +3868,8 @@ def long_decode_phase(dev, during, kernels):
     ssd_scan). The MoE family's cut MLA decode at LONG_SEQ (30 b) runs
     in phase 32's ranks (``_tp_long_decode``): a cut share needs its
     model group's processes."""
+    import dataclasses
+
     from repro_torch.configs.registry import get_config
     from repro_torch.models import forward, init_caches, init_params
     from repro_torch.serve import decode_step, prefill_step
@@ -3623,6 +3878,8 @@ def long_decode_phase(dev, during, kernels):
     for arch in LONG_ARCHS:
         t0 = time.perf_counter()
         cfg = get_config(arch)
+        if arch in LONG_LAYERS:
+            cfg = dataclasses.replace(cfg, num_layers=LONG_LAYERS[arch])
         scans = cfg.hybrid_parallel_heads
         tail = cfg.ssm.chunk_size if scans else 8
         head = LONG_SEQ - tail
@@ -3670,7 +3927,8 @@ def long_decode_phase(dev, during, kernels):
         check(np.isfinite(err32) and err32 <= SERVE_TOL * scale,
               f"{arch} f32 decode at {LONG_SEQ} vs the forward: max err "
               f"{err32} over {SERVE_TOL * scale} (logit scale {scale})")
-        phase("long decode", arch=arch, tokens=LONG_SEQ, prefill=head,
+        phase("long decode", arch=arch, layers=cfg.num_layers,
+              tokens=LONG_SEQ, prefill=head,
               decode_steps=tail, last_slot=LONG_SEQ - 1, max_abs_err=err,
               bf16_vs_f32_gap=gap, tolerance=2 * gap, logit_scale=scale,
               f32_max_abs_err=err32, f32_tolerance=SERVE_TOL * scale,
@@ -4890,13 +5148,16 @@ def main():
     cpu = CpuWork()
 
     # ---- 18-19. training -------------------------------------------------
-    # tinyllama-1.1b at full width and depth, f32, batch 4 x 512; the
-    # checkpoint goes to a temporary directory, removed after
+    # tinyllama-1.1b at full width, TRAIN_LAYERS deep, f32, batch 4 x 512;
+    # the checkpoint goes to a temporary directory, removed after
+    import dataclasses
+    train_cfg = dataclasses.replace(get_config("tinyllama-1.1b"),
+                                    num_layers=TRAIN_LAYERS)
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
     try:
         plain_losses, plain_norm = train_phases(
-            get_config("tinyllama-1.1b"), dev, flash_attention, zero_counts,
-            read_counts, ckpt_dir)
+            train_cfg, dev, flash_attention, zero_counts, read_counts,
+            ckpt_dir)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
 
@@ -4906,7 +5167,7 @@ def main():
     torch.cuda.empty_cache()
     path = "multi-process"
     launches[path] = multi_process_phase(
-        dev, get_config("tinyllama-1.1b"), (plain_losses, plain_norm))
+        dev, train_cfg, (plain_losses, plain_norm))
     phase("launches " + path, **launches[path])
     for fn in (systolic_mm, parse_packets, quantize_stream,
                dequantize_stream, flash_attention):
@@ -4957,12 +5218,28 @@ def main():
     read_counts("train 4k check", (flash_attention,))
     torch.cuda.empty_cache()
     zero_counts()
-    want = train_4k_phase(dev, traces)
+    want, train_4k_full = train_4k_phase(dev, traces)
     read_counts("train 4k cells", (flash_attention, ssd_scan))
     # each cell ran two or three times on the card: counted, timed and
     # (TRAIN_4K_TRACED) traced
     check({k: launches["train 4k cells"][k] for k in want} == want,
           f"train_4k launches {launches['train 4k cells']}, want {want}")
+    torch.cuda.empty_cache()
+    zero_counts()
+    want = train_4k_dots_phase(dev, train_4k_full, traces)
+    read_counts("train 4k dots", (flash_attention, ssd_scan))
+    check({k: launches["train 4k dots"][k] for k in want} == want,
+          f"train_4k dots launches {launches['train 4k dots']}, want "
+          f"{want}")
+
+    # ---- 34. MLA over a model axis its heads do not divide ---------------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_counts()
+    want = mla_rows_phase(dev, traces)
+    read_counts("mla rows", (flash_attention,))
+    check({k: launches["mla rows"][k] for k in want} == want,
+          f"mla rows launches {launches['mla rows']}, want {want}")
 
     # ---- 32. the model axis: four gloo ranks of a (1, 4) mesh on the card --
     # every rank counts its own launches from 0 and returns them; ranks 1-3

@@ -51,9 +51,15 @@ set against this one (``chip_smoke.py`` phase 27). ``--attn blockwise
 cells, as the reference does: K6's backward, and attention over a cache,
 then run the online softmax over chunks of N keys, and each record names
 the two. ``--no-seq-parallel`` runs the train cells' residual whole on
-every rank of the model group. The flags that only steer XLA's lowering
-in the reference are refused, and there is no ``XLA_FLAGS`` or
-``DRYRUN_DEVICES``.
+every rank of the model group. ``--remat-policy`` sets
+``models.transformer.set_remat_policy`` (``dots``: selective
+checkpointing that keeps the products without batch dims; ``none``: no
+checkpoint) and ``--no-qkv-shard`` ``models.sharding.set_qkv_sharding
+(False)`` (heads that do not divide the model axis run on the ranks'
+cuts of the head dim, the scores all-reduced), both restored after the
+run and named in each record where they differ from the default.
+``--save-hlo`` is refused (the port lowers no HLO), and there is no
+``XLA_FLAGS`` or ``DRYRUN_DEVICES``.
 
 Usage::
 
@@ -62,6 +68,8 @@ Usage::
   python -m repro_torch.launch.dryrun --all --mesh both
   python -m repro_torch.launch.dryrun --arch tinyllama-1.1b \\
       --shape train_4k --mesh single --attn blockwise --attn-chunk 1024
+  python -m repro_torch.launch.dryrun --arch tiny --shape train_4k \\
+      --mesh 2x2:data,model --remat-policy dots
 """
 from __future__ import annotations
 
@@ -86,7 +94,7 @@ from repro_torch.launch.mesh import PlanMesh, dp_size, model_size
 from repro_torch.launch.specs import (local_shape, serve_input_specs,
                                       train_input_specs)
 from repro_torch.models import init_params
-from repro_torch.models import layers, sharding
+from repro_torch.models import layers, sharding, transformer
 from repro_torch.roofline.analysis import analyze
 from repro_torch.roofline.count import OpCounter
 from repro_torch.serve.serve_step import decode_step, prefill_step
@@ -96,19 +104,6 @@ from repro_torch.train.train_step import (make_bucketed_train_step,
 
 OUT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                        "experiments", "dryrun_torch")
-
-#: the reference's flags that only steer XLA's lowering, and why the port
-#: has none of them
-XLA_ONLY = {
-    "remat_policy": "--remat-policy dots is an XLA checkpoint policy; the "
-                    "port checkpoints whole blocks (full) or none",
-    "no_qkv_shard": "--no-qkv-shard drops an XLA layout constraint on "
-                    "q, k and v; the port's attention is an explicit "
-                    "scheme (heads, or q's rows against gathered k and v) "
-                    "with no constraint to drop",
-    "save_hlo": "--save-hlo writes XLA's HLO; the port lowers no HLO",
-}
-
 
 def train_config(microbatches: int = 1, remat: bool = True,
                  zero1: bool = True, bucket_mb: float = 16.0,
@@ -318,9 +313,10 @@ def collectives_by_op(planned, axes) -> dict:
 
 
 def run_cell(arch, shape_name, mesh_kind, tcfg, out_dir, bucketed=False,
-             name_tag="", attn=None):
-    """Trace one cell and write its record; ``attn`` ({"attn",
-    "attn_chunk"} under the blockwise impl) is added to it."""
+             name_tag="", knobs=None):
+    """Trace one cell and write its record; ``knobs`` (the lowering
+    knobs set off their defaults: {"attn", "attn_chunk"} under the
+    blockwise impl, "remat_policy", "qkv_shard") are added to it."""
     ok, why = cell_is_applicable(arch, shape_name)
     tag = f"{arch}|{shape_name}|{mesh_kind}"
     if not ok:
@@ -339,7 +335,7 @@ def run_cell(arch, shape_name, mesh_kind, tcfg, out_dir, bucketed=False,
                "ok": False, "error": f"{type(e).__name__}: {e}",
                "traceback": traceback.format_exc()[-2000:]}
         print(f"FAIL {tag}: {type(e).__name__}: {e}")
-    rec.update(attn or {})
+    rec.update(knobs or {})
     os.makedirs(out_dir, exist_ok=True)
     fname = f"{arch}_{shape_name}_{mesh_kind}".replace(".", "_")
     if bucketed:
@@ -376,22 +372,22 @@ def main(argv=None):
     ap.add_argument("--attn-chunk", type=int, default=2048)
     ap.add_argument("--remat-policy", default="full",
                     choices=["full", "dots", "none"],
-                    help="full checkpoints each block, none nothing")
-    ap.add_argument("--no-qkv-shard", action="store_true")
+                    help="full recomputes each block, dots keeps its "
+                         "products without batch dims, none checkpoints "
+                         "nothing")
+    ap.add_argument("--no-qkv-shard", action="store_true",
+                    help="heads that do not divide the model axis run on "
+                         "its cuts of the head dim, the scores summed")
     ap.add_argument("--tag", default="",
                     help="suffix for result filenames")
     args = ap.parse_args(argv)
 
-    refused = {"remat_policy": args.remat_policy == "dots",
-               "no_qkv_shard": args.no_qkv_shard,
-               "save_hlo": bool(args.save_hlo)}
-    for flag, why in XLA_ONLY.items():
-        if refused[flag]:
-            ap.error(f"not supported by the PyTorch port: {why}")
+    if args.save_hlo:
+        ap.error("not supported by the PyTorch port: --save-hlo writes "
+                 "XLA's HLO; the port lowers no HLO")
 
     tcfg = train_config(
-        microbatches=args.microbatches,
-        remat=not args.no_remat and args.remat_policy == "full",
+        microbatches=args.microbatches, remat=not args.no_remat,
         zero1=not args.no_zero1, bucket_mb=args.bucket_mb,
         sequence_parallel=not args.no_seq_parallel)
 
@@ -403,17 +399,23 @@ def main(argv=None):
     else:
         cells = [(args.arch, args.shape)]
 
-    attn = None
+    knobs = {}
     if args.attn == "blockwise":
-        attn = {"attn": args.attn, "attn_chunk": args.attn_chunk}
+        knobs.update(attn=args.attn, attn_chunk=args.attn_chunk)
+    if args.remat_policy != "full":
+        knobs["remat_policy"] = args.remat_policy
+    if args.no_qkv_shard:
+        knobs["qkv_shard"] = False
     results = []
     t0 = time.time()
-    # callers in one process (tests) see their own setting again after
-    with layers.attention_impl(args.attn, args.attn_chunk):
+    # callers in one process (tests) see their own settings again after
+    with layers.attention_impl(args.attn, args.attn_chunk), \
+            transformer.remat_policy(args.remat_policy), \
+            sharding.qkv_sharding(not args.no_qkv_shard):
         for arch, shape_name in cells:
             for mk in meshes:
                 results.append(run_cell(arch, shape_name, mk, tcfg, args.out,
-                                        args.bucketed, args.tag, attn))
+                                        args.bucketed, args.tag, knobs))
     n_ok = sum(1 for r in results if r.get("ok"))
     n_skip = sum(1 for r in results if "skipped" in r)
     n_fail = len(results) - n_ok - n_skip

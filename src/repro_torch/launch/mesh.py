@@ -146,6 +146,10 @@ def reduce_scatter(t: torch.Tensor, group, dim: int) -> torch.Tensor:
         group.record("reduce-scatter", t)
         return t.narrow(dim, group.rank * m, m).clone()
     h = _staged(t)
+    if h.data_ptr() == t.data_ptr():
+        # a CPU tensor stages as itself: the sum must not land in ``t``
+        # (a product's output that a selective checkpoint keeps)
+        h = h.clone()
     dist.all_reduce(h, group=group)
     return h.narrow(dim, group_rank(group) * m, m).clone().to(t.device)
 

@@ -41,7 +41,7 @@ import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.models.sharding import active, attention_seq_mode
+from repro_torch.models.sharding import active, attention_mode
 
 NEG_INF = -1e30
 
@@ -80,6 +80,31 @@ def attention_impl(impl: str, chunk: int = 2048):
         yield
     finally:
         set_attention_impl(*before)
+
+
+# Products whose output no backward reads (``output_unneeded``): the
+# selective checkpoint of ``transformer.dots_policy`` keeps none of them
+_UNNEEDED = 0
+
+
+def output_unneeded() -> bool:
+    """Whether the ops running now make outputs that no backward reads
+    (an ``unneeded_output`` block)."""
+    return _UNNEEDED > 0
+
+
+@contextlib.contextmanager
+def unneeded_output():
+    """Mark the ops of the ``with`` block as making outputs that only
+    sums read, whose backward needs no value (an MLP's down projection,
+    added into the residual): the reference's partial evaluation saves
+    no residual of them."""
+    global _UNNEEDED
+    _UNNEEDED += 1
+    try:
+        yield
+    finally:
+        _UNNEEDED -= 1
 
 
 def init_dense(gen: torch.Generator, d_in: int, d_out: int, dtype,
@@ -220,17 +245,22 @@ def attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                             q_offset=q_offset, kv_len=kv_len)
 
 
-def _attention_naive(q, k, v, *, causal, window, q_offset, kv_len):
+def _attention_naive(q, k, v, *, causal, window, q_offset, kv_len,
+                     scale=None, tp=None):
     """Full-score attention over (B,H,Sq,Skv) f32 scores; GQA by reshape
-    to (B, Skv, Hkv, group, d), no repeat of K or V."""
+    to (B, Skv, Hkv, group, d), no repeat of K or V. ``scale`` defaults
+    to ``d ** -0.5``. With ``tp`` the head dims are a rank's cut and the
+    scores a partial sum (``_summed``)."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     dv = v.shape[-1]
     group = hq // hkv
-    scale = d ** -0.5
+    scale = d ** -0.5 if scale is None else scale
     qg = q.reshape(b, sq, hkv, group, d)
     s = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(torch.float32) * scale,
                      k.to(torch.float32))
+    if tp is not None:
+        s = _summed(s, tp)
     mask = _causal_window_mask(sq, skv, q_offset, window, causal, q.device)
     if kv_len is not None:
         mask = mask[None] & (torch.arange(skv, device=q.device)[None, None, :]
@@ -245,7 +275,7 @@ def _attention_naive(q, k, v, *, causal, window, q_offset, kv_len):
 
 
 def _attention_blockwise(q, k, v, *, causal, window, q_offset, kv_len,
-                         chunk):
+                         chunk, scale=None, tp=None):
     """Online-softmax scan over KV chunks, the reference's
     ``_attention_blockwise``: one (B, Hkv, group, Sq, chunk) score block
     at a time instead of the whole S^2 tensor, each chunk's body
@@ -262,7 +292,9 @@ def _attention_blockwise(q, k, v, *, causal, window, q_offset, kv_len,
     ops on the CPU, the card and ``meta``. P is rounded to q's dtype
     before PV, as the reference casts it. The reference's sharding pins
     have no counterpart: under tensor parallelism q holds this rank's
-    heads, or its rows at ``q_offset`` against whole k and v."""
+    heads, or its rows at ``q_offset`` against whole k and v; with ``tp``
+    given, the head dims are a rank's cut and each chunk's scores a
+    partial sum (``_summed``). ``scale`` defaults to ``d ** -0.5``."""
     b, sq, hq, d = q.shape
     _, skv, hkv, _ = k.shape
     dv = v.shape[-1]
@@ -291,6 +323,7 @@ def _attention_blockwise(q, k, v, *, causal, window, q_offset, kv_len,
         m, l, acc = torch.utils.checkpoint.checkpoint(
             _blockwise_chunk, qt, k_blk, v_blk, m, l, acc, q_pos, valid_len,
             ci * chunk, causal=causal, window=window, p_dtype=q.dtype,
+            scale=d ** -0.5 if scale is None else scale, tp=tp,
             use_reentrant=False)
     safe = torch.where(l == 0.0, 1.0, l)
     out = (acc / safe).permute(0, 3, 1, 2, 4)           # (b,sq,hkv,g,dv)
@@ -298,15 +331,18 @@ def _attention_blockwise(q, k, v, *, causal, window, q_offset, kv_len,
 
 
 def _blockwise_chunk(qt, k_blk, v_blk, m, l, acc, q_pos, valid_len, k0, *,
-                     causal, window, p_dtype):
+                     causal, window, p_dtype, scale, tp=None):
     """One chunk of ``_attention_blockwise``: the carries (m, l, acc)
     after the keys ``k0 ..`` of ``k_blk`` (b, chunk, hkv, d) and
     ``v_blk`` (b, chunk, hkv, dv), for q turned to (b, hkv, g * sq, d)
-    in f32."""
+    in f32; with ``tp`` the scores summed over its group first."""
     b, hkv, group, sq, dv = acc.shape
-    ck, d = k_blk.shape[1], k_blk.shape[-1]
+    ck = k_blk.shape[1]
     s = torch.matmul(qt, k_blk.permute(0, 2, 3, 1).to(torch.float32))
-    s = s.view(b, hkv, group, sq, ck) * (d ** -0.5)
+    s = s.view(b, hkv, group, sq, ck)
+    if tp is not None:
+        s = _summed(s, tp)
+    s = s * scale
     k_pos = k0 + torch.arange(ck, device=qt.device)
     mask = (k_pos[None, None, :] < valid_len[:, None, None]).expand(
         b, sq, ck)
@@ -419,7 +455,11 @@ def _attention_block_tp(params, cfg: ModelConfig, x, positions, *, causal,
       ``q_offset`` = their first position over k and v gathered whole;
       the output all-to-all back into columns;
     * replicated (neither divides, as a decode step's one row): q, k and
-      v gathered whole, every head attended, the rank's columns kept.
+      v gathered whole, every head attended, the rank's columns kept;
+    * hd (``qkv_sharding`` off, the heads not dividing, the head dim
+      dividing): q, k and v gathered whole, each rank scores its cut of
+      every head's head dim and the scores are summed over the group
+      (``_attention_hd_cut``), the rank's columns of the output kept.
 
     With a cache the new keys and values are gathered whole and the
     rank's cut (the head dim, as ``cache_partition_specs`` cuts it)
@@ -483,9 +523,9 @@ def _attention_block_tp(params, cfg: ModelConfig, x, positions, *, causal,
                 q = tp.all_gather(q.contiguous(), 1)
             kv_len = torch.full((b,), pos + s, dtype=torch.int32,
                                 device=x.device)
-            out = _attention_hd_cut(q, ck, cv, tp, causal=causal,
-                                    window=window, q_offset=pos,
-                                    kv_len=kv_len)
+            out = _attention_hd_cut(q, ck.to(q.dtype), cv.to(q.dtype), tp,
+                                    causal=causal, window=window,
+                                    q_offset=pos, kv_len=kv_len)
             return _tp_out(tp.cut(out, 2) @ params["wo"], tp), cache
         else:
             k_c, v_c = ck, cv
@@ -496,27 +536,36 @@ def _attention_block_tp(params, cfg: ModelConfig, x, positions, *, causal,
             q_offset += pos
             kv_len = torch.full((b,), pos + s, dtype=torch.int32,
                                 device=x.device)
-    out = attention_core(q, k.contiguous(), v.contiguous(), causal=causal,
-                         window=window, q_offset=q_offset, kv_len=kv_len)
+    if mode == "hd":
+        out = _attention_hd_cut(q, tp.cut(k, 3), tp.cut(v, 3), tp,
+                                causal=causal, window=window,
+                                q_offset=q_offset, kv_len=kv_len)
+    else:
+        out = attention_core(q, k.contiguous(), v.contiguous(),
+                             causal=causal, window=window,
+                             q_offset=q_offset, kv_len=kv_len)
     out = _tp_attention_out(out.reshape(b, sq, hq_l * hd), mode, tp)
     return _tp_out(out @ params["wo"], tp), cache
 
 
 def _tp_attention_in(q, k, v, hq: int, hkv: int, tp):
     """Column-parallel projections q (B, Sq, cols) and k, v (B, Skv,
-    cols) laid out for ``attention_seq_mode``'s scheme: (q, k, v, mode).
-    "heads": the rank's columns are its heads, as they are; "rows" (the
-    heads do not divide the axis, Sq does): q's columns all-to-all into
-    the rank's rows of every head, k and v gathered whole; "replicated"
-    (neither divides, as a decode step's one row): all three gathered
-    whole."""
+    cols) laid out for ``sharding.attention_mode``'s scheme: (q, k, v,
+    mode). "heads": the rank's columns are its heads, as they are;
+    "rows" (the heads do not divide the axis, Sq does): q's columns
+    all-to-all into the rank's rows of every head, k and v gathered
+    whole; "replicated" (neither divides, as a decode step's one row)
+    and "hd" (the head dims are cut later, after the rotation): all
+    three gathered whole."""
     n = tp.size
-    if not attention_seq_mode(hq, hkv, n):
-        return q, k, v, "heads"
+    mode = attention_mode(hq, hkv, q.shape[1], k.shape[2] * n // hkv,
+                          v.shape[2] * n // hkv, n)
+    if mode == "heads":
+        return q, k, v, mode
     k, v = tp.gather(k, 2), tp.gather(v, 2)
-    if q.shape[1] % n == 0:
-        return tp.all_to_all(q, 1, 2), k, v, "rows"
-    return tp.gather(q, 2), k, v, "replicated"
+    if mode == "rows":
+        return tp.all_to_all(q, 1, 2), k, v, mode
+    return tp.gather(q, 2), k, v, mode
 
 
 def _tp_attention_out(out, mode: str, tp):
@@ -525,38 +574,44 @@ def _tp_attention_out(out, mode: str, tp):
     o-projection."""
     if mode == "rows":
         return tp.all_to_all(out, 2, 1)
-    if mode == "replicated":
+    if mode in ("replicated", "hd"):
         return tp.cut(out, 2)
     return out
 
 
-def _attention_hd_cut(q, ck, cv, tp, *, causal, window, q_offset, kv_len):
-    """Attention of whole ``q`` (B, Sq, Hq, hd) over a cache cut on the
-    head dim (``ck``, ``cv``: (B, S, Hkv, hd / n), every head) ->
-    (B, Sq, Hq * hd), whole on every rank: each rank scores q's hd
-    columns against its own, the (B, Hkv, group, Sq, S) partial scores
-    are all-reduced, and P against the rank's columns of V is gathered
-    over hd. The cache is read where it lies, never gathered: a decode
-    step sends its scores and its output, Hq (S + hd) values a row,
-    where the whole cache is 2 S Hkv hd. As ``_attention_naive``
-    otherwise: f32 scores, keys at or past ``kv_len`` masked."""
-    b, sq, hq, hd = q.shape
-    _, skv, hkv, dc = ck.shape
-    group = hq // hkv
-    qc = tp.cut(q, 3).reshape(b, sq, hkv, group, dc)
-    s = torch.einsum("bqhgd,bkhd->bhgqk",
-                     qc.to(torch.float32) * (hd ** -0.5),
-                     ck.to(q.dtype).to(torch.float32))
-    s = tp.all_reduce(s)
-    mask = _causal_window_mask(sq, skv, q_offset, window, causal, q.device)
-    mask = mask[None] & (torch.arange(skv, device=q.device)[None, None, :]
-                         < kv_len[:, None, None])
-    s = torch.where(mask[:, None, None], s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", p,
-                       cv.to(q.dtype).to(torch.float32))
-    out = tp.all_gather(out.contiguous(), 4)
-    return out.reshape(b, sq, hq * hd).to(q.dtype)
+def _summed(s, tp):
+    """Partial scores summed over ``tp``'s group (``reduce``), with
+    their gradient summed back (``copy``): every rank's softmax feeds
+    its own columns of V, so each holds only its share of dP."""
+    return tp.copy(tp.reduce(s))
+
+
+def _attention_hd_cut(q, kc, vc, tp, *, causal, window, q_offset, kv_len):
+    """Attention of whole ``q`` (B, Sq, Hq, d) over k and v cut on the
+    head dim (``kc`` (B, S, Hkv, d / n), ``vc`` (B, S, Hkv, dv / n),
+    every head) -> (B, Sq, Hq * dv), whole on every rank: each rank
+    scores q's columns of its cut against its own, the (B, Hkv, group,
+    Sq, S) partial scores are summed over the group, and P against the
+    rank's columns of V is gathered over the head dim; differentiable
+    (``_summed``, ``tp.gather``). Under ``"blockwise"`` (more than the
+    chunk's keys, more than one row) the online softmax over key chunks,
+    one sum of (B, Hkv, group, Sq, chunk) scores a chunk; else whole f32
+    scores, as ``_attention_naive``; keys at or past ``kv_len`` masked.
+    This is the reference's lowering without its q/k/v pins
+    (``--no-qkv-shard``, ``sharding.attention_mode``'s "hd") and how a
+    decode step reads a cache cut on the head dim where it lies: it
+    sends its scores and its output, Hq (S + dv) values a row, where
+    the whole cache is S Hkv (d + dv). No K6: its softmax would need
+    the sum in the middle."""
+    b, sq, hq, d = q.shape
+    qc = q.narrow(3, tp.rank * kc.shape[-1], kc.shape[-1])
+    kw = dict(causal=causal, window=window, q_offset=q_offset,
+              kv_len=kv_len, scale=d ** -0.5, tp=tp)
+    if _ATTN_IMPL == "blockwise" and kc.shape[1] > _ATTN_CHUNK and sq > 1:
+        out = _attention_blockwise(qc, kc, vc, chunk=_ATTN_CHUNK, **kw)
+    else:
+        out = _attention_naive(qc, kc, vc, **kw)
+    return tp.gather(out, 3).reshape(b, sq, -1)
 
 
 # ---------------------------------------------------------------------------
@@ -597,16 +652,23 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     later position up-projects the whole cache and attends plainly with
     ``kv_len`` masking, as the reference does (no weight absorption).
 
-    With ``tp`` the block is one rank's share over the ``model`` axis,
-    head-parallel (the heads divide the axis,
-    ``sharding.check_model_axis``): ``wq``, ``w_uk``, ``w_uv`` column-cut
-    into the rank's heads, ``wo`` row-cut, the input gathered whole
-    (``_tp_in``) and the output reduced (``_tp_out``); ``w_dkv`` and
-    ``kv_norm_scale`` whole, so the latent ``c_kv`` is whole on every
-    rank; ``w_kr`` column-cut, its rank's rope dims gathered whole before
-    they turn (``_rotate`` pairs dim ``i`` with ``i + d / 2``). A cache
-    holds the rank's cut of the rope key's feature dim (it divides the
-    axis, as ``w_kr``'s does) and of the latent's where it divides
+    With ``tp`` the block is one rank's share over the ``model`` axis:
+    ``wq``, ``w_uk``, ``w_uv`` column-cut, ``wo`` row-cut, the input
+    gathered whole (``_tp_in``) and the output reduced (``_tp_out``);
+    ``w_dkv`` and ``kv_norm_scale`` whole, so the latent ``c_kv`` is whole
+    on every rank; ``w_kr`` column-cut, its rank's rope dims gathered
+    whole before they turn (``_rotate`` pairs dim ``i`` with ``i + d /
+    2``). Attention runs by ``sharding.attention_mode`` of the heads, as
+    the reference's ``attention_seq_mode(h, h)``: the rank's heads where
+    they divide the axis; else the rank's rows of q (its columns, cut
+    mid-head where a head's 192 do not divide, all-to-all into whole
+    rows of every head) at ``q_offset`` their first position against K
+    and V up-projected on the rank's columns and gathered whole; every
+    row for a sequence that does not divide the axis; or, with
+    ``qkv_sharding`` off, every head on the rank's cut of the head dims
+    (``_attention_hd_cut``). A cache holds the rank's cut of the rope
+    key's feature dim (it divides the axis, as ``w_kr``'s does) and of
+    the latent's where it divides
     (``launch.specs.cache_partition_specs``); a later step scores the
     cut where it lies (``_mla_latent_scores``) and never gathers it."""
     m = cfg.mla
@@ -614,11 +676,22 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if sharded:
         x = _tp_in(x, tp)
     b, s, _ = x.shape
-    h = cfg.num_heads // tp.size if sharded else cfg.num_heads
-    q = (x @ params["wq"]).reshape(b, s, h, m.qk_head_dim)
+    h = cfg.num_heads
+    mode = (attention_mode(h, h, s, m.qk_head_dim, m.v_head_dim, tp.size)
+            if sharded else None)
+    q = x @ params["wq"]
+    q_offset, q_pos = 0, positions
+    if mode == "rows":
+        q = tp.all_to_all(q, 1, 2)
+        q_offset, q_pos = tp.rank * (s // tp.size), tp.cut(positions, 1)
+    elif mode in ("replicated", "hd"):
+        q = tp.gather(q, 2)
+    h_l = h // tp.size if mode == "heads" else h
+    sq = q.shape[1]
+    q = q.reshape(b, sq, h_l, m.qk_head_dim)
     q_nope, q_rope = torch.split(
         q, [m.qk_nope_head_dim, m.qk_rope_head_dim], dim=-1)
-    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    q_rope = apply_rope(q_rope, q_pos, cfg.rope_theta)
 
     c_kv = rms_norm(x @ params["w_dkv"], params["kv_norm_scale"],
                     cfg.rms_eps)                        # (b, s, r)
@@ -643,53 +716,91 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
             c_kv = c_kv.to(cc.dtype).to(x.dtype)
             k_rope = k_rope.to(cr.dtype).to(x.dtype)
         elif sharded:
+            if mode == "rows":
+                # every row of the step on every rank
+                q_nope, q_rope = (tp.all_gather(t.contiguous(), 1)
+                                  for t in (q_nope, q_rope))
             out = _mla_latent_scores(params, cfg, q_nope, q_rope, cc, cr,
-                                     cut_c, tp, pos, x.dtype)
+                                     cut_c, tp, pos, x.dtype,
+                                     heads=mode == "heads")
             return _tp_out(out @ params["wo"], tp), cache
         else:
             c_kv, k_rope = cc.to(x.dtype), cr.to(x.dtype)[:, :, None]
+            q_offset = pos
             kv_len = torch.full((b,), pos + s, dtype=torch.int32,
                                 device=x.device)
     skv = c_kv.shape[1]
-    k_nope = (c_kv @ params["w_uk"]).reshape(b, skv, h, m.qk_nope_head_dim)
-    v = (c_kv @ params["w_uv"]).reshape(b, skv, h, m.v_head_dim)
-    k = torch.cat([k_nope, k_rope.expand(b, skv, h, m.qk_rope_head_dim)],
+    k_nope = c_kv @ params["w_uk"]
+    v = c_kv @ params["w_uv"]
+    if sharded and mode != "heads":
+        k_nope, v = tp.gather(k_nope, 2), tp.gather(v, 2)
+    k_nope = k_nope.reshape(b, skv, h_l, m.qk_nope_head_dim)
+    v = v.reshape(b, skv, h_l, m.v_head_dim)
+    k = torch.cat([k_nope, k_rope.expand(b, skv, h_l, m.qk_rope_head_dim)],
                   dim=-1)
     qfull = torch.cat([q_nope, q_rope], dim=-1)
     # MLA scales by the full qk head dim (the attention's default)
-    out = attention_core(qfull, k, v, causal=True,
-                         q_offset=0 if kv_len is None else pos,
-                         kv_len=kv_len)
-    out = out.reshape(b, s, h * m.v_head_dim) @ params["wo"]
-    return (_tp_out(out, tp) if sharded else out), cache
+    if mode == "hd":
+        out = _attention_hd_cut(qfull, tp.cut(k, 3), tp.cut(v, 3), tp,
+                                causal=True, window=0, q_offset=0,
+                                kv_len=None)
+    else:
+        out = attention_core(qfull, k, v, causal=True, q_offset=q_offset,
+                             kv_len=kv_len)
+    out = out.reshape(b, sq, h_l * m.v_head_dim)
+    if not sharded:
+        return out @ params["wo"], cache
+    out = _tp_attention_out(out, mode, tp)
+    return _tp_out(out @ params["wo"], tp), cache
+
+
+def _rank_columns(w, total: int, tp):
+    """The rank's column cut ``w`` (r, total / n) of a column-parallel
+    matrix in place among zeros, (r, total): a product with every
+    head's rows then holds the rank's share of the whole product."""
+    out = w.new_zeros((w.shape[0], total))
+    out.narrow(1, tp.rank * w.shape[1], w.shape[1]).copy_(w)
+    return out
 
 
 def _mla_latent_scores(params, cfg: ModelConfig, q_nope, q_rope, cc, cr,
-                       cut_c: bool, tp, pos: int, dtype):
-    """MLA over a cache for the rank's heads' queries (``q_nope``,
-    ``q_rope``: (B, Sq, H / n, ·), at positions ``pos ..``), the cache
-    ``cr`` (B, S, dr / n) cut on its feature dim and ``cc`` (B, S, r / n
-    with ``cut_c``, else r) -> (B, Sq, H / n * dv), the rank's heads'
-    outputs. The reference's sums in another order: ``q_nope_h . (c_kv
-    W_uk_h)`` is ``(q_nope_h W_uk_h^T) . c_kv``, so every head's query
-    goes into latent space on the rank that holds its ``w_uk`` and is
-    all-gathered over the heads with ``q_rope`` (a few hundred values a
-    row); each rank scores every head against its cut of the rope key
-    and of the latent, and the partial scores are all-reduced; after the
-    softmax each rank forms ``P . c_kv[cut]``, which is all-gathered
-    over the latent's dims, and applies its heads' ``w_uv``. A latent
-    the axis leaves whole is scored on every rank after the reduce. f32
-    scores and products, causal at ``pos`` (the slots past the step are
-    masked with it), as ``_attention_naive``."""
+                       cut_c: bool, tp, pos: int, dtype, heads: bool = True):
+    """MLA over a cache for the queries (``q_nope``, ``q_rope``: (B, Sq,
+    H / n, ·) of the rank's heads with ``heads``, else (B, Sq, H, ·) of
+    every head, at positions ``pos ..``), the cache ``cr`` (B, S, dr /
+    n) cut on its feature dim and ``cc`` (B, S, r / n with ``cut_c``,
+    else r) -> the rank's columns of the output, (B, Sq, H * dv / n).
+    The reference's sums in another order: ``q_nope_h . (c_kv W_uk_h)``
+    is ``(q_nope_h W_uk_h^T) . c_kv``, so every head's query goes into
+    latent space where its ``w_uk`` columns lie: on the rank that holds
+    the head, all-gathered over the heads with ``q_rope`` (a few hundred
+    values a row); or, with heads that do not divide the axis (a head's
+    columns cut between ranks), each rank's share of every head's latent
+    query from its columns, summed over the group. Each rank scores
+    every head against its cut of the rope key and of the latent, and
+    the partial scores are all-reduced; after the softmax each rank
+    forms ``P . c_kv[cut]``, which is all-gathered over the latent's
+    dims, and applies its columns of ``w_uv``. A latent the axis leaves
+    whole is scored on every rank after the reduce. f32 scores and
+    products, causal at ``pos`` (the slots past the step are masked with
+    it), as ``_attention_naive``."""
     m = cfg.mla
     b, sq, h_l, _ = q_nope.shape
     r = m.kv_lora_rank
     skv = cc.shape[1]
     f32 = torch.float32
-    w_uk = params["w_uk"].to(f32).reshape(r, h_l, m.qk_nope_head_dim)
-    q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32), w_uk)
-    q_lat = tp.all_gather(q_lat.contiguous(), 2)        # (b, sq, h, r)
-    q_rot = tp.all_gather(q_rope.to(f32).contiguous(), 2)
+    if heads:
+        w_uk = params["w_uk"].to(f32).reshape(r, h_l, m.qk_nope_head_dim)
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32), w_uk)
+        q_lat = tp.all_gather(q_lat.contiguous(), 2)    # (b, sq, h, r)
+        q_rot = tp.all_gather(q_rope.to(f32).contiguous(), 2)
+    else:
+        w_uk = _rank_columns(params["w_uk"].to(f32),
+                             h_l * m.qk_nope_head_dim, tp)
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32),
+                             w_uk.reshape(r, h_l, m.qk_nope_head_dim))
+        q_lat = tp.all_reduce(q_lat.contiguous())
+        q_rot = q_rope.to(f32)
     c = cc.to(dtype).to(f32)
     scale = m.qk_head_dim ** -0.5
 
@@ -708,9 +819,14 @@ def _mla_latent_scores(params, cfg: ModelConfig, q_nope, q_rope, cc, cr,
     lat = torch.einsum("bhqk,bkr->bqhr", p, c)
     if cut_c:
         lat = tp.all_gather(lat.contiguous(), 3)        # (b, sq, h, r)
-    w_uv = params["w_uv"].to(f32).reshape(r, h_l, m.v_head_dim)
-    out = torch.einsum("bqhr,rhv->bqhv", tp.cut(lat, 2), w_uv)
-    return out.reshape(b, sq, h_l * m.v_head_dim).to(dtype)
+    if heads:
+        w_uv = params["w_uv"].to(f32).reshape(r, h_l, m.v_head_dim)
+        out = torch.einsum("bqhr,rhv->bqhv", tp.cut(lat, 2), w_uv)
+        return out.reshape(b, sq, h_l * m.v_head_dim).to(dtype)
+    w_uv = _rank_columns(params["w_uv"].to(f32), h_l * m.v_head_dim, tp)
+    out = torch.einsum("bqhr,rhv->bqhv", lat,
+                       w_uv.reshape(r, h_l, m.v_head_dim))
+    return tp.cut(out.reshape(b, sq, h_l * m.v_head_dim), 2).to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -729,9 +845,11 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
 def mlp_block(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """SwiGLU. With ``tp``, one rank's share: ``w_gate`` and ``w_up``
     column-cut on the whole input, ``w_down`` row-cut, its partial sums
-    reduced into the residual's layout."""
+    reduced into the residual's layout. Every caller sums the output
+    into the residual, so the down projection's is ``unneeded_output``."""
     if active(tp):
         x = _tp_in(x, tp)
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])
-    y = h @ params["w_down"]
+    with unneeded_output():
+        y = h @ params["w_down"]
     return _tp_out(y, tp) if active(tp) else y

@@ -35,7 +35,9 @@ rank's ``model`` group instead, through ``TensorParallel``:
   whole, and an all-to-all turns the output back to columns for the
   row-parallel o-projection; over a sequence that does not divide the
   axis (decode) every rank attends with every head and keeps its
-  columns;
+  columns; with ``qkv_sharding`` off (the reference's baseline) each
+  rank scores its cut of every head's head dim and the scores are
+  summed over the group (``attention_mode``);
 * the embedding is vocab-parallel (a masked local gather, then a
   reduce), the LM head column-parallel, and ``cross_entropy`` reduces
   the max, the sum of exps and the picked logit over the group, never
@@ -46,11 +48,13 @@ rank's ``model`` group instead, through ``TensorParallel``:
   sums over its experts (and its columns of the shared experts) are
   reduced into the residual's layout; the aux loss, the same on every
   rank, sends its gradient through ``once``;
-* MLA is head-parallel (``models.layers.mla_block``): ``wq``, ``w_uk``,
-  ``w_uv`` and ``w_kr`` column-cut, ``w_dkv`` and ``kv_norm_scale``
-  whole, the rope key gathered whole before it turns; its cache is cut
-  on the latent's and the rope key's feature dims, and decode scores the
-  cut where it lies;
+* MLA (``models.layers.mla_block``): ``wq``, ``w_uk``, ``w_uv`` and
+  ``w_kr`` column-cut, ``w_dkv`` and ``kv_norm_scale`` whole, the rope
+  key gathered whole before it turns; head-parallel where its heads
+  divide the axis, else by attention's other modes (the rank's rows of
+  q against K and V gathered whole); its cache is cut on the latent's
+  and the rope key's feature dims, and decode scores the cut where it
+  lies;
 * the Mamba-2 mixer (``models.ssm.ssm_block``): the rank's columns of
   ``in_proj`` (or the whole leaf, where its width does not divide the
   axis) and of the conv are gathered whole; the scan is head-parallel
@@ -69,6 +73,7 @@ leaves whole but whose gradient a rank computes from its share
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import functools
 from collections import Counter
@@ -207,6 +212,50 @@ def attention_seq_mode(hq: int, hkv: int, tp: int) -> bool:
     """True when attention runs sequence-parallel: the heads do not both
     divide the ``model`` axis (the reference's rule)."""
     return tp > 1 and not (hq % tp == 0 and hkv % tp == 0)
+
+
+# The reference's lowering knob (``repro/models/sharding.py``): with it off
+# (``--no-qkv-shard``, the paper-faithful baseline) no layout pins q, k
+# and v, and where the heads do not divide the axis XLA cuts the QK and
+# AV contraction, the head dim, all-reducing the whole score tensor.
+_QKV_SHARD = True
+
+
+def set_qkv_sharding(on: bool) -> None:
+    global _QKV_SHARD
+    _QKV_SHARD = on
+
+
+def qkv_sharding_enabled() -> bool:
+    return _QKV_SHARD
+
+
+@contextlib.contextmanager
+def qkv_sharding(on: bool):
+    """``set_qkv_sharding(on)`` inside the ``with`` block; the setting
+    found on entry is restored on exit, also when the block raises."""
+    before = _QKV_SHARD
+    set_qkv_sharding(on)
+    try:
+        yield
+    finally:
+        set_qkv_sharding(before)
+
+
+def attention_mode(hq: int, hkv: int, sq: int, d: int, dv: int,
+                   tp: int) -> str:
+    """How a rank of a ``model`` axis of ``tp`` attends with ``hq`` q
+    and ``hkv`` kv heads of q/k dim ``d`` and v dim ``dv`` over ``sq``
+    query rows: "heads" where the heads divide the axis; otherwise, with
+    ``qkv_sharding`` off, "hd" (every head, the head dims cut over the
+    ranks, the scores summed) where ``d`` and ``dv`` divide it; else
+    "rows" (the rank's rows of q, every head) where ``sq`` divides it,
+    or "replicated" (every row and head)."""
+    if not attention_seq_mode(hq, hkv, tp):
+        return "heads"
+    if not _QKV_SHARD and d % tp == 0 and dv % tp == 0:
+        return "hd"
+    return "rows" if sq % tp == 0 else "replicated"
 
 
 # ---------------------------------------------------------------------------
@@ -416,15 +465,12 @@ def check_model_axis(cfg, tp: int) -> None:
     dim that ``param_specs`` puts on ``model`` divides ``tp``, but for
     the leaves the explicit scheme runs whole (``_WHOLE_ADMITTED``, as
     ``sanitize_specs`` leaves them); the rest are the projections, the
-    experts and the vocab, with no path for a whole one. MLA runs
-    head-parallel only: its heads must divide ``tp``."""
+    experts and the vocab, with no path for a whole one. Heads need not
+    divide ``tp``: attention, MLA's too, then runs by rows
+    (``attention_mode``)."""
     if not model_axis_sharded(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported")
-    if cfg.mla.enabled and cfg.num_heads % tp:
-        raise NotImplementedError(
-            f"{cfg.name}: MLA's {cfg.num_heads} heads do not divide a "
-            f"model axis of {tp} (the port's MLA is head-parallel only)")
     whole, kept = whole_specs(cfg, tp)
     marked = param_specs(whole)
     bad = [p for (p, a), (_, b) in zip(_leaf_paths(marked, ""),

@@ -20,7 +20,9 @@ reference scans the stack with ``lax.scan``; here a Python loop runs
 the layers on views of the stacked tensors.
 Training takes ``loss_fn`` (the reference's cross entropy over the
 padded vocab, plus MoE's weighted aux loss) with ``remat`` checkpointing
-each block.
+each block under the reference's policy (``set_remat_policy``: ``full``
+recomputes the whole block, ``dots`` keeps the outputs of its matrix
+products without batch dims, ``none`` checkpoints nothing).
 
 As in the reference, the encoder runs on every call, decode steps
 included: its output and the cross K/V are not cached.
@@ -32,9 +34,9 @@ one, ``sharding.shard_tree`` cuts a whole tree) and of the caches
 (``init_caches(tp_size=)``): the embedding vocab-parallel, the residual
 cut by sequence under sequence parallelism, the logits vocab-parallel
 (B, S, V_padded / tp) and ``cross_entropy`` reduced over the group; MoE
-expert-parallel, MLA head-parallel, the Mamba-2 mixer on its column,
-conv and row cuts (``models/ssm.py``), hybrid heads with both mixers
-cut, and the enc-dec encoder over its own residual, its output gathered
+expert-parallel, MLA head-parallel or by rows, the Mamba-2 mixer on its
+column, conv and row cuts (``models/ssm.py``), hybrid heads with both
+mixers cut, and the enc-dec encoder over its own residual, its output gathered
 whole once for the decoder's cross-attention (``models/sharding.py``).
 Every family (``sharding.model_axis_sharded``).
 """
@@ -42,19 +44,26 @@ from __future__ import annotations
 
 from typing import List, Optional
 
+import contextlib
+import functools
+
 import torch
 import torch.utils.checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import sharding
-from repro_torch.models.layers import (_tp_attention_in, _tp_attention_out,
-                                       _tp_in, _tp_out, attention_block,
-                                       attention_core, init_attention,
-                                       init_dense, init_mla, init_mlp,
-                                       mla_block, mlp_block, rms_norm)
+from repro_torch.models.layers import (_attention_hd_cut, _tp_attention_in,
+                                       _tp_attention_out, _tp_in, _tp_out,
+                                       attention_block, attention_core,
+                                       init_attention, init_dense, init_mla,
+                                       init_mlp, mla_block, mlp_block,
+                                       output_unneeded, rms_norm)
+from repro_torch.roofline.count import in_hand_kernel
 
 
 FAMILIES = ("dense", "ssm", "hybrid", "moe", "vlm", "audio")
@@ -270,7 +279,8 @@ def _cross_attention(params: dict, cfg: ModelConfig, x, enc_out, tp=None):
     ``wq``, ``wk``, ``wv`` column-cut and ``wo`` row-cut; the rank's heads
     where they divide the axis, else its rows of q (every head, the
     sequence dividing the axis) or all of q (a decode step's row) against
-    k and v gathered whole, as ``layers._attention_block_tp`` runs."""
+    k and v gathered whole, or the rank's cut of the head dims with
+    ``qkv_sharding`` off, as ``layers._attention_block_tp`` runs."""
     sharded = sharding.active(tp)
     if sharded:
         x = _tp_in(x, tp)
@@ -286,9 +296,14 @@ def _cross_attention(params: dict, cfg: ModelConfig, x, enc_out, tp=None):
         if mode == "heads":
             hq, hkv = hq // tp.size, hkv // tp.size
     sq = q.shape[1]
-    out = attention_core(q.reshape(b, sq, hq, hd),
-                         k.reshape(b, se, hkv, hd),
-                         v.reshape(b, se, hkv, hd), causal=False)
+    q, k, v = (q.reshape(b, sq, hq, hd), k.reshape(b, se, hkv, hd),
+               v.reshape(b, se, hkv, hd))
+    if sharded and mode == "hd":
+        out = _attention_hd_cut(q, tp.cut(k, 3), tp.cut(v, 3), tp,
+                                causal=False, window=0, q_offset=0,
+                                kv_len=None)
+    else:
+        out = attention_core(q, k, v, causal=False)
     out = out.reshape(b, sq, hq * hd)
     if not sharded:
         return out @ params["wo"]
@@ -370,17 +385,86 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: dict, tp=None
     return x
 
 
+# Activation checkpointing of the stack (the reference's knob,
+# ``repro/models/transformer.py``):
+#   full -- every block recomputed whole in the backward
+#   dots -- the outputs of its matrix products without batch dims kept
+#           (``dots_with_no_batch_dims_saveable``), the rest recomputed
+#   none -- no checkpoint
+_REMAT_POLICY = "full"
+
+#: the products without batch dims: ``x @ W`` of an activation and a
+#: weight matrix lowers to these (a 3-D ``x`` folded to 2-D); attention's
+#: and the MoE experts' einsums are ``bmm`` / ``baddbmm``, with batch dims
+_SAVED_DOTS = frozenset({torch.ops.aten.mm.default,
+                         torch.ops.aten.addmm.default})
+
+
+def set_remat_policy(name: str) -> None:
+    global _REMAT_POLICY
+    assert name in ("full", "dots", "none"), name
+    _REMAT_POLICY = name
+
+
+def get_remat_policy() -> str:
+    return _REMAT_POLICY
+
+
+@contextlib.contextmanager
+def remat_policy(name: str):
+    """``set_remat_policy(name)`` inside the ``with`` block; the policy
+    found on entry is restored on exit, also when the block raises."""
+    before = _REMAT_POLICY
+    set_remat_policy(name)
+    try:
+        yield
+    finally:
+        set_remat_policy(before)
+
+
+def dots_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The selective-checkpoint policy of ``"dots"``: the output of a
+    product without batch dims (``_SAVED_DOTS``) is kept from the forward
+    for the recompute, every other op recomputed, as JAX's
+    ``dots_with_no_batch_dims_saveable`` decides. Two exceptions keep the
+    kept set the reference's: the ops a hand kernel's wrapper runs
+    (``roofline.count.in_hand_kernel``: K6 and K7 are one op each in the
+    reference, and on the card their launches are invisible to the
+    dispatcher, so they are recomputed on every device alike), and a
+    product whose output no backward reads (``layers.output_unneeded``:
+    the down projection of an MLP, summed into the residual), which the
+    reference's partial evaluation drops and the recompute never reaches.
+    Decided from the op and the flags alone, so the forward and the
+    recompute decide alike."""
+    if op in _SAVED_DOTS and not in_hand_kernel() and not output_unneeded():
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _checkpoint_kwargs() -> dict:
+    """``torch.utils.checkpoint.checkpoint``'s options under the policy:
+    non-reentrant, and under ``"dots"`` the selective contexts of
+    ``dots_policy`` (looked up when called)."""
+    kw = {"use_reentrant": False}
+    if _REMAT_POLICY == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, dots_policy)
+    return kw
+
+
 def _run_stack(blocks, cfg: ModelConfig, x, positions, checkpointed: bool,
                pos: int = 0, mrope_positions=None, enc_out=None,
                causal: bool = True, tp=None):
-    """``blocks`` ((block params, its cache, its window), ...) in turn.
+    """``blocks`` ((block params, its cache, its window), ...) in turn,
+    each checkpointed under the remat policy with ``checkpointed``.
     Returns (x, the MoE layers' summed aux, 0 without MoE)."""
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    kw = _checkpoint_kwargs() if checkpointed else {}
     for bp, cache, window in blocks:
         if checkpointed:
             x, aux = torch.utils.checkpoint.checkpoint(
                 _remat_block, bp, x, cfg, positions, window,
-                mrope_positions, enc_out, causal, tp, use_reentrant=False)
+                mrope_positions, enc_out, causal, tp, **kw)
         else:
             x, _, aux = _block_apply(bp, cfg, x, positions, window, cache,
                                      pos, mrope_positions, enc_out, causal,
@@ -426,7 +510,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     encoder first, on every call; the leading dense blocks of an MoE
     model run before the stack. ``remat`` checkpoints each block
     (``torch.utils.checkpoint``, non-reentrant) when gradients are being
-    recorded: its activations are recomputed in the backward, as the
+    recorded, under the remat policy (``set_remat_policy``; ``"none"``
+    checkpoints nothing): its activations, or under ``"dots"`` all but
+    its products' outputs, are recomputed in the backward, as the
     reference's ``jax.checkpoint`` of the scanned block does. With ``tp``
     (a ``sharding.TensorParallel``) this is one rank's share on its cut
     of ``params`` and ``caches``, and the logits are its cut of the
@@ -443,7 +529,8 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
                                         device=tokens.device)
                      ).expand(b, s)
     mrope_positions = batch.get("mrope_positions")
-    checkpointed = remat and caches is None and torch.is_grad_enabled()
+    checkpointed = (remat and _REMAT_POLICY != "none" and caches is None
+                    and torch.is_grad_enabled())
     enc_out = (encode(params, cfg, batch["enc_embeds"],
                       checkpointed=checkpointed, tp=tp)
                if cfg.enc_dec else None)

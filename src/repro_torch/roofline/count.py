@@ -35,6 +35,7 @@ Collectives are not ops here: the dry-run plans them
 from __future__ import annotations
 
 import contextlib
+import threading
 import weakref
 from typing import Callable, Dict
 
@@ -151,22 +152,34 @@ def active_counters():
             if isinstance(m, OpCounter)]
 
 
+#: how deep this thread is inside hand kernels' wrappers (``charge``)
+_KERNEL = threading.local()
+
+
+def in_hand_kernel() -> bool:
+    """Whether this thread runs inside a hand kernel's device branches
+    (a ``charge`` block): the ops there are the kernel's own (its plain
+    version on the CPU, its launch's allocations on the card)."""
+    return getattr(_KERNEL, "depth", 0) > 0
+
+
 @contextlib.contextmanager
 def charge(name: str, cost: Callable, *args, **kwargs):
-    """A kernel wrapper's hook, around its device branches: with an
-    ``OpCounter`` active, charge one call of ``name`` at ``cost(*args,
-    **kwargs)`` -> (flops, bytes) (reckoned only then) and keep the ops
-    inside from counting FLOPs or bytes."""
+    """A kernel wrapper's hook, around its device branches: marks them
+    as a hand kernel's (``in_hand_kernel``) and, with an ``OpCounter``
+    active, charges one call of ``name`` at ``cost(*args, **kwargs)`` ->
+    (flops, bytes) (reckoned only then) and keeps the ops inside from
+    counting FLOPs or bytes."""
     counters = active_counters()
-    if not counters:
-        yield
-        return
-    flops, nbytes = cost(*args, **kwargs)
+    if counters:
+        flops, nbytes = cost(*args, **kwargs)
     for c in counters:
         c.charge(name, int(flops), int(nbytes))
         c._quiet += 1
+    _KERNEL.depth = getattr(_KERNEL, "depth", 0) + 1
     try:
         yield
     finally:
+        _KERNEL.depth -= 1
         for c in counters:
             c._quiet -= 1

@@ -234,3 +234,92 @@ def tp_cases(rank, shape, np_params, batches, prompts, kind="dense"):
 def _leaves(tree):
     from repro_torch._tree import tree_leaves
     return tree_leaves(tree)
+
+
+#: ``tests/test_torch_tp_knobs.py``'s runs: (config, mesh shape, the
+#: knobs). ``ds-h4``: deepseek-v2-lite-16b-smoke with 8 routed experts,
+#: so that every leaf but MLA's 4 heads divides a model axis of 8; ``tiny``
+#: (4 q heads over 2 KV heads of 16) at 4, where its KV heads do not
+#: divide the axis and its head dim does
+KNOB_MESHES = {"ds-h4": (1, 8), "tiny": (2, 4)}
+#: keys a chunk of the blockwise runs, under the tests' 16 rows
+KNOB_CHUNK = 4
+#: the knob runs' serving traffic: prompt rows (dividing 8), decode steps
+KNOB_PROMPT, KNOB_DECODE, KNOB_MAX_SEQ = 16, 2, 24
+
+
+def knob_configs(get=get_config) -> dict:
+    """name -> config of ``KNOB_MESHES``, from either package's registry
+    (``get``, its ``get_config``)."""
+    ds = get("deepseek-v2-lite-16b-smoke")
+    return {"ds-h4": dataclasses.replace(
+                ds, name="ds-h4", moe=dataclasses.replace(ds.moe,
+                                                          num_experts=8)),
+            "tiny": get("tiny")}
+
+
+def _knob_serve(cfg, params, prompt, tp):
+    """Prefill of KNOB_PROMPT rows, then KNOB_DECODE decode steps: each
+    step's logits (this rank's vocab cut)."""
+    from repro_torch.serve.serve_step import decode_step, prefill_step
+    toks = torch.from_numpy(prompt["tokens"])
+    caches = init_caches(cfg, toks.shape[0], KNOB_MAX_SEQ, torch.float32,
+                         "cpu", tp_size=tp.size)
+    outs = []
+    with torch.no_grad():
+        lg, caches = prefill_step(params, cfg, {"tokens":
+                                                toks[:, :KNOB_PROMPT]},
+                                  caches, tp=tp)
+        outs.append(lg.numpy().copy())
+        for pos in range(KNOB_PROMPT, KNOB_PROMPT + KNOB_DECODE):
+            lg, caches = decode_step(params, cfg, toks[:, pos:pos + 1],
+                                     caches, pos, tp=tp)
+            outs.append(lg.numpy().copy())
+    return outs
+
+
+def knob_cases(rank, np_params, batches, prompts):
+    """One rank of each of ``KNOB_MESHES``' (data, model) meshes, made in
+    turn over the same 8 ranks. ``ds-h4`` (MLA's heads not dividing the
+    axis) with ``qkv_sharding`` on ("rows": K6 over the rank's rows) and
+    off ("hd"), ``tiny`` with it off under the naive and the blockwise
+    impl (at ``KNOB_CHUNK``): the forward's logits on the global batch,
+    the loss and the whole gradients (remat under the ``dots`` policy,
+    sequence parallelism off and on), the model group's collectives of
+    that step, and prefill then decode. Returns host data keyed by
+    (config, knob, what) and each mesh's coordinates."""
+    _one_thread()
+    from repro_torch.models import layers, transformer
+    from repro_torch.train.train_step import _ModelAxis
+    out = {}
+    for name, cfg in knob_configs().items():
+        mesh = make_mesh(KNOB_MESHES[name], ("data", "model"))
+        n, r = model_size(mesh), model_rank(mesh)
+        out[name, "coords"] = list(mesh.get_coordinate())
+        whole = params_from_jax(np_params[name], device="cpu")
+        cut = params_from_jax(np_params[name], device="cpu", tp_rank=r,
+                              tp_size=n)
+        batch = _batch(batches[name])
+        knobs = ([("rows", True, "naive"), ("hd", False, "naive")]
+                 if name == "ds-h4" else
+                 [("hd", False, "naive"), ("hd blockwise", False,
+                                           "blockwise")])
+        for knob, qkv, impl in knobs:
+            with sharding.qkv_sharding(qkv), \
+                    layers.attention_impl(impl, KNOB_CHUNK), \
+                    transformer.remat_policy("dots"):
+                tp = sharding.tensor_parallel(cfg, mesh, False)
+                with torch.no_grad():
+                    logits, _, _ = forward(cut, cfg, batch, tp=tp)
+                out[name, knob, "logits"] = logits.numpy()
+                for sp in (False, True):
+                    t = dataclasses.replace(tcfg(sp), remat=True)
+                    model = _ModelAxis(cfg, t, mesh)
+                    loss, grads = model.grads(whole, batch, t)
+                    out[name, knob, sp, "loss"] = float(loss)
+                    out[name, knob, sp, "grads"] = _np_tree(grads)
+                    out[name, knob, sp, "collectives"] = dict(model.issued())
+                out[name, knob, "serve"] = _knob_serve(
+                    cfg, cut, prompts[name],
+                    sharding.tensor_parallel(cfg, mesh, False))
+    return out

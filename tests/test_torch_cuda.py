@@ -30,8 +30,14 @@ the plain versions (K6's with the blockwise backward of ``train_4k``:
 f32 within 2e-4, bf16 within one bf16 step of each gradient's largest
 |value|), and one ``tiny`` train step on the card is within
 1e-5 (loss, relative) and 1e-4 of each gradient leaf's largest |value|
-of the same step on the CPU. M-RoPE on the card is within 1e-5 of the
-CPU's, and a full-width seamless-m4t layer's encoder output and logits
+of the same step on the CPU; a 2-layer bf16 step of tinyllama-1.1b (K6)
+and of mamba2-370m (K7) under the ``dots`` remat policy launches K6 and
+K7 as under ``full``, its loss and gradient norm within 1e-4 relative
+and each gradient leaf within one bf16 step of its largest |value| of
+``full``'s; an MLA prefill by rows (the last of 8 ranks) launches K6 on
+``wgmma`` at its offset, within 2e-4 plus one bf16 step of
+``flash_attention_plain(q_offset=)``. M-RoPE on the card is within 1e-5
+of the CPU's, and a full-width seamless-m4t layer's encoder output and logits
 within 1e-4 of their largest |value| of the CPU's. A knob sweep of a
 CUDA engine gives a CPU engine's surface and choice exactly (its scores
 are functions of counts).
@@ -1764,3 +1770,109 @@ def test_cuda_counter_around_k6_equals_the_meta_count(cuda, window):
     assert (flops, nbytes, kernels) == meta[:3]
     assert kernels["flash_attention"]["calls"] == 1
     assert (launched, meta[3]) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["tinyllama-1.1b", "mamba2-370m"])
+def test_cuda_dots_train_step_matches_full(cuda, arch):
+    """A 2-layer bf16 train step (remat, 2 x 512) of a K6 model and of a
+    K7 model under the ``dots`` remat policy against the same step under
+    ``full``: K6's and K7's launches the same (forward and recompute: the
+    policy never sees a ctypes launch, so both are recomputed), the loss
+    and gradient norm within 1e-4 relative and each gradient leaf within
+    one bf16 step of its largest |value| (``chip_smoke.train_step_checks``'
+    tolerances)."""
+    import dataclasses
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticPipeline
+    from repro_torch.models import init_params
+    from repro_torch.models import transformer as T
+    from repro_torch.train import init_adam, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=2)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=1, remat=True,
+                       param_dtype="bfloat16")
+    params = init_params(cfg, 0, torch.bfloat16, cuda)
+    batch = {k: torch.from_numpy(v).to(cuda) for k, v in SyntheticPipeline(
+        DataConfig(seed=0, vocab_size=cfg.vocab_size, batch=2,
+                   seq_len=512)).batch_at(0).items()}
+    out = {}
+    for policy in ("full", "dots"):
+        step = make_train_step(cfg, tcfg)
+        step.keep_grads = True
+        before = (flash_attention.launches, ssd_scan.launches)
+        with T.remat_policy(policy):
+            loss, _, _ = step(params, init_adam(params), batch)
+        torch.cuda.synchronize()
+        out[policy] = (float(loss), float(step.grad_norm),
+                       (flash_attention.launches - before[0],
+                        ssd_scan.launches - before[1]),
+                       [g.float() for g in tree_leaves(step.last_grads)])
+    (l0, n0, k0, g0), (l1, n1, k1, g1) = out["full"], out["dots"]
+    assert k1 == k0 and k0 == ((2 * cfg.num_layers, 0) if arch ==
+                               "tinyllama-1.1b" else (0, 2 * cfg.num_layers))
+    assert abs(l1 - l0) <= 1e-4 * abs(l0) and abs(n1 - n0) <= 1e-4 * n0
+    step_bf16 = torch.finfo(torch.bfloat16).eps
+    for a, b in zip(g1, g0):
+        if b.numel():       # mamba2's zero-width FFN, as the reference's
+            torch.testing.assert_close(
+                a, b, rtol=0, atol=step_bf16 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_mla_rows_prefill_runs_k6_at_the_rank_offset(cuda):
+    """An MLA prefill on the "rows" mode: deepseek-v2-lite's MLA head
+    dims at a small width, 4 heads on the last rank of a model axis of 8
+    (a plan's group), 1024 tokens in bf16. The rank's 128 rows of every
+    head (q's 96-column cut, half a head, all-to-all into whole rows)
+    go to K6 on ``wgmma`` at query offset 896 over the whole K and V,
+    and the kernel's output is within 2e-4 plus one bf16 step of
+    ``flash_attention_plain(q_offset=)`` on the same inputs."""
+    import dataclasses
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import PlanMesh
+    from repro_torch.models import init_params, sharding
+    from repro_torch.models.layers import mla_block
+    from repro_torch.models.transformer import _layer
+
+    base = get_config("deepseek-v2-lite-16b-smoke")
+    cfg = dataclasses.replace(base, mla=get_config("deepseek-v2-lite-16b").mla,
+                              moe=dataclasses.replace(base.moe,
+                                                      num_experts=8))
+    n, s = 8, 1024
+    plan = PlanMesh((n,), ("model",), [n - 1])
+    tp = sharding.TensorParallel(plan.group(("model",)), False)
+    params = init_params(cfg, 0, torch.bfloat16, cuda, tp_rank=n - 1,
+                         tp_size=n)
+    mp = _layer(params["layers"], 0)["mixer"]["mla"]
+    x = torch.randn((1, s, cfg.d_model), generator=torch.Generator(
+        cuda).manual_seed(5), device=cuda).to(torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda)[None]
+    calls, real = [], ops.attention
+
+    def logged(q, k, v, **kw):
+        out = real(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+
+    ops.attention = logged
+    try:
+        routes = dict(flash_attention.route_launches)
+        with torch.no_grad():
+            mla_block(mp, cfg, x, pos, tp=tp)
+        torch.cuda.synchronize()
+    finally:
+        ops.attention = real
+    (q, k, v, kw, got), = calls
+    rows = s // n
+    assert kw["q_offset"] == (n - 1) * rows and kw["causal"]
+    assert tuple(q.shape) == (1, rows, cfg.num_heads, 192)
+    assert tuple(k.shape[1:3]) == (s, cfg.num_heads) and v.shape[-1] == 128
+    assert flash_attention.route_launches["wgmma"] == routes["wgmma"] + 1
+    want = flash_attention_plain(q, k, v, causal=True,
+                                 q_offset=kw["q_offset"])
+    torch.testing.assert_close(got.float(), want.float(), rtol=2 ** -7,
+                               atol=2e-4)

@@ -122,8 +122,6 @@ def test_all_enumerates_the_cells_with_the_reference_reasons(
 
 
 @pytest.mark.parametrize("flags", [
-    ["--remat-policy", "dots"],
-    ["--no-qkv-shard"],
     ["--save-hlo", "out.hlo"],
 ])
 def test_xla_only_flags_exit_non_zero(flags, tmp_path, capsys):
@@ -132,6 +130,22 @@ def test_xla_only_flags_exit_non_zero(flags, tmp_path, capsys):
     assert e.value.code != 0
     assert "not supported by the PyTorch port" in capsys.readouterr().err
     assert not list(tmp_path.glob("*.json"))
+
+
+@pytest.mark.parametrize("flags,knob", [
+    (["--remat-policy", "dots"], {"remat_policy": "dots"}),
+    (["--no-qkv-shard"], {"qkv_shard": False}),
+])
+def test_reference_lowering_flags_run(flags, knob, tmp_path):
+    """The reference's ``--remat-policy dots`` and ``--no-qkv-shard`` run
+    on a cut ``tiny`` train cell (4 q over 2 KV heads at a model axis of
+    2: heads) and name themselves in its record."""
+    assert dryrun.main(["--arch", "tiny", "--shape", "train_4k", "--mesh",
+                        "2x2:data,model", "--out", str(tmp_path)]
+                       + flags) == 0
+    rec = _record(tmp_path)
+    assert rec["ok"], rec.get("error")
+    assert {k: rec[k] for k in knob} == knob
 
 
 @pytest.mark.parametrize("sp", [True, False])
@@ -257,19 +271,25 @@ def test_main_restores_the_callers_impl(tmp_path, monkeypatch):
         set_attention_impl("naive")
 
 
-@pytest.mark.parametrize("policy,remat", [("full", True), ("none", False)])
+@pytest.mark.parametrize("policy,remat", [("full", True), ("none", True),
+                                          ("dots", True)])
 def test_remat_policy_maps_to_remat(policy, remat, tmp_path, monkeypatch):
+    """``--remat-policy`` leaves ``TrainConfig.remat`` as the reference's
+    dry-run sets it (``not --no-remat``) and runs the cells under the
+    policy (``none`` then checkpoints nothing), restoring it after."""
+    from repro_torch.models import transformer
     seen = []
 
     def stub(arch, shape, mesh_kind, tcfg, bucketed=False):
-        seen.append(tcfg.remat)
+        seen.append((tcfg.remat, transformer.get_remat_policy()))
         return Roofline(arch, shape, mesh_kind, 1, 1.0, 1.0, 0.0, 0.0, {},
                         1.0).finalize(), {}, {}
 
     monkeypatch.setattr(dryrun, "lower_cell", stub)
     dryrun.main(["--arch", "tiny", "--remat-policy", policy, "--out",
                  str(tmp_path)])
-    assert seen == [remat]
+    assert seen == [(remat, policy)]
+    assert transformer.get_remat_policy() == "full"
 
 
 def test_bucketed_plans_one_all_reduce_a_bucket():

@@ -104,11 +104,15 @@ def test_model_axis_sharded_families(arch, cut):
         sharding.check_model_axis(cfg, 7)
 
 
-def test_mla_needs_heads_that_divide_the_axis():
-    """The port's MLA is head-parallel only: deepseek's 16 heads divide
-    16 model ranks, its smoke config's 4 do not."""
+def test_mla_splits_over_an_axis_its_heads_do_not_divide():
+    """MLA runs head-parallel where its heads divide the axis and by rows
+    where they do not: deepseek's 16 heads split over 16 model ranks and
+    over 32 (the reference's custom ``8x32:data,model`` mesh), where
+    every other leaf divides; its smoke config's 4 experts do not divide
+    16, which still raises, for the experts."""
     sharding.check_model_axis(get_config("deepseek-v2-lite-16b"), 16)
-    with pytest.raises(NotImplementedError, match="heads"):
+    sharding.check_model_axis(get_config("deepseek-v2-lite-16b"), 32)
+    with pytest.raises(NotImplementedError, match="experts"):
         sharding.check_model_axis(get_config("deepseek-v2-lite-16b-smoke"),
                                   16)
 
