@@ -2364,9 +2364,10 @@ def cell_key(arch, shape_name, tcfg, attn="naive", extra=""):
 def meta_traces(path):
     """Trace each cell of phases 28 (``BF16_CELLS``), 31
     (``TRAIN_4K_ARCHS``, under the blockwise backward, and
-    ``DOTS_ARCHS`` under the ``dots`` remat policy too) and 34
-    (``MLA_ROWS_CELLS`` on MLA_ROWS_MESH) on ``meta`` as ``card_cell``
-    does, and write {``cell_key``: the trace} to ``path`` as JSON."""
+    ``DOTS_ARCHS`` under the ``dots`` remat policy too), 34
+    (``MLA_ROWS_CELLS`` on MLA_ROWS_MESH) and 35 (``WHOLE_CELLS`` on
+    WHOLE_MESH) on ``meta`` as ``card_cell`` does, and write
+    {``cell_key``: the trace} to ``path`` as JSON."""
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.configs.base import SHAPES, SINGLE_POD_MESH, MeshConfig
     from repro_torch.configs.registry import get_config
@@ -2384,6 +2385,11 @@ def meta_traces(path):
                "dots") for a in DOTS_ARCHS]
     cells += [("deepseek-v2-lite-16b", s, bf16, "naive", rows, rows_name,
                "full") for s in MLA_ROWS_CELLS]
+    whole = MeshConfig(*WHOLE_MESH)
+    whole_name = "x".join(map(str, whole.shape)) + ":" + ",".join(
+        whole.axes)
+    cells += [(WHOLE_ARCH, s, bf16, "naive", whole, whole_name, "full")
+              for s in WHOLE_CELLS]
     out = {}
     for arch, shape_name, tcfg, attn, mesh, extra, policy in cells:
         with L.attention_impl(attn, TRAIN_4K_CHUNK), T.remat_policy(policy):
@@ -2937,6 +2943,130 @@ def mla_rows_phase(dev, traces=None):
     return launched
 
 
+WHOLE_MESH = ((2, 128), ("data", "model"))
+WHOLE_ARCH = "hymba-1.5b"
+WHOLE_CELLS = ("prefill_32k", "decode_32k", "long_500k")
+
+
+def _whole_logged():
+    """Every K6 launch logged as (route, q rows, window, query offset),
+    and every K7 call's head count: (the K6 log, the K7 log, undo)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models import ssm as ssm_mod
+    launch, scan, k6, k7 = fa._launch, ssm_mod.ssd_scan, [], []
+
+    def logged(route, *args):
+        k6.append((route, int(args[0].shape[1]), int(args[5]),
+                   int(args[7]) if len(args) > 7 else 0))
+        return launch(route, *args)
+
+    def scanned(xh, *args, **kw):
+        k7.append(int(xh.shape[2]))
+        return scan(xh, *args, **kw)
+
+    fa._launch, ssm_mod.ssd_scan = logged, scanned
+
+    def undo():
+        fa._launch, ssm_mod.ssd_scan = launch, scan
+    return k6, k7, undo
+
+
+def whole_leaves_phase(dev, traces=None):
+    """35. hymba-1.5b as one device's share of WHOLE_MESH in bf16, the one
+    registry arch whose share on a power-of-two model axis holds some
+    leaves whole beside cut ones: its attention's ``wq``, ``wk``, ``wv``
+    and ``wo`` (25 x 64 and 5 x 64 columns) and the SSM's ``in_proj`` and
+    ``conv_w`` whole on every rank, the MLP, ``out_proj`` and the vocab
+    cut over 128. Each of WHOLE_CELLS is traced on ``meta`` first and
+    its predicted peak printed; a cell whose peak fits the card (within
+    DRYRUN_MEM_TOL) runs through ``card_cell`` (meta against the card,
+    the peak, the wall against the roofline), the rest are printed as
+    meta-only records. A prefill: K6 32 calls a run, all on ``wgmma`` at
+    the last rank's 256 rows and offset 32512 (every head, by rows, q
+    projected through the whole ``wq`` on those rows alone), 29 of them
+    windowed at 1024; K7 32 calls, each over all 50 SSM heads. A decode:
+    finite logits and neither kernel (the whole cache scored plainly).
+    Returns each kernel's launches the card runs should have made."""
+    from repro_torch.configs.base import SHAPES, MeshConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.dryrun import build_cell, trace
+    from repro_torch.models import sharding
+    from repro_torch.models.transformer import layer_windows
+
+    cfg = get_config(WHOLE_ARCH)
+    mesh = MeshConfig(*WHOLE_MESH)
+    name = "x".join(map(str, mesh.shape)) + ":" + ",".join(mesh.axes)
+    tcfg = _train_config(param_dtype="bfloat16")
+    n = mesh.shape[mesh.axes.index("model")]
+    whole = sharding.whole_leaves(cfg, n)
+    check(any(p.endswith("attn/wq") for p in whole)
+          and not any(p.endswith("mlp/w_up") for p in whole),
+          f"whole leaves {cfg.name} at {n}: {whole}")
+    card_bytes = torch.cuda.get_device_properties(dev).total_memory
+    launched = {}
+    ran = []
+    for shape_name in WHOLE_CELLS:
+        shape = SHAPES[shape_name]
+        meta = (traces or {}).get(cell_key(cfg.name, shape_name, tcfg,
+                                           "naive", name))
+        if meta is None:
+            fn, inputs, _ = build_cell(cfg, shape, mesh, tcfg)
+            meta = trace(fn, inputs)
+            del fn, inputs
+        pred = meta["peak_bytes"]
+        fits = pred * (1 + DRYRUN_MEM_TOL) <= card_bytes
+        phase("whole leaves meta", arch=cfg.name, shape=shape_name,
+              mesh=name, predicted_peak_gb=pred / 1e9,
+              card_gb=card_bytes / 1e9, runs_on_the_card=fits,
+              whole_leaves=json.dumps(list(whole)), flops=meta["flops"],
+              bytes=meta["bytes"],
+              kernels=json.dumps(meta["kernels"], sort_keys=True))
+        if not fits:
+            continue
+        k6, k7, undo = _whole_logged()
+        try:
+            charged, runs, nums = card_cell(
+                dev, cfg.name, shape, mesh, name, tcfg, DRYRUN_MEM_TOL,
+                "whole leaves cell", traced=True, meta=meta)
+        finally:
+            undo()
+        ran.append(shape_name)
+        rows = shape.seq_len // n
+        calls = charged.get("flash_attention", 0)
+        scans = charged.get("ssd_scan", 0)
+        if shape.kind == "prefill":
+            windows = [w for _, _, w, _ in k6[:calls]]
+            check(set(k6) <= {("wgmma", rows, w, (n - 1) * rows)
+                              for w in (0, cfg.sliding_window)}
+                  and calls == cfg.num_layers
+                  and windows.count(cfg.sliding_window) == sum(
+                      1 for w in layer_windows(cfg, cfg.num_layers) if w)
+                  and scans == cfg.num_layers
+                  and set(k7) == {cfg.ssm.n_heads(cfg.d_model)},
+                  f"whole leaves {shape_name}: K6 {calls} calls a run at "
+                  f"{sorted(set(k6))}, K7 {scans} over {sorted(set(k7))} "
+                  f"heads")
+        else:
+            check(calls == 0 and scans == 0,
+                  f"whole leaves {shape_name}: K6 {calls}, K7 {scans} "
+                  f"calls in a decode")
+        phase("whole leaves", arch=cfg.name, shape=shape_name, mesh=name,
+              attention=("rows, every projection whole"
+                         if shape.kind == "prefill" else
+                         "every head over the whole cache"),
+              q_rows=rows if shape.kind == "prefill" else 1,
+              k6_calls=calls, k6=json.dumps(sorted(set(k6))),
+              k7_calls=scans, k7_heads=json.dumps(sorted(set(k7))),
+              predicted_peak_gb=nums["predicted_peak_gb"],
+              card_peak_gb=nums["card_peak_gb"], wall_ms=nums["wall_ms"],
+              tokens_per_s=nums["tokens_per_s"])
+        for key, c in charged.items():
+            launched[key] = launched.get(key, 0) + runs * c
+    check("prefill_32k" in ran or "long_500k" in ran,
+          f"whole leaves: no hymba cell ran on the card ({ran})")
+    return launched
+
+
 # ---- 32. the model axis: four gloo ranks of a (1, 4) mesh ----------------
 
 TP_RANKS = 4
@@ -3047,70 +3177,78 @@ def _k6_logged():
     return offsets, lambda: setattr(fa, "_launch", launch)
 
 
-def _tp_rank(rank, device, ref_paths):
-    """32 in one rank of a (1, TP_RANKS) ("data", "model") mesh, for each
-    of ``TP_ARCHS``' narrow model: its f32 weights from SEED, this rank's
-    cut, phase 18's batch of TP_BATCH x TP_SEQ; the forward's logits (its
-    vocab cut) and one ``make_train_step(mesh)`` step under sequence
-    parallelism with ``step.keep_grads``, each against the cut of the
-    unsharded run saved at ``ref_paths[arch]``: the logits within
-    SERVE_TOL of their largest |value|, the loss within 1e-5 (relative),
-    the gradient norm within GRAD_SYNC_TOL, each gradient leaf within
-    2e-5 of the whole leaf's largest |value|. Then phase 30's cut decode
-    (``_tp_long_decode``). Every K6 launch is logged with its route and
-    query offset."""
+def _tp_arch_share(arch, rank, n, dev, mesh, ref_path):
+    """One rank's share of ``arch``'s narrow model over a (1, ``n``)
+    mesh: its f32 weights from SEED, this rank's cut (a leaf the axis
+    does not divide whole), phase 18's batch; the forward's logits (its
+    vocab cut, or the whole vocab) and one ``make_train_step(mesh)``
+    step under sequence parallelism with ``step.keep_grads``, each
+    against the unsharded run saved at ``ref_path``: the logits' max
+    error over their largest |value|, the loss, the gradient norm and
+    each gradient leaf's error (``_tp_grad_errs``); every K6 launch's
+    route and query offset, and K7's launches."""
     from repro_torch.kernels.ssd_scan import ssd_scan
-    from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import init_params, sharding
     from repro_torch.models.transformer import forward
     from repro_torch.train import init_adam
     from repro_torch.train.train_step import make_train_step
+    ref = torch.load(ref_path)
+    cfg = _tp_cfg(arch)
+    _, specs = sharding.whole_specs(cfg, n)
+    cut = sharding.shard_tree(init_params(cfg, SEED, device=dev), specs,
+                              rank, n)
+    data = _tp_data(cfg, dev)
+    offsets, undo = _k6_logged()
+    k7_before = ssd_scan.launches
+    out = {"whole": list(sharding.whole_leaves(cfg, n))}
+    try:
+        tp = sharding.tensor_parallel(cfg, mesh, True)
+        _sync(dev)
+        t = time.perf_counter()
+        with torch.no_grad():
+            logits, _, _ = forward(cut, cfg, data, tp=tp)
+        _sync(dev)
+        out["forward_ms"] = (time.perf_counter() - t) * 1e3
+        want = ref["logits"]
+        if logits.shape[-1] != want.shape[-1]:
+            want = tp.cut(want, 2)
+        out["logits_err"] = float((logits.cpu() - want).abs().max()
+                                  / ref["logits"].abs().max())
+        del logits
+        step = make_train_step(
+            cfg, _train_config(sequence_parallel=True), mesh)
+        step.keep_grads = True
+        _peak_reset(dev)
+        _sync(dev)
+        t = time.perf_counter()
+        loss, _, _ = step(cut, init_adam(cut), data)
+        _sync(dev)
+        out["step_ms"] = (time.perf_counter() - t) * 1e3
+        out["peak_gb"] = _peak_gb(dev)
+        out["loss"], out["grad_norm"] = (float(loss), float(step.grad_norm))
+        out["grad_errs"] = _tp_grad_errs(step.last_grads, ref["grads"],
+                                         specs, rank, n)
+        out["model_collectives"] = dict(step.model_collectives)
+        del cut, step, loss
+    finally:
+        undo()
+    out["k6"] = sorted(set(offsets))
+    out["k7"] = ssd_scan.launches - k7_before
+    return out
+
+
+def _tp_rank(rank, device, ref_paths):
+    """32 in one rank of a (1, TP_RANKS) ("data", "model") mesh: each of
+    ``TP_ARCHS``' narrow model's share (``_tp_arch_share``: the logits
+    within SERVE_TOL of their largest |value|, the loss within 1e-5
+    (relative), the gradient norm within GRAD_SYNC_TOL, each gradient
+    leaf within 2e-5 of the whole leaf's largest |value|, checked by
+    ``tp_phase``). Then phase 30's cut decode (``_tp_long_decode``)."""
+    from repro_torch.launch.mesh import make_mesh
     dev, counted = _rank_setup(rank, device)
     mesh = make_mesh((1, TP_RANKS), ("data", "model"))
-    res = {}
-    for arch in TP_ARCHS:
-        ref = torch.load(ref_paths[arch])
-        cfg = _tp_cfg(arch)
-        _, specs = sharding.whole_specs(cfg, TP_RANKS)
-        cut = sharding.shard_tree(init_params(cfg, SEED, device=dev), specs,
-                                  rank, TP_RANKS)
-        data = _tp_data(cfg, dev)
-        offsets, undo = _k6_logged()
-        k7_before = ssd_scan.launches
-        out = {}
-        try:
-            tp = sharding.tensor_parallel(cfg, mesh, True)
-            _sync(dev)
-            t = time.perf_counter()
-            with torch.no_grad():
-                logits, _, _ = forward(cut, cfg, data, tp=tp)
-            _sync(dev)
-            out["forward_ms"] = (time.perf_counter() - t) * 1e3
-            want = tp.cut(ref["logits"], 2)
-            out["logits_err"] = float((logits.cpu() - want).abs().max()
-                                      / ref["logits"].abs().max())
-            del logits
-            step = make_train_step(
-                cfg, _train_config(sequence_parallel=True), mesh)
-            step.keep_grads = True
-            _peak_reset(dev)
-            _sync(dev)
-            t = time.perf_counter()
-            loss, _, _ = step(cut, init_adam(cut), data)
-            _sync(dev)
-            out["step_ms"] = (time.perf_counter() - t) * 1e3
-            out["peak_gb"] = _peak_gb(dev)
-            out["loss"], out["grad_norm"] = (float(loss),
-                                             float(step.grad_norm))
-            out["grad_errs"] = _tp_grad_errs(step.last_grads, ref["grads"],
-                                             specs, rank, TP_RANKS)
-            out["model_collectives"] = dict(step.model_collectives)
-            del cut, step, loss
-        finally:
-            undo()
-        out["k6"] = sorted(set(offsets))
-        out["k7"] = ssd_scan.launches - k7_before
-        res[arch] = out
+    res = {arch: _tp_arch_share(arch, rank, TP_RANKS, dev, mesh,
+                                ref_paths[arch]) for arch in TP_ARCHS}
     res["qkv_off"] = _tp_qkv_off(rank, dev, mesh, ref_paths[QKV_OFF_ARCH])
     res["long"] = _tp_long_decode(rank, dev, mesh, ref_paths["long"])
     res["long_ssm"] = _tp_long_ssm_decode(rank, dev, mesh,
@@ -3118,6 +3256,94 @@ def _tp_rank(rank, device, ref_paths):
     res["moe_data"] = _tp_moe_data_step(rank, dev, ref_paths["moe_data"])
     res["launches"] = _launches(dev, counted)
     return res
+
+
+#: 32 (e): three gloo ranks of a (1, 3) mesh, which divides none of these
+#: narrow models' vocab of 4096 nor most of their widths: deepseek's (MLA
+#: with ``w_kr``, ``w_uk``, ``w_uv`` and ``wo`` whole beside its cut
+#: ``wq``, the dense MLP and the 64 experts whole) and mamba2's
+#: (``in_proj`` and ``out_proj`` whole), the vocab whole; their sequences of
+#: 400 and 512 do not divide 3 either, so every row runs on every rank
+#: and a whole o-projection or ``out_proj`` takes each rank's share of
+#: the rows
+TP_WHOLE_RANKS = 3
+TP_WHOLE_ARCHS = ("deepseek-v2-lite-16b", "mamba2-370m")
+
+
+def _tp_whole_rank(rank, device, ref_paths):
+    """32 (e) in one rank of a (1, TP_WHOLE_RANKS) ("data", "model")
+    mesh: each of TP_WHOLE_ARCHS' narrow model's share
+    (``_tp_arch_share``) against the same unsharded runs."""
+    from repro_torch.launch.mesh import make_mesh
+    dev, counted = _rank_setup(rank, device)
+    mesh = make_mesh((1, TP_WHOLE_RANKS), ("data", "model"))
+    res = {arch: _tp_arch_share(arch, rank, TP_WHOLE_RANKS, dev, mesh,
+                                ref_paths[arch]) for arch in TP_WHOLE_ARCHS}
+    res["launches"] = _launches(dev, counted)
+    return res
+
+
+def _tp_share_report(label, archs, refs, got, n, k6_want, attention):
+    """Phase 32's checks and ``[<label> rank]`` lines of the ranks'
+    ``_tp_arch_share`` results ``got`` over a (1, ``n``) mesh, each
+    against the unsharded run in ``refs``: the logits, loss, gradient
+    norm and gradients within ``_tp_arch_share``'s bounds, K6's
+    (route, offset) set ``k6_want(cfg, rank)``, K7 once a layer in the
+    forward, the step and its remat recompute of a scanning model;
+    ``attention(cfg)`` names the attention mode."""
+    for arch in archs:
+        ref, cfg = refs[arch], _tp_cfg(arch)
+        scans = cfg.ssm.enabled
+        for r, res in enumerate(got):
+            out = res[arch]
+            check(out["logits_err"] <= SERVE_TOL,
+                  f"{label} {arch} rank {r}: logits {out['logits_err']} "
+                  f"off")
+            _near(out["loss"], ref["loss"], f"{label} {arch} rank {r} loss")
+            _near(out["grad_norm"], ref["norm"],
+                  f"{label} {arch} rank {r} gradient norm", GRAD_SYNC_TOL)
+            off = _tp_grad_ok(out["grad_errs"], ref)
+            check(not off, f"{label} {arch} rank {r}: gradients off "
+                           f"{off} ({out['grad_errs']})")
+            worst = max(rel for rel, _ in out["grad_errs"].values())
+            held = sorted(p for p, (rel, _) in out["grad_errs"].items()
+                          if rel > TP_GRAD_TOL)
+            want = k6_want(cfg, r)
+            check(set(map(tuple, out["k6"])) == want,
+                  f"{label} {arch} rank {r}: K6 launches {out['k6']}, "
+                  f"want {want}")
+            # the forward, the step's and its remat recompute: one a layer
+            k7 = 3 * cfg.num_layers if scans else 0
+            check(out["k7"] == k7, f"{label} {arch} rank {r}: K7 "
+                                   f"launched {out['k7']}, want {k7}")
+            phase(f"{label} rank", rank=r, ranks=n, arch=cfg.name,
+                  batch=f"{TP_BATCH}x{TP_SCAN_SEQ if scans else TP_SEQ}",
+                  attention=attention(cfg),
+                  whole_leaves=json.dumps(out["whole"]),
+                  k6=json.dumps(out["k6"]), k7=out["k7"],
+                  logits_err=out["logits_err"],
+                  loss=out["loss"], plain_loss=ref["loss"],
+                  grad_norm=out["grad_norm"], plain_grad_norm=ref["norm"],
+                  worst_grad_err=worst,
+                  held_to_the_norm=json.dumps({p: [out["grad_errs"][p][1]
+                                                   / ref["norm"],
+                                                   ref["sensitivity"][p]]
+                                               for p in held}),
+                  forward_ms=out["forward_ms"],
+                  step_ms=out["step_ms"], peak_gb=out["peak_gb"],
+                  model_collectives=json.dumps(out["model_collectives"],
+                                               sort_keys=True),
+                  wire="gloo through host")
+
+
+def _tp_whole_k6(cfg, rank):
+    """32 (e)'s K6 launches: none for an SSM, else every row at offset 0
+    (sequences that do not divide TP_WHOLE_RANKS)."""
+    return set() if cfg.family == "ssm" else {("wgmma_tf32", 0)}
+
+
+def _tp_whole_attention(cfg):
+    return "none" if cfg.family == "ssm" else "replicated"
 
 
 #: 32 (d): the narrow model run again with ``qkv_sharding`` off (the
@@ -3451,7 +3677,10 @@ def tp_phase(dev):
     decodes to slot 32767, and (b) a (2, 2) data x model mesh's MoE step
     (``_tp_moe_data_step``) against the unsharded step on the global
     batch, whose routing drops assignments (``_moe_data_reference``).
-    Returns the ranks' launches summed."""
+    Then (e) TP_WHOLE_RANKS gloo ranks (``_tp_whole_rank``) hold
+    TP_WHOLE_ARCHS' narrow models, with the leaves a model axis of 3
+    does not divide whole, against the same unsharded runs. Returns the
+    ranks' launches summed."""
     from repro_torch.launch.mesh import run_peers
 
     refs = {arch: _tp_reference(_tp_cfg(arch), dev) for arch in TP_ARCHS}
@@ -3473,52 +3702,17 @@ def tp_phase(dev):
         got = run_peers(_tp_rank, TP_RANKS, device=kind,
                         timeout_s=MP_TIMEOUT_S, args=(rank_dev, paths))
         wall = time.perf_counter() - t
+        _sync(dev)
+        if cuda:
+            torch.cuda.empty_cache()
+        t = time.perf_counter()
+        got3 = run_peers(_tp_whole_rank, TP_WHOLE_RANKS, device=kind,
+                         timeout_s=MP_TIMEOUT_S, args=(rank_dev, paths))
+        wall3 = time.perf_counter() - t
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    for arch in TP_ARCHS:
-        ref, cfg = refs[arch], _tp_cfg(arch)
-        scans = cfg.ssm.enabled
-        for r, res in enumerate(got):
-            out = res[arch]
-            check(out["logits_err"] <= SERVE_TOL,
-                  f"model axis {arch} rank {r}: logits {out['logits_err']} "
-                  f"off")
-            _near(out["loss"], ref["loss"], f"model axis {arch} rank {r} "
-                                            f"loss")
-            _near(out["grad_norm"], ref["norm"],
-                  f"model axis {arch} rank {r} gradient norm",
-                  GRAD_SYNC_TOL)
-            off = _tp_grad_ok(out["grad_errs"], ref)
-            check(not off, f"model axis {arch} rank {r}: gradients off "
-                           f"{off} ({out['grad_errs']})")
-            worst = max(rel for rel, _ in out["grad_errs"].values())
-            held = sorted(p for p, (rel, _) in out["grad_errs"].items()
-                          if rel > TP_GRAD_TOL)
-            want = _tp_k6_want(cfg, r)
-            check(set(map(tuple, out["k6"])) == want,
-                  f"model axis {arch} rank {r}: K6 launches {out['k6']}, "
-                  f"want {want}")
-            # the forward, the step's and its remat recompute: one a layer
-            k7 = 3 * cfg.num_layers if scans else 0
-            check(out["k7"] == k7, f"model axis {arch} rank {r}: K7 "
-                                   f"launched {out['k7']}, want {k7}")
-            phase("model axis rank", rank=r, ranks=TP_RANKS, arch=cfg.name,
-                  batch=f"{TP_BATCH}x{TP_SCAN_SEQ if scans else TP_SEQ}",
-                  attention=_tp_attention(cfg),
-                  k6=json.dumps(out["k6"]), k7=out["k7"],
-                  logits_err=out["logits_err"],
-                  loss=out["loss"], plain_loss=ref["loss"],
-                  grad_norm=out["grad_norm"], plain_grad_norm=ref["norm"],
-                  worst_grad_err=worst,
-                  held_to_the_norm=json.dumps({p: [out["grad_errs"][p][1]
-                                                   / ref["norm"],
-                                                   ref["sensitivity"][p]]
-                                               for p in held}),
-                  forward_ms=out["forward_ms"],
-                  step_ms=out["step_ms"], peak_gb=out["peak_gb"],
-                  model_collectives=json.dumps(out["model_collectives"],
-                                               sort_keys=True),
-                  wire="gloo through host")
+    _tp_share_report("model axis", TP_ARCHS, refs, got, TP_RANKS,
+                     _tp_k6_want, _tp_attention)
     ref, cfg = refs[QKV_OFF_ARCH], _tp_cfg(QKV_OFF_ARCH)
     for r, res in enumerate(got):
         out = res["qkv_off"]
@@ -3618,7 +3812,15 @@ def tp_phase(dev):
               wire="gloo through host")
     phase("model axis", ranks=TP_RANKS, mesh="data 1 x model 4",
           archs=",".join(TP_ARCHS), spawn_and_run_s=wall)
-    return {name: sum(res["launches"][name] for res in got)
+    for arch in TP_WHOLE_ARCHS:
+        check("embed" in got3[0][arch]["whole"],
+              f"model axis whole {arch}: whole leaves "
+              f"{got3[0][arch]['whole']}")
+    _tp_share_report("model axis whole", TP_WHOLE_ARCHS, refs, got3,
+                     TP_WHOLE_RANKS, _tp_whole_k6, _tp_whole_attention)
+    phase("model axis whole", ranks=TP_WHOLE_RANKS, mesh="data 1 x model 3",
+          archs=",".join(TP_WHOLE_ARCHS), spawn_and_run_s=wall3)
+    return {name: sum(res["launches"][name] for res in got + got3)
             for name in got[0]["launches"]}
 
 
@@ -5240,6 +5442,15 @@ def main():
     read_counts("mla rows", (flash_attention,))
     check({k: launches["mla rows"][k] for k in want} == want,
           f"mla rows launches {launches['mla rows']}, want {want}")
+
+    # ---- 35. leaves that do not divide the model axis, held whole ---------
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    zero_counts()
+    want = whole_leaves_phase(dev, traces)
+    read_counts("whole leaves", (flash_attention, ssd_scan))
+    check({k: launches["whole leaves"][k] for k in want} == want,
+          f"whole leaves launches {launches['whole leaves']}, want {want}")
 
     # ---- 32. the model axis: four gloo ranks of a (1, 4) mesh on the card --
     # every rank counts its own launches from 0 and returns them; ranks 1-3

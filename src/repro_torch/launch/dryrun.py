@@ -199,14 +199,19 @@ def build_cell(cfg: ModelConfig, shape: ShapeConfig, mesh: MeshConfig,
     ids and labels among the vocab rows it holds: the plan's all-reduce
     adds no other rank's rows, so a token outside them would embed to 0
     through every layer, where the RMS norms' gradient grows about 1 /
-    sqrt(eps) a layer and a deep share's overflows."""
+    sqrt(eps) a layer and a deep share's overflows. (A share whose rows
+    all lie in the vocab's padding, as hymba-1.5b's last of 128, draws
+    among them; a vocab the axis does not divide is whole on every rank,
+    and its ids are the vocab's.)"""
     dtype = getattr(torch, tcfg.param_dtype)
     tp = model_axis(cfg, mesh)
     rank = share_rank(cfg, mesh)
     ids = None
-    if tp > 1:
+    if tp > 1 and cfg.padded_vocab() % tp == 0:
         rows = cfg.padded_vocab() // tp
-        ids = (rank * rows, min((rank + 1) * rows, cfg.vocab_size))
+        lo, hi = rank * rows, (rank + 1) * rows
+        # the padding alone where the share's rows lie past the vocab
+        ids = (lo, min(hi, cfg.vocab_size) if lo < cfg.vocab_size else hi)
     params = init_params(cfg, seed, dtype, device, tp_rank=rank,
                          tp_size=tp)
     coord = [rank if a == "model" else 0 for a in mesh.axes]
@@ -293,10 +298,25 @@ def lower_cell(arch: str, shape: Union[str, ShapeConfig], mesh_kind: str,
             "model_axis": ("sharded" if model_axis(cfg, mesh) > 1
                            else "replicated"),
             "model_rank": share_rank(cfg, mesh),
+            "whole_leaves": whole_leaves_record(cfg, mesh, inputs[0]),
             "collectives": collectives_by_op(plan.collectives,
                                              plan.collective_axes),
             "kernels": counts["kernels"]}
     return roof, mem, meta
+
+
+def whole_leaves_record(cfg: ModelConfig, mesh: MeshConfig, params) -> dict:
+    """The leaves the share holds whole though the reference's rules cut
+    them over ``model`` (their width does not divide the axis,
+    ``sharding.whole_leaves``): their paths, count and bytes in
+    ``params`` (the share's), which the peak counts at their whole
+    size."""
+    tp = model_axis(cfg, mesh)
+    paths = sharding.whole_leaves(cfg, tp) if tp > 1 else ()
+    held = dict(sharding._leaf_paths(params, ""))
+    return {"paths": list(paths), "count": len(paths),
+            "bytes": sum(held[p].numel() * held[p].element_size()
+                         for p in paths)}
 
 
 def collectives_by_op(planned, axes) -> dict:

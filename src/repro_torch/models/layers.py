@@ -442,43 +442,55 @@ def _tp_out(y, tp):
     return tp.scatter(y, 1) if tp.seq_cut else tp.reduce(y)
 
 
+def _rows_out(y, lo: int, s: int, tp):
+    """A block output's rows ``lo ..`` of ``s``, which this rank alone
+    computed (its share, ``tp.share``), into the residual's layout: as
+    they are where it is cut by sequence (the share is its cut), else
+    every row on every rank: all-gathered where ``s`` divides the axis,
+    or summed among the other ranks' zeros; the gradient this rank's
+    rows of the whole one."""
+    if tp.seq_cut:
+        return y
+    if tp.divides(s):
+        return tp.join(y, 1)
+    return tp.reduce(F.pad(y, (0, 0, lo, s - lo - y.shape[1])))
+
+
 def _attention_block_tp(params, cfg: ModelConfig, x, positions, *, causal,
                         window, cache, pos, mrope_positions, tp):
     """One rank's share of ``attention_block`` over the ``model`` axis
     of ``tp``: ``wq``, ``wk``, ``wv`` (and their biases) column-cut,
-    ``wo`` row-cut. q, k and v are column-parallel projections of the
-    whole input. Then, by ``attention_seq_mode``:
+    ``wo`` row-cut, or whole where their widths do not divide the axis
+    (``_tp_qkv``, ``_tp_o_proj``). q, k and v are projections of the
+    whole input. Then, by ``attention_mode``:
 
     * heads: the rank's columns are its q and kv heads;
     * rows (heads that do not divide, a sequence that does): q's
-      columns all-to-all into the rank's rows of every head, attended at
-      ``q_offset`` = their first position over k and v gathered whole;
-      the output all-to-all back into columns;
+      columns all-to-all into the rank's rows of every head (a whole
+      ``wq`` projects those rows alone), attended at ``q_offset`` = their
+      first position over k and v gathered whole (or projected whole);
+      the output all-to-all back into columns, or through a whole ``wo``
+      as the rank's rows;
     * replicated (neither divides, as a decode step's one row): q, k and
-      v gathered whole, every head attended, the rank's columns kept;
+      v whole, every head attended, the rank's columns kept (its share
+      of the rows through a whole ``wo``);
     * hd (``qkv_sharding`` off, the heads not dividing, the head dim
       dividing): q, k and v gathered whole, each rank scores its cut of
       every head's head dim and the scores are summed over the group
       (``_attention_hd_cut``), the rank's columns of the output kept.
 
     With a cache the new keys and values are gathered whole and the
-    rank's cut (the head dim, as ``cache_partition_specs`` cuts it)
-    written; a later step attends over the cut cache where it lies
-    (``_attention_hd_cut``)."""
+    rank's cut (the head dim, as ``cache_partition_specs`` cuts it, or
+    all of it where it does not divide) written; a later step attends
+    over the cut cache where it lies (``_attention_hd_cut``), or over a
+    whole one as the unsharded step does."""
     n, r = tp.size, tp.rank
     b = x.shape[0]
     hd = cfg.resolved_head_dim()
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
     h = _tp_in(x, tp)
     s = h.shape[1]
-    q = h @ params["wq"]
-    k = h @ params["wk"]
-    v = h @ params["wv"]
-    if cfg.qkv_bias:
-        q = q + params["b_q"]
-        k = k + params["b_k"]
-        v = v + params["b_v"]
-    q, k, v, mode = _tp_attention_in(q, k, v, hq, hkv, tp)
+    q, k, v, mode = _tp_qkv(params, h, h, hq, hkv, hd, cfg.qkv_bias, tp)
     hq_l, hkv_l = (hq // n, hkv // n) if mode == "heads" else (hq, hkv)
     q_offset, q_pos, q_mpos = 0, positions, mrope_positions
     if mode == "rows":
@@ -526,7 +538,7 @@ def _attention_block_tp(params, cfg: ModelConfig, x, positions, *, causal,
             out = _attention_hd_cut(q, ck.to(q.dtype), cv.to(q.dtype), tp,
                                     causal=causal, window=window,
                                     q_offset=pos, kv_len=kv_len)
-            return _tp_out(tp.cut(out, 2) @ params["wo"], tp), cache
+            return _tp_o_proj(out, params["wo"], "hd", tp), cache
         else:
             k_c, v_c = ck, cv
             if mode == "heads":
@@ -544,39 +556,72 @@ def _attention_block_tp(params, cfg: ModelConfig, x, positions, *, causal,
         out = attention_core(q, k.contiguous(), v.contiguous(),
                              causal=causal, window=window,
                              q_offset=q_offset, kv_len=kv_len)
-    out = _tp_attention_out(out.reshape(b, sq, hq_l * hd), mode, tp)
-    return _tp_out(out @ params["wo"], tp), cache
+    out = out.reshape(b, sq, hq_l * hd)
+    return _tp_o_proj(out, params["wo"], mode, tp), cache
 
 
-def _tp_attention_in(q, k, v, hq: int, hkv: int, tp):
-    """Column-parallel projections q (B, Sq, cols) and k, v (B, Skv,
-    cols) laid out for ``sharding.attention_mode``'s scheme: (q, k, v,
-    mode). "heads": the rank's columns are its heads, as they are;
-    "rows" (the heads do not divide the axis, Sq does): q's columns
-    all-to-all into the rank's rows of every head, k and v gathered
-    whole; "replicated" (neither divides, as a decode step's one row)
-    and "hd" (the head dims are cut later, after the rotation): all
-    three gathered whole."""
+def _tp_qkv(params, hq_in, hkv_in, hq: int, hkv: int, hd: int, bias: bool,
+            tp):
+    """q from ``hq_in`` (B, Sq, D) and k, v from ``hkv_in`` (B, Skv, D),
+    both whole on every rank, laid out for ``sharding.attention_mode``'s
+    scheme: (q, k, v, mode). A column-cut projection gives the rank's
+    columns: "heads" keeps them as its heads; "rows" (the heads do not
+    divide the axis, Sq does) all-to-alls q's into the rank's rows of
+    every head and gathers k's and v's whole; "replicated" (neither
+    divides, as a decode step's one row) and "hd" (the head dims are cut
+    later, after the rotation) gather all three whole. A projection the
+    axis leaves whole (its width does not divide it; never under "heads"
+    or "hd") gives every column: q's of the rank's rows alone under
+    "rows"."""
     n = tp.size
-    mode = attention_mode(hq, hkv, q.shape[1], k.shape[2] * n // hkv,
-                          v.shape[2] * n // hkv, n)
-    if mode == "heads":
-        return q, k, v, mode
-    k, v = tp.gather(k, 2), tp.gather(v, 2)
-    if mode == "rows":
-        return tp.all_to_all(q, 1, 2), k, v, mode
-    return tp.gather(q, 2), k, v, mode
+    mode = attention_mode(hq, hkv, hq_in.shape[1], hd, hd, n)
+
+    def proj(x, w, b):
+        y = x @ params[w]
+        return y + params[b] if bias else y
+
+    if mode == "rows" and not tp.divides(hq * hd):
+        q = proj(tp.cut(hq_in, 1), "wq", "b_q")
+    else:
+        q = proj(hq_in, "wq", "b_q")
+        if mode == "rows":
+            q = tp.all_to_all(q, 1, 2)
+        elif mode != "heads" and tp.divides(hq * hd):
+            q = tp.gather(q, 2)
+    k, v = proj(hkv_in, "wk", "b_k"), proj(hkv_in, "wv", "b_v")
+    if mode != "heads" and tp.divides(hkv * hd):
+        k, v = tp.gather(k, 2), tp.gather(v, 2)
+    return q, k, v, mode
 
 
 def _tp_attention_out(out, mode: str, tp):
-    """The attention output (B, Sq, cols) of ``_tp_attention_in``'s
-    ``mode`` back in the rank's columns, for the row-parallel
-    o-projection."""
+    """The attention output (B, Sq, cols) of ``_tp_qkv``'s ``mode`` back
+    in the rank's columns, for the row-parallel o-projection."""
     if mode == "rows":
         return tp.all_to_all(out, 2, 1)
     if mode in ("replicated", "hd"):
         return tp.cut(out, 2)
     return out
+
+
+def _tp_o_proj(out, wo, mode: str, tp):
+    """The attention output ``out`` (B, Sq, ·) in ``mode``'s layout (the
+    rank's heads for "heads", its rows of every head for "rows", every
+    row and head otherwise) through the o-projection ``wo``, into the
+    residual's layout. A row-cut ``wo`` takes the rank's columns
+    (``_tp_attention_out``) and its partial sums are reduced
+    (``_tp_out``). A whole ``wo`` (its rows do not divide the axis, as
+    ``wq``'s columns do not; never under "heads" or "hd") takes the
+    rank's rows of the output, or its share of every row
+    (``tp.share``), into ``_rows_out``."""
+    if mode in ("heads", "hd") or wo.shape[0] != out.shape[-1]:
+        return _tp_out(_tp_attention_out(out, mode, tp) @ wo, tp)
+    if mode == "rows":
+        rows = out.shape[1]
+        return _rows_out(out @ wo, tp.rank * rows, rows * tp.size, tp)
+    s = out.shape[1]
+    lo, hi = tp.share(s)
+    return _rows_out(out[:, lo:hi] @ wo, lo, s, tp)
 
 
 def _summed(s, tp):
@@ -679,13 +724,22 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     h = cfg.num_heads
     mode = (attention_mode(h, h, s, m.qk_head_dim, m.v_head_dim, tp.size)
             if sharded else None)
-    q = x @ params["wq"]
+    # which of the column projections the axis leaves whole (never under
+    # "heads" but ``w_kr``, whose 64 columns need not divide it)
+    whole = ({w: not tp.divides(h * dim) for w, dim in (
+        ("wq", m.qk_head_dim), ("w_uk", m.qk_nope_head_dim),
+        ("w_uv", m.v_head_dim))} if sharded else {})
+    if mode == "rows" and whole["wq"]:
+        q = tp.cut(x, 1) @ params["wq"]
+    else:
+        q = x @ params["wq"]
+        if mode == "rows":
+            q = tp.all_to_all(q, 1, 2)
+        elif mode in ("replicated", "hd") and not whole["wq"]:
+            q = tp.gather(q, 2)
     q_offset, q_pos = 0, positions
     if mode == "rows":
-        q = tp.all_to_all(q, 1, 2)
         q_offset, q_pos = tp.rank * (s // tp.size), tp.cut(positions, 1)
-    elif mode in ("replicated", "hd"):
-        q = tp.gather(q, 2)
     h_l = h // tp.size if mode == "heads" else h
     sq = q.shape[1]
     q = q.reshape(b, sq, h_l, m.qk_head_dim)
@@ -696,7 +750,7 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     c_kv = rms_norm(x @ params["w_dkv"], params["kv_norm_scale"],
                     cfg.rms_eps)                        # (b, s, r)
     k_rope = x @ params["w_kr"]
-    if sharded:
+    if sharded and tp.divides(m.qk_rope_head_dim):
         k_rope = tp.gather(k_rope, 2)
     k_rope = apply_rope(k_rope[:, :, None, :], positions,
                         cfg.rope_theta)                 # (b, s, 1, dr)
@@ -705,9 +759,10 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     if cache is not None:
         cc, cr = cache["c_kv"], cache["k_rope"]
         cut_c = cc.shape[-1] != m.kv_lora_rank
+        cut_r = cr.shape[-1] != m.qk_rope_head_dim
         cc[:, pos:pos + s] = (tp.cut(c_kv, 2) if cut_c else c_kv).to(
             cc.dtype)
-        cr[:, pos:pos + s] = (tp.cut(k_rope[:, :, 0], 2) if sharded else
+        cr[:, pos:pos + s] = (tp.cut(k_rope[:, :, 0], 2) if cut_r else
                               k_rope[:, :, 0]).to(cr.dtype)
         cache["pos"].fill_(pos + s)
         if pos == 0:
@@ -721,9 +776,10 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
                 q_nope, q_rope = (tp.all_gather(t.contiguous(), 1)
                                   for t in (q_nope, q_rope))
             out = _mla_latent_scores(params, cfg, q_nope, q_rope, cc, cr,
-                                     cut_c, tp, pos, x.dtype,
+                                     cut_c, cut_r, tp, pos, x.dtype,
                                      heads=mode == "heads")
-            return _tp_out(out @ params["wo"], tp), cache
+            return _tp_o_proj(out, params["wo"], "replicated"
+                              if whole["w_uv"] else "heads", tp), cache
         else:
             c_kv, k_rope = cc.to(x.dtype), cr.to(x.dtype)[:, :, None]
             q_offset = pos
@@ -733,7 +789,10 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     k_nope = c_kv @ params["w_uk"]
     v = c_kv @ params["w_uv"]
     if sharded and mode != "heads":
-        k_nope, v = tp.gather(k_nope, 2), tp.gather(v, 2)
+        if not whole["w_uk"]:
+            k_nope = tp.gather(k_nope, 2)
+        if not whole["w_uv"]:
+            v = tp.gather(v, 2)
     k_nope = k_nope.reshape(b, skv, h_l, m.qk_nope_head_dim)
     v = v.reshape(b, skv, h_l, m.v_head_dim)
     k = torch.cat([k_nope, k_rope.expand(b, skv, h_l, m.qk_rope_head_dim)],
@@ -750,8 +809,7 @@ def mla_block(params: dict, cfg: ModelConfig, x: torch.Tensor,
     out = out.reshape(b, sq, h_l * m.v_head_dim)
     if not sharded:
         return out @ params["wo"], cache
-    out = _tp_attention_out(out, mode, tp)
-    return _tp_out(out @ params["wo"], tp), cache
+    return _tp_o_proj(out, params["wo"], mode, tp), cache
 
 
 def _rank_columns(w, total: int, tp):
@@ -764,26 +822,29 @@ def _rank_columns(w, total: int, tp):
 
 
 def _mla_latent_scores(params, cfg: ModelConfig, q_nope, q_rope, cc, cr,
-                       cut_c: bool, tp, pos: int, dtype, heads: bool = True):
+                       cut_c: bool, cut_r: bool, tp, pos: int, dtype,
+                       heads: bool = True):
     """MLA over a cache for the queries (``q_nope``, ``q_rope``: (B, Sq,
     H / n, ·) of the rank's heads with ``heads``, else (B, Sq, H, ·) of
     every head, at positions ``pos ..``), the cache ``cr`` (B, S, dr /
-    n) cut on its feature dim and ``cc`` (B, S, r / n with ``cut_c``,
-    else r) -> the rank's columns of the output, (B, Sq, H * dv / n).
-    The reference's sums in another order: ``q_nope_h . (c_kv W_uk_h)``
-    is ``(q_nope_h W_uk_h^T) . c_kv``, so every head's query goes into
-    latent space where its ``w_uk`` columns lie: on the rank that holds
-    the head, all-gathered over the heads with ``q_rope`` (a few hundred
-    values a row); or, with heads that do not divide the axis (a head's
-    columns cut between ranks), each rank's share of every head's latent
-    query from its columns, summed over the group. Each rank scores
-    every head against its cut of the rope key and of the latent, and
-    the partial scores are all-reduced; after the softmax each rank
+    n with ``cut_r``, else dr) and ``cc`` (B, S, r / n with ``cut_c``,
+    else r) -> the rank's columns of the output, (B, Sq, H * dv / n), or
+    all of it where ``w_uv`` is whole (its columns do not divide the
+    axis). The reference's sums in another order: ``q_nope_h . (c_kv
+    W_uk_h)`` is ``(q_nope_h W_uk_h^T) . c_kv``, so every head's query
+    goes into latent space where its ``w_uk`` columns lie: on the rank
+    that holds the head, all-gathered over the heads with ``q_rope`` (a
+    few hundred values a row); or, with heads that do not divide the axis
+    (a head's columns cut between ranks), each rank's share of every
+    head's latent query from its columns, summed over the group (or all
+    of it on every rank from a whole ``w_uk``). Each rank scores every
+    head against its cut of the rope key and of the latent, and the
+    partial scores are all-reduced; a part the axis leaves whole is
+    scored on every rank after the reduce. After the softmax each rank
     forms ``P . c_kv[cut]``, which is all-gathered over the latent's
-    dims, and applies its columns of ``w_uv``. A latent the axis leaves
-    whole is scored on every rank after the reduce. f32 scores and
-    products, causal at ``pos`` (the slots past the step are masked with
-    it), as ``_attention_naive``."""
+    dims, and applies its columns of ``w_uv`` (or all of them). f32
+    scores and products, causal at ``pos`` (the slots past the step are
+    masked with it), as ``_attention_naive``."""
     m = cfg.mla
     b, sq, h_l, _ = q_nope.shape
     r = m.kv_lora_rank
@@ -794,6 +855,11 @@ def _mla_latent_scores(params, cfg: ModelConfig, q_nope, q_rope, cc, cr,
         q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32), w_uk)
         q_lat = tp.all_gather(q_lat.contiguous(), 2)    # (b, sq, h, r)
         q_rot = tp.all_gather(q_rope.to(f32).contiguous(), 2)
+    elif params["w_uk"].shape[-1] == h_l * m.qk_nope_head_dim:
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32),
+                             params["w_uk"].to(f32).reshape(
+                                 r, h_l, m.qk_nope_head_dim))
+        q_rot = q_rope.to(f32)
     else:
         w_uk = _rank_columns(params["w_uk"].to(f32),
                              h_l * m.qk_nope_head_dim, tp)
@@ -802,17 +868,24 @@ def _mla_latent_scores(params, cfg: ModelConfig, q_nope, q_rope, cc, cr,
         q_lat = tp.all_reduce(q_lat.contiguous())
         q_rot = q_rope.to(f32)
     c = cc.to(dtype).to(f32)
+    kr = cr.to(dtype).to(f32)
     scale = m.qk_head_dim ** -0.5
 
     def scores(qq, kk):
         return torch.einsum("bqhr,bkr->bhqk", qq * scale, kk)
 
-    s = scores(tp.cut(q_rot, 3), cr.to(dtype).to(f32))
-    if cut_c:
-        s = s + scores(tp.cut(q_lat, 3), c)
-    s = tp.all_reduce(s)
-    if not cut_c:
-        s = s + scores(q_lat, c)
+    cut = [(q, k) for q, k, is_cut in ((q_rot, kr, cut_r), (q_lat, c, cut_c))
+           if is_cut]
+    s = None
+    for qq, kk in cut:
+        part = scores(tp.cut(qq, 3), kk)
+        s = part if s is None else s + part
+    if s is not None:
+        s = tp.all_reduce(s)
+    for qq, kk, is_cut in ((q_rot, kr, cut_r), (q_lat, c, cut_c)):
+        if not is_cut:
+            part = scores(qq, kk)
+            s = part if s is None else s + part
     mask = _causal_window_mask(sq, skv, pos, 0, True, c.device)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
@@ -822,6 +895,10 @@ def _mla_latent_scores(params, cfg: ModelConfig, q_nope, q_rope, cc, cr,
     if heads:
         w_uv = params["w_uv"].to(f32).reshape(r, h_l, m.v_head_dim)
         out = torch.einsum("bqhr,rhv->bqhv", tp.cut(lat, 2), w_uv)
+        return out.reshape(b, sq, h_l * m.v_head_dim).to(dtype)
+    if params["w_uv"].shape[-1] == h_l * m.v_head_dim:
+        out = torch.einsum("bqhr,rhv->bqhv", lat, params["w_uv"].to(
+            f32).reshape(r, h_l, m.v_head_dim))
         return out.reshape(b, sq, h_l * m.v_head_dim).to(dtype)
     w_uv = _rank_columns(params["w_uv"].to(f32), h_l * m.v_head_dim, tp)
     out = torch.einsum("bqhr,rhv->bqhv", lat,
@@ -845,8 +922,12 @@ def init_mlp(gen: torch.Generator, d_model: int, d_ff: int, dtype, device,
 def mlp_block(params: dict, x: torch.Tensor, tp=None) -> torch.Tensor:
     """SwiGLU. With ``tp``, one rank's share: ``w_gate`` and ``w_up``
     column-cut on the whole input, ``w_down`` row-cut, its partial sums
-    reduced into the residual's layout. Every caller sums the output
-    into the residual, so the down projection's is ``unneeded_output``."""
+    reduced into the residual's layout. The three share their hidden
+    width, so an axis it does not divide leaves all three whole: the
+    caller then passes no ``tp`` and the rank runs the MLP on its own
+    rows of the residual (every row, without sequence parallelism), with
+    no collective. Every caller sums the output into the residual, so
+    the down projection's is ``unneeded_output``."""
     if active(tp):
         x = _tp_in(x, tp)
     h = F.silu(x @ params["w_gate"]) * (x @ params["w_up"])

@@ -23,7 +23,10 @@ so that ``route``, ``_capacity`` and ``_dispatch_indices`` see the same
 ``T`` tokens in the same order as the unsharded call, dispatches only to
 its own experts' ``(E / n, C, d)`` buffers, and reduces its partial sum
 (its experts' combine plus its shared-expert columns) into the
-residual's layout (``layers._tp_out``). The router and the aux loss are
+residual's layout (``layers._tp_out``). Where the axis does not divide
+the experts (or the shared experts' width) they are whole on every
+rank, which combines its share of the ``T`` tokens, a partial sum
+reduced in the same way. The router and the aux loss are
 computed alike on every rank; the aux term's gradient goes through
 ``TensorParallel.once``, and the router's gradient, the combine's gates
 of the rank's experts, is summed over the group by the train step
@@ -174,7 +177,11 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
     """x: (B, S, d) -> (out, aux_loss). With ``tp``, one rank's share:
     ``x`` in the residual's layout (a rank's rows under sequence
     parallelism), ``params`` the rank's cut, the output in ``x``'s
-    layout and the aux loss whole on every rank."""
+    layout and the aux loss whole on every rank. Experts that do not
+    divide the axis are whole: every rank runs all E on their capacity
+    buffers of all T tokens, routed as the unsharded call routes them,
+    and combines its share of the tokens (``tp.share``); so do whole
+    shared experts."""
     m = cfg.moe
     sharded = active(tp)
     if sharded:
@@ -184,6 +191,9 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
     e = m.num_experts
     we = params["experts"]
     e_l = we["w_gate"].shape[0]                         # this rank's experts
+    # experts the axis does not divide: all E on every rank, each
+    # combining its share of the tokens only
+    whole = sharded and e_l == e
     x2d = x.reshape(t, d)
     cap = _capacity(t, cfg)
 
@@ -209,7 +219,7 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
     token_of_slot[flat_slot] = torch.arange(
         t, device=x.device).repeat_interleave(m.top_k)
     n_slots = e_l * slots
-    lo = tp.rank * n_slots if sharded else 0
+    lo = tp.rank * n_slots if sharded and not whole else 0
     # this rank's experts' slots (the dummy dropped); ``index_select``,
     # whose backward adds into the rows in parallel, where the backward
     # of indexing accumulates an index's duplicates (the empty slots'
@@ -230,6 +240,10 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
     # gathers every token's k slots; under ``tp`` that gather would point
     # the other ranks' (n - 1) / n of them at one zero row, whose
     # gradient is accumulated one assignment at a time)
+    if whole:
+        t_lo, t_hi = tp.share(t)
+        tok = torch.arange(t, device=x.device)[:, None]
+        keep = keep & (tok >= t_lo) & (tok < t_hi)
     w = torch.where(keep, gate_w, torch.zeros_like(gate_w))
     local = flat_slot - lo
     mine = (local >= 0) & (local < n_slots)
@@ -244,8 +258,14 @@ def moe_ffn(params: dict, cfg: ModelConfig, x: torch.Tensor, tp=None
 
     if "shared" in params:
         # with ``tp`` the rank's columns of the shared experts: a partial
-        # sum too, reduced with the experts'
-        out = out + mlp_block(params["shared"], x2d)
+        # sum too, reduced with the experts'; where their width does not
+        # divide the axis, all of them on the rank's share of the tokens
+        if sharded and not tp.divides(m.shared_d_ff):
+            s_lo, s_hi = tp.share(t)
+            out = out + F.pad(mlp_block(params["shared"], x2d[s_lo:s_hi]),
+                              (0, 0, s_lo, t - s_hi))
+        else:
+            out = out + mlp_block(params["shared"], x2d)
     out = out.reshape(b, s, d)
     if sharded:
         return _tp_out(out, tp), tp.once(aux)

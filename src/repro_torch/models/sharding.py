@@ -41,7 +41,8 @@ rank's ``model`` group instead, through ``TensorParallel``:
 * the embedding is vocab-parallel (a masked local gather, then a
   reduce), the LM head column-parallel, and ``cross_entropy`` reduces
   the max, the sum of exps and the picked logit over the group, never
-  forming the whole vocab on a rank;
+  forming the whole vocab on a rank (but where the padded vocab does
+  not divide the axis, below);
 * MoE is expert-parallel (``models.moe.moe_ffn``): every rank routes
   all the tokens of the gathered input, as the unsharded call does, runs
   only its ``E / n`` experts on their capacity buffers, and the partial
@@ -66,6 +67,20 @@ rank's ``model`` group instead, through ``TensorParallel``:
   its own norm; the enc-dec encoder is the same blocks over its own
   residual, and the cross-attention reads the encoder's output gathered
   whole once, with ``wq``, ``wk``, ``wv`` column-cut and ``wo`` row-cut.
+
+A leaf whose width does not divide the axis (``sanitize_specs`` drops
+its ``model`` entry, as the reference's lowering replicates it:
+``whole_leaves``) is held whole by every rank, with the same math as
+the unsharded model: a block computes that leaf's product on the layout
+it needs and hands its output on in the layout its next op expects.
+Attention's ``wq``/``wo`` and ``wk``/``wv`` (and MLA's projections)
+whole project the rank's rows of q, or every row, beside cut ones, and a
+whole o-projection takes the rank's rows of the attention output (its
+share of every row where the sequence does not divide the axis) into
+the residual's layout (``layers._tp_o_proj``); a whole MLP runs on the
+residual's layout with no collective; whole experts run on every rank,
+each combining its share of the tokens; a whole vocab is embedded and
+projected on the residual's rows and the logits formed whole.
 
 Every family is cut (``model_axis_sharded``). The leaves that the axis
 leaves whole but whose gradient a rank computes from its share
@@ -335,10 +350,28 @@ class TensorParallel:
         it once."""
         return _Once.apply(x, self)
 
+    def join(self, x, dim: int):
+        """All-gathered along ``dim`` into a tensor every rank then uses
+        alike (its gradient whole on every rank); the gradient is this
+        rank's cut of it, with no collective."""
+        return _Join.apply(x, self, dim)
+
     def cut(self, x, dim: int):
         """This rank's cut of ``x`` along ``dim`` (a view)."""
         n = x.shape[dim] // self.size
         return x.narrow(dim, self.rank * n, n)
+
+    def divides(self, width: int) -> bool:
+        """Whether the axis divides ``width``: a leaf of that width is
+        cut, else whole (``sanitize_specs``' rule)."""
+        return width % self.size == 0
+
+    def share(self, rows: int) -> tuple:
+        """This rank's share ``(lo, hi)`` of ``rows`` that need not divide
+        the axis: rank r's ``[r rows / n, (r + 1) rows / n)``, the cut
+        where they divide."""
+        return (self.rank * rows // self.size,
+                (self.rank + 1) * rows // self.size)
 
 
 def active(tp) -> bool:
@@ -389,6 +422,17 @@ class _Gather(torch.autograd.Function):
         return ctx.tp.reduce_scatter(g.contiguous(), ctx.dim), None, None
 
 
+class _Join(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, tp, dim):
+        ctx.tp, ctx.dim = tp, dim
+        return tp.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.tp.cut(g, ctx.dim).contiguous(), None, None
+
+
 class _Scatter(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, tp, dim):
@@ -413,19 +457,18 @@ class _AllToAll(torch.autograd.Function):
                 None, None, None)
 
 
-#: whole leaves whose gradient a rank computes from its share, whatever
-#: the residual's layout: the q/k norm scales (applied to a rank's heads
-#: or rows), the MoE router (the combine's gates of the rank's experts
-#: only; the aux term, the same on every rank, goes through
-#: ``TensorParallel.once``), MLA's down-projection and latent norm
-#: (their output feeds the rank's heads only) and the Mamba-2 mixer's
-#: whole leaves (``models.ssm``: ``a_log``, ``d_skip``, ``dt_bias`` and
-#: the gate norm's scale enter a rank's heads, or every head with only
-#: the rank's columns of the output used; ``in_proj`` and ``conv_w`` where
-#: their width does not divide the axis feed the same partial use)
+#: leaves that ``param_specs`` replicates but whose gradient a rank
+#: computes from its share, whatever the residual's layout: the q/k norm
+#: scales (applied to a rank's heads or rows), the MoE router (the
+#: combine's gates of the rank's experts or tokens only; the aux term,
+#: the same on every rank, goes through ``TensorParallel.once``), MLA's
+#: down-projection and latent norm (their output feeds the rank's heads
+#: or rows only) and the Mamba-2 mixer's ``a_log``, ``d_skip``,
+#: ``dt_bias`` and gate norm scale (they enter a rank's heads, or every
+#: head with only the rank's columns or rows of the output used)
 _PARTIAL_ALWAYS = ("q_norm_scale", "k_norm_scale", "router", "w_dkv",
                    "kv_norm_scale", "a_log", "d_skip", "dt_bias",
-                   "gate_norm_scale", "in_proj", "conv_w")
+                   "gate_norm_scale")
 
 #: norm scales applied to the residual stream's layout: a rank's rows
 #: under sequence parallelism, the whole replicated residual otherwise
@@ -433,18 +476,29 @@ _RESIDUAL_NORMS = ("pre_norm_scale", "post_norm_scale", "final_norm_scale",
                    "cross_norm_scale", "attn_out_norm_scale",
                    "ssm_out_norm_scale")
 
-#: the leaves the axis may leave whole (their width does not divide it,
-#: and ``sanitize_specs`` keeps them whole): the Mamba-2 mixer's input
-#: projection and conv (hymba-1.5b's 6482 in-projection columns)
-_WHOLE_ADMITTED = ("in_proj", "conv_w")
+
+def _on_residual(path: str) -> bool:
+    """Whether a leaf that the axis leaves whole runs on the residual's
+    layout, as a norm does: the vocab (``embed``, ``lm_head``) and a
+    dense MLP's projections (not an MoE layer's shared experts)."""
+    return (path.split("/")[-1] in ("embed", "lm_head")
+            or "/mlp/" in f"/{path}")
 
 
-def partial_grad_leaf(path: str, sp: bool) -> bool:
+def partial_grad_leaf(path: str, sp: bool, spec: tuple) -> bool:
     """Whether the gradient of a leaf that the ``model`` axis leaves whole
-    is computed on a shard, and so summed over the group:
-    ``_PARTIAL_ALWAYS`` always, and the norms of the residual stream
-    (``_RESIDUAL_NORMS``) when it is cut by sequence (``sp``: for an
-    ``enc_layers/`` leaf the encoder's residual, else the decoder's)."""
+    is computed on a shard, and so summed over the group. ``spec`` is the
+    leaf's ``param_specs`` spec, before ``sanitize_specs``: a leaf it
+    puts on ``model`` whose width does not divide the axis is summed
+    always, each rank computing it on its rows or columns (attention's
+    and MLA's projections, the experts, the SSM mixer's), but the leaves
+    on the residual's layout (``_on_residual``), summed when it is cut by
+    sequence (``sp``: for an ``enc_layers/`` leaf the encoder's residual,
+    else the decoder's) and computed whole on every rank otherwise. A
+    leaf it replicates: ``_PARTIAL_ALWAYS`` always, the residual's norms
+    (``_RESIDUAL_NORMS``) when it is cut by sequence."""
+    if model_dims(spec):
+        return sp if _on_residual(path) else True
     name = path.split("/")[-1]
     if name in _PARTIAL_ALWAYS:
         return True
@@ -460,27 +514,28 @@ def model_axis_sharded(cfg) -> bool:
 
 
 @functools.lru_cache(maxsize=None)
-def check_model_axis(cfg, tp: int) -> None:
-    """Raise unless ``cfg`` splits over a ``model`` axis of ``tp``: every
-    dim that ``param_specs`` puts on ``model`` divides ``tp``, but for
-    the leaves the explicit scheme runs whole (``_WHOLE_ADMITTED``, as
-    ``sanitize_specs`` leaves them); the rest are the projections, the
-    experts and the vocab, with no path for a whole one. Heads need not
-    divide ``tp``: attention, MLA's too, then runs by rows
+def check_model_axis(cfg, tp: int) -> tuple:
+    """Raise unless ``cfg``'s family is cut over the ``model`` axis
+    (``model_axis_sharded``); else ``whole_leaves(cfg, tp)``. A leaf
+    that does not divide ``tp`` is held whole by every rank, as the
+    reference's ``sanitize_specs`` leaves it; heads need not divide
+    ``tp`` either: attention, MLA's too, then runs by rows
     (``attention_mode``)."""
     if not model_axis_sharded(cfg):
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family} family is not ported")
+    return whole_leaves(cfg, tp)
+
+
+@functools.lru_cache(maxsize=None)
+def whole_leaves(cfg, tp: int) -> tuple:
+    """The paths of the leaves that ``param_specs`` puts on ``model`` but
+    that a ``model`` axis of ``tp`` leaves whole (no dim it cuts
+    divides), in leaf order."""
     whole, kept = whole_specs(cfg, tp)
-    marked = param_specs(whole)
-    bad = [p for (p, a), (_, b) in zip(_leaf_paths(marked, ""),
-                                        _leaf_paths(kept, ""))
-           if model_dims(a) != model_dims(b)
-           and p.split("/")[-1] not in _WHOLE_ADMITTED]
-    if bad:
-        raise NotImplementedError(
-            f"{cfg.name}: {', '.join(bad)} do not split over a model axis "
-            f"of {tp}")
+    return tuple(p for (p, a), (_, b) in zip(
+        _leaf_paths(param_specs(whole), ""), _leaf_paths(kept, ""))
+        if model_dims(a) and not model_dims(b))
 
 
 def tensor_parallel(cfg, mesh, sequence_parallel: bool = True):
@@ -496,9 +551,14 @@ def tensor_parallel(cfg, mesh, sequence_parallel: bool = True):
 def whole_specs(cfg, tp: int):
     """(the whole parameters on ``meta``, their ``model_specs``) of
     ``cfg`` over a ``model`` axis of ``tp``, built once."""
-    from repro_torch.models.transformer import init_params
-    whole = init_params(cfg, 0, torch.float32, "meta")
+    whole = _whole_meta(cfg)
     return whole, model_specs(whole, tp)
+
+
+@functools.lru_cache(maxsize=None)
+def _whole_meta(cfg):
+    from repro_torch.models.transformer import init_params
+    return init_params(cfg, 0, torch.float32, "meta")
 
 
 def params_are_whole(params, cfg, tp: int) -> bool:

@@ -19,8 +19,8 @@ B/C projections have n_groups G sharing state dim N (d_state).
 
 Given a ``sharding.TensorParallel`` (``tp=``) the block is one rank's
 share over the ``model`` axis on the reference's cuts: ``in_proj`` and
-``conv_w`` column-cut where their widths divide the axis, ``out_proj``
-row-cut, the rest whole; the conv cache cut on its channels and the
+``conv_w`` column-cut and ``out_proj`` row-cut where their widths divide
+the axis, the rest whole; the conv cache cut on its channels and the
 state on its head dim (``init_ssm_cache(tp_size=)``).
 """
 from __future__ import annotations
@@ -33,7 +33,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.ssd_scan import ssd_scan
-from repro_torch.models.layers import _tp_in, _tp_out, init_dense, rms_norm
+from repro_torch.models.layers import (_rows_out, _tp_in, _tp_out,
+                                       init_dense, rms_norm)
 from repro_torch.models.sharding import active
 
 
@@ -119,7 +120,10 @@ def ssm_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     ``d_inner``: head-parallel, the sum of squares of the rank's columns
     is reduced over the group; otherwise every rank norms all of y and
     keeps its columns. The rank's columns through its rows of
-    ``out_proj``, reduced into the residual's layout (``_tp_out``)."""
+    ``out_proj``, reduced into the residual's layout (``_tp_out``); an
+    ``out_proj`` whose rows do not divide the axis is whole, and takes
+    the rank's share of the rows of y, every column
+    (``layers._rows_out``)."""
     s_cfg = cfg.ssm
     di = s_cfg.d_inner(cfg.d_model)
     nh = s_cfg.n_heads(cfg.d_model)
@@ -127,10 +131,6 @@ def ssm_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
     g, n = s_cfg.n_groups, s_cfg.d_state
     sharded = active(tp)
     if sharded:
-        if params["out_proj"].shape[0] * tp.size != di:
-            raise NotImplementedError(
-                f"{cfg.name}: out_proj's {di} rows do not split over a "
-                f"model axis of {tp.size}")
         x_in = _tp_in(x, tp)
     else:
         x_in = x
@@ -230,6 +230,12 @@ def ssm_block(params: dict, cfg: ModelConfig, x: torch.Tensor, *,
              * tp.cut(scale, 0).to(torch.float32)).to(x.dtype)
     else:
         y = rms_norm(y * F.silu(z), scale, cfg.rms_eps)
+        if sharded and params["out_proj"].shape[0] == di:
+            # an out_proj whose rows do not divide the axis (never
+            # head-parallel): the rank's share of the rows through it
+            lo, hi = tp.share(s)
+            return _rows_out(y[:, lo:hi] @ params["out_proj"], lo, s,
+                             tp), cache
         if sharded:
             y = tp.cut(y, 2)
     out = y @ params["out_proj"]

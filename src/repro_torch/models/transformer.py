@@ -33,7 +33,10 @@ rank's cut of the parameters (``init_params(tp_rank=, tp_size=)`` draws
 one, ``sharding.shard_tree`` cuts a whole tree) and of the caches
 (``init_caches(tp_size=)``): the embedding vocab-parallel, the residual
 cut by sequence under sequence parallelism, the logits vocab-parallel
-(B, S, V_padded / tp) and ``cross_entropy`` reduced over the group; MoE
+(B, S, V_padded / tp) and ``cross_entropy`` reduced over the group (a
+padded vocab the axis does not divide whole on every rank, and every
+other leaf that does not divide it too, as ``models/sharding.py`` runs
+them); MoE
 expert-parallel, MLA head-parallel or by rows, the Mamba-2 mixer on its
 column, conv and row cuts (``models/ssm.py``), hybrid heads with both
 mixers cut, and the enc-dec encoder over its own residual, its output gathered
@@ -57,8 +60,8 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models import sharding
-from repro_torch.models.layers import (_attention_hd_cut, _tp_attention_in,
-                                       _tp_attention_out, _tp_in, _tp_out,
+from repro_torch.models.layers import (_attention_hd_cut, _tp_in,
+                                       _tp_o_proj, _tp_qkv,
                                        attention_block, attention_core,
                                        init_attention, init_dense, init_mla,
                                        init_mlp, mla_block, mlp_block,
@@ -192,15 +195,20 @@ def _init_block(gen, cfg: ModelConfig, dtype, dev, n: Optional[int],
     if cfg.moe.enabled and not dense_ffn:
         ffn = {"moe": moe_mod.init_moe(gen, cfg, dtype, dev, n)}
     else:
-        d_ff = ((cfg.moe.dense_d_ff or cfg.d_ff) if cfg.moe.enabled
-                else cfg.d_ff)
-        ffn = {"mlp": init_mlp(gen, d, d_ff, dtype, dev, n)}
+        ffn = {"mlp": init_mlp(gen, d, _mlp_width(cfg), dtype, dev, n)}
     p = {"pre_norm_scale": ones(), "mixer": mixer,
          "post_norm_scale": ones(), "ffn": ffn}
     if cross_attn:
         p["cross_norm_scale"] = ones()
         p["cross"] = init_attention(gen, cfg, dtype, dev, n)
     return p
+
+
+def _mlp_width(cfg: ModelConfig) -> int:
+    """The hidden width of a block's SwiGLU MLP: an MoE model's leading
+    dense blocks take ``dense_d_ff``."""
+    return ((cfg.moe.dense_d_ff or cfg.d_ff) if cfg.moe.enabled
+            else cfg.d_ff)
 
 
 def layer_windows(cfg: ModelConfig, n: int) -> List[int]:
@@ -276,26 +284,25 @@ def _cross_attention(params: dict, cfg: ModelConfig, x, enc_out, tp=None):
     encoder's output; no rope, no bias, not causal, from no cache (K6
     over the encoder's frames). With ``tp``, one rank's share: ``x`` in
     the residual's layout, ``enc_out`` whole on every rank (``encode``'s),
-    ``wq``, ``wk``, ``wv`` column-cut and ``wo`` row-cut; the rank's heads
-    where they divide the axis, else its rows of q (every head, the
-    sequence dividing the axis) or all of q (a decode step's row) against
-    k and v gathered whole, or the rank's cut of the head dims with
+    ``wq``, ``wk``, ``wv`` column-cut and ``wo`` row-cut, or whole where
+    their widths do not divide the axis; the rank's heads where they
+    divide the axis, else its rows of q (every head, the sequence
+    dividing the axis) or all of q (a decode step's row) against k and v
+    gathered whole, or the rank's cut of the head dims with
     ``qkv_sharding`` off, as ``layers._attention_block_tp`` runs."""
     sharded = sharding.active(tp)
-    if sharded:
-        x = _tp_in(x, tp)
-    b, s, _ = x.shape
-    se = enc_out.shape[1]
     hd = cfg.resolved_head_dim()
     hq, hkv = cfg.num_heads, cfg.num_kv_heads
-    q = x @ params["wq"]
-    k = enc_out @ params["wk"]
-    v = enc_out @ params["wv"]
     if sharded:
-        q, k, v, mode = _tp_attention_in(q, k, v, hq, hkv, tp)
+        q, k, v, mode = _tp_qkv(params, _tp_in(x, tp), enc_out, hq, hkv, hd,
+                                False, tp)
         if mode == "heads":
             hq, hkv = hq // tp.size, hkv // tp.size
-    sq = q.shape[1]
+    else:
+        q, k, v = (x @ params["wq"], enc_out @ params["wk"],
+                   enc_out @ params["wv"])
+    b, sq = q.shape[:2]
+    se = enc_out.shape[1]
     q, k, v = (q.reshape(b, sq, hq, hd), k.reshape(b, se, hkv, hd),
                v.reshape(b, se, hkv, hd))
     if sharded and mode == "hd":
@@ -307,7 +314,7 @@ def _cross_attention(params: dict, cfg: ModelConfig, x, enc_out, tp=None):
     out = out.reshape(b, sq, hq * hd)
     if not sharded:
         return out @ params["wo"]
-    return _tp_out(_tp_attention_out(out, mode, tp) @ params["wo"], tp)
+    return _tp_o_proj(out, params["wo"], mode, tp)
 
 
 def _block_apply(bp: dict, cfg: ModelConfig, x, positions, window: int,
@@ -336,7 +343,11 @@ def _block_apply(bp: dict, cfg: ModelConfig, x, positions, window: int,
         x = x + f
     elif cfg.d_ff:
         h2 = rms_norm(x, bp["post_norm_scale"], cfg.rms_eps)
-        x = x + mlp_block(bp["ffn"]["mlp"], h2, tp)
+        mlp = bp["ffn"]["mlp"]
+        # a hidden width the axis does not divide: the whole MLP on the
+        # residual's layout, no collective (``mlp_block``)
+        cut = sharding.active(tp) and tp.divides(_mlp_width(cfg))
+        x = x + mlp_block(mlp, h2, tp if cut else None)
     return x, cache, aux
 
 
@@ -361,12 +372,19 @@ def embed_inputs(params: dict, cfg: ModelConfig, batch: dict, tp=None
     rows of the vocab: tokens outside them embed to 0, and the partial
     embeddings are reduced into the residual's layout (reduce-scattered
     by sequence under sequence parallelism, then the patches merged over
-    the rank's rows that fall among the first P)."""
+    the rank's rows that fall among the first P). A padded vocab the
+    axis does not divide is whole on every rank, which embeds the
+    residual's rows itself."""
     if cfg.embedding_frontend_stub and "enc_embeds" not in batch \
             and "embeds" in batch:
         return batch["embeds"]
     tokens = batch["tokens"]
-    if sharding.active(tp):
+    if sharding.active(tp) and not tp.divides(cfg.padded_vocab()):
+        # a vocab the axis does not divide: the whole table on every
+        # rank, its rows of the residual embedded
+        lo = tp.rank * (tokens.shape[1] // tp.size) if tp.seq_cut else 0
+        x = params["embed"][tp.cut(tokens, 1) if tp.seq_cut else tokens]
+    elif sharding.active(tp):
         table = params["embed"]
         rows = table.shape[0]
         ids = tokens - tp.rank * rows
@@ -516,7 +534,9 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     reference's ``jax.checkpoint`` of the scanned block does. With ``tp``
     (a ``sharding.TensorParallel``) this is one rank's share on its cut
     of ``params`` and ``caches``, and the logits are its cut of the
-    vocab, (B, S, V_padded / tp)."""
+    vocab, (B, S, V_padded / tp), or all of it, (B, S, V_padded), where
+    the padded vocab does not divide the axis (the embedding and head
+    are then whole on every rank)."""
     check_supported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
@@ -549,14 +569,20 @@ def forward(params: dict, cfg: ModelConfig, batch: dict, *, caches=None,
     x, aux_total = _run_stack(blocks, cfg, x, positions, checkpointed, pos,
                               mrope_positions, enc_out, tp=tp)
     x = rms_norm(x, params["final_norm_scale"], cfg.rms_eps)
-    if sharding.active(tp):
-        # the column-parallel head over every row: the logits stay
-        # vocab-parallel
-        x = tp.gather(x, 1) if tp.seq_cut else tp.copy(x)
     head = (params["embed"].T if cfg.tie_embeddings
             else params["lm_head"])
-    logits = x @ head
-    return logits, caches, aux_total
+    if not sharding.active(tp):
+        return x @ head, caches, aux_total
+    if not tp.divides(cfg.padded_vocab()):
+        # a whole head on the residual's rows: the whole vocab's logits
+        # of every row on every rank
+        logits = x @ head
+        return (tp.join(logits, 1) if tp.seq_cut else logits), caches, \
+            aux_total
+    # the column-parallel head over every row: the logits stay
+    # vocab-parallel
+    x = tp.gather(x, 1) if tp.seq_cut else tp.copy(x)
+    return x @ head, caches, aux_total
 
 
 def _remat_block(bp: dict, x, cfg: ModelConfig, positions, window: int,
@@ -577,8 +603,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     With ``tp`` the logits are this rank's cut of the vocab: the max is
     an all-reduce max, and the sum of exps and the picked logit (0 on
     every rank but the label's) are summed over the group, so no rank
-    forms the whole vocab."""
+    forms the whole vocab; whole logits (a vocab that does not divide
+    the axis: ``forward``'s) are every rank's alike, with no
+    collective."""
     n = tp.size if sharding.active(tp) else 1
+    if logits.shape[-1] == vocab:
+        n = 1
     if logits.shape[-1] * n != vocab:
         raise ValueError(f"logits are {logits.shape[-1]} wide on each of "
                          f"{n} ranks, the vocab {vocab}")

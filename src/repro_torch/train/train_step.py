@@ -43,9 +43,10 @@ rank's share over its ``model`` group (``models.sharding.
 TensorParallel``, sequence parallelism as ``tcfg.sequence_parallel``
 says). A gradient the axis leaves whole but a rank computes on its
 shard (``sharding.partial_grad_leaf``: the q/k norm scales, the MoE
-router, MLA's ``w_dkv`` and latent norm, the SSM mixer's whole leaves;
-the residual's norms under sequence parallelism, an encoder leaf's by
-the encoder's frames) is summed over the group, and the global norm
+router, MLA's ``w_dkv`` and latent norm, the SSM mixer's whole leaves,
+a leaf whose width does not divide the axis; the residual's norms, and
+a whole vocab or dense MLP, under sequence parallelism, an encoder
+leaf's by the encoder's frames) is summed over the group, and the global norm
 counts each cut leaf (an expert stack's ``E / n`` experts among them)
 across the group once. The steps take this rank's cut of the
 parameters (and of ``m`` and ``v``, ZeRO-1 cutting within it) and
@@ -179,8 +180,12 @@ class _ModelAxis:
     def __init__(self, cfg: ModelConfig, tcfg: TrainConfig, mesh):
         self.cfg = cfg
         self.tp = sharding.tensor_parallel(cfg, mesh, tcfg.sequence_parallel)
-        self.specs = (sharding.whole_specs(cfg, self.tp.size)[1]
-                      if self.tp is not None else None)
+        self.specs = self.rules = None
+        if self.tp is not None:
+            whole, self.specs = sharding.whole_specs(cfg, self.tp.size)
+            # each leaf's spec before ``sanitize_specs``: whether a whole
+            # leaf is one the axis does not divide
+            self.rules = sharding.param_specs(whole)
         self.whole = False
 
     def grads(self, params, batch: dict, tcfg: TrainConfig):
@@ -202,12 +207,13 @@ class _ModelAxis:
         sp_enc = ("enc_embeds" in batch
                   and tp.for_seq(batch["enc_embeds"].shape[1]).seq_cut)
         out = []
-        for (path, g), (_, spec) in zip(sharding._leaf_paths(grads, ""),
-                                        sharding._leaf_paths(self.specs,
-                                                             "")):
+        for (path, g), (_, spec), (_, rule) in zip(
+                sharding._leaf_paths(grads, ""),
+                sharding._leaf_paths(self.specs, ""),
+                sharding._leaf_paths(self.rules, "")):
             dims = sharding.model_dims(spec)
             cut_seq = sp_enc if path.startswith("enc_layers/") else sp
-            if not dims and sharding.partial_grad_leaf(path, cut_seq):
+            if not dims and sharding.partial_grad_leaf(path, cut_seq, rule):
                 g = tp.all_reduce(g)
             elif dims and self.whole:
                 g = tp.all_gather(g.contiguous(), dims[0])

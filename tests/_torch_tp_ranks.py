@@ -323,3 +323,72 @@ def knob_cases(rank, np_params, batches, prompts):
                     cfg, cut, prompts[name],
                     sharding.tensor_parallel(cfg, mesh, False))
     return out
+
+
+#: ``tests/test_torch_tp_whole.py``'s runs: mesh shape -> the configs cut
+#: over its model axis, none of whose axes divides every leaf
+WHOLE_MESHES = {(2, 3): ("train-100m-l2", "deepseek-v2-lite-16b-smoke",
+                         "tiny-ssm", "seamless-m4t-large-v2-smoke",
+                         "hymba-1.5b-smoke"),
+                (1, 8): ("tiny-moe", "deepseek-v2-lite-16b-smoke")}
+#: the config whose ZeRO-1 step runs on the data x model mesh
+WHOLE_STEP = "train-100m-l2"
+
+
+def whole_config(name, get=get_config):
+    """A config of ``WHOLE_MESHES`` from either package's registry
+    (``get``, its ``get_config``): ``train-100m-l2`` is train-100m's
+    widths at two layers and a vocab of 512 (whole at 3, as its 32000
+    is), the rest the registry's."""
+    if name == "train-100m-l2":
+        return dataclasses.replace(get("train-100m"), name=name,
+                                   num_layers=2, vocab_size=512)
+    return get(name)
+
+
+def whole_cases(rank, shape, np_params, batches, prompts):
+    """One rank of a ``shape`` ("data", "model") mesh of
+    ``WHOLE_MESHES``. For each of its configs, on data row 0: the
+    forward's logits on the global batch (this rank's vocab cut, or the
+    whole vocab where the axis leaves it whole), the loss and the whole
+    gradients (``_ModelAxis.grads`` over whole parameters), each with
+    sequence parallelism off and on, and prefill then DECODE decode
+    steps; on a mesh with a data axis, every rank, for ``WHOLE_STEP``:
+    one ``make_train_step(mesh)`` step under ZeRO-1 and sequence
+    parallelism on this rank's cut. Returns host data keyed by (config, sp, what)
+    and the rank's coordinates."""
+    _one_thread()
+    from repro_torch.train import init_adam, zero1_init
+    from repro_torch.train.train_step import _ModelAxis, make_train_step
+    mesh = make_mesh(shape, ("data", "model"))
+    n, r = model_size(mesh), model_rank(mesh)
+    coords = list(mesh.get_coordinate())
+    out = {"coords": coords}
+    for name in WHOLE_MESHES[shape]:
+        cfg = whole_config(name)
+        whole = params_from_jax(np_params[name], device="cpu")
+        cut = params_from_jax(np_params[name], device="cpu", tp_rank=r,
+                              tp_size=n)
+        batch = _batch(batches[name])
+        if coords[0] == 0:
+            for sp in (False, True):
+                tp = sharding.tensor_parallel(cfg, mesh, sp)
+                with torch.no_grad():
+                    logits, _, _ = forward(cut, cfg, batch, tp=tp)
+                out[name, sp, "logits"] = logits.numpy()
+                model = _ModelAxis(cfg, tcfg(sp), mesh)
+                loss, grads = model.grads(whole, batch, tcfg(sp))
+                out[name, sp, "loss"] = float(loss)
+                out[name, sp, "grads"] = _np_tree(grads)
+            tp = sharding.tensor_parallel(cfg, mesh, False)
+            out[name, "serve"] = _serve(cfg, cut, prompts[name], tp)
+        if shape[0] > 1 and name == WHOLE_STEP:
+            step = make_train_step(cfg, tcfg(True, True), mesh)
+            step.keep_grads = True
+            opt = zero1_init(init_adam(cut), mesh)
+            loss, p, o = step(cut, opt, batch)[:3]
+            out[name, True, "step zero1=True"] = {
+                "loss": float(loss), "params": _np_tree(p),
+                "grads": _np_tree(step.last_grads),
+                "m_shapes": [tuple(t.shape) for t in _leaves(o.m)]}
+    return out

@@ -36,7 +36,9 @@ K7 as under ``full``, its loss and gradient norm within 1e-4 relative
 and each gradient leaf within one bf16 step of its largest |value| of
 ``full``'s; an MLA prefill by rows (the last of 8 ranks) launches K6 on
 ``wgmma`` at its offset, within 2e-4 plus one bf16 step of
-``flash_attention_plain(q_offset=)``. M-RoPE on the card is within 1e-5
+``flash_attention_plain(q_offset=)``, and so does hymba-1.5b's attention
+block with every projection whole on the last of 3 ranks, its rows
+within the same of the unsharded block's. M-RoPE on the card is within 1e-5
 of the CPU's, and a full-width seamless-m4t layer's encoder output and logits
 within 1e-4 of their largest |value| of the CPU's. A knob sweep of a
 CUDA engine gives a CPU engine's surface and choice exactly (its scores
@@ -1819,6 +1821,58 @@ def test_cuda_dots_train_step_matches_full(cuda, arch):
         if b.numel():       # mamba2's zero-width FFN, as the reference's
             torch.testing.assert_close(
                 a, b, rtol=0, atol=step_bf16 * float(b.abs().max()))
+
+
+@pytest.mark.cuda
+def test_cuda_whole_attention_rows_run_k6_at_the_rank_offset(cuda):
+    """hymba-1.5b's attention block (25 q over 5 KV heads of 64, d_model
+    1600) as the last rank of a model axis of 3 (a plan's group), which
+    divides neither 1600 nor 320 columns: ``wq``, ``wk``, ``wv`` and
+    ``wo`` whole on the rank. Over 2 x 384 tokens in bf16 the rank's 128
+    rows of q (projected through the whole ``wq`` on those rows alone)
+    go to K6 on ``wgmma`` at query offset 256 over K and V projected
+    whole, and the rank's rows of the block's output (through the whole
+    ``wo``) are within 2e-4 plus one bf16 step of the unsharded
+    block's."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.mesh import PlanMesh
+    from repro_torch.models import sharding
+    from repro_torch.models.layers import attention_block, init_attention
+
+    cfg = get_config("hymba-1.5b")
+    n, b, s = 3, 2, 384
+    whole = sharding.whole_leaves(cfg, n)
+    assert {f"layers/mixer/attn/{w}" for w in ("wq", "wk", "wv", "wo")} \
+        <= set(whole)
+    plan = PlanMesh((n,), ("model",), [n - 1])
+    tp = sharding.TensorParallel(plan.group(("model",)), False)
+    gen = torch.Generator(cuda).manual_seed(5)
+    params = init_attention(gen, cfg, torch.bfloat16, cuda, None)
+    x = torch.randn((b, s, cfg.d_model), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    pos = torch.arange(s, dtype=torch.int32, device=cuda).expand(b, s)
+    launch, logged = fa._launch, []
+
+    def logging(route, *args):
+        logged.append((route, int(args[0].shape[1]),
+                       int(args[7]) if len(args) > 7 else 0))
+        return launch(route, *args)
+
+    fa._launch = logging
+    try:
+        with torch.no_grad():
+            got, _ = attention_block(params, cfg, x, pos, tp=tp)
+            want, _ = attention_block(params, cfg, x, pos)
+        torch.cuda.synchronize()
+    finally:
+        fa._launch = launch
+    rows = s // n
+    assert logged == [("wgmma", rows, (n - 1) * rows), ("wgmma", s, 0)]
+    # the plan's gather puts the rank's rows in its own place
+    mine = slice((n - 1) * rows, s)
+    torch.testing.assert_close(got[:, mine].float(), want[:, mine].float(),
+                               rtol=2 ** -7, atol=2e-4)
 
 
 @pytest.mark.cuda

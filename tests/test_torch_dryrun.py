@@ -10,7 +10,9 @@ reference's record for one cell (the reference in a forced 8-device
 subprocess, hence ``slow``); the mesh step's batch cut, which keeps
 the M-RoPE ids' batch along their dim 1; and ``--attn blockwise``
 (``--attn-chunk``): a record naming them, a peak below the naive one's,
-the caller's impl restored.
+the caller's impl restored; and a ``tiny-moe`` cell over a model axis
+its experts do not divide, which lowers with the experts whole and lists
+them in its record.
 """
 import json
 import os
@@ -339,3 +341,32 @@ def test_model_flops_total_equals_the_reference_record(tmp_path):
     assert got["model_flops_total"] == want["model_flops_total"]
     assert (got["chips"], got["arch"], got["shape"]) == \
         (want["chips"], want["arch"], want["shape"])
+
+
+def test_whole_experts_lower_on_meta(tmp_path):
+    """``tiny-moe``'s 4 experts over a model axis of 8, which they do not
+    divide: the cell lowers on ``meta`` (every rank holds all of them, as
+    the reference's ``sanitize_specs`` leaves them), its record lists
+    the three whole expert stacks with their bytes, and its arguments,
+    and so its peak, count them at their whole size."""
+    assert dryrun.main(["--arch", "tiny-moe", "--shape", "train_4k",
+                        "--mesh", "2x8:data,model", "--out",
+                        str(tmp_path)]) == 0
+    rec = _record(tmp_path)
+    assert rec["ok"], rec.get("error")
+    cfg = get_config("tiny-moe")
+    stacks = [f"layers/ffn/moe/experts/{w}"
+              for w in ("w_down", "w_gate", "w_up")]
+    assert rec["whole_leaves"]["paths"] == stacks
+    assert rec["whole_leaves"]["count"] == 3
+    each = (cfg.num_layers * cfg.moe.num_experts * cfg.d_model
+            * cfg.moe.expert_d_ff * 2)                      # bf16
+    assert rec["whole_leaves"]["bytes"] == 3 * each
+    share = init_params(cfg, 0, torch.bfloat16, "meta", tp_rank=7,
+                        tp_size=8)
+    held = sum(t.numel() * t.element_size() for t in
+               torch.utils._pytree.tree_leaves(share))
+    assert held > 3 * each
+    mem = rec["memory"]
+    assert mem["argument_size_in_bytes"] >= held
+    assert mem["peak_live_bytes"] >= mem["argument_size_in_bytes"]

@@ -82,6 +82,28 @@ BATCH, SEQ, SERVE_B = 4, 16, 2
 # which families are cut, and ZeRO-1 within the cut
 # ---------------------------------------------------------------------------
 
+def _whole_and_built(cfg, axis):
+    """``check_model_axis(cfg, axis)``'s whole leaves, each one that
+    ``param_specs`` cuts over ``model`` but ``whole_specs`` leaves whole,
+    and the last rank's cut built on ``meta`` at the shapes the specs
+    give (the whole leaves at their whole shape)."""
+    got = sharding.check_model_axis(cfg, axis)
+    whole, specs = sharding.whole_specs(cfg, axis)
+    rules = dict(sharding._leaf_paths(sharding.param_specs(whole), ""))
+    kept = dict(sharding._leaf_paths(specs, ""))
+    assert got == tuple(p for p in rules if sharding.model_dims(rules[p])
+                        and not sharding.model_dims(kept[p]))
+    cut = init_params(cfg, 0, torch.bfloat16, "meta", tp_rank=axis - 1,
+                      tp_size=axis)
+    assert [tuple(t.shape) for _, t in sharding._leaf_paths(cut, "")] == [
+        sharding.cut_shape(w.shape, kept[p], axis)
+        for p, w in sharding._leaf_paths(whole, "")]
+    held = dict(sharding._leaf_paths(cut, ""))
+    for p in got:
+        assert held[p].shape == dict(sharding._leaf_paths(whole, ""))[p].shape
+    return got
+
+
 @pytest.mark.parametrize("arch,cut", [
     ("phi3.5-moe-42b", True), ("deepseek-v2-lite-16b", True),
     ("tiny-moe", True), ("tinyllama-1.1b", True),
@@ -90,8 +112,9 @@ BATCH, SEQ, SERVE_B = 4, 16, 2
 def test_model_axis_sharded_families(arch, cut):
     """Every family is cut, and splits over a model axis of 16 (4 for
     ``tiny-moe``'s 4 experts): the Mamba-2 mixer's ``in_proj`` may stay
-    whole (hymba-1.5b's 6482 columns, ``tiny-ssm``'s 296), any other leaf
-    that does not divide the axis raises."""
+    whole (hymba-1.5b's 6482 columns, ``tiny-ssm``'s 296). Over an axis
+    of 7, which divides no projection, expert count or vocab of these,
+    every such leaf is held whole (``whole_specs``) and the cut builds."""
     cfg = get_config(arch)
     assert sharding.model_axis_sharded(cfg) == cut
     axis = 4 if arch == "tiny-moe" else 16
@@ -100,8 +123,10 @@ def test_model_axis_sharded_families(arch, cut):
     whole = [p for p, s in sharding._leaf_paths(specs, "")
              if p.endswith("in_proj") and not sharding.model_dims(s)]
     assert bool(whole) == (arch in ("hymba-1.5b", "tiny-ssm")), whole
-    with pytest.raises(NotImplementedError):
-        sharding.check_model_axis(cfg, 7)
+    got = _whole_and_built(cfg, 7)
+    assert got
+    if cfg.moe.enabled:
+        assert any("/experts/" in p for p in got), got
 
 
 def test_mla_splits_over_an_axis_its_heads_do_not_divide():
@@ -109,12 +134,15 @@ def test_mla_splits_over_an_axis_its_heads_do_not_divide():
     where they do not: deepseek's 16 heads split over 16 model ranks and
     over 32 (the reference's custom ``8x32:data,model`` mesh), where
     every other leaf divides; its smoke config's 4 experts do not divide
-    16, which still raises, for the experts."""
-    sharding.check_model_axis(get_config("deepseek-v2-lite-16b"), 16)
-    sharding.check_model_axis(get_config("deepseek-v2-lite-16b"), 32)
-    with pytest.raises(NotImplementedError, match="experts"):
-        sharding.check_model_axis(get_config("deepseek-v2-lite-16b-smoke"),
-                                  16)
+    16 (nor do its 8 rope dims), and are held whole beside the cut
+    MLA."""
+    for axis in (16, 32):
+        assert _whole_and_built(get_config("deepseek-v2-lite-16b"),
+                                axis) == ()
+    got = _whole_and_built(get_config("deepseek-v2-lite-16b-smoke"), 16)
+    assert {p.split("/")[-1] for p in got if "/experts/" in p} == {
+        "w_gate", "w_up", "w_down"}, got
+    assert all("/experts/" in p or p.endswith("w_kr") for p in got), got
 
 
 @pytest.mark.parametrize("arch", ["phi3.5-moe-42b", "deepseek-v2-lite-16b"])
